@@ -1,0 +1,185 @@
+"""Serve-form kernel API: the models' quantized compute path.
+
+The counterpart of ``repro.kernels.ops`` for the serve path: every
+quantized GEMM in ``models/`` reaches the bit-plane kernel only through
+:func:`serve_linear` -> :func:`int8_accum` ->
+:func:`repro_torch.kernels.bitplane_matmul.bitplane_matmul`, which
+launches the CUDA kernel for CUDA tensors and takes the plain version for
+CPU tensors.
+
+Bits arrive as Python ints (static: the GEMM runs at exactly that many
+planes), as 0-d tensors (the container path at 8 planes, as traced bits
+do in the reference), or as ``(B,)`` per-row vectors.  Per-row bits take
+the bit-grouped batch path: the container is requantized once per
+*family* in the static family set, one GEMM runs per family at that
+family's plane count, and each row gathers its result from its family's
+accumulator.  Rows between families snap UP to the next family; rows
+above the largest family clamp DOWN to it, so a family set must hold its
+policy's widest bit-width (engines derive it from their controller).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitfluid as bf
+from repro_torch.kernels.bitplane_matmul import bitplane_matmul
+
+# Distinct weight bit-widths the grouped per-row path specializes for.
+BIT_FAMILIES = (2, 3, 4, 6, 8)
+_families: Sequence[int] = BIT_FAMILIES
+
+
+def set_bit_families(fams: Sequence[int]) -> None:
+    """Set the static family set for grouped per-row dispatch (values
+    clamp into [1, 8], the int8 container width)."""
+    global _families
+    vals = tuple(sorted({min(max(int(f), 1), 8) for f in fams}))
+    if not vals:
+        raise ValueError("bit family set must be non-empty")
+    _families = vals
+
+
+def get_bit_families():
+    return tuple(_families)
+
+
+@contextlib.contextmanager
+def bit_families(fams: Sequence[int]):
+    """Scoped family set (the serving engines wrap each forward in it)."""
+    global _families
+    prev = _families
+    set_bit_families(fams)
+    try:
+        yield
+    finally:
+        _families = prev
+
+
+def _static_bits(b) -> Optional[int]:
+    """Python int when ``b`` is a constant, else None (a tensor)."""
+    if isinstance(b, (int, np.integer)) and not isinstance(b, bool):
+        return int(b)
+    return None
+
+
+def int8_accum(x_q: torch.Tensor, w_q: torch.Tensor, *,
+               planes: Optional[int] = None) -> torch.Tensor:
+    """int8 (M,K) @ int8 (K,N) -> int32 through the kernel layer.
+
+    Static ``planes`` runs at exactly that many bit planes; None (bits
+    given as a tensor upstream) runs at the container width, 8."""
+    n = 8 if planes is None else min(max(planes, 1), 8)
+    return bitplane_matmul(x_q, w_q, n_planes=n)
+
+
+def _epilogue(acc2, lead, x_scale, w_s, bias):
+    """f32(acc) * x_scale * w_s (+ bias) — the reference's multiply order."""
+    y = acc2.float().reshape(*lead, -1) * x_scale * w_s
+    if bias is not None:
+        y = y + bias.float()
+    return y
+
+
+def _container_linear(x, qw, s, bias, *, from_bits, wbits, abits):
+    x2 = x.float()
+    x_scale = bf.symmetric_scale(x2, abits)           # per-tensor scalar
+    x_q = bf.quantize(x2, x_scale, abits)
+    w_q = bf.requant_shift(qw, wbits, from_bits=from_bits)
+    w_s = bf.effective_scale(s, wbits, from_bits=from_bits)
+    acc = int8_accum(x_q.reshape(-1, x.shape[-1]), w_q,
+                     planes=_static_bits(wbits))
+    return _epilogue(acc, x.shape[:-1], x_scale, w_s, bias)
+
+
+def quant_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, wbits=8,
+                 abits=8) -> torch.Tensor:
+    """float (..., K) @ int8-container {q (K,N), s (1,N)} -> f32 (..., N)."""
+    return _container_linear(x, q, s, bias, from_bits=8, wbits=wbits,
+                             abits=abits)
+
+
+def _bits_on(bits, device) -> torch.Tensor:
+    return torch.as_tensor(bits, dtype=torch.int32, device=device)
+
+
+def serve_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
+    """Serve-form linear dispatch: {"q","s"[,"b"]} or {"q4","s"[,"b"]}.
+
+    Scalar bits take the container path; ``(B,)`` vectors take the
+    bit-grouped batch path.  A packed-int4 container unpacks and takes
+    the container path from 4 bits.  Returns float32."""
+    if getattr(wbits, "ndim", 0) >= 1 or getattr(abits, "ndim", 0) >= 1:
+        return _serve_linear_rows(p, x, wbits, abits)
+    if torch.is_tensor(wbits):
+        wbits = wbits.to(x.device)
+    if torch.is_tensor(abits):
+        abits = abits.to(x.device)
+    bias = p.get("b")
+    if "q4" in p:
+        return _container_linear(x, bf.unpack_int4_halves(p["q4"]), p["s"],
+                                 bias, from_bits=4, wbits=wbits, abits=abits)
+    return quant_linear(x, p["q"], p["s"], bias, wbits=wbits, abits=abits)
+
+
+def _family_index(wb: torch.Tensor, fams) -> torch.Tensor:
+    """Index of the smallest family >= wb (clamped into the family range) —
+    exact whenever wb is in the set, snap-up otherwise."""
+    bounds = torch.as_tensor(fams, dtype=torch.int32, device=wb.device)
+    clipped = torch.clamp(wb.to(torch.int32), fams[0], fams[-1])
+    return torch.searchsorted(bounds, clipped, side="left").to(torch.int32)
+
+
+def _serve_linear_rows(p, x, wbits, abits):
+    """Per-row precision: one requant and one GEMM per static bit family."""
+    B = x.shape[0]
+    wb = _bits_on(wbits, x.device).expand(B)
+    ab = _bits_on(abits, x.device).expand(B)
+    if "q4" in p:
+        qw, from_bits = bf.unpack_int4_halves(p["q4"]), 4
+    else:
+        qw, from_bits = p["q"], 8
+    K = x.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.float()
+    # per-row dynamic activation quantization at per-row abits: one scale
+    # per request, over every axis past the batch axis (for a conv, the
+    # im2col'd patches — exactly the pixels the GEMM reads)
+    amax = x2.abs().amax(dim=tuple(range(1, x2.ndim)), keepdim=True)
+    lim = bf.qmax(ab.reshape((B,) + (1,) * (x2.ndim - 1)))
+    x_scale = amax.clamp_min(1e-8) / lim
+    x_q = torch.maximum(torch.minimum(torch.round(x2 / x_scale), lim),
+                        -lim).to(bf.INT_DTYPE)
+    xq2 = x_q.reshape(-1, K)                                # (R, K)
+    R = xq2.shape[0]
+
+    # one requant + one GEMM per distinct family — families below the
+    # container width collapse (requant 4->6 == 4->4 for a q4 container)
+    fams = tuple(_families)
+    eff = [min(f, from_bits) for f in fams]
+    uniq = sorted(set(eff))
+    accs, scales = [], []
+    for f in uniq:
+        w_f = bf.requant_shift(qw, f, from_bits=from_bits)
+        accs.append(int8_accum(xq2, w_f, planes=f))
+        scales.append(bf.effective_scale(p["s"], f, from_bits=from_bits)
+                      .float().reshape(1, -1).expand(1, accs[-1].shape[-1]))
+    acc_stack = torch.stack(accs)                           # (G, R, N)
+    ws_stack = torch.cat(scales, dim=0)                     # (G, N)
+
+    # scatter rows back: gather each row's accumulator from its family
+    remap = torch.as_tensor([uniq.index(e) for e in eff], dtype=torch.long,
+                            device=x.device)
+    fam_of_row = remap[_family_index(wb, fams).long()]      # (B,)
+    idx_r = torch.repeat_interleave(fam_of_row, R // B)     # (R,)
+    acc = acc_stack[idx_r, torch.arange(R, device=x.device)]   # (R, N)
+    w_s = ws_stack[idx_r]                                   # (R, N)
+    xs_flat = x_scale.expand(x2.shape[:-1] + (1,)).reshape(R, 1)
+    y = acc.float() * xs_flat * w_s
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.reshape(lead + (y.shape[-1],))

@@ -1,0 +1,56 @@
+"""The port stands alone: importing repro_torch and every submodule loads
+neither jax nor any module of the reference package.
+
+The check runs in a fresh subprocess: test workers share a process across
+test files, so this process's ``sys.modules`` already holds the other
+files' jax.  A source scan backs it up for imports a module makes only
+inside a function."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, bad = (res.stdout.splitlines() + [""])[:2]
+    assert int(n) >= 15                      # every submodule was imported
+    assert bad == "", f"importing repro_torch loaded {bad}"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.M)
+
+
+def test_sources_never_import_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 16
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    assert hits == []
