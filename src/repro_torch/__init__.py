@@ -1,10 +1,12 @@
 """BF-IMNA reproduction on PyTorch and CUDA: the port of ``repro``.
 
 A second package beside the JAX reference, with the same subpackage and
-module names: apsim (a copy of the analytic AP cost model), core
-(bit-fluid quantization, precision policies), kernels (hand-written
-Hopper kernels, their plain PyTorch versions, the serve-form dispatch),
-models (the CNN workloads), serve (batched bit-fluid CNN serving).
+module names: apsim (a copy of the analytic AP cost model), configs (a
+copy of the architecture registry), core (bit-fluid quantization,
+precision policies), kernels (hand-written Hopper kernels, their plain
+PyTorch versions, the serve-form and attention dispatch), models (the
+CNN workloads and the dense LM), serve (batched bit-fluid CNN serving
+and whole-batch LM generation).
 
 It imports torch and numpy, never jax and never any module of ``repro``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel lives in ``kernels/csrc/<name>.cu`` with a plain C entry point.
-At first use it is compiled for Hopper (``sm_90a``) into a shared library
+At first use (or all together, through :func:`build`) it is compiled for
+Hopper (``sm_90a``) into a shared library
 under ``kernels/build/`` (ignored by git), named by a hash of the source
 and the flags, so an edited source rebuilds and an unchanged one loads
 the library already built.  Nothing here runs at import time: the CPU
@@ -49,26 +50,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def build(names) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` process per source, all started together."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        so = library_path(name)
-        if not so.exists():
+        jobs = []
+        for name in names:
+            so = library_path(name)
+            if so.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs.append((name, so, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, so, tmp, proc, t0 in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name}.cu "
-                                   f"(exit {res.returncode}):\n{res.stderr}")
+                failed.append(f"nvcc failed for {name}.cu "
+                              f"(exit {proc.returncode}):\n{err}")
+                continue
             os.replace(tmp, so)
             build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    build([name])
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
         return lib

@@ -16,6 +16,10 @@ family's plane count, and each row gathers its result from its family's
 accumulator.  Rows between families snap UP to the next family; rows
 above the largest family clamp DOWN to it, so a family set must hold its
 policy's widest bit-width (engines derive it from their controller).
+
+Attention over flat heads reaches the flash kernel only through
+:func:`flash_attention`, which launches it for CUDA tensors and takes a
+plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitfluid as bf
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.bitplane_matmul import bitplane_matmul
 
 # Distinct weight bit-widths the grouped per-row path specializes for.
@@ -183,3 +188,20 @@ def _serve_linear_rows(p, x, wbits, abits):
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(lead + (y.shape[-1],))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Flat-head attention over (BH, S, hd) tensors.
+
+    CUDA tensors launch the flash kernel with the real ``hd ** -0.5``
+    scale.  CPU tensors take a plain version, as the reference does off
+    the TPU: the blockwise online-softmax lowering when a sequence is
+    longer than one chunk, the exact oracle otherwise."""
+    if q.device.type == "cuda":
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=q.shape[-1] ** -0.5)
+    if max(q.shape[1], k.shape[1]) > fa.FLASH_CHUNK:
+        return fa.flash_attention_chunked_ref(q, k, v, causal=causal,
+                                              window=window)
+    return fa.flash_attention_ref(q, k, v, causal, window)

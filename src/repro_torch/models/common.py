@@ -1,12 +1,15 @@
-"""Shared building blocks: the bit-fluid linear, init helpers, devices.
+"""Shared building blocks: norms, RoPE, masks, the bit-fluid linear, init
+helpers, devices.
 
-The counterpart of ``repro.models.common`` for the CNN serve path.  Every
+The counterpart of ``repro.models.common``.  Every
 linear is a dict ``{"w": (K, N) [, "b": (N,)]}`` in training form, or
 ``{"q": int8 (K, N), "s": f32 (1, N) [, "b"]}`` (int8 container) /
 ``{"q4": uint8 (K, N/2), "s": ...}`` (packed int4 container) in serving
 form; :func:`apply_linear` dispatches on the keys.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,14 +36,21 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
-               bias: bool = False, device="cpu") -> dict:
-    """bf16 Normal(0, d_in^-1/2) weights drawn from ``gen`` (a CPU
-    generator, so a seed gives the same weights on every device), zero
-    bias."""
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32)
-    p = {"w": (w * d_in ** -0.5).to(DTYPE).to(device)}
+               bias: bool = False, scale: Optional[float] = None,
+               lead: Tuple[int, ...] = (), device="cpu") -> dict:
+    """bf16 Normal(0, scale) weights (scale defaults to d_in^-1/2), zero
+    bias; ``lead`` prepends stack dims (``(L,)`` for a layer stack).
+
+    The normals are drawn from ``gen`` on the generator's own device, so
+    a CPU generator gives the same weights on every device, and a CUDA
+    generator draws full-width stacks on the card."""
+    w_scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
+                    dtype=torch.float32, device=gen.device)
+    p = {"w": (w * w_scale).to(DTYPE).to(device)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=DTYPE, device=device)
+        p["b"] = torch.zeros(tuple(lead) + (d_out,), dtype=DTYPE,
+                             device=device)
     return p
 
 
@@ -96,3 +106,94 @@ def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].float()
     return y.to(DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-5
+               ) -> torch.Tensor:
+    if kind == "layer":
+        return layer_norm(x, p["scale"], p["bias"], eps)
+    return rms_norm(x, p["scale"], eps)
+
+
+def norm_init(d: int, kind: str, *, lead: Tuple[int, ...] = (),
+              device="cpu") -> dict:
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, dtype=DTYPE, device=device)}
+    if kind == "layer":
+        p["bias"] = torch.zeros(shape, dtype=DTYPE, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)            # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+
+def causal_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """Additive attention bias (Sq, Sk): 0 where visible, -inf elsewhere.
+
+    ``window`` > 0 adds the sliding-window band."""
+    visible = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        visible &= k_pos[None, :] > (q_pos[:, None] - window)
+    return visibility_bias(visible)
+
+
+def causal_mask_bias_batched(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                             window: int = 0) -> torch.Tensor:
+    """Per-row additive bias (B, Sq, Sk) from per-row positions (B, S):
+    padded tokens sit at ``EMPTY_POS``, so real queries never see them."""
+    visible = k_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        visible &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+    return visibility_bias(visible)
+
+
+def visibility_bias(visible: torch.Tensor) -> torch.Tensor:
+    """0 where ``visible``, -inf elsewhere, in f32."""
+    return torch.where(visible, 0.0, float("-inf")).float()

@@ -6,12 +6,16 @@ dict of torch tensors.  int8, uint8 and float containers copy as they
 are.  bfloat16 leaves arrive as an ``ml_dtypes`` bfloat16 array, which
 torch cannot read directly: their bits are viewed as uint16, then as
 ``torch.int16``, then as ``torch.bfloat16`` — exact, and with no import
-of ``ml_dtypes`` or ``jax``.
+of ``ml_dtypes`` or ``jax``.  The stacked ``(L, ...)`` LM parameter trees
+convert as they are.  Leaves land on ``device``: CUDA unless the caller
+passes another.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import resolve_device
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -24,8 +28,13 @@ def _leaf(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def from_numpy_params(tree, device="cpu"):
+def from_numpy_params(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same dicts of torch tensors."""
-    if isinstance(tree, dict):
-        return {k: from_numpy_params(v, device) for k, v in tree.items()}
-    return _leaf(tree, device)
+    dev = resolve_device(device)
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        return _leaf(node, dev)
+
+    return rec(tree)

@@ -1,0 +1,286 @@
+"""Dense transformer blocks: GQA attention (RoPE, qk_norm, QKV bias, sliding
+window), SwiGLU/GELU MLPs, bf16 KV-cache prefill/decode.
+
+The counterpart of ``repro.models.transformer`` for the dense family.
+Every GEMM goes through ``common.apply_linear``, so per-layer (wbits,
+abits) tensors give bit-fluid mixed precision in both the train
+(fake-quant) and serve (integer container) forms.
+
+Cache convention (per layer), as in the reference:
+  {"k": (B, Sc, KV, hd), "v": (B, Sc, KV, hd), "kpos": (B, Sc) int32}
+``Sc`` is the cache capacity (``min(max_len, window)`` for sliding-window
+models); slot ``t % Sc`` is overwritten at step t, and ``kpos`` records
+per batch row the absolute position each slot holds (``EMPTY_POS`` =
+empty, never visible since visibility is ``kpos <= t``).
+
+The reference returns new cache arrays (and donates the old ones to
+reuse their memory); here the cache inserts write into the given cache
+tensors in place, which saves the copy.  A layer's cache entries are
+views of the stacked ``(L, ...)`` cache, so an in-place insert updates
+the stack.
+
+Not ported yet, and raising ``NotImplementedError``: the int8 KV cache
+(``kv_cache_bits=8``), the chunked (multi-token) decode branch and
+cross-attention.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common as cm
+
+EMPTY_POS = 2 ** 30          # "no token here": fails kpos <= t forever
+FLASH_THRESHOLD = 2048
+
+
+# ---------------------------------------------------------------------------
+# Init (stacked: every leaf carries the leading ``lead`` dims)
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(lead=lead, device=device)
+    p = {
+        "wq": cm.dense_init(gen, d, H * hd, bias=cfg.qkv_bias, **kw),
+        "wk": cm.dense_init(gen, d, KV * hd, bias=cfg.qkv_bias, **kw),
+        "wv": cm.dense_init(gen, d, KV * hd, bias=cfg.qkv_bias, **kw),
+        "wo": cm.dense_init(gen, H * hd, d,
+                            scale=(H * hd) ** -0.5
+                            / max(cfg.n_layers, 1) ** 0.5, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = cm.norm_init(hd, "rms", **kw)
+        p["k_norm"] = cm.norm_init(hd, "rms", **kw)
+    return p
+
+
+def mlp_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
+             lead=(), device="cpu") -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    kw = dict(lead=lead, device=device)
+    if cfg.mlp_type == "swiglu":
+        return {"wg": cm.dense_init(gen, d, f, **kw),
+                "wu": cm.dense_init(gen, d, f, **kw),
+                "wd": cm.dense_init(gen, f, d, scale=f ** -0.5, **kw)}
+    bias = cfg.norm_type == "layer"
+    return {"wi": cm.dense_init(gen, d, f, bias=bias, **kw),
+            "wd": cm.dense_init(gen, f, d, bias=bias, scale=f ** -0.5, **kw)}
+
+
+def block_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
+    kw = dict(lead=lead, device=device)
+    return {
+        "ln1": cm.norm_init(cfg.d_model, cfg.norm_type, **kw),
+        "attn": attn_init(gen, cfg, **kw),
+        "ln2": cm.norm_init(cfg.d_model, cfg.norm_type, **kw),
+        "mlp": mlp_init(gen, cfg, **kw),
+    }
+
+
+def empty_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
+    """Stacked (n_layers, ...) bf16 cache with every slot empty."""
+    if cfg.kv_cache_bits == 8:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_cache_bits=8) is not ported yet")
+    L = cfg.n_layers
+    Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv = (L, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
+    return {"kpos": torch.full((L, batch, Sc), EMPTY_POS, dtype=torch.int32,
+                               device=device),
+            "k": torch.zeros(kv, dtype=cm.DTYPE, device=device),
+            "v": torch.zeros(kv, dtype=cm.DTYPE, device=device)}
+
+
+def _row_insert(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor
+                ) -> torch.Tensor:
+    """Write ``new`` (B, 1, ...) into ``buf`` (B, Sc, ...) at per-row ring
+    slot ``slot`` (B,), in place; returns ``buf``."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf[rows, slot.long()] = new[:, 0].to(buf.dtype)
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _qkv(p, x, cfg, wbits, abits):
+    B, S = x.shape[:2]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = cm.apply_linear(p["wq"], x, wbits, abits).reshape(B, S, H, hd)
+    k = cm.apply_linear(p["wk"], x, wbits, abits).reshape(B, S, KV, hd)
+    v = cm.apply_linear(p["wv"], x, wbits, abits).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = cm.rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(q, k, v, bias, cfg):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd); bias: (Sq,Sk) or (B,Sq,Sk).
+
+    Grouped-query attention with the scores in f32 (bf16 operands,
+    accumulated in f32); used for decode (Sq == 1) and short sequences.
+    Long sequences take :func:`_flash`."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    if bias.ndim == 2:
+        scores = scores + bias[None, None, None]
+    else:
+        scores = scores + bias[:, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(k.dtype).float(),
+                       v.float())
+    return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
+
+
+def _flash(q, k, v, cfg, causal: bool):
+    """Long-sequence attention through the flat-head flash dispatcher.
+
+    q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd).  KV heads expand to H flat heads,
+    heads flatten into the batch dim of ``ops.flash_attention`` (the CUDA
+    kernel on the card, a plain version on the CPU), in bf16.  Positions
+    are lock-step 0..S-1 on this path; the sliding-window band applies
+    only to causal self-attention."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if G > 1:                                 # expand GQA to flat heads
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    qf = q.transpose(1, 2).reshape(B * H, Sq, hd).to(cm.DTYPE).contiguous()
+    kf = k.transpose(1, 2).reshape(B * H, Sk, hd).to(cm.DTYPE).contiguous()
+    vf = v.transpose(1, 2).reshape(B * H, Sk, hd).to(cm.DTYPE).contiguous()
+    window = cfg.sliding_window if causal else 0
+    out = kops.flash_attention(qf, kf, vf, causal=causal, window=window)
+    out = out.reshape(B, H, Sq, hd).transpose(1, 2)
+    return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
+
+
+def attention(p, x, cfg, wbits=8, abits=8, *, positions,
+              causal: bool = True, kv=None, cache: Optional[dict] = None,
+              t=None):
+    """Self-attention with optional cache update.
+
+    positions: (B, S) or (1, S) absolute positions of x's tokens (RoPE +
+    mask).  cache/t: the decode path inserts this step's k/v at slot
+    t % Sc; a full-sequence call with a cache (prefill) fills it.
+    Returns (out, new_cache)."""
+    if kv is not None:
+        raise NotImplementedError(
+            "cross-attention (kv=) is not ported yet")
+    q, k_new, v_new = _qkv(p, x, cfg, wbits, abits)
+    if cfg.rope_theta > 0:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k_new = cm.apply_rope(k_new, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None and "ks" in cache:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_cache_bits=8) is not ported yet")
+    if cache is not None and x.shape[1] == 1:            # decode (S == 1)
+        B = x.shape[0]
+        Sc = cache["k"].shape[1]
+        t_b = torch.as_tensor(t, dtype=torch.int32,
+                              device=x.device).expand(B)
+        slot = t_b % Sc
+        kpos = _row_insert(cache["kpos"], t_b[:, None], slot)
+        visible = kpos <= positions[:, -1:]              # (B, Sc)
+        if cfg.sliding_window:
+            visible &= kpos > positions[:, -1:] - cfg.sliding_window
+        bias = cm.visibility_bias(visible)[:, None, :]   # (B, Sq=1, Sc)
+        k = _row_insert(cache["k"], k_new, slot)
+        v = _row_insert(cache["v"], v_new, slot)
+        new_cache = {"k": k, "v": v, "kpos": kpos}
+        out = _sdpa(q, k, v, bias, cfg)
+    elif cache is not None and t is not None:            # chunked decode
+        raise NotImplementedError(
+            "chunked (multi-token) decode is not ported yet")
+    else:                                                # full sequence
+        pos1 = positions[0]
+        S = x.shape[1]
+        if S > FLASH_THRESHOLD:
+            out = _flash(q, k_new, v_new, cfg, causal=causal)
+        elif causal and cache is not None and positions.shape[0] > 1:
+            # ragged prefill: rows carry different valid lengths, so the
+            # mask is per row
+            bias = cm.causal_mask_bias_batched(positions, positions,
+                                               cfg.sliding_window)
+            out = _sdpa(q, k_new, v_new, bias, cfg)
+        else:
+            bias = (cm.causal_mask_bias(pos1, pos1, cfg.sliding_window)
+                    if causal else
+                    torch.zeros((S, S), dtype=torch.float32,
+                                device=x.device))
+            out = _sdpa(q, k_new, v_new, bias, cfg)
+        if cache is not None:                            # prefill: fill cache
+            new_cache = prefill_cache_insert(cache, k_new, v_new, positions)
+
+    y = cm.apply_linear(p["wo"], out, wbits, abits)
+    return y, new_cache
+
+
+def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor) -> dict:
+    """Write a full prefill's k/v (B,S,KV,hd) into a fresh layer cache,
+    in place; returns the layer cache.
+
+    ``positions`` (B, S) or (1, S) may differ per row: padded tokens at
+    EMPTY_POS land as EMPTY_POS slots.  When the prompt exceeds the ring
+    capacity, each row keeps its own last ``Sc`` valid tokens."""
+    Sc = cache_layer["k"].shape[1]
+    B, S = k.shape[0], k.shape[1]
+    keep = min(S, Sc)
+    positions = positions.to(torch.int32).expand(B, S)
+    if keep == S:                                        # whole buffer fits
+        kpos_new, k_keep, v_keep = positions, k, v
+    else:
+        n_valid = (positions < EMPTY_POS).sum(dim=1)            # (B,)
+        shift = (n_valid - keep).clamp_min(0)                   # (B,)
+        idx = torch.minimum(
+            shift[:, None] + torch.arange(keep, device=k.device)[None],
+            torch.tensor(S - 1, device=k.device))
+        kpos_new = torch.gather(positions, 1, idx)
+        gidx = idx[..., None, None].expand(B, keep, *k.shape[2:])
+        k_keep = torch.gather(k, 1, gidx)
+        v_keep = torch.gather(v, 1, gidx)
+    cache_layer["kpos"][:, :keep] = kpos_new
+    cache_layer["k"][:, :keep] = k_keep.to(cache_layer["k"].dtype)
+    cache_layer["v"][:, :keep] = v_keep.to(cache_layer["v"].dtype)
+    return cache_layer
+
+
+# ---------------------------------------------------------------------------
+# MLP + block
+# ---------------------------------------------------------------------------
+
+def mlp(p, x, cfg, wbits=8, abits=8):
+    if cfg.mlp_type == "swiglu":
+        g = cm.apply_linear(p["wg"], x, wbits, abits)
+        u = cm.apply_linear(p["wu"], x, wbits, abits)
+        h = torch.nn.functional.silu(g.float()) * u.float()
+        return cm.apply_linear(p["wd"], h.to(cm.DTYPE), wbits, abits)
+    h = cm.apply_linear(p["wi"], x, wbits, abits)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(cm.DTYPE)
+    return cm.apply_linear(p["wd"], h, wbits, abits)
+
+
+def block(p, x, cfg, wbits=8, abits=8, *, positions, causal=True,
+          cache=None, t=None):
+    """Pre-norm residual block.  Returns (x, new_cache)."""
+    h, new_cache = attention(p["attn"],
+                             cm.apply_norm(p["ln1"], x, cfg.norm_type,
+                                           cfg.norm_eps),
+                             cfg, wbits, abits, positions=positions,
+                             causal=causal, cache=cache, t=t)
+    x = x + h
+    y = mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps),
+            cfg, wbits, abits)
+    return x + y, new_cache

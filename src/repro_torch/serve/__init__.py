@@ -1,1 +1,2 @@
-"""repro_torch.serve — batched bit-fluid CNN serving on one device."""
+"""repro_torch.serve — batched bit-fluid CNN serving and whole-batch LM
+generation on one device."""

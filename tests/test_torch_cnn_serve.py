@@ -56,7 +56,8 @@ def net():
 
     params = jax.jit(init)(jax.random.PRNGKey(0))
     layers = box["layers"]
-    tparams = from_numpy_params(jax.tree_util.tree_map(np.asarray, params))
+    tparams = from_numpy_params(jax.tree_util.tree_map(np.asarray, params),
+                                device="cpu")
     # the port's own Layer records (its copied apsim prices by type)
     tlayers = [Layer(**dataclasses.asdict(l)) for l in layers]
     # eager, as the reference engine quantizes (under jit XLA may round

@@ -1,4 +1,4 @@
-"""The bit-plane CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test here needs a CUDA device and the CUDA toolkit
 (the kernel is built with nvcc at first use) and skips without one.  Run
@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import bitplane_matmul as bpm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +80,54 @@ def test_serve_linear_per_row_on_card_equals_plain(cuda, monkeypatch):
                                 a, b, n_planes))
         want = ops.serve_linear(p, x, wb, 8)
     assert torch.equal(got, want)
+
+
+# flash kernel vs its f32 oracle on the same bf16 inputs: about two bf16
+# ulps at |out| ~ 1 (P is rounded to bf16 before P.V, sums reorder)
+FLASH_TOL = 2e-2
+FLASH_SHAPES = [(1, 1, 1, 64), (1, 63, 63, 16), (2, 65, 65, 80),
+                (1, 2100, 2100, 128), (3, 100, 333, 64), (2, 130, 77, 128)]
+
+
+def _bf16(shape, device, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.normal(size=shape).astype(np.float32)).to(
+        device).bfloat16()
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64),
+                                           (False, 64)])
+def test_flash_kernel_matches_oracle(cuda, causal, window):
+    for i, (BH, Sq, Sk, hd) in enumerate(FLASH_SHAPES):
+        q = _bf16((BH, Sq, hd), cuda, i)
+        k, v = _bf16((BH, Sk, hd), cuda, 10 + i), _bf16((BH, Sk, hd), cuda,
+                                                        20 + i)
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, hd)
+        want = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      causal, window)
+        assert float((got.float() - want).abs().max()) <= FLASH_TOL
+
+
+def test_flash_dispatch_on_card_uses_the_kernel(cuda):
+    q = _bf16((4, 3000, 128), cuda, 1)
+    before = fa.launches
+    got = ops.flash_attention(q, q, q, causal=True)
+    assert fa.launches == before + 1
+    want = fa.flash_attention_chunked_ref(q, q, q, True)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = _bf16((1, 64, 64), cuda, 2)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q)
+    with pytest.raises(ValueError, match="160"):
+        big = _bf16((1, 8, 160), cuda, 3)
+        fa.flash_attention(big, big, big)

@@ -164,7 +164,8 @@ def test_conv_layer_accumulator_bit_exact(rng, record, layer):
     w = (rng.normal(size=(fk, layer.cout)) * fk ** -0.5).astype(np.float32)
     jtrain = {"w": jnp.asarray(w).astype(jcm.DTYPE),
               "b": jnp.zeros((layer.cout,), jcm.DTYPE)}
-    ttrain = from_numpy_params({k: np.asarray(v) for k, v in jtrain.items()})
+    ttrain = from_numpy_params({k: np.asarray(v) for k, v in jtrain.items()},
+                               device="cpu")
     jq = jcnn.quantize_cnn_params({layer.name: jtrain}, [layer])
     tq = tcnn.quantize_cnn_params({layer.name: ttrain}, [layer])
     rows = np.asarray([4, 8], np.int32)
