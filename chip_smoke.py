@@ -4,12 +4,20 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Two paths, each at full width with random weights from a seed:
+Three paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
   per-layer bit vector, every conv/fc GEMM runs through the bit-plane
   kernel once per bit family, and the AP cost model prices each image;
+* AlexNet (227x227x3, 1000 classes, three grouped convs), B=16:
+  (a) bit-fluid serving on the energy-axis int4/int8 controller, every
+  GEMM on the bit-grouped path and each grouped conv group by group
+  through the bit-plane kernel; (b) the fixed-INT4 container-width
+  forward (int4 containers, no bit vectors): the five ungrouped layers
+  through the packed-int4 kernel, the grouped int8 stacks through the
+  bit-plane kernel; (c) the forward's int8 GEMMs through the
+  fused-epilogue entry ``ops.quant_matmul``;
 * bit-fluid Qwen3-4B serving through ``ServeEngine.generate`` (36 layers,
   d_model 2560, GQA 32/8, d_ff 9728, vocab 151936): four 4096-token
   prompts whose latency budgets resolve to int4, mixed, int8 and int8;
@@ -20,16 +28,25 @@ Two paths, each at full width with random weights from a seed:
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build both kernels from the checkout's sources (one nvcc each, run
-     together), timed;
+  2. build the four kernels from the checkout's sources (one nvcc each,
+     run together), timed;
   3. the bit-plane kernel equals its plain version (torch.equal) for
      n_planes 1..8 on edge shapes; the flash kernel is within FLASH_TOL of
-     its f32 oracle on edge shapes and at the LM path's shape;
+     its f32 oracle on edge shapes and at the LM path's shape; the int4
+     kernel equals its plain version on edge shapes; the quant kernel
+     equals its plain version for none and relu and is within QUANT_TOL
+     for silu and gelu, at f32 and bf16 output;
   4. ResNet18: hold the kernel at every GEMM shape of the path, serve
      batches through CNNServeEngine (launch counts, logits equal to the
      plain-version forward, EDP equal to the AP model, a 32-px card-vs-CPU
      run), time the batch and every GEMM shape, trace one batch;
-  5. Qwen3-4B: hold the bit-plane kernel at the LM GEMM shapes, serve
+  5. AlexNet: hold every kernel at every GEMM shape of the path, run (a),
+     (b) and (c) with launch counts per kernel, logits equal to the
+     plain-version forwards on the card, EDP equal to the AP model, 32-px
+     card-vs-CPU runs equal; time the batch, the forward and every GEMM
+     shape against its bound, plain version and torch._int_mm; trace one
+     batch of (a) and one forward of (b);
+  6. Qwen3-4B: hold the bit-plane kernel at the LM GEMM shapes, serve
      ``generate`` calls (launch counts per call, repeatable tokens), hold
      one prefill against the kernels' plain versions on the card (the
      bit-plane path exactly, flash on every layer's own q/k/v, and the
@@ -61,13 +78,29 @@ REPS = 20             # timed launches per kernel shape
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-KERNELS = ("bitplane_matmul", "flash_attention")
+KERNELS = ("bitplane_matmul", "flash_attention", "int4_matmul",
+           "quant_matmul")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/bitplane_matmul.cu"
 REPLACES = "src/repro/kernels/bitplane_matmul.py:71"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
+INT4_SOURCE = "src/repro_torch/kernels/csrc/int4_matmul.cu"
+INT4_REPLACES = "src/repro/kernels/int4_matmul.py:51"
+QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
+QUANT_REPLACES = "src/repro/kernels/quant_matmul.py:50"
 EDGE_SHAPES = [(1, 1, 1), (1, 512, 1000), (3, 147, 64), (130, 147, 65),
                (129, 64, 128), (257, 576, 63), (64, 33, 7), (200, 4608, 24)]
+INT4_EDGE = [(M, K, N) for M in (1, 16, 130) for K in (1, 17, 363)
+             for N in (2, 96, 130, 1000)]
+# quant_matmul's silu / gelu against the plain version, |err| <= TOL x
+# (1 + |plain|): CUDA's expf / tanhf against PyTorch's, a few f32 ulps;
+# bf16 output one bf16 ulp (none and relu must be equal)
+QUANT_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+ALEX_IMAGE = 227
+ALEX_WIDTHS = [("conv1", 363, 96, 1), ("conv2", 1200, 128, 2),
+               ("conv3", 2304, 384, 1), ("conv4", 1728, 192, 2),
+               ("conv5", 1728, 128, 2), ("fc6", 9216, 4096, 1),
+               ("fc7", 4096, 4096, 1), ("fc8", 4096, 1000, 1)]
 # flash against its oracle, in f32 on the same bf16 inputs: about two
 # bf16 ulps at |out| ~ 1 (P is rounded to bf16 before P.V, and the sums
 # run in another order)
@@ -103,9 +136,10 @@ def card_line() -> str:
 
 
 def path_gemms(layers, batch: int, image: int):
-    """(layer, M, K, N) of every GEMM the serve forward runs, in order,
-    from the real spatial sizes (the forward follows these, not the
-    table's: at 224 the maxpool leaves 55x55, not 56x56)."""
+    """(layer, M, K, N, G) of every GEMM layer the serve forward runs, in
+    order, from the real spatial sizes (the forward follows these, not the
+    table's: at 224 the maxpool leaves 55x55, not 56x56).  A grouped conv
+    runs G GEMMs of (M, K, N) each, one per group."""
     out, h, h_block = [], image, None
     for l in layers:
         if l.kind == "conv":
@@ -113,7 +147,9 @@ def path_gemms(layers, batch: int, image: int):
                 h_block = h
             down = l.name.endswith("_down")
             ho = ((h_block if down else h) - l.hk + 2 * l.pad) // l.stride + 1
-            out.append((l.name, batch * ho * ho, l.hk * l.wk * l.cin, l.cout))
+            g = l.groups
+            out.append((l.name, batch * ho * ho, l.hk * l.wk * l.cin // g,
+                        l.cout // g, g))
             if not down:
                 h = ho
         elif l.kind in ("maxpool", "avgpool"):
@@ -121,7 +157,7 @@ def path_gemms(layers, batch: int, image: int):
         elif l.kind == "add":
             h_block = None
         elif l.kind == "fc":
-            out.append((l.name, batch, l.cin, l.cout))
+            out.append((l.name, batch, l.cin, l.cout, 1))
     return out
 
 
@@ -136,6 +172,8 @@ class Bench:
         self.gen = torch.Generator(device=dev).manual_seed(0)
         self.bp_err = 0           # bit-plane kernel vs plain: max |err|
         self.fa_err = 0.0         # flash kernel vs oracle: max |err|
+        self.i4_err = 0.0         # int4 kernel vs plain: max |err|
+        self.q_err = 0.0          # quant kernel vs plain: max |err|
 
     def rand_i8(self, shape):
         return self.torch.randint(-128, 128, shape, generator=self.gen,
@@ -154,6 +192,103 @@ class Bench:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def rand_u8(self, shape):
+        return self.torch.randint(0, 256, shape, generator=self.gen,
+                                  device=self.dev, dtype=self.torch.uint8)
+
+    def rand_scale(self, n):
+        return 0.001 + 0.05 * self.torch.rand((1, n), generator=self.gen,
+                                              device=self.dev)
+
+    def hold_int4(self, x, w, s, out_dtype):
+        from repro_torch.kernels import int4_matmul as i4mm
+        got = i4mm.int4_matmul(x, w, s, out_dtype=out_dtype)
+        want = i4mm.int4_matmul_ref(x, w, s, out_dtype)
+        self.torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        self.i4_err = max(self.i4_err, err)
+        check(self.torch.equal(got, want), f"int4 kernel != plain version "
+              f"at {tuple(x.shape)} @ {tuple(w.shape)} packed, "
+              f"{out_dtype}: max |err| {err}")
+
+    def hold_quant(self, x, w, s, bias, act, out_dtype):
+        from repro_torch.kernels import quant_matmul as qmm
+        got = qmm.quant_matmul(x, w, s, bias, act=act, out_dtype=out_dtype)
+        want = qmm.quant_matmul_ref(x, w, s, bias, act, out_dtype)
+        self.torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        self.q_err = max(self.q_err, err)
+        where = (f"at {tuple(x.shape)} @ {tuple(w.shape)}, act={act}, "
+                 f"{out_dtype}: max |err| {err}")
+        if act in ("none", "relu"):
+            check(self.torch.equal(got, want),
+                  f"quant kernel != plain version {where}")
+        else:
+            tol = QUANT_TOL[str(out_dtype).split(".")[-1]]
+            check(bool((diff <= tol * (1 + want.float().abs())).all()),
+                  f"quant kernel vs plain version beyond tolerance {where}")
+
+    def library_int_mm(self, x, w_i8):
+        """One torch._int_mm on copies zero-padded where its shape rules
+        need it (M > 16, K and N multiples of 8); the padding is not
+        timed.  Returns (ms, padded?)."""
+        torch = self.torch
+        M, K = x.shape
+        N = w_i8.shape[1]
+        Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+        pad = torch.nn.functional.pad
+        xl = pad(x, (0, Kp - K, 0, Mp - M))
+        wl = pad(w_i8, (0, Np - N, 0, Kp - K))
+        return (self.time_ms(lambda: torch._int_mm(xl, wl)),
+                (Mp, Kp, Np) != (M, K, N))
+
+    def int4_row(self, M, K, N):
+        """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
+        bound ms) of one int4_matmul launch at (M, K, N), f32 output."""
+        from repro_torch.core import bitfluid as bf
+        from repro_torch.kernels import int4_matmul as i4mm
+        x, w, s = self.rand_i8((M, K)), self.rand_u8((K, N // 2)), \
+            self.rand_scale(N)
+        k_ms = self.time_ms(lambda: i4mm.int4_matmul(x, w, s))
+        p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s))
+        l_ms, padded = self.library_int_mm(x, bf.unpack_int4_halves(w))
+        t_bytes = (M * K + K * N // 2 + 4 * N + 4 * M * N) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
+        print(f"{self.tag} int4_matmul ({M},{K},{N}) f32 out: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch._int_mm on the "
+              f"unpacked int8 weight {l_ms:.4f} ms{' (padded)' if padded else ''}"
+              f" (no epilogue), bound {max(t_bytes, t_ops):.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+              f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
+        return k_ms, p_ms, l_ms, t_bytes, t_ops
+
+    def quant_row(self, M, K, N, act, out_dtype):
+        """The same five numbers for one quant_matmul launch."""
+        from repro_torch.kernels import quant_matmul as qmm
+        x, w, s = self.rand_i8((M, K)), self.rand_i8((K, N)), \
+            self.rand_scale(N)
+        bias = self.rand_scale(N)
+        k_ms = self.time_ms(lambda: qmm.quant_matmul(
+            x, w, s, bias, act=act, out_dtype=out_dtype))
+        p_ms = self.time_ms(lambda: qmm.quant_matmul_ref(
+            x, w, s, bias, act, out_dtype))
+        l_ms, padded = self.library_int_mm(x, w)
+        out_b = 2 if out_dtype == self.torch.bfloat16 else 4
+        t_bytes = (M * K + K * N + 8 * N + out_b * M * N) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
+        print(f"{self.tag} quant_matmul ({M},{K},{N}) act={act} "
+              f"{str(out_dtype).split('.')[-1]} out: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, torch._int_mm {l_ms:.4f} ms"
+              f"{' (padded)' if padded else ''} (no epilogue), bound "
+              f"{max(t_bytes, t_ops):.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+              f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
+        return k_ms, p_ms, l_ms, t_bytes, t_ops
+
     def hold_bitplane(self, x, w, n):
         from repro_torch.kernels import bitplane_matmul as bpm
         got = bpm.bitplane_matmul(x, w, n_planes=n)
@@ -169,25 +304,18 @@ class Bench:
     def gemm_row(self, M, K, N, n):
         """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
         bound ms) of one bit-plane launch at (M, K, N), n planes."""
-        torch = self.torch
         from repro_torch.kernels import bitplane_matmul as bpm
         x, w = self.rand_i8((M, K)), self.rand_i8((K, N))
         k_ms = self.time_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
         p_ms = self.time_ms(lambda: bpm.bitplane_matmul_ref(x, w, n))
-        # library yardstick: one torch._int_mm on the sign-extended
-        # weights, zero-padded where its shape rules need it (M > 16,
-        # K and N multiples of 8); the padding is not timed
-        Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
-        pad = torch.nn.functional.pad
-        xl = pad(x, (0, Kp - K, 0, Mp - M))
-        wl = pad(bpm.sign_extend_field(w, n), (0, Np - N, 0, Kp - K))
-        l_ms = self.time_ms(lambda: torch._int_mm(xl, wl))
+        # library yardstick: one torch._int_mm on the sign-extended weights
+        l_ms, padded = self.library_int_mm(x, bpm.sign_extend_field(w, n))
         t_bytes = (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
         print(f"{self.tag} bitplane_matmul ({M},{K},{N}) n_planes={n}: "
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"torch._int_mm {l_ms:.4f} ms"
-              f"{' (padded)' if (Mp, Kp, Np) != (M, K, N) else ''}, "
+              f"{' (padded)' if padded else ''}, "
               f"bound {max(t_bytes, t_ops):.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
@@ -300,7 +428,9 @@ def cnn_path(b: Bench) -> dict:
     from repro_torch.core.policy import cnn_budget_controller
     from repro_torch.kernels import bitplane_matmul as bpm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.models import cnn
     from repro_torch.serve.cnn import CNNServeEngine
 
@@ -313,7 +443,7 @@ def cnn_path(b: Bench) -> dict:
                             max_batch=BATCH, device=dev)
     fams = engine.families
     check(fams == (4, 8), f"bit families {fams}, expected (4, 8)")
-    shapes = sorted({(M, K, N) for _, M, K, N in gemms})
+    shapes = sorted({(M, K, N) for _, M, K, N, _ in gemms})
     for M, K, N in shapes:
         for n in fams:
             b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
@@ -331,8 +461,7 @@ def cnn_path(b: Bench) -> dict:
                          device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bpm.reset_launches()
-    fa.reset_launches()
+    reset_gemm_launches()
     batch_s, outs = [], []
     for _ in range(SERVED):
         t0 = time.perf_counter()
@@ -340,7 +469,9 @@ def cnn_path(b: Bench) -> dict:
         batch_s.append(time.perf_counter() - t0)
         outs.append((logits, stats))
     launches = dict(bpm.launches)
-    check(fa.launches == 0, f"the CNN path launched flash {fa.launches}x")
+    check(fa.launches == 0 and i4mm.launches == 0
+          and sum(qmm.launches.values()) == 0,
+          "the ResNet18 path launched a kernel off its path")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
 
     per_batch = len(gemms) * len(fams)
@@ -377,7 +508,7 @@ def cnn_path(b: Bench) -> dict:
 
     with mock.patch.object(ops, "bitplane_matmul", plain_gemm):
         plain_logits, _ = engine.serve(images, budgets)
-    want_seen = [((M, K), N, n) for _, M, K, N in gemms for n in fams]
+    want_seen = [((M, K), N, n) for _, M, K, N, _ in gemms for n in fams]
     check(seen == want_seen, "the forward's GEMM shapes differ from the "
           "ones the kernel was held at")
     check(np.array_equal(plain_logits, logits),
@@ -422,7 +553,7 @@ def cnn_path(b: Bench) -> dict:
     # one served batch's 42 launches, summed over the path's layers
     tot = [0.0] * 5
     bound_ms = 0.0
-    for _, M, K, N in gemms:
+    for _, M, K, N, _ in gemms:
         for n in fams:
             row = per_shape[(M, K, N, n)]
             tot = [a + r for a, r in zip(tot, row)]
@@ -444,7 +575,321 @@ def cnn_path(b: Bench) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Path 2: Qwen3-4B long-prompt generate
+# Path 2: AlexNet at full width, (a) bit-fluid serving, (b) fixed INT4
+# ---------------------------------------------------------------------------
+
+def alexnet_configs():
+    from repro_torch.core.policy import fixed
+    return {"int4": fixed(4), "int8": fixed(8)}
+
+
+def reset_gemm_launches():
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
+    from repro_torch.kernels import quant_matmul as qmm
+    for mod in (bpm, fa, i4mm, qmm):
+        mod.reset_launches()
+
+
+def on_device(qparams, dev):
+    return {k: {n: t.to(dev) for n, t in v.items()}
+            for k, v in qparams.items()}
+
+
+def alexnet_path(b: Bench) -> dict:
+    """AlexNet@227, B=16, random weights from seed 0, both forms:
+    (a) CNNServeEngine.serve on the energy-axis int4/int8 controller:
+        every GEMM on the bit-grouped path, the grouped convs slice by
+        slice, the bit-plane kernel at n_planes 4 and 8;
+    (b) the fixed-INT4 container-width forward, cnn_forward(qp, x,
+        layers) with no bit vectors: the five ungrouped layers through
+        int4_matmul, the grouped int8 stacks through the bit-plane kernel
+        at 8 planes;
+    and (c) the fixed-precision int8 GEMMs of one forward through the
+    fused-epilogue entry ops.quant_matmul (each layer's own act, bf16
+    out), the only way either package reaches that kernel."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+
+    gen_cpu = torch.Generator().manual_seed(0)
+    params, layers = cnn.init_cnn("alexnet", gen_cpu, image=ALEX_IMAGE,
+                                  device=dev)
+    gemms = path_gemms(layers, BATCH, ALEX_IMAGE)
+    check([(n, K, N, G) for n, _, K, N, G in gemms] == ALEX_WIDTHS,
+          f"AlexNet GEMMs {gemms} are not the published widths")
+    acts = {l.name: "relu" if l.relu else "none" for l in layers}
+    ungrouped = [(M, K, N) for _, M, K, N, G in gemms if G == 1]
+    slices = sum(G for *_, G in gemms)            # GEMMs per bit family
+    grouped_slices = sum(G for *_, G in gemms if G > 1)
+    ctrl = cnn_budget_controller("alexnet", layers=layers,
+                                 configs=alexnet_configs(), metric="energy")
+    engine = CNNServeEngine(params, layers, controller=ctrl,
+                            max_batch=BATCH, device=dev)
+    fams = engine.families
+    check(fams == (4, 8) and engine.int4_names == (),
+          f"families {fams}, int4 layers {engine.int4_names}")
+    qp4 = cnn.quantize_cnn_params(params, layers, container="int4")
+    check(all(("q4" in qp4[n]) == (G == 1) for n, *_, G in gemms),
+          "the int4 container did not pack exactly the ungrouped layers")
+
+    # ---- every kernel at every GEMM shape of the path
+    shapes = sorted({(M, K, N) for _, M, K, N, _ in gemms})
+    for M, K, N in shapes:
+        for n in fams:
+            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
+    for M, K, N in ungrouped:
+        for od in (torch.float32, torch.bfloat16):
+            b.hold_int4(b.rand_i8((M, K)), b.rand_u8((K, N // 2)),
+                        b.rand_scale(N), od)
+    for name, M, K, N, _ in gemms:
+        for od in (torch.float32, torch.bfloat16):
+            b.hold_quant(b.rand_i8((M, K)), b.rand_i8((K, N)),
+                         b.rand_scale(N), b.rand_scale(N), acts[name], od)
+    print(f"kernel == plain: {len(shapes)} AlexNet@{ALEX_IMAGE} GEMM shapes "
+          f"at B={BATCH} (grouped convs per group): bit-plane at n_planes "
+          f"{fams}, int4_matmul at the {len(ungrouped)} ungrouped ones, "
+          f"quant_matmul with each layer's act; "
+          + ", ".join(f"({M},{K},{N})" for M, K, N in shapes))
+
+    # ---- (a) bit-fluid serving on the energy controller
+    e4, e8 = (ctrl.predicted_latency_s[k] for k in ("int4", "int8"))
+    cycle = [e4 * 1.01, e8 * 1.01, 0.0, 1e30]      # int4, int8, int4, int8
+    want_w = [4.0, 8.0, 4.0, 8.0]
+    budgets = [cycle[i % 4] for i in range(BATCH)]
+    img_gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn((BATCH, ALEX_IMAGE, ALEX_IMAGE, 3),
+                         generator=img_gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gemm_launches()
+    batch_s, outs = [], []
+    for _ in range(SERVED):
+        t0 = time.perf_counter()
+        logits, stats = engine.serve(images, budgets)   # ends in a sync
+        batch_s.append(time.perf_counter() - t0)
+        outs.append((logits, stats))
+    a_launches = dict(bpm.launches)
+    check(i4mm.launches == 0 and sum(qmm.launches.values()) == 0
+          and fa.launches == 0, "(a) launched a kernel off its path")
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
+    per_batch = slices * len(fams)
+    check(sum(a_launches.values()) == per_batch * SERVED
+          and all(a_launches[n] == slices * SERVED for n in fams),
+          f"(a) bit-plane launches {a_launches}, expected {slices} per "
+          f"family per batch x {SERVED} batches")
+    logits, stats = outs[-1]
+    check(logits.shape == (BATCH, 1000) and bool(np.isfinite(logits).all()),
+          f"(a) logits {logits.shape}, finite {np.isfinite(logits).all()}")
+    for lg, _ in outs[1:]:
+        check(np.array_equal(lg, logits), "(a) batches of one input differ")
+    check([s.mean_wbits for s in stats] == [want_w[i % 4]
+                                            for i in range(BATCH)],
+          f"(a) budgets resolved to {[s.mean_wbits for s in stats]}")
+    costs = apm.price_bit_matrix(apm.network_gemms(layers),
+                                 [s.wbits for s in stats],
+                                 [s.abits for s in stats])
+    check([c.edp for c in costs] == [s.edp for s in stats],
+          "(a) per-image EDP differs from the AP model's price of its bits")
+    seen = []
+
+    def plain_gemm(x_q, w_q, *, n_planes):
+        seen.append((tuple(x_q.shape), w_q.shape[1], n_planes))
+        return bpm.bitplane_matmul_ref(x_q, w_q, n_planes)
+
+    with mock.patch.object(ops, "bitplane_matmul", plain_gemm):
+        plain_logits, _ = engine.serve(images, budgets)
+    check(seen == [((M, K), N, n) for _, M, K, N, G in gemms
+                   for _ in range(G) for n in fams],
+          "(a) the forward's GEMM shapes differ from the held ones")
+    check(np.array_equal(plain_logits, logits),
+          f"(a) kernel logits != plain-version logits, max |diff| "
+          f"{np.abs(plain_logits - logits).max()}")
+    print(f"(a) served {SERVED} batches of {BATCH} x {ALEX_IMAGE}x"
+          f"{ALEX_IMAGE}x3 -> (B, 1000) logits: finite; mean wbits per image "
+          f"{[s.mean_wbits for s in stats[:4]]}...; bit-plane launches "
+          f"{ {n: c for n, c in a_launches.items() if c} } = {per_batch} per "
+          f"batch ({slices} GEMMs x {len(fams)} families); EDP == "
+          f"price_bit_matrix (int4 {stats[0].edp:.6g}, int8 "
+          f"{stats[1].edp:.6g} J*s); logits == plain-version forward on the "
+          f"card; peak memory {peak_a:.1f} MiB")
+
+    # ---- (b) the fixed-INT4 container-width forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gemm_launches()
+    fwd_s, fouts = [], []
+    for _ in range(SERVED):
+        t0 = time.perf_counter()
+        out = cnn.cnn_forward(qp4, images, layers)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+        fouts.append(out)
+    b_i4, b_bp = i4mm.launches, dict(bpm.launches)
+    peak_b = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(b_i4 == len(ungrouped) * SERVED,
+          f"(b) int4_matmul launches {b_i4}, expected {len(ungrouped)} per "
+          f"forward x {SERVED}")
+    check(sum(b_bp.values()) == b_bp[8] == grouped_slices * SERVED
+          and sum(qmm.launches.values()) == 0 and fa.launches == 0,
+          f"(b) bit-plane launches {b_bp}, expected {grouped_slices} per "
+          f"forward at 8 planes")
+    out4 = fouts[-1]
+    check(out4.shape == (BATCH, 1000) and bool(torch.isfinite(out4).all()),
+          "(b) logits shape or finiteness")
+    for o in fouts[1:]:
+        check(torch.equal(o, out4), "(b) forwards of one input differ")
+    seen4 = []
+
+    def plain_int4(x_q, w_packed, scale, *, out_dtype):
+        seen4.append((tuple(x_q.shape), 2 * w_packed.shape[1]))
+        return i4mm.int4_matmul_ref(x_q, w_packed, scale, out_dtype)
+
+    with mock.patch.object(i4mm, "int4_matmul", plain_int4), \
+            mock.patch.object(ops, "bitplane_matmul",
+                              lambda x, w, *, n_planes:
+                              bpm.bitplane_matmul_ref(x, w, n_planes)):
+        plain4 = cnn.cnn_forward(qp4, images, layers)
+    check(seen4 == [((M, K), N) for M, K, N in ungrouped],
+          "(b) the int4 GEMM shapes differ from the held ones")
+    check(torch.equal(plain4, out4), f"(b) kernel logits != plain-version "
+          f"logits, max |diff| {float((plain4 - out4).abs().max())}")
+    print(f"(b) fixed-INT4 forward x {SERVED} (B={BATCH}): logits finite, "
+          f"identical across forwards, == plain-version forward on the card; "
+          f"int4_matmul launches {len(ungrouped)} per forward, bit-plane "
+          f"{grouped_slices} per forward at n_planes 8; peak memory "
+          f"{peak_b:.1f} MiB")
+
+    # ---- (c) one forward's int8 GEMMs through the fused-epilogue entry
+    qp8 = engine.qparams
+    drive = []
+    for name, M, K, N, G in gemms:
+        p = qp8[name]
+        for g in range(G):
+            q, s = (p["q"][g], p["s"][g]) if G > 1 else (p["q"], p["s"])
+            drive.append((b.rand_i8((M, K)), q, 0.02 * s.float(),
+                          p["b"].float()[g * N:(g + 1) * N], acts[name]))
+    reset_gemm_launches()
+    c_out = [ops.quant_matmul(x, q, s, bias, act=act,
+                              out_dtype=torch.bfloat16)
+             for x, q, s, bias, act in drive]
+    torch.cuda.synchronize()
+    c_launches = dict(qmm.launches)
+    check(sum(c_launches.values()) == slices
+          and sum(bpm.launches.values()) == 0 and i4mm.launches == 0,
+          f"(c) quant_matmul launches {c_launches}, expected {slices}")
+    for got, (x, q, s, bias, act) in zip(c_out, drive):
+        check(torch.equal(got, qmm.quant_matmul_ref(x, q, s, bias, act,
+                                                    torch.bfloat16)),
+              f"(c) quant_matmul != plain version at {tuple(x.shape)} @ "
+              f"{tuple(q.shape)}")
+    print(f"(c) ops.quant_matmul over one forward's {slices} int8 GEMMs "
+          f"(the layer's own weights, act relu / none, bf16 out): launches "
+          f"{ {a: c for a, c in c_launches.items() if c} }, each == plain "
+          f"version")
+    del drive, c_out
+
+    # ---- small input: the card agrees with the port on the CPU
+    g32 = torch.Generator().manual_seed(2)
+    p32, l32 = cnn.init_cnn("alexnet", g32, image=32, device="cpu")
+    c32 = cnn_budget_controller("alexnet", layers=l32,
+                                configs=alexnet_configs(), metric="energy")
+    x32 = torch.randn((4, 32, 32, 3), generator=g32)
+    f4, f8 = (c32.predicted_latency_s[k] for k in ("int4", "int8"))
+    b32 = [f4 * 1.01, f8 * 1.01, 0.0, 1e30]
+    gpu32, s_gpu = CNNServeEngine(p32, l32, controller=c32, max_batch=4,
+                                  device=dev).serve(x32, b32)
+    cpu32, s_cpu = CNNServeEngine(p32, l32, controller=c32, max_batch=4,
+                                  device="cpu").serve(x32, b32)
+    check(np.array_equal(gpu32, cpu32), f"(a) card vs CPU at 32 px: max "
+          f"|diff| {np.abs(gpu32 - cpu32).max()}")
+    check([s.edp for s in s_gpu] == [s.edp for s in s_cpu],
+          "(a) card vs CPU per-image EDP at 32 px")
+    q32 = cnn.quantize_cnn_params(p32, l32, container="int4")
+    i4_before = i4mm.launches
+    g4 = cnn.cnn_forward(on_device(q32, dev), x32.to(dev), l32).cpu()
+    check(i4mm.launches == i4_before + len(ungrouped),
+          "(b) at 32 px did not run int4_matmul on every ungrouped layer")
+    check(torch.equal(g4, cnn.cnn_forward(q32, x32, l32)),
+          "(b) card vs CPU at 32 px")
+    print("small input (AlexNet@32, B=4): (a) served logits and EDP and (b) "
+          "fixed-INT4 logits on the card == the port on the CPU")
+
+    # ---- timings
+    med_a = statistics.median(batch_s[1:])
+    med_b = statistics.median(fwd_s[1:])
+    print(f"{tag} (a) serve: median {med_a * 1e3:.3f} ms per batch of {BATCH} "
+          f"({BATCH / med_a:.1f} images/s) over {SERVED - 1} batches after "
+          f"one warm-up; all batch ms {[round(t * 1e3, 3) for t in batch_s]}")
+    print(f"{tag} (b) fixed-INT4 forward: median {med_b * 1e3:.3f} ms per "
+          f"batch of {BATCH} ({BATCH / med_b:.1f} images/s); all ms "
+          f"{[round(t * 1e3, 3) for t in fwd_s]}")
+    bp_rows = {(M, K, N, n): b.gemm_row(M, K, N, n)
+               for M, K, N in shapes for n in fams}
+    i4_rows = {(M, K, N): b.int4_row(M, K, N) for M, K, N in ungrouped}
+    q_rows = {(M, K, N, acts[name]): b.quant_row(M, K, N, acts[name],
+                                                 torch.bfloat16)
+              for name, M, K, N, _ in gemms}
+
+    def total(rows, keys):
+        tot = [0.0] * 5
+        bound = 0.0
+        for key in keys:
+            r = rows[key]
+            tot = [a + x for a, x in zip(tot, r)]
+            bound += max(r[3], r[4])
+        return {"ms": tot[0], "plain_ms": tot[1], "library_ms": tot[2],
+                "t_bytes": tot[3], "t_ops": tot[4], "bound_ms": bound}
+
+    bp_a = total(bp_rows, [(M, K, N, n) for _, M, K, N, G in gemms
+                           for _ in range(G) for n in fams])
+    bp_b = total(bp_rows, [(M, K, N, 8) for _, M, K, N, G in gemms if G > 1
+                           for _ in range(G)])
+    i4 = total(i4_rows, ungrouped)
+    qm = total(q_rows, [(M, K, N, acts[name]) for name, M, K, N, G in gemms
+                        for _ in range(G)])
+    for label, t, wall in (("(a) bitplane_matmul per served batch", bp_a,
+                            med_a),
+                           ("(b) bitplane_matmul per INT4 forward", bp_b,
+                            med_b),
+                           ("(b) int4_matmul per INT4 forward", i4, med_b),
+                           ("(c) quant_matmul per forward's GEMMs", qm,
+                            None)):
+        print(f"{tag} {label}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms "
+              f"({'bytes' if t['t_bytes'] >= t['t_ops'] else 'operations'}; "
+              f"{t['t_bytes'] / 1e3 * HBM_BYTES_PER_S / 1e6:.1f} MB), "
+              f"{t['bound_ms'] / t['ms']:.3f} of bound"
+              + (f"; wall {wall * 1e3:.3f} ms" if wall else ""))
+
+    # ---- where the time goes
+    trace(torch, tag, "(a) one served AlexNet batch",
+          lambda: engine.serve(images, budgets), ("bitplane_matmul",))
+    trace(torch, tag, "(b) one fixed-INT4 AlexNet forward",
+          lambda: cnn.cnn_forward(qp4, images, layers),
+          ("int4_matmul", "bitplane_matmul"))
+    del engine, params, qp4
+    torch.cuda.empty_cache()
+    bp_a["launches"] = sum(a_launches.values())
+    bp_b["launches"] = sum(b_bp.values())
+    i4["launches"] = b_i4
+    qm["launches"] = sum(c_launches.values())
+    return {"bitplane_served_batch": bp_a, "bitplane_int4_forward": bp_b,
+            "int4": i4, "quant": qm}
+
+
+# ---------------------------------------------------------------------------
+# Path 3: Qwen3-4B long-prompt generate
 # ---------------------------------------------------------------------------
 
 def gate_logits(label, got, plain, other_plain):
@@ -794,6 +1239,27 @@ def smoke_card_vs_cpu(b: Bench) -> None:
                 f"[10.0, 0.4]), card vs CPU", card, cpu_tiled, cpu)
 
 
+ROW_KEYS = ("launches", "ms", "plain_ms", "bound_ms", "library_ms")
+
+
+def kernel_row(name, source, replaces, err, parts) -> dict:
+    """One kernel's entry of the JSON line, summed over its paths' units
+    of work (``parts``: path name -> that path's numbers)."""
+    tot = {k: sum(p[k] for p in parts.values()) for k in ROW_KEYS}
+    t_bytes = sum(p["t_bytes"] for p in parts.values())
+    t_ops = sum(p["t_ops"] for p in parts.values())
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": tot["launches"],
+           "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "bound_ms": tot["bound_ms"],
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": tot["library_ms"]}
+    if len(parts) > 1:
+        out["per_path"] = {n: {k: p[k] for k in ROW_KEYS}
+                           for n, p in parts.items()}
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -819,7 +1285,7 @@ def main() -> None:
           f"{torch.cuda.device_count()}")
     b = Bench(torch, dev, f"[{card}]")
 
-    # ---- 2. build both kernels, one nvcc each, together
+    # ---- 2. build the kernels, one nvcc each, together
     t0 = time.perf_counter()
     cuda_build.build(KERNELS)
     for name in KERNELS:
@@ -842,33 +1308,44 @@ def main() -> None:
     print(f"flash kernel vs f32 oracle: {len(cases)} edge cases and the "
           f"path shape {FLASH_PATH} causal; max |err| {b.fa_err:.6g} "
           f"(path shape {path_err:.6g}), tolerance {FLASH_TOL}")
+    for M, K, N in INT4_EDGE:
+        for od in (torch.float32, torch.bfloat16):
+            b.hold_int4(b.rand_i8((M, K)), b.rand_u8((K, N // 2)),
+                        b.rand_scale(N), od)
+    print(f"int4 kernel == plain: {len(INT4_EDGE)} edge shapes (M in "
+          f"{{1, 16, 130}}, K in {{1, 17, 363}}, N in {{2, 96, 130, 1000}}) "
+          f"x f32 and bf16 out")
+    for M, K, N in EDGE_SHAPES:
+        for act in ("none", "relu", "silu", "gelu"):
+            for od in (torch.float32, torch.bfloat16):
+                b.hold_quant(b.rand_i8((M, K)), b.rand_i8((K, N)),
+                             b.rand_scale(N), b.rand_scale(N) - 0.02, act,
+                             od)
+    print(f"quant kernel vs plain: {len(EDGE_SHAPES)} edge shapes x 4 acts "
+          f"x f32 and bf16 out; none and relu equal, silu and gelu max "
+          f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4./5. the two paths
+    # ---- 4./5./6. the three paths
     cnn = cnn_path(b)
+    alex = alexnet_path(b)
     lmr = lm_path(b)
 
-    bp = lmr["bitplane"]
-    t_bytes = cnn["t_bytes"] + bp["t_bytes"]
-    t_ops = cnn["t_ops"] + bp["t_ops"]
+    bp_paths = {"resnet18_served_batch": cnn,
+                "alexnet_served_batch": alex["bitplane_served_batch"],
+                "alexnet_int4_forward": alex["bitplane_int4_forward"],
+                "qwen3_4b_generate_call": lmr["bitplane"]}
     fl = lmr["flash"]
     summary = {"kernels": [
-        {"name": "bitplane_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": cnn["launches"] + bp["launches"],
-         "max_abs_err": b.bp_err, "ms": cnn["ms"] + bp["ms"],
-         "plain_ms": cnn["plain_ms"] + bp["plain_ms"],
-         "bound_ms": cnn["bound_ms"] + bp["bound_ms"],
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "library_ms": cnn["library_ms"] + bp["library_ms"],
-         "per_path": {
-             "resnet18_served_batch": {k: cnn[k] for k in (
-                 "launches", "ms", "plain_ms", "bound_ms", "library_ms")},
-             "qwen3_4b_generate_call": {k: bp[k] for k in (
-                 "launches", "ms", "plain_ms", "bound_ms", "library_ms")}}},
+        kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": FLASH_REPLACES, "launches": fl["launches"],
          "max_abs_err": b.fa_err, "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-         "library_ms": fl["library_ms"]}]}
+         "library_ms": fl["library_ms"]},
+        kernel_row("int4_matmul", INT4_SOURCE, INT4_REPLACES, b.i4_err,
+            {"alexnet_int4_forward": alex["int4"]}),
+        kernel_row("quant_matmul", QUANT_SOURCE, QUANT_REPLACES, b.q_err,
+            {"alexnet_forward_gemms": alex["quant"]})]}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -23,36 +23,20 @@
 //
 // Ragged edges (K = 147 for conv1, N = 1000 for the fc, M = batch) are
 // masked in the kernel: out-of-range tile elements load as zero and are
-// never stored.
+// never stored.  The tile itself (x loads, fragments, mma loop) is
+// s8_tile.cuh, shared with int4_matmul.cu and quant_matmul.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "s8_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;             // rows of x per block
-constexpr int BN = 64;              // columns of w per block
-constexpr int BK = 64;              // depth per shared-memory stage
-constexpr int LDS = BK + 16;        // padded row stride: conflict-free frags
-constexpr int THREADS = 256;        // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32;              // rows per warp
-constexpr int WN = 32;              // columns per warp
+using namespace s8tile;
 
 template <int NP>
 __device__ __forceinline__ int8_t sign_extend_field(int8_t v) {
   // low NP bits of the container, read as an NP-bit two's-complement value
   const unsigned u = static_cast<unsigned>(static_cast<int>(v)) << (32 - NP);
   return static_cast<int8_t>(static_cast<int>(u) >> (32 - NP));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int NP, bool VEC_X>
@@ -64,118 +48,43 @@ bitplane_matmul_kernel(const int8_t* __restrict__ x,
   // transposed so that a B fragment's four k values are one 32-bit word.
   __shared__ __align__(16) int8_t sA[BM * LDS];
   __shared__ __align__(16) int8_t sB[BN * LDS];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;          // groupID
-  const int t = lane & 3;           // threadID_in_group
-  const int wm = (warp >> 1) * WM;  // warp's row offset in the tile
-  const int wn = (warp & 1) * WN;   // warp's column offset in the tile
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // ---- x tile -> sA (zero outside M x K)
-    if (VEC_X) {
-      // K % 16 == 0 and x 16-byte aligned: 16-byte loads, 2 per thread
-#pragma unroll
-      for (int it = 0; it < (BM * BK / 16) / THREADS; ++it) {
-        const int idx = tid + it * THREADS;
-        const int r = idx / (BK / 16);
-        const int c = (idx % (BK / 16)) * 16;
-        const int gm = m0 + r, gk = k0 + c;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (gm < M && gk < K)
-          v = *reinterpret_cast<const int4*>(x + (size_t)gm * K + gk);
-        *reinterpret_cast<int4*>(sA + r * LDS + c) = v;
-      }
-    } else {
-#pragma unroll 4
-      for (int it = 0; it < (BM * BK) / THREADS; ++it) {
-        const int idx = tid + it * THREADS;
-        const int r = idx / BK;
-        const int c = idx % BK;
-        const int gm = m0 + r, gk = k0 + c;
-        sA[r * LDS + c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0;
-      }
-    }
-    // ---- w tile -> sB, sign-extending the low NP-bit field once
+  Acc acc;
+  gemm_tile<VEC_X>(acc, sA, sB, x, M, K, m0, [&](int8_t* sb, int k0) {
+    // w tile -> sB, sign-extending the low NP-bit field once
 #pragma unroll 4
     for (int it = 0; it < (BK * BN) / THREADS; ++it) {
-      const int idx = tid + it * THREADS;
+      const int idx = threadIdx.x + it * THREADS;
       const int kr = idx / BN;
       const int nc = idx % BN;
       const int gk = k0 + kr, gn = n0 + nc;
       const int8_t v = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0;
-      sB[nc * LDS + kr] = sign_extend_field<NP>(v);
+      sb[nc * LDS + kr] = sign_extend_field<NP>(v);
     }
-    __syncthreads();
+  });
 
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p = sA + (wm + i * 16 + g) * LDS + kk + t * 4;
-        a[i][0] = *reinterpret_cast<const unsigned*>(p);
-        a[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * LDS);
-        a[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        a[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = sB + (wn + j * 8 + g) * LDS + kk + t * 4;
-        b[j][0] = *reinterpret_cast<const unsigned*>(p);
-        b[j][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-  // ---- accumulators -> out: c0,c1 at row g, c2,c3 at row g + 8
+  // accumulators -> out
   const bool pair_ok = (N % 2) == 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + t * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        int32_t* o = out + (size_t)row * N + col;
-        if (pair_ok && col + 1 < N) {
-          *reinterpret_cast<int2*>(o) =
-              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          if (col < N) o[0] = acc[i][j][2 * h];
-          if (col + 1 < N) o[1] = acc[i][j][2 * h + 1];
-        }
-      }
+  for_each_pair(acc, m0, [&](int row, int nc, int v0, int v1) {
+    const int col = n0 + nc;
+    if (row >= M) return;
+    int32_t* o = out + (size_t)row * N + col;
+    if (pair_ok && col + 1 < N) {
+      *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+    } else {
+      if (col < N) o[0] = v0;
+      if (col + 1 < N) o[1] = v1;
     }
-  }
+  });
 }
 
 template <int NP>
 void launch(const int8_t* x, const int8_t* w, int32_t* out, int M, int N,
             int K, cudaStream_t stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const bool vec_x =
-      (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  if (vec_x)
+  if (vec_x_ok(x, K))
     bitplane_matmul_kernel<NP, true><<<grid, THREADS, 0, stream>>>(
         x, w, out, M, N, K);
   else

@@ -3,9 +3,9 @@
 Each kernel lives in ``kernels/csrc/<name>.cu`` with a plain C entry point.
 At first use (or all together, through :func:`build`) it is compiled for
 Hopper (``sm_90a``) into a shared library
-under ``kernels/build/`` (ignored by git), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads
-the library already built.  Nothing here runs at import time: the CPU
+under ``kernels/build/`` (ignored by git), named by a hash of the source,
+the shared headers and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built.  Nothing here runs at import time: the CPU
 test suite imports every module on machines with no ``nvcc``.
 """
 from __future__ import annotations
@@ -45,7 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

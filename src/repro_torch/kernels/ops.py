@@ -1,11 +1,17 @@
 """Serve-form kernel API: the models' quantized compute path.
 
 The counterpart of ``repro.kernels.ops`` for the serve path: every
-quantized GEMM in ``models/`` reaches the bit-plane kernel only through
-:func:`serve_linear` -> :func:`int8_accum` ->
-:func:`repro_torch.kernels.bitplane_matmul.bitplane_matmul`, which
-launches the CUDA kernel for CUDA tensors and takes the plain version for
-CPU tensors.
+quantized GEMM in ``models/`` reaches a kernel only through
+:func:`serve_linear` (or :func:`serve_linear_stacked` for grouped-conv
+stacks, which runs it slice by slice).  An int8 container goes through
+:func:`int8_accum` to :func:`repro_torch.kernels.bitplane_matmul.
+bitplane_matmul`; a packed-int4 container at a static (Python int) width
+of 4 bits or more goes through :func:`int4_linear` to the packed kernel,
+:func:`repro_torch.kernels.int4_matmul.int4_matmul`, and otherwise
+unpacks onto the bit-plane path.  Each wrapper launches its CUDA kernel
+for CUDA tensors and takes its plain version for CPU tensors.
+:func:`quant_matmul` and :func:`int4_matmul` are the public entries of
+the fused-epilogue and packed kernels, with the reference's shape checks.
 
 Bits arrive as Python ints (static: the GEMM runs at exactly that many
 planes), as 0-d tensors (the container path at 8 planes, as traced bits
@@ -31,6 +37,8 @@ import torch
 
 from repro_torch.core import bitfluid as bf
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import int4_matmul as i4mm
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels.bitplane_matmul import bitplane_matmul
 
 # Distinct weight bit-widths the grouped per-row path specializes for.
@@ -62,6 +70,48 @@ def bit_families(fams: Sequence[int]):
         yield
     finally:
         _families = prev
+
+
+def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale,
+                 bias=None, *, act: str = "none",
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """int8 (M,K) @ int8 (K,N) with fused per-channel dequant epilogue:
+    ``act(f32(acc) * scale + bias)``; ``scale`` and ``bias`` broadcast to
+    (1, N), bias defaults to zeros."""
+    N = w_q.shape[1]
+    scale = _row_f32(scale, N, x_q.device)
+    bias = (torch.zeros((1, N), dtype=torch.float32, device=x_q.device)
+            if bias is None else _row_f32(bias, N, x_q.device))
+    return qmm.quant_matmul(x_q, w_q, scale, bias, act=act,
+                            out_dtype=out_dtype)
+
+
+def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor, scale, *,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """int8 (M,K) @ halves-packed uint8 (K,N/2) with fused dequant.
+
+    Invalid operand shapes raise ``ValueError``.  Any even N runs on the
+    card: the kernel picks the nibble per logical column and masks ragged
+    edges itself, so there is no "does not tile" branch."""
+    K = x_q.shape[-1]
+    if w_packed.ndim != 2 or w_packed.shape[0] != K:
+        raise ValueError(
+            f"int4_matmul: packed weights {tuple(w_packed.shape)} do not "
+            f"match activations {tuple(x_q.shape)} on K={K}")
+    N = 2 * w_packed.shape[1]
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x_q.device)
+    if scale.numel() not in (1, N):
+        raise ValueError(
+            f"int4_matmul: scale {tuple(scale.shape)} is not broadcastable "
+            f"to (1, {N}) for packed weights {tuple(w_packed.shape)}")
+    return i4mm.int4_matmul(x_q, w_packed, _row_f32(scale, N, x_q.device),
+                            out_dtype=out_dtype)
+
+
+def _row_f32(v, N: int, device) -> torch.Tensor:
+    """``v`` as a contiguous f32 (1, N) row on ``device``."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    return t.reshape(1, -1).expand(1, N).contiguous()
 
 
 def _static_bits(b) -> Optional[int]:
@@ -108,6 +158,33 @@ def quant_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                              abits=abits)
 
 
+def int4_linear(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *, wbits=8,
+                abits=8) -> torch.Tensor:
+    """float (..., K) @ packed-int4 container {q4 (K,N/2), s (1,N)}.
+
+    With static ``wbits >= 4`` requantization is the identity, so the
+    packed kernel reads the nibbles as they are stored (half the weight
+    bytes); the dequant epilogue stays outside the kernel in the
+    reference's multiply order, so the result equals the unpacked path
+    exactly (an int4 accumulator is f32-exact for any practical K).  The
+    tensor's device picks kernel or plain version.  Otherwise the
+    container unpacks and takes the shared requant path."""
+    wb = _static_bits(wbits)
+    if wb is not None and wb >= 4:
+        N = 2 * q4.shape[-1]
+        x2 = x.float()
+        x_scale = bf.symmetric_scale(x2, abits)
+        x_q = bf.quantize(x2, x_scale, abits)
+        acc = int4_matmul(x_q.reshape(-1, x.shape[-1]), q4,
+                          torch.ones((1, N), dtype=torch.float32,
+                                     device=x.device),
+                          out_dtype=torch.float32)
+        return _epilogue(acc, x.shape[:-1], x_scale, s.float(), bias)
+    return _container_linear(x, bf.unpack_int4_halves(q4), s, bias,
+                             from_bits=4, wbits=wbits, abits=abits)
+
+
 def _bits_on(bits, device) -> torch.Tensor:
     return torch.as_tensor(bits, dtype=torch.int32, device=device)
 
@@ -115,9 +192,9 @@ def _bits_on(bits, device) -> torch.Tensor:
 def serve_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
     """Serve-form linear dispatch: {"q","s"[,"b"]} or {"q4","s"[,"b"]}.
 
-    Scalar bits take the container path; ``(B,)`` vectors take the
-    bit-grouped batch path.  A packed-int4 container unpacks and takes
-    the container path from 4 bits.  Returns float32."""
+    Scalar bits take the container path (a packed-int4 container through
+    :func:`int4_linear`); ``(B,)`` vectors take the bit-grouped batch
+    path.  Returns float32."""
     if getattr(wbits, "ndim", 0) >= 1 or getattr(abits, "ndim", 0) >= 1:
         return _serve_linear_rows(p, x, wbits, abits)
     if torch.is_tensor(wbits):
@@ -126,9 +203,33 @@ def serve_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
         abits = abits.to(x.device)
     bias = p.get("b")
     if "q4" in p:
-        return _container_linear(x, bf.unpack_int4_halves(p["q4"]), p["s"],
-                                 bias, from_bits=4, wbits=wbits, abits=abits)
+        return int4_linear(x, p["q4"], p["s"], bias, wbits=wbits,
+                           abits=abits)
     return quant_linear(x, p["q"], p["s"], bias, wbits=wbits, abits=abits)
+
+
+def serve_linear_stacked(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
+                         stack_bits: bool = False) -> torch.Tensor:
+    """Stacked serve-form linears: containers carry a leading stack axis.
+
+    ``p``: ``{"q": (G, K, N), "s": (G, 1, N)}``, G independent weight
+    matrices applied slice-wise to ``x`` ``(G, ..., K)`` (grouped-conv
+    group stacks).  Each slice runs :func:`serve_linear` on its own, as
+    the reference's ``vmap`` does, so each takes its OWN activation scale
+    (per tensor for scalar bits, per row for ``(B,)`` bits): one kernel
+    launch per slice and bit family.
+
+    ``stack_bits=False``: ``wbits`` is shared by every slice, a scalar or
+    a per-row ``(B,)`` vector when ``x`` is ``(G, B, ..., K)``.
+    ``stack_bits=True``: ``wbits`` is a ``(G,)`` vector, one width per
+    slice, each a 0-d tensor (the container path at 8 planes).  Biases are
+    not stacked: callers add a full-width bias after recombining slices.
+    """
+    G = x.shape[0]
+    bits = (list(_bits_on(wbits, x.device).expand(G)) if stack_bits
+            else [wbits] * G)
+    return torch.stack([serve_linear({k: v[g] for k, v in p.items()}, x[g],
+                                     bits[g], abits) for g in range(G)])
 
 
 def _family_index(wb: torch.Tensor, fams) -> torch.Tensor:

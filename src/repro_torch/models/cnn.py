@@ -11,8 +11,13 @@ containers, every GEMM through ``ops.serve_linear``).  Per-layer bits are
 ``(n_gemm,)`` vectors shared by the batch or ``(B, n_gemm)`` per-request
 rows, routed through the bit-grouped dispatch.
 
-Shapes are NHWC, as in the reference.  Grouped convolutions are not
-ported yet (ResNet18 has none); a grouped layer raises.
+Grouped convolutions (AlexNet's conv2, conv4, conv5) stack per-group
+containers ``(g, fk, cout/g)`` and run slice by slice through
+``ops.serve_linear_stacked``, each group with its own activation scale,
+as the reference's ``vmap`` gives it; the train form runs the same stack
+through the fake-quant linear.
+
+Shapes are NHWC, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.apsim.workloads import Layer, NETWORKS, gemm_layers
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
 
@@ -37,19 +43,52 @@ def im2col(x: torch.Tensor, hk: int, wk: int, stride: int, pad: int
     return p.permute(0, 1, 2, 4, 5, 3).reshape(N, Ho, Wo, hk * wk * C)
 
 
-def _no_groups(layer: Layer) -> None:
-    if layer.groups != 1:
-        raise NotImplementedError(
-            f"grouped convolution {layer.name!r} (groups={layer.groups}) is "
-            f"not ported yet")
+def grouped_cols(cols: torch.Tensor, g: int, taps: int) -> torch.Tensor:
+    """(N, Ho, Wo, taps*C) im2col patches -> (N, Ho, Wo, g, taps*(C/g)).
+
+    im2col features are tap-major / channel-minor; group ``i`` owns the
+    channel slice [i*C/g, (i+1)*C/g) of EVERY tap, so the split slices
+    the channel axis, not contiguous feature runs."""
+    N, Ho, Wo, F = cols.shape
+    cg = F // (taps * g)
+    p = cols.reshape(N, Ho, Wo, taps, g, cg)
+    return p.movedim(4, 3).reshape(N, Ho, Wo, g, taps * cg)
+
+
+def stack_grouped_weight(w: torch.Tensor, g: int, cout: int) -> torch.Tensor:
+    """Flat (fk, cout) grouped-conv weight -> (g, fk, cout/g) group stack
+    (group ``i`` produces the contiguous output-channel run
+    [i*cout/g, (i+1)*cout/g)); a contiguous copy."""
+    return w.reshape(w.shape[0], g, cout // g).movedim(1, 0).contiguous()
 
 
 def conv_gemm(p: dict, x: torch.Tensor, layer: Layer, wbits=8, abits=8
               ) -> torch.Tensor:
-    """x: (N, H, W, Cin) -> (N, Ho, Wo, Cout) via patches @ W."""
-    _no_groups(layer)
+    """x: (N, H, W, Cin) -> (N, Ho, Wo, Cout) via patches @ W.
+
+    Dispatches on the parameter form: ``{"w"}`` fake-quant float,
+    ``{"q"/"q4", "s"}`` through the kernel layer.  Grouped convs run the
+    (g, fk, cout/g) stack group by group in both forms, and add the
+    full-width bias in f32 after the groups recombine."""
+    g = layer.groups
     cols = im2col(x, layer.hk, layer.wk, layer.stride, layer.pad)
-    y = cm.apply_linear(p, cols, wbits, abits)
+    if g == 1:
+        y = cm.apply_linear(p, cols, wbits, abits)
+    else:
+        N, Ho, Wo, _ = cols.shape
+        xg = grouped_cols(cols, g, layer.hk * layer.wk).movedim(3, 0)
+        xg = xg.contiguous()                   # (g, N, Ho, Wo, taps*C/g)
+        if "w" in p:
+            w3 = stack_grouped_weight(p["w"], g, layer.cout)
+            y = torch.stack([cm.apply_linear({"w": w3[i]}, xg[i], wbits,
+                                             abits) for i in range(g)])
+        else:
+            y = kops.serve_linear_stacked({"q": p["q"], "s": p["s"]}, xg,
+                                          wbits, abits)
+        y = y.movedim(0, 3).reshape(N, Ho, Wo, layer.cout)
+        if "b" in p:
+            y = y.float() + p["b"].float()
+        y = y.to(cm.DTYPE)
     if layer.relu:
         y = torch.relu(y.float()).to(cm.DTYPE)
     return y
@@ -149,13 +188,22 @@ def quantize_cnn_params(params: dict, layers: Sequence[Layer], *,
                         int4_names: Sequence[str] = ()) -> dict:
     """Train-form CNN params -> serve-form containers, once at init:
     ``{"q" int8 (K, N), "s" (1, N) [, "b"]}``, or ``{"q4" packed uint8
-    (K, N/2), ...}`` for layers named in ``int4_names``."""
+    (K, N/2), ...}`` for layers named in ``int4_names`` (or every
+    ungrouped layer under ``container="int4"``).  Grouped convs stack
+    per-group int8 containers ``(g, fk, cout/g)`` with per-group scales,
+    whatever the container."""
     qp: dict = {}
     for l in gemm_layers(list(layers)):
-        if l.kind == "conv":
-            _no_groups(l)
-        cont = "int4" if l.name in tuple(int4_names) else container
-        qp[l.name] = cm.quantize_linear(params[l.name], cont)
+        p = params[l.name]
+        if l.kind == "conv" and l.groups > 1:
+            w3 = stack_grouped_weight(p["w"].float(), l.groups, l.cout)
+            q = cm.quantize_linear({"w": w3}, "int8")
+            if "b" in p:
+                q["b"] = p["b"]
+            qp[l.name] = q
+        else:
+            cont = "int4" if l.name in tuple(int4_names) else container
+            qp[l.name] = cm.quantize_linear(p, cont)
     return qp
 
 

@@ -5,9 +5,9 @@ engine construction (int8 containers, packed int4 where every registered
 configuration keeps a layer at <= 4 bits), each image's budget resolves
 through a :class:`~repro_torch.core.policy.BudgetController` into a
 per-layer bit vector, the batch's ``(B, n_gemm)`` bit matrix runs through
-the bit-grouped dispatch (one bit-plane kernel launch per layer and bit
-family), and the resolved matrix is priced in one pass through the
-paper's calibrated AP cost model.
+the bit-grouped dispatch (one bit-plane kernel launch per layer, or per
+group of a grouped conv, and bit family), and the resolved matrix is
+priced in one pass through the paper's calibrated AP cost model.
 
 The reference counts compiled programs to show that configuration
 switches never recompile; the port runs eagerly, and its counterpart is

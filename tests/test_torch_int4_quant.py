@@ -1,0 +1,223 @@
+"""The packed-int4 and fused-epilogue GEMMs, port vs reference.
+
+The port's plain versions (what a CPU tensor runs; the oracles the CUDA
+kernels are held against on the card) against the JAX package's Pallas
+kernels in interpret mode at the shapes of ``tests/test_kernels.py``, and
+against its XLA refs at ragged shapes (K = 363, N = 96, N = 1000: the
+fixed-INT4 AlexNet forward's conv1 and fc8), where the reference's own
+dispatch takes the ref.  Integer products are exact on both sides.
+
+The fused epilogue ``act(f32(acc) * scale + bias)`` rounds the multiply
+and the add separately in the port, as the reference's ops do one by one
+and as the CUDA kernel does (``__fmul_rn``, ``__fadd_rn``).  XLA on the
+CPU contracts the two into one FMA when it compiles the interpret-mode
+kernel body, so there the f32 output may sit one rounding apart: within
+ulp(|f32(acc) * scale|) + ulp(|out|).  silu and gelu also differ in
+exp/tanh by an ulp or two between libraries; their tolerances are stated
+at ``TOL``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from repro.core import bitfluid as jbf  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import bitfluid as bf  # noqa: E402
+from repro_torch.kernels import int4_matmul as i4mm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
+
+# silu / gelu, |port - reference| <= TOL * (1 + |reference|): f32 output
+# a few f32 ulps of exp/tanh (measured worst 1.9e-7); bf16 output one
+# bf16 ulp (2^-7 relative, where the last f32 bits decide the rounding)
+TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _int4_operands(rng, M, K, N):
+    x = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    q4 = rng.integers(-8, 8, (K, N)).astype(np.int8)
+    packed = np.array(jbf.pack_int4_halves(jnp.asarray(q4)))
+    np.testing.assert_array_equal(
+        bf.pack_int4_halves(torch.from_numpy(q4)).numpy(), packed)
+    s = rng.uniform(0.001, 0.05, (1, N)).astype(np.float32)
+    return x, q4, packed, s
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 256), (128, 256, 512)])
+def test_int4_plain_equals_interpret_kernel(rng, shape):
+    x, q4, packed, s = _int4_operands(rng, *shape)
+    want = jops.int4_matmul(jnp.asarray(x), jnp.asarray(packed),
+                            jnp.asarray(s), interpret=True)
+    got = ops.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed),
+                          torch.from_numpy(s))
+    assert got.dtype == torch.float32 and got.shape == (shape[0], shape[2])
+    np.testing.assert_array_equal(_np(got), _np(want))
+    exact = (x.astype(np.int64) @ q4.astype(np.int64)).astype(np.float32) * s
+    np.testing.assert_array_equal(_np(got), exact)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 363, 96), (16, 4096, 1000),
+                                   (130, 17, 2), (1, 1, 130)])
+def test_int4_ragged_equals_reference(rng, shape, out_dtype):
+    """Shapes whose halves' seam falls inside a tile, and K that no
+    16-byte load covers: the reference dispatch takes its XLA ref."""
+    x, _, packed, s = _int4_operands(rng, *shape)
+    want = jops.int4_matmul(jnp.asarray(x), jnp.asarray(packed),
+                            jnp.asarray(s), out_dtype=JDT[out_dtype])
+    got = ops.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed),
+                          torch.from_numpy(s), out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_int4_scalar_scale_broadcasts(rng):
+    x, _, packed, _ = _int4_operands(rng, 8, 64, 32)
+    want = jops.int4_matmul(jnp.asarray(x), jnp.asarray(packed), 0.5)
+    got = ops.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed), 0.5)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_int4_bad_shapes_raise(rng):
+    x = torch.from_numpy(rng.integers(-10, 10, (8, 64)).astype(np.int8))
+    with pytest.raises(ValueError, match="K"):
+        ops.int4_matmul(x, torch.zeros((32, 16), dtype=torch.uint8),
+                        torch.ones((1, 32)))
+    with pytest.raises(ValueError, match="scale"):
+        ops.int4_matmul(x, torch.zeros((64, 16), dtype=torch.uint8),
+                        torch.ones((1, 7)))
+    with pytest.raises(TypeError, match="uint8"):
+        i4mm.int4_matmul(x, torch.zeros((64, 16), dtype=torch.int8),
+                         torch.ones((1, 32)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        i4mm.int4_matmul(x, torch.zeros((64, 16), dtype=torch.uint8),
+                         torch.ones((1, 32)), out_dtype=torch.float16)
+
+
+def _quant_operands(rng, M, K, N):
+    x = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-127, 128, (K, N)).astype(np.int8)
+    s = rng.uniform(0.001, 0.05, (1, N)).astype(np.float32)
+    b = rng.normal(size=(1, N)).astype(np.float32)
+    return x, w, s, b
+
+
+def _one_rounding_apart(got, want, x, w, s):
+    """|got - want| <= ulp(|f32(acc) * s|) + ulp(|want|): an FMA against
+    a rounded multiply followed by a rounded add."""
+    prod = (x.astype(np.int64) @ w.astype(np.int64)).astype(np.float32) * s
+    bound = np.spacing(np.abs(prod)) + np.spacing(np.abs(want))
+    assert np.all(np.abs(got - want) <= bound)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", qmm.ACTS)
+def test_quant_plain_against_reference(rng, act, out_dtype):
+    x, w, s, b = _quant_operands(rng, 128, 256, 128)
+    jargs = [jnp.asarray(a) for a in (x, w, s, b)]
+    interp = _np(jops.quant_matmul(*jargs, act=act,
+                                   out_dtype=JDT[out_dtype], interpret=True))
+    with jax.disable_jit():                 # the reference op by op
+        eager = _np(jref.quant_matmul_ref(*jargs, act, JDT[out_dtype]))
+    got = ops.quant_matmul(*[torch.from_numpy(a) for a in (x, w, s, b)],
+                           act=act, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (128, 128)
+    got = _np(got)
+    if act in ("none", "relu"):
+        np.testing.assert_array_equal(got, eager)
+        if out_dtype == torch.bfloat16:
+            np.testing.assert_array_equal(got, interp)
+        else:
+            _one_rounding_apart(got, interp, x, w, s)
+    else:
+        for want in (eager, interp):
+            assert np.all(np.abs(got - want)
+                          <= TOL[out_dtype] * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("shape", [(16, 363, 96), (16, 4096, 1000),
+                                   (3, 17, 7)])
+def test_quant_ragged_equals_reference(rng, shape):
+    x, w, s, b = _quant_operands(rng, *shape)
+    for act in ("none", "relu"):
+        with jax.disable_jit():
+            want = jops.quant_matmul(*[jnp.asarray(a) for a in (x, w, s, b)],
+                                     act=act)
+        got = ops.quant_matmul(*[torch.from_numpy(a) for a in (x, w, s, b)],
+                               act=act)
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_quant_defaults_and_bad_arguments(rng):
+    x, w, s, _ = _quant_operands(rng, 4, 32, 8)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    with jax.disable_jit():
+        want = jops.quant_matmul(jnp.asarray(x), jnp.asarray(w), 0.01)
+    np.testing.assert_array_equal(_np(ops.quant_matmul(tx, tw, 0.01)),
+                                  _np(want))
+    with pytest.raises(ValueError, match="act"):
+        ops.quant_matmul(tx, tw, torch.from_numpy(s), act="tanh")
+    with pytest.raises(ValueError, match="scale"):
+        qmm.quant_matmul(tx, tw, torch.ones((1, 7)), torch.zeros((1, 8)))
+    with pytest.raises(ValueError, match=r"\(M, K\) @ \(K, N\)"):
+        ops.quant_matmul(tx, tw[:16], torch.from_numpy(s))
+
+
+def _int4_layer(rng, K, N):
+    w = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
+    s = bf.symmetric_scale(torch.from_numpy(w), 4, axis=-2)
+    q4 = bf.pack_int4_halves(bf.quantize(torch.from_numpy(w), s, 4))
+    b = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
+    return q4, s, b
+
+
+@pytest.mark.parametrize("wbits", [4, 8])
+def test_int4_linear_packed_branch_equals_unpacked(rng, monkeypatch, wbits):
+    """Static wbits >= 4: the packed branch (one int4_matmul call) equals
+    the unpacked container path exactly, and the reference's own
+    int4_linear on the same container."""
+    q4, s, b = _int4_layer(rng, 40, 24)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 40)).astype(np.float32))
+    calls = []
+    real = ops.int4_matmul
+    monkeypatch.setattr(ops, "int4_matmul",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = ops.int4_linear(x, q4, s, b, wbits=wbits, abits=8)
+    assert len(calls) == 1
+    unpacked = ops._container_linear(x, bf.unpack_int4_halves(q4), s, b,
+                                     from_bits=4, wbits=wbits, abits=8)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(got.numpy(), unpacked.numpy())
+    want = jops.int4_linear(jnp.asarray(x.numpy()), jnp.asarray(q4.numpy()),
+                            jnp.asarray(s.numpy()), jnp.asarray(b.numpy()),
+                            wbits=wbits, abits=8, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+@pytest.mark.parametrize("wbits", [2, "tensor"])
+def test_int4_linear_other_bits_unpack(rng, monkeypatch, wbits):
+    """wbits = 2 (requant below the container) and tensor bits (no static
+    width) take the unpacked container path, never the packed kernel."""
+    q4, s, b = _int4_layer(rng, 40, 24)
+    x = torch.from_numpy(rng.normal(size=(6, 40)).astype(np.float32))
+    wb = torch.tensor(4, dtype=torch.int32) if wbits == "tensor" else wbits
+    monkeypatch.setattr(ops, "int4_matmul",
+                        lambda *a, **k: pytest.fail("packed branch taken"))
+    got = ops.serve_linear({"q4": q4, "s": s, "b": b}, x, wb, 8)
+    want = jops.serve_linear(
+        {"q4": jnp.asarray(q4.numpy()), "s": jnp.asarray(s.numpy()),
+         "b": jnp.asarray(b.numpy())}, jnp.asarray(x.numpy()),
+        jnp.asarray(4, jnp.int32) if wbits == "tensor" else wbits, 8)
+    np.testing.assert_array_equal(got.numpy(), _np(want))

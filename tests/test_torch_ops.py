@@ -4,8 +4,10 @@
 per-row bits, int8 and packed-int4 containers, wbits in {2, 4, 8}, and
 family snap-up / clamp-down.  Besides the float32 outputs, every GEMM's
 int8 activations, requantized weights and int32 accumulators are recorded
-on both sides (by wrapping each package's ``int8_accum``) and compared
-exactly; so is one conv layer's im2col and accumulator."""
+on both sides (by wrapping each package's ``int8_accum``, and the port's
+``int4_matmul``, which a packed-int4 container at a Python-int width of 4
+or more reaches) and compared exactly; so is one conv layer's im2col and
+accumulator."""
 import numpy as np
 import pytest
 
@@ -16,6 +18,7 @@ from repro.apsim.workloads import conv  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro.models import common as jcm  # noqa: E402
+from repro_torch.core import bitfluid as bf  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
@@ -46,14 +49,26 @@ def record(monkeypatch):
 
     wrap(jops, "jax")
     wrap(tops, "torch")
+    real4 = tops.int4_matmul
+
+    def rec4(x_q, w_packed, scale, **kw):
+        out = real4(x_q, w_packed, scale, **kw)
+        # the packed branch runs with a ones scale: out is f32(acc)
+        logs["torch"].append((_np(x_q), _np(bf.unpack_int4_halves(w_packed)),
+                              "packed", _np(out.to(torch.int32))))
+        return out
+    monkeypatch.setattr(tops, "int4_matmul", rec4)
     return logs
 
 
-def _same_calls(logs):
+def _same_calls(logs, packed=False):
+    """The calls match; ``packed``: the port took int4_linear's packed
+    branch where the reference (off the TPU) ran the unpacked container
+    path, on the same int8 activations, weights and accumulators."""
     assert len(logs["jax"]) == len(logs["torch"]) > 0
     for (jx, jw, jp, ja), (tx, tw, tp, ta) in zip(logs["jax"],
                                                   logs["torch"]):
-        assert jp == tp
+        assert tp == ("packed" if packed else jp)
         assert tx.dtype == np.int8 and tw.dtype == np.int8
         assert ta.dtype == np.int32
         np.testing.assert_array_equal(tx, jx)       # int8 activations
@@ -90,7 +105,8 @@ def test_serve_linear_scalar_bits(rng, record, container, wbits, form):
     want = jops.serve_linear(jp, jnp.asarray(x), jw, ja)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(_np(got), _np(want))
-    _same_calls(record)
+    _same_calls(record, packed=container == "int4" and form == "int"
+                and wbits >= 4)
 
 
 @pytest.mark.parametrize("container", ["int8", "int4"])
