@@ -55,8 +55,15 @@ result line:
      flash kernel and the GEMM shapes against their bounds and library
      yardsticks, and trace one prefill and one decode step.
 
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.
+Kernel times are given two ways: per launch over back-to-back launches
+timed with CUDA events (host time included where it exceeds the
+device's, as in earlier runs), and device time, the same launches queued
+behind a sleeping kernel so that the card runs them back to back.  The
+bit-plane kernel's launches are also counted by the path it took (the
+small-M GEMV; the large-M GEMM with x read by TMA in place, or from a
+copy the pre-pass re-pitched with plain loads), and the line before the
+card's is the end-to-end summary.  The line before the last is the
+kernels' JSON summary; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -78,6 +85,10 @@ REPS = 20             # timed launches per kernel shape
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# the device-side kernel names of each wrapper (for the traces' shares)
+DEVICE_NAMES = {"bitplane_matmul": ("bitplane_wgmma_kernel",
+                                    "bitplane_gemv_kernel",
+                                    "prepass_kernel")}
 KERNELS = ("bitplane_matmul", "flash_attention", "int4_matmul",
            "quant_matmul")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/bitplane_matmul.cu"
@@ -89,7 +100,8 @@ INT4_REPLACES = "src/repro/kernels/int4_matmul.py:51"
 QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 QUANT_REPLACES = "src/repro/kernels/quant_matmul.py:50"
 EDGE_SHAPES = [(1, 1, 1), (1, 512, 1000), (3, 147, 64), (130, 147, 65),
-               (129, 64, 128), (257, 576, 63), (64, 33, 7), (200, 4608, 24)]
+               (129, 64, 128), (257, 576, 63), (64, 33, 7), (200, 4608, 24),
+               (16, 4608, 24), (17, 147, 1000), (16, 363, 65)]
 INT4_EDGE = [(M, K, N) for M in (1, 16, 130) for K in (1, 17, 363)
              for N in (2, 96, 130, 1000)]
 # quant_matmul's silu / gelu against the plain version, |err| <= TOL x
@@ -106,7 +118,6 @@ ALEX_WIDTHS = [("conv1", 363, 96, 1), ("conv2", 1200, 128, 2),
 # run in another order)
 FLASH_TOL = 2e-2
 FLASH_PATH = (128, 4096, 128)   # (B*H, S, hd) of a Qwen3-4B prefill
-FLASH_TILE = 64       # the kernel's key tile (BKV in flash_attention.cu)
 LM_ARCH = "qwen3_4b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim) published
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
@@ -192,6 +203,23 @@ class Bench:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def device_ms(self, fn, reps: int = REPS) -> float:
+        """Device time per call of ``fn`` without the host's: the stream
+        is first held by a sleeping kernel while the host queues the
+        timed launches behind it, so the card runs them back to back."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)     # ~50 ms at the H100's clocks
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
     def rand_u8(self, shape):
         return self.torch.randint(0, 256, shape, generator=self.gen,
                                   device=self.dev, dtype=self.torch.uint8)
@@ -231,9 +259,11 @@ class Bench:
                   f"quant kernel vs plain version beyond tolerance {where}")
 
     def library_int_mm(self, x, w_i8):
-        """One torch._int_mm on copies zero-padded where its shape rules
-        need it (M > 16, K and N multiples of 8); the padding is not
-        timed.  Returns (ms, padded?)."""
+        """torch._int_mm on copies zero-padded where its shape rules need
+        it (M > 16, K and N multiples of 8), timed with the weight
+        row-major (K, N) and K-major (``w.t().contiguous().t()``, the
+        layout cuBLAS's int8 GEMM prefers); neither copy is timed.
+        Returns (faster ms, padded?, row-major ms, K-major ms)."""
         torch = self.torch
         M, K = x.shape
         N = w_i8.shape[1]
@@ -241,8 +271,16 @@ class Bench:
         pad = torch.nn.functional.pad
         xl = pad(x, (0, Kp - K, 0, Mp - M))
         wl = pad(w_i8, (0, Np - N, 0, Kp - K))
-        return (self.time_ms(lambda: torch._int_mm(xl, wl)),
-                (Mp, Kp, Np) != (M, K, N))
+        wk = wl.t().contiguous().t()
+        row_ms = self.time_ms(lambda: torch._int_mm(xl, wl))
+        kmaj_ms = self.time_ms(lambda: torch._int_mm(xl, wk))
+        return (min(row_ms, kmaj_ms), (Mp, Kp, Np) != (M, K, N), row_ms,
+                kmaj_ms)
+
+    @staticmethod
+    def lib_note(padded, row_ms, kmaj_ms):
+        return (f"{' (padded)' if padded else ''} (w row-major "
+                f"{row_ms:.4f}, K-major {kmaj_ms:.4f})")
 
     def int4_row(self, M, K, N):
         """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
@@ -253,14 +291,16 @@ class Bench:
             self.rand_scale(N)
         k_ms = self.time_ms(lambda: i4mm.int4_matmul(x, w, s))
         p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s))
-        l_ms, padded = self.library_int_mm(x, bf.unpack_int4_halves(w))
+        l_ms, padded, l_row, l_kmaj = self.library_int_mm(
+            x, bf.unpack_int4_halves(w))
         t_bytes = (M * K + K * N // 2 + 4 * N + 4 * M * N) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
         print(f"{self.tag} int4_matmul ({M},{K},{N}) f32 out: kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch._int_mm on the "
-              f"unpacked int8 weight {l_ms:.4f} ms{' (padded)' if padded else ''}"
-              f" (no epilogue), bound {max(t_bytes, t_ops):.4f} ms "
+              f"unpacked int8 weight {l_ms:.4f} ms"
+              f"{self.lib_note(padded, l_row, l_kmaj)} (no epilogue), "
+              f"bound {max(t_bytes, t_ops):.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
         return k_ms, p_ms, l_ms, t_bytes, t_ops
@@ -275,7 +315,7 @@ class Bench:
             x, w, s, bias, act=act, out_dtype=out_dtype))
         p_ms = self.time_ms(lambda: qmm.quant_matmul_ref(
             x, w, s, bias, act, out_dtype))
-        l_ms, padded = self.library_int_mm(x, w)
+        l_ms, padded, l_row, l_kmaj = self.library_int_mm(x, w)
         out_b = 2 if out_dtype == self.torch.bfloat16 else 4
         t_bytes = (M * K + K * N + 8 * N + out_b * M * N) \
             / HBM_BYTES_PER_S * 1e3
@@ -283,7 +323,7 @@ class Bench:
         print(f"{self.tag} quant_matmul ({M},{K},{N}) act={act} "
               f"{str(out_dtype).split('.')[-1]} out: kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, torch._int_mm {l_ms:.4f} ms"
-              f"{' (padded)' if padded else ''} (no epilogue), bound "
+              f"{self.lib_note(padded, l_row, l_kmaj)} (no epilogue), bound "
               f"{max(t_bytes, t_ops):.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
@@ -303,23 +343,30 @@ class Bench:
 
     def gemm_row(self, M, K, N, n):
         """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
-        bound ms) of one bit-plane launch at (M, K, N), n planes."""
+        bound ms, kernel device ms) of one bit-plane launch at (M, K, N),
+        n planes.  Kernel ms is per launch over back-to-back launches (host
+        time included where it exceeds the device's); device ms is the
+        same launches run back to back on the card (see device_ms), the
+        pre-pass or memset included."""
         from repro_torch.kernels import bitplane_matmul as bpm
         x, w = self.rand_i8((M, K)), self.rand_i8((K, N))
         k_ms = self.time_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
+        d_ms = self.device_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
         p_ms = self.time_ms(lambda: bpm.bitplane_matmul_ref(x, w, n))
         # library yardstick: one torch._int_mm on the sign-extended weights
-        l_ms, padded = self.library_int_mm(x, bpm.sign_extend_field(w, n))
+        l_ms, padded, l_row, l_kmaj = self.library_int_mm(
+            x, bpm.sign_extend_field(w, n))
         t_bytes = (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
         print(f"{self.tag} bitplane_matmul ({M},{K},{N}) n_planes={n}: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, "
               f"torch._int_mm {l_ms:.4f} ms"
-              f"{' (padded)' if padded else ''}, "
-              f"bound {max(t_bytes, t_ops):.4f} ms "
+              f"{self.lib_note(padded, l_row, l_kmaj)}, "
+              f"{bpm.plan(M, K, N).regime} regime, bound "
+              f"{max(t_bytes, t_ops):.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
-        return k_ms, p_ms, l_ms, t_bytes, t_ops
+        return k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms
 
 
 def trace(torch, tag, label, fn, match):
@@ -351,8 +398,9 @@ def trace(torch, tag, label, fn, match):
         key = key.removeprefix("void ").split("(")[0][:90]
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     dev_total = sum(by_name.values())
-    shares = {m: sum(us for k, us in by_name.items() if m in k) / dev_total
-              for m in match}
+    shares = {m: sum(us for k, us in by_name.items()
+                     if any(d in k for d in DEVICE_NAMES.get(m, (m,))))
+              / dev_total for m in match}
     idle = 1 - busy_us / 1e3 / (traced_s * 1e3)
     print(f"{tag} trace of {label}: wall {traced_s * 1e3:.3f} ms "
           f"(profiler on), device busy {busy_us / 1e3:.3f} ms, idle share "
@@ -469,6 +517,7 @@ def cnn_path(b: Bench) -> dict:
         batch_s.append(time.perf_counter() - t0)
         outs.append((logits, stats))
     launches = dict(bpm.launches)
+    paths = dict(bpm.path_launches)
     check(fa.launches == 0 and i4mm.launches == 0
           and sum(qmm.launches.values()) == 0,
           "the ResNet18 path launched a kernel off its path")
@@ -518,7 +567,8 @@ def cnn_path(b: Bench) -> dict:
           f"(B, 1000) logits: finite; mean wbits "
           f"{sorted({s.mean_wbits for s in stats})}; kernel launches "
           f"{ {n: c for n, c in launches.items() if c} } = {per_batch} per "
-          f"batch; per-image EDP == price_bit_matrix; logits == plain-version "
+          f"batch (by path {paths}); per-image EDP == price_bit_matrix; "
+          f"logits == plain-version "
           f"forward on the card; peak memory {peak_mb:.1f} MiB")
 
     # small input: the engine on the card agrees with the port on the CPU
@@ -551,16 +601,17 @@ def cnn_path(b: Bench) -> dict:
     per_shape = {(M, K, N, n): b.gemm_row(M, K, N, n)
                  for M, K, N in shapes for n in fams}
     # one served batch's 42 launches, summed over the path's layers
-    tot = [0.0] * 5
+    tot = [0.0] * 6
     bound_ms = 0.0
     for _, M, K, N, _ in gemms:
         for n in fams:
             row = per_shape[(M, K, N, n)]
             tot = [a + r for a, r in zip(tot, row)]
             bound_ms += max(row[3], row[4])
-    k_ms, p_ms, l_ms, t_bytes, t_ops = tot
+    k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms = tot
     print(f"{tag} bitplane_matmul per served batch ({per_batch} launches): "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch._int_mm "
+          f"kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, "
+          f"torch._int_mm "
           f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_ms / k_ms:.3f} of bound); batch wall {med * 1e3:.3f} ms")
 
@@ -571,7 +622,8 @@ def cnn_path(b: Bench) -> dict:
     torch.cuda.empty_cache()
     return {"launches": sum(launches.values()), "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "t_bytes": t_bytes, "t_ops": t_ops,
-            "library_ms": l_ms}
+            "library_ms": l_ms, "device_ms": d_ms, "paths": paths,
+            "wall_ms": med * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -679,6 +731,7 @@ def alexnet_path(b: Bench) -> dict:
         batch_s.append(time.perf_counter() - t0)
         outs.append((logits, stats))
     a_launches = dict(bpm.launches)
+    a_paths = dict(bpm.path_launches)
     check(i4mm.launches == 0 and sum(qmm.launches.values()) == 0
           and fa.launches == 0, "(a) launched a kernel off its path")
     peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -718,7 +771,8 @@ def alexnet_path(b: Bench) -> dict:
           f"{ALEX_IMAGE}x3 -> (B, 1000) logits: finite; mean wbits per image "
           f"{[s.mean_wbits for s in stats[:4]]}...; bit-plane launches "
           f"{ {n: c for n, c in a_launches.items() if c} } = {per_batch} per "
-          f"batch ({slices} GEMMs x {len(fams)} families); EDP == "
+          f"batch ({slices} GEMMs x {len(fams)} families; by path "
+          f"{a_paths}); EDP == "
           f"price_bit_matrix (int4 {stats[0].edp:.6g}, int8 "
           f"{stats[1].edp:.6g} J*s); logits == plain-version forward on the "
           f"card; peak memory {peak_a:.1f} MiB")
@@ -735,6 +789,7 @@ def alexnet_path(b: Bench) -> dict:
         fwd_s.append(time.perf_counter() - t0)
         fouts.append(out)
     b_i4, b_bp = i4mm.launches, dict(bpm.launches)
+    b_paths = dict(bpm.path_launches)
     peak_b = torch.cuda.max_memory_allocated() / 2 ** 20
     check(b_i4 == len(ungrouped) * SERVED,
           f"(b) int4_matmul launches {b_i4}, expected {len(ungrouped)} per "
@@ -766,7 +821,8 @@ def alexnet_path(b: Bench) -> dict:
     print(f"(b) fixed-INT4 forward x {SERVED} (B={BATCH}): logits finite, "
           f"identical across forwards, == plain-version forward on the card; "
           f"int4_matmul launches {len(ungrouped)} per forward, bit-plane "
-          f"{grouped_slices} per forward at n_planes 8; peak memory "
+          f"{grouped_slices} per forward at n_planes 8 (by path {b_paths}); "
+          f"peak memory "
           f"{peak_b:.1f} MiB")
 
     # ---- (c) one forward's int8 GEMMs through the fused-epilogue entry
@@ -841,14 +897,17 @@ def alexnet_path(b: Bench) -> dict:
               for name, M, K, N, _ in gemms}
 
     def total(rows, keys):
-        tot = [0.0] * 5
+        tot = [0.0] * len(rows[keys[0]])
         bound = 0.0
         for key in keys:
             r = rows[key]
             tot = [a + x for a, x in zip(tot, r)]
             bound += max(r[3], r[4])
-        return {"ms": tot[0], "plain_ms": tot[1], "library_ms": tot[2],
-                "t_bytes": tot[3], "t_ops": tot[4], "bound_ms": bound}
+        out = {"ms": tot[0], "plain_ms": tot[1], "library_ms": tot[2],
+               "t_bytes": tot[3], "t_ops": tot[4], "bound_ms": bound}
+        if len(tot) > 5:
+            out["device_ms"] = tot[5]
+        return out
 
     bp_a = total(bp_rows, [(M, K, N, n) for _, M, K, N, G in gemms
                            for _ in range(G) for n in fams])
@@ -864,7 +923,9 @@ def alexnet_path(b: Bench) -> dict:
                            ("(b) int4_matmul per INT4 forward", i4, med_b),
                            ("(c) quant_matmul per forward's GEMMs", qm,
                             None)):
-        print(f"{tag} {label}: kernel {t['ms']:.4f} ms, plain "
+        dev_note = (f" (device {t['device_ms']:.4f})" if "device_ms" in t
+                    else "")
+        print(f"{tag} {label}: kernel {t['ms']:.4f} ms{dev_note}, plain "
               f"{t['plain_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.4f} ms "
               f"({'bytes' if t['t_bytes'] >= t['t_ops'] else 'operations'}; "
@@ -881,7 +942,9 @@ def alexnet_path(b: Bench) -> dict:
     del engine, params, qp4
     torch.cuda.empty_cache()
     bp_a["launches"] = sum(a_launches.values())
+    bp_a["paths"], bp_a["wall_ms"] = a_paths, med_a * 1e3
     bp_b["launches"] = sum(b_bp.values())
+    bp_b["paths"], bp_b["wall_ms"] = b_paths, med_b * 1e3
     i4["launches"] = b_i4
     qm["launches"] = sum(c_launches.values())
     return {"bitplane_served_batch": bp_a, "bitplane_int4_forward": bp_b,
@@ -891,6 +954,13 @@ def alexnet_path(b: Bench) -> dict:
 # ---------------------------------------------------------------------------
 # Path 3: Qwen3-4B long-prompt generate
 # ---------------------------------------------------------------------------
+
+def flash_tile() -> int:
+    """The flash kernel's key tile (BKV in flash_attention.cu): the
+    chunk at which the plain version rounds as the kernel does."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.KEY_TILE
+
 
 def gate_logits(label, got, plain, other_plain):
     """``got`` against ``plain`` (the plain version at the kernel's key
@@ -905,7 +975,7 @@ def gate_logits(label, got, plain, other_plain):
     print(f"{label}: max |diff| {diff:.6g} = {diff / scale:.4g} x "
           f"max|logit| {scale:.6g} (within {LOGIT_TOL}: "
           f"{diff <= LOGIT_TOL * scale}); the plain version at tile "
-          f"{FLASH_TILE} and at its default tile apart by {floor:.6g} = "
+          f"{flash_tile()} and at its default tile apart by {floor:.6g} = "
           f"{floor / scale:.4g} x; argmax equal per row {same} (tile vs "
           f"tile {same_plain})")
     check(diff <= max(LOGIT_TOL * scale, 2 * floor),
@@ -975,6 +1045,7 @@ def lm_path(b: Bench) -> dict:
     # ---- generate: one warm-up, then LM_CALLS counted and timed calls
     first = engine.generate(batch, LM_STEPS).cpu()
     per_call_bp = L * len(linears) * len(fams) * LM_STEPS
+    per_call_pre = L * len(linears) * len(fams)       # the prefill's
     gen_s, bp_total, fa_total, peak = [], 0, 0, 0.0
     for _ in range(LM_CALLS):
         torch.cuda.synchronize()
@@ -985,6 +1056,7 @@ def lm_path(b: Bench) -> dict:
         toks = engine.generate(batch, LM_STEPS).cpu()      # ends in a sync
         gen_s.append(time.perf_counter() - t0)
         bp, fl = dict(bpm.launches), fa.launches
+        bp_paths = dict(bpm.path_launches)
         peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
         check(fl == L, f"flash launches per generate {fl}, expected {L}")
         check(sum(bp.values()) == per_call_bp,
@@ -993,6 +1065,11 @@ def lm_path(b: Bench) -> dict:
         check({n for n, c in bp.items() if c} == set(fams)
               and all(bp[n] == per_call_bp // 2 for n in fams),
               f"bit-plane launches outside the families {fams}: {bp}")
+        check(bp_paths == {"small_m": per_call_bp - per_call_pre,
+                           "large_m": per_call_pre, "large_m_copy_x": 0},
+              f"bit-plane launches by path per generate {bp_paths}: the "
+              f"prefill's {per_call_pre} should take the large-M regime "
+              f"with x read in place, the decode steps the small-M one")
         check(toks.shape == (LM_B, LM_STEPS), f"tokens {tuple(toks.shape)}")
         check(torch.equal(toks, first), "repeated generate calls differ")
         bp_total += sum(bp.values())
@@ -1002,7 +1079,8 @@ def lm_path(b: Bench) -> dict:
     print(f"generate x {LM_CALLS} (B={LM_B}, S={LM_S}, {LM_STEPS} tokens): "
           f"tokens {tuple(first.shape)}, identical across calls; per call "
           f"flash launches {L}, bit-plane launches {per_call_bp} at "
-          f"n_planes {fams}; mean wbits per row {mean_w}; first row "
+          f"n_planes {fams} (by path {bp_paths}); mean wbits per row "
+          f"{mean_w}; first row "
           f"{first[0].tolist()}")
 
     # ---- one prefill through the kernels against the plain versions.
@@ -1035,7 +1113,7 @@ def lm_path(b: Bench) -> dict:
 
     def tiled_flash(q, k, v, *, causal, window, scale=0.0, k_len=0):
         return fa.flash_attention_chunked_ref(q, k, v, causal, window,
-                                              chunk=FLASH_TILE)
+                                              chunk=flash_tile())
 
     kernel_flash = fa.flash_attention
     layer_err = []
@@ -1138,6 +1216,7 @@ def lm_path(b: Bench) -> dict:
     k = torch.randn_like(q)
     v = torch.randn_like(q)
     f_ms = b.time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    fd_ms = b.device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
     fp_ms = b.time_ms(lambda: fa.flash_attention_chunked_ref(q, k, v, True),
                       reps=3)
     q4, k4, v4 = (x.view(1, BH, S, hdp) for x in (q, k, v))
@@ -1149,7 +1228,7 @@ def lm_path(b: Bench) -> dict:
     ft_bytes = f_bytes / HBM_BYTES_PER_S * 1e3
     f_bound = max(ft_ops, ft_bytes)
     print(f"{tag} flash_attention {FLASH_PATH} causal bf16: kernel "
-          f"{f_ms:.4f} ms, chunked plain {fp_ms:.4f} ms, "
+          f"{f_ms:.4f} ms (device {fd_ms:.4f}), chunked plain {fp_ms:.4f} ms, "
           f"scaled_dot_product_attention {fl_ms:.4f} ms, bound "
           f"{f_bound:.4f} ms ({'operations' if ft_ops >= ft_bytes else 'bytes'}"
           f": {f_flops:.3e} flop, {f_bytes / 1e6:.1f} MB), "
@@ -1160,7 +1239,7 @@ def lm_path(b: Bench) -> dict:
     # the bit-plane GEMM shapes, and their sums over one generate call
     per_shape = {(M, K, N, n): b.gemm_row(M, K, N, n)
                  for M in (M_pre, M_dec) for K, N in kn for n in fams}
-    tot = [0.0] * 5
+    tot = [0.0] * 6
     bound_ms = 0.0
     for K, N in linears:
         for n in fams:
@@ -1168,13 +1247,18 @@ def lm_path(b: Bench) -> dict:
                 row = per_shape[(M, K, N, n)]
                 tot = [a + reps * L * r for a, r in zip(tot, row)]
                 bound_ms += reps * L * max(row[3], row[4])
-    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops = tot
+    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms = tot
     print(f"{tag} bitplane_matmul per generate call ({per_call_bp} "
-          f"launches): kernel {bk_ms:.4f} ms, plain {bp_ms:.4f} ms, "
+          f"launches): kernel {bk_ms:.4f} ms (device {bd_ms:.4f}), plain "
+          f"{bp_ms:.4f} ms, "
           f"torch._int_mm {bl_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_ms / bk_ms:.3f} of bound); flash per generate call "
           f"({L} launches): kernel {L * f_ms:.4f} ms, bound "
           f"{L * f_bound:.4f} ms; generate wall {med_gen * 1e3:.3f} ms")
+
+    # the regime threshold: both sides of bpm.SMALL_M at a decode shape
+    for M in (bpm.SMALL_M, bpm.SMALL_M + 1, 4 * bpm.SMALL_M):
+        b.gemm_row(M, d, cfg.d_ff, 8)
 
     # ---- where one prefill's and one decode step's time goes
     trace(torch, tag, "one prefill", run_prefill,
@@ -1191,8 +1275,12 @@ def lm_path(b: Bench) -> dict:
     return {
         "bitplane": {"launches": bp_total, "ms": bk_ms, "plain_ms": bp_ms,
                      "bound_ms": bound_ms, "t_bytes": bt_bytes,
-                     "t_ops": bt_ops, "library_ms": bl_ms},
+                     "t_ops": bt_ops, "library_ms": bl_ms,
+                     "device_ms": bd_ms, "paths": bp_paths},
+        "e2e": {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
+                "generate_ms": med_gen * 1e3},
         "flash": {"launches": fa_total, "ms": L * f_ms,
+                  "device_ms": L * fd_ms,
                   "plain_ms": L * fp_ms, "bound_ms": L * f_bound,
                   "bound_by": "operations" if ft_ops >= ft_bytes else "bytes",
                   "library_ms": L * fl_ms}}
@@ -1233,10 +1321,47 @@ def smoke_card_vs_cpu(b: Bench) -> None:
     with mock.patch.object(fa, "flash_attention_chunked_ref",
                            lambda q, k, v, causal, window:
                            chunked(q, k, v, causal, window,
-                                   chunk=FLASH_TILE)):
+                                   chunk=flash_tile())):
         cpu_tiled = smoke_prefill(torch.device("cpu"))
     gate_logits(f"SMOKE {LM_ARCH} prefill (B=2, S={LM_SMOKE_S}, budgets "
                 f"[10.0, 0.4]), card vs CPU", card, cpu_tiled, cpu)
+
+
+def ptxas_summary(log: str):
+    """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
+    registers, static shared memory and spills), and any warning."""
+    import re
+
+    def kernel_name(mangled):
+        # the shortest <length><name> ending in _kernel, then its template
+        # ints
+        for m in re.finditer(r"_kernel", mangled):
+            end = m.end()
+            for start in range(m.start() - 1, 0, -1):
+                digits = str(end - start)
+                if mangled[start].isalpha() and \
+                        mangled[start - len(digits):start] == digits:
+                    name = mangled[start:end]
+                    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+                    if not args:
+                        return name
+                    ints = re.findall(r"Li(-?\d+)E", args.group(1))
+                    return f"{name}<{','.join(ints)}>"
+        return mangled
+
+    entry, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            used = line.split("Used", 1)[1].strip()
+            yield f"{entry}: used {used}; {spill}"
+            entry = None
+        elif "warning" in line:
+            yield line.strip()
 
 
 ROW_KEYS = ("launches", "ms", "plain_ms", "bound_ms", "library_ms")
@@ -1246,6 +1371,8 @@ def kernel_row(name, source, replaces, err, parts) -> dict:
     """One kernel's entry of the JSON line, summed over its paths' units
     of work (``parts``: path name -> that path's numbers)."""
     tot = {k: sum(p[k] for p in parts.values()) for k in ROW_KEYS}
+    dev = ([p["device_ms"] for p in parts.values() if "device_ms" in p]
+           if all("device_ms" in p for p in parts.values()) else [])
     t_bytes = sum(p["t_bytes"] for p in parts.values())
     t_ops = sum(p["t_ops"] for p in parts.values())
     out = {"name": name, "route": "cuda", "source": source,
@@ -1254,8 +1381,11 @@ def kernel_row(name, source, replaces, err, parts) -> dict:
            "bound_ms": tot["bound_ms"],
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": tot["library_ms"]}
+    if dev:
+        out["device_ms"] = sum(dev)
     if len(parts) > 1:
-        out["per_path"] = {n: {k: p[k] for k in ROW_KEYS}
+        out["per_path"] = {n: {k: p[k] for k in ROW_KEYS
+                               + ("device_ms", "paths") if k in p}
                            for n, p in parts.items()}
     return out
 
@@ -1294,6 +1424,17 @@ def main() -> None:
           f"(nvcc " + ", ".join(
               f"{n} {cuda_build.build_seconds.get(n, 0.0):.3f} s"
               for n in KERNELS) + ")")
+    for name in KERNELS:        # registers, shared memory and spills
+        seen: dict = {}          # one line per entry and report
+        for line in ptxas_summary(cuda_build.ptxas_log.get(name, "")):
+            entry, _, report = line.partition(": ")
+            base, _, args = entry.partition("<")
+            seen.setdefault((base, report), []).append(args.rstrip(">"))
+        for (base, report), args in seen.items():
+            inst = [a for a in args if a]
+            print(f"ptxas {name}: {base}"
+                  + (f" <{' | '.join(inst)}>" if inst else "")
+                  + f": {report}")
 
     # ---- 3. kernels against their plain versions on edge shapes
     for n in range(1, 9):
@@ -1341,11 +1482,19 @@ def main() -> None:
          "replaces": FLASH_REPLACES, "launches": fl["launches"],
          "max_abs_err": b.fa_err, "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-         "library_ms": fl["library_ms"]},
+         "library_ms": fl["library_ms"], "device_ms": fl["device_ms"]},
         kernel_row("int4_matmul", INT4_SOURCE, INT4_REPLACES, b.i4_err,
             {"alexnet_int4_forward": alex["int4"]}),
         kernel_row("quant_matmul", QUANT_SOURCE, QUANT_REPLACES, b.q_err,
             {"alexnet_forward_gemms": alex["quant"]})]}
+    e2e = lmr["e2e"]
+    print(f"{b.tag} end to end (no gain claimed): ResNet18 "
+          f"{cnn['wall_ms']:.3f} ms per served batch of {BATCH}; AlexNet (a) "
+          f"{alex['bitplane_served_batch']['wall_ms']:.3f} ms per served "
+          f"batch, (b) {alex['bitplane_int4_forward']['wall_ms']:.3f} ms per "
+          f"fixed-INT4 forward; Qwen3-4B prefill {e2e['prefill_ms']:.3f} ms, "
+          f"decode {e2e['decode_ms']:.3f} ms per step, generate "
+          f"{e2e['generate_ms']:.3f} ms per call")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

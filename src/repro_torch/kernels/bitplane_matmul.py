@@ -6,8 +6,19 @@ low ``n_planes`` two's-complement field of an int8 weight container
 the Pallas TPU kernel ``repro.kernels.bitplane_matmul.bitplane_matmul``:
 there the field is walked plane by plane (plane j weighted 2^j, the sign
 plane -2^(n-1)); the weighted planes reassemble the sign-extended field,
-so the CUDA kernel (``csrc/bitplane_matmul.cu``) sign-extends each weight
-once and runs one int8 tensor-core product.
+so the CUDA kernels (``csrc/bitplane_matmul.cu``) sign-extend each weight
+once and run one int8 product, in one of two regimes that :func:`plan`
+picks from the shape:
+
+* ``small_m`` (M <= :data:`SMALL_M`): a split-K GEMV on ``mma.sync``
+  that reads w in 16-byte pieces along N and adds each K slice's int32
+  partials into the output with integer atomics (exact);
+* ``large_m``: a pre-pass writes the sign-extended field K-major into an
+  ``(N, K')`` int8 scratch (``K'`` = K rounded up to 16) that the wrapper
+  allocates per call, then a ``wgmma`` GEMM fed by a TMA ring reads it.
+  TMA needs x's rows 16-byte aligned; when they are not (K % 16, or an
+  unaligned view), the same pre-pass re-pitches x into an ``(M, K')``
+  part of the scratch (``copy_x``).
 
 On a CUDA tensor the wrapper launches the kernel, or raises: there is no
 fallback.  On a CPU tensor it takes the plain version,
@@ -18,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Dict
 
 import torch
@@ -26,11 +38,69 @@ from repro_torch.kernels import cuda_build
 
 # kernel launches per n_planes (the main path's proof that it ran here)
 launches: Dict[int, int] = {n: 0 for n in range(1, 9)}
+# the same launches by path: the small-M GEMV, or the large-M wgmma GEMM
+# with x read in place or re-pitched first (rows not 16-byte aligned)
+PATHS = ("small_m", "large_m", "large_m_copy_x")
+path_launches: Dict[str, int] = {p: 0 for p in PATHS}
+
+SMALL_M = 16          # the GEMV's rows: one m16 tile of mma.sync
+GEMV_COLS = 128       # output columns per GEMV block
+GEMV_WARPS = 8        # warps per GEMV block, one k32 step each at a time
+GEMV_MAX_STEPS = 64   # k32 steps per split (its x slice in shared memory)
+K_PAD = 16            # the K-major scratch's row: TMA's 16-byte stride
+H100_SMS = 132
 
 
 def reset_launches() -> None:
     for n in launches:
         launches[n] = 0
+    for p in path_launches:
+        path_launches[p] = 0
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel runs one ``(M, K) @ (K, N)``.  ``regime`` is
+    ``"small_m"`` or ``"large_m"``.  A GEMV splits K into ``splits``
+    slices of ``steps`` 32-deep steps, one block per slice and 128
+    output columns; the large-M regime needs an
+    ``(N, k_pad)`` int8 scratch, and ``(M, k_pad)`` more when ``copy_x``
+    (x's rows are not 16-byte aligned, so TMA reads a re-pitched copy)."""
+    regime: str
+    splits: int = 1
+    steps: int = 0
+    k_pad: int = 0
+    copy_x: bool = False
+
+    @property
+    def path(self) -> str:
+        return "large_m_copy_x" if self.copy_x else self.regime
+
+    def scratch_bytes(self, M: int, N: int) -> int:
+        return (N + (M if self.copy_x else 0)) * self.k_pad
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, sms: int = H100_SMS,
+         x_aligned: bool = True) -> Plan:
+    """The regime from M; for a GEMV, the split of K that puts about two
+    blocks on each of ``sms`` SMs, with at least one k32 step per warp and
+    at most :data:`GEMV_MAX_STEPS` steps per split; for the large-M
+    regime, whether x must be re-pitched (K % 16, or ``x_aligned`` false:
+    its base is not 16-byte aligned)."""
+    if M <= 0 or K <= 0 or N <= 0:
+        raise ValueError(f"bitplane_matmul: empty shape ({M}, {K}) @ "
+                         f"({K}, {N})")
+    if M > SMALL_M:
+        return Plan("large_m", k_pad=-(-K // K_PAD) * K_PAD,
+                    copy_x=bool(K % K_PAD) or not x_aligned)
+    cols = -(-N // GEMV_COLS)
+    total = -(-K // 32)
+    want = -(-2 * sms // cols)
+    splits = max(1, min(want, total // GEMV_WARPS))
+    steps = min(-(-total // splits), GEMV_MAX_STEPS)
+    splits = -(-total // steps)
+    return Plan("small_m", splits=splits, steps=steps)
 
 
 def sign_extend_field(w_q: torch.Tensor, n_planes: int) -> torch.Tensor:
@@ -69,31 +139,48 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
                     n_planes: int = 8) -> torch.Tensor:
     """int8 (M, K) @ int8-container (K, N) -> int32 (M, N) at ``n_planes``."""
     _check(x_q, w_q, n_planes)
-    if x_q.device.type == "cpu":
+    dev = x_q.device
+    if dev.type == "cpu":
         return bitplane_matmul_ref(x_q, w_q, n_planes)
-    if x_q.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"bitplane_matmul runs on cuda or cpu tensors, "
-                         f"not {x_q.device}")
+                         f"not {dev}")
     if not (x_q.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("bitplane_matmul: the kernel takes contiguous "
                          "row-major operands")
     M, K = x_q.shape
     N = w_q.shape[1]
-    if max(M, K, N) >= 2 ** 31 or -(-N // 64) > 65535:
+    if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"bitplane_matmul: ({M}, {K}) @ ({K}, {N}) exceeds "
                          f"the kernel's grid")
-    out = torch.empty((M, N), dtype=torch.int32, device=x_q.device)
-    fn = _entry()
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        err = fn(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                 M, N, K, n_planes, stream)
+    p = plan(M, K, N, _sms(dev), x_q.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    scratch = None                       # per call: nothing is cached
+    if p.regime == "large_m":
+        scratch = torch.empty(p.scratch_bytes(M, N), dtype=torch.int8,
+                              device=dev)
+    stream = (_raw_stream(dev.index) if _raw_stream is not None
+              else torch.cuda.current_stream(dev).cuda_stream)
+    err = _entry()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr() if scratch is not None else None,
+                   M, N, K, n_planes, p.steps, int(p.copy_x), stream)
     if err != 0:
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "
                            f"error {err} at ({M}, {K}) @ ({K}, {N}), "
-                           f"n_planes={n_planes}")
+                           f"n_planes={n_planes}, plan {p}")
     launches[n_planes] += 1
+    path_launches[p.path] += 1
     return out
+
+
+# the current stream's handle without building a Stream object (a CUDA
+# build's hook; the slower public call serves where it is missing)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -101,7 +188,7 @@ def _entry():
     lib = cuda_build.load("bitplane_matmul")
     fn = lib.bitplane_matmul_s8
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

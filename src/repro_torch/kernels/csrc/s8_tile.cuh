@@ -1,14 +1,15 @@
-// The int8 tensor-core tile shared by the port's three GEMM kernels
-// (bitplane_matmul.cu, int4_matmul.cu, quant_matmul.cu).
+// The mma.sync int8 tensor-core tile shared by int4_matmul.cu and
+// quant_matmul.cu (the bit-plane kernel has its own wgmma tile,
+// s8_wgmma.cuh, and GEMV).
 //
 // One block computes a 128 x 64 int32 tile of x (M, K) @ w (K, N): eight
 // warps, 4 along M x 2 along N, each a 32 x 32 sub-tile of mma.sync
 // m16n8k32 s8 -> s32 products.  x tiles are copied into shared memory
 // row-major (16-byte vector loads when K is a multiple of 16 and x is
 // 16-byte aligned); w tiles are copied transposed, sB[n][k], by a loader
-// each kernel supplies, which is where the kernels differ (sign-extending
-// an n-bit field, unpacking a nibble, or plain int8).  Out-of-range tile
-// elements load as zero.  Single-buffered: a simple tile that is right.
+// each kernel supplies, which is where the kernels differ (unpacking a
+// nibble, or plain int8).  Out-of-range tile elements load as zero.
+// Single-buffered: a simple tile that is right.
 
 #pragma once
 

@@ -23,11 +23,12 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 build_seconds: Dict[str, float] = {}   # wall time of each build this process
+ptxas_log: Dict[str, str] = {}        # each build's -Xptxas -v report
 
 
 def _nvcc() -> str:
@@ -79,6 +80,7 @@ def build(names) -> None:
                 continue
             os.replace(tmp, so)
             build_seconds[name] = time.perf_counter() - t0
+            ptxas_log[name] = err
         if failed:
             raise RuntimeError("\n".join(failed))
 

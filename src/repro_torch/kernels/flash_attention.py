@@ -10,7 +10,10 @@ zeroed, P rounded to v's dtype before P.V, the denominator floored at
 (``csrc/flash_attention.cu``) takes bf16 inputs with hd in {64, 128}; the
 wrapper zero-pads any other hd <= 128 up to the next of these and slices
 the output back (zero columns change no score; the scale stays the real
-``hd ** -0.5``).
+``hd ** -0.5``).  Each block owns :data:`QUERY_TILE` query rows (two
+``wgmma`` warpgroups of 64) and walks the keys in tiles of
+:data:`KEY_TILE`, which TMA copies into a ring of 3 slots (4 at hd 64);
+the tensor maps need 16-byte-aligned bases, which the wrapper checks.
 
 Two plain versions sit beside it, as in the reference's ``kernels/ref.py``:
 
@@ -36,6 +39,8 @@ from repro_torch.kernels import cuda_build
 NEG_INF = -1e30
 FLASH_CHUNK = 2048
 HEAD_DIMS = (64, 128)          # the kernel's template instantiations
+QUERY_TILE = 128               # BQ in flash_attention.cu
+KEY_TILE = 128                 # BKV in flash_attention.cu
 
 # kernel launches (the main path's proof that it ran here)
 launches = 0

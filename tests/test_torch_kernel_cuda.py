@@ -61,6 +61,45 @@ def test_kernel_unaligned_rows_and_offsets(cuda):
                        bpm.bitplane_matmul_ref(x, w[:48], 8))
 
 
+# both regimes of the kernel: the small-M GEMV (M <= bpm.SMALL_M) and the
+# large-M wgmma GEMM, with x read by TMA in place (K % 16 == 0) or from a
+# re-pitched copy
+REGIME_SHAPES = [
+    # (M, K, N): M around the threshold, K tails off 16 and off the split
+    (15, 4608, 1000), (16, 4608, 1000), (17, 4608, 1000),
+    (1, 9728, 2560), (4, 2560, 9728), (4, 1000, 130), (16, 33, 7),
+    (16, 4097, 96), (17, 4097, 96), (17, 4096, 1001), (130, 1000, 65),
+    # K = 147 and 363 (conv1 of ResNet18, AlexNet): x rows not 16-aligned
+    (16, 147, 64), (17, 147, 64), (300, 147, 64), (260, 363, 96),
+    (257, 576, 63), (784, 4608, 512)]
+
+
+@pytest.mark.parametrize("n_planes", range(1, 9))
+def test_kernel_regimes_equal_plain_version(cuda, n_planes):
+    for i, (M, K, N) in enumerate(REGIME_SHAPES):
+        x, w = _rand((M, K), cuda, 40 + i), _rand((K, N), cuda, 140 + i)
+        before = dict(bpm.path_launches)
+        got = bpm.bitplane_matmul(x, w, n_planes=n_planes)
+        torch.cuda.synchronize()
+        ran = [p for p in bpm.PATHS if bpm.path_launches[p] != before[p]]
+        want_path = ("small_m" if M <= bpm.SMALL_M else
+                     "large_m" if K % 16 == 0 else "large_m_copy_x")
+        assert ran == [want_path], (M, K, N)
+        assert torch.equal(got, bpm.bitplane_matmul_ref(x, w, n_planes)), \
+            (M, K, N)
+
+
+@pytest.mark.parametrize("M", [4, 16, 17, 300])
+def test_kernel_unaligned_rows_in_both_regimes(cuda, M):
+    """x and w as views at odd byte offsets: the large-M regime re-pitches
+    x and the GEMV's weight loads fall back to single bytes."""
+    xf, wf = _rand((1 + M * 64,), cuda, 50 + M), _rand((3 + 64 * 48,), cuda, 9)
+    x, w = xf[1:].view(M, 64), wf[3:].view(64, 48)
+    for n in (3, 8):
+        assert torch.equal(bpm.bitplane_matmul(x, w, n_planes=n),
+                           bpm.bitplane_matmul_ref(x, w, n))
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x, w = _rand((32, 64), cuda, 1), _rand((64, 16), cuda, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -113,6 +152,31 @@ def test_flash_kernel_matches_oracle(cuda, causal, window):
         want = fa.flash_attention_ref(q.float(), k.float(), v.float(),
                                       causal, window)
         assert float((got.float() - want).abs().max()) <= FLASH_TOL
+
+
+# (BH, Sq, Sk, hd, causal, window, k_len): Sq != Sk, k_len < Sk, the
+# window with and without causal, hd 64 / 80 / 96 / 128, S off the 128-row
+# query and key tiles, BH = 1
+FLASH_EDGE = [(1, 129, 129, 128, True, 0, 0), (2, 200, 300, 64, True, 0, 0),
+              (2, 300, 200, 128, False, 0, 0), (1, 257, 257, 96, True, 100, 0),
+              (1, 257, 257, 80, False, 100, 0), (3, 100, 333, 64, False, 0, 250),
+              (2, 256, 256, 128, True, 0, 130), (1, 1000, 1000, 128, True, 257, 0),
+              (1, 130, 390, 96, False, 64, 389), (1, 1, 5, 80, True, 0, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE, ids=str)
+def test_flash_kernel_edges_match_oracle(cuda, case):
+    BH, Sq, Sk, hd, causal, window, k_len = case
+    q = _bf16((BH, Sq, hd), cuda, Sq)
+    k, v = _bf16((BH, Sk, hd), cuda, Sk + 1), _bf16((BH, Sk, hd), cuda, Sk + 2)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             k_len=k_len)
+    torch.cuda.synchronize()
+    kl = k_len or Sk                     # keys at or past k_len: invisible
+    want = fa.flash_attention_ref(q.float(), k[:, :kl].float(),
+                                  v[:, :kl].float(), causal, window)
+    assert got.shape == (BH, Sq, hd)
+    assert float((got.float() - want).abs().max()) <= FLASH_TOL
 
 
 def test_flash_dispatch_on_card_uses_the_kernel(cuda):

@@ -192,3 +192,55 @@ def test_conv_layer_accumulator_bit_exact(rng, record, layer):
                              torch.from_numpy(rows))
     np.testing.assert_array_equal(_np(got), _np(want))
     _same_calls(record)
+
+
+# ---------------------------------------------------------------------------
+# The bit-plane kernel's host-side plan (regime, split of K, scratch)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(1, 1, 1), (4, 2560, 1024), (4, 2560, 9728), (4, 9728, 2560),
+               (16, 9216, 4096), (16, 4096, 1000), (16, 512, 1000),
+               (15, 33, 7), (16, 200000, 64), (17, 147, 64),
+               (784, 4608, 512), (16384, 2560, 9728), (200704, 147, 64)]
+
+
+@pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
+def test_bitplane_plan_covers_the_shape(M, K, N):
+    from repro_torch.kernels import bitplane_matmul as bpm
+    p = bpm.plan(M, K, N)
+    if M > bpm.SMALL_M:
+        assert p.regime == "large_m"
+        assert p.k_pad % bpm.K_PAD == 0 and K <= p.k_pad < K + bpm.K_PAD
+        # TMA reads x in place only with 16-byte rows and base
+        assert p.copy_x == bool(K % 16)
+        assert bpm.plan(M, K, N, x_aligned=False).copy_x
+        assert p.scratch_bytes(M, N) == (N + M * p.copy_x) * p.k_pad
+        return
+    assert p.regime == "small_m" and p.k_pad == 0 and not p.copy_x
+    total = -(-K // 32)                 # k32 steps
+    cols = -(-N // bpm.GEMV_COLS)
+    # the splits tile K exactly: none empty, none past the end
+    assert p.steps * p.splits >= total > p.steps * (p.splits - 1)
+    assert 1 <= p.steps <= bpm.GEMV_MAX_STEPS
+    # about two blocks (a column slab's K slice each) per SM, unless K is
+    # too short to give each warp of a split a step
+    enough = min(2 * bpm.H100_SMS, cols * max(1, total // bpm.GEMV_WARPS))
+    assert cols * p.splits >= min(enough,
+                                  cols * -(-total // bpm.GEMV_MAX_STEPS))
+    assert p.splits == 1 or p.steps >= min(bpm.GEMV_WARPS, total)
+
+
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 18, 128])
+def test_bitplane_plan_regime_threshold(M):
+    from repro_torch.kernels import bitplane_matmul as bpm
+    want = "small_m" if M <= bpm.SMALL_M else "large_m"
+    assert bpm.plan(M, 512, 1000).regime == want
+
+
+def test_bitplane_plan_follows_the_sm_count_and_rejects_empty():
+    from repro_torch.kernels import bitplane_matmul as bpm
+    few, many = bpm.plan(4, 9728, 2560, sms=16), bpm.plan(4, 9728, 2560)
+    cols = -(-2560 // bpm.GEMV_COLS)
+    assert few.splits < many.splits and cols * few.splits >= 2 * 16
+    with pytest.raises(ValueError, match="empty"):
+        bpm.plan(0, 64, 64)
