@@ -35,17 +35,21 @@ result line:
      its f32 oracle on edge shapes and at the LM path's shape; the int4
      kernel equals its plain version on edge shapes; the quant kernel
      equals its plain version for none and relu and is within QUANT_TOL
-     for silu and gelu, at f32 and bf16 output;
+     for silu and gelu, at f32 and bf16 output; the three int8 GEMMs'
+     edge shapes run both regimes (M = 16 and 17 at a split K);
   4. ResNet18: hold the kernel at every GEMM shape of the path, serve
      batches through CNNServeEngine (launch counts, logits equal to the
      plain-version forward, EDP equal to the AP model, a 32-px card-vs-CPU
      run), time the batch and every GEMM shape, trace one batch;
   5. AlexNet: hold every kernel at every GEMM shape of the path, run (a),
-     (b) and (c) with launch counts per kernel, logits equal to the
+     (b) and (c) with launch counts per kernel and, for int4_matmul and
+     quant_matmul, per regime (INT4_PATHS, QUANT_PATHS), logits equal to the
      plain-version forwards on the card, EDP equal to the AP model, 32-px
      card-vs-CPU runs equal; time the batch, the forward and every GEMM
-     shape against its bound, plain version and torch._int_mm; trace one
-     batch of (a) and one forward of (b);
+     shape against its bound, plain version and torch._int_mm (int4 and
+     quant on both clocks, with the regime each shape takes, and both
+     sides of the regime threshold at fc6's width); trace one batch of (a)
+     and one forward of (b);
   6. Qwen3-4B: hold the bit-plane kernel at the LM GEMM shapes, serve
      ``generate`` calls (launch counts per call, repeatable tokens), hold
      one prefill against the kernels' plain versions on the card (the
@@ -61,7 +65,8 @@ device's, as in earlier runs), and device time, the same launches queued
 behind a sleeping kernel so that the card runs them back to back.  The
 bit-plane kernel's launches are also counted by the path it took (the
 small-M GEMV; the large-M GEMM with x read by TMA in place, or from a
-copy the pre-pass re-pitched with plain loads), and the line before the
+copy the pre-pass re-pitched with plain loads), and so are the int4 and
+quant kernels', which run the same two regimes; the line before the
 card's is the end-to-end summary.  The line before the last is the
 kernels' JSON summary; the last line is {"ok": true, "device": {...}}.
 """
@@ -86,9 +91,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 # the device-side kernel names of each wrapper (for the traces' shares)
-DEVICE_NAMES = {"bitplane_matmul": ("bitplane_wgmma_kernel",
-                                    "bitplane_gemv_kernel",
-                                    "prepass_kernel")}
+DEVICE_NAMES = {"bitplane_matmul": ("bitplane_",), "int4_matmul": ("int4_",),
+                "quant_matmul": ("quant_",)}
 KERNELS = ("bitplane_matmul", "flash_attention", "int4_matmul",
            "quant_matmul")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/bitplane_matmul.cu"
@@ -99,11 +103,18 @@ INT4_SOURCE = "src/repro_torch/kernels/csrc/int4_matmul.cu"
 INT4_REPLACES = "src/repro/kernels/int4_matmul.py:51"
 QUANT_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 QUANT_REPLACES = "src/repro/kernels/quant_matmul.py:50"
+# both regimes of the three int8 GEMMs: M = 16 and 17 at split K (4608,
+# 1500), K = 147 / 363 (x re-pitched), ragged and odd N
 EDGE_SHAPES = [(1, 1, 1), (1, 512, 1000), (3, 147, 64), (130, 147, 65),
                (129, 64, 128), (257, 576, 63), (64, 33, 7), (200, 4608, 24),
-               (16, 4608, 24), (17, 147, 1000), (16, 363, 65)]
-INT4_EDGE = [(M, K, N) for M in (1, 16, 130) for K in (1, 17, 363)
-             for N in (2, 96, 130, 1000)]
+               (16, 4608, 24), (17, 4608, 24), (17, 147, 1000),
+               (16, 363, 65), (16, 1500, 130), (17, 1500, 130)]
+INT4_EDGE = [(M, K, N) for M in (1, 16, 17, 130)
+             for K in (1, 17, 363, 512, 1500) for N in (2, 96, 130, 1000)]
+# launches by path per fixed-INT4 forward (b) and per (c) GEMM set: fc6-8
+# take the GEMV, conv1 (K = 363) the large-M tile with x re-pitched
+INT4_PATHS = {"small_m": 3, "large_m": 1, "large_m_copy_x": 1}
+QUANT_PATHS = {"small_m": 3, "large_m": 7, "large_m_copy_x": 1}
 # quant_matmul's silu / gelu against the plain version, |err| <= TOL x
 # (1 + |plain|): CUDA's expf / tanhf against PyTorch's, a few f32 ulps;
 # bf16 output one bf16 ulp (none and relu must be equal)
@@ -263,7 +274,8 @@ class Bench:
         it (M > 16, K and N multiples of 8), timed with the weight
         row-major (K, N) and K-major (``w.t().contiguous().t()``, the
         layout cuBLAS's int8 GEMM prefers); neither copy is timed.
-        Returns (faster ms, padded?, row-major ms, K-major ms)."""
+        Returns (faster ms, padded?, row-major ms, K-major ms, the faster
+        layout's device ms)."""
         torch = self.torch
         M, K = x.shape
         N = w_i8.shape[1]
@@ -274,60 +286,73 @@ class Bench:
         wk = wl.t().contiguous().t()
         row_ms = self.time_ms(lambda: torch._int_mm(xl, wl))
         kmaj_ms = self.time_ms(lambda: torch._int_mm(xl, wk))
+        wf = wl if row_ms < kmaj_ms else wk
+        dev_ms = self.device_ms(lambda: torch._int_mm(xl, wf))
         return (min(row_ms, kmaj_ms), (Mp, Kp, Np) != (M, K, N), row_ms,
-                kmaj_ms)
+                kmaj_ms, dev_ms)
 
     @staticmethod
     def lib_note(padded, row_ms, kmaj_ms):
         return (f"{' (padded)' if padded else ''} (w row-major "
                 f"{row_ms:.4f}, K-major {kmaj_ms:.4f})")
 
+    def row_note(self, name, regime, k_ms, d_ms, p_ms, l_ms, ld_ms, padded,
+                 l_row, l_kmaj, t_bytes, t_ops, lib_what=""):
+        bound = max(t_bytes, t_ops)
+        print(f"{self.tag} {name}: {regime} regime, kernel {k_ms:.4f} ms "
+              f"(device {d_ms:.4f}), plain {p_ms:.4f} ms, torch._int_mm"
+              f"{lib_what} {l_ms:.4f} ms (device {ld_ms:.4f})"
+              f"{self.lib_note(padded, l_row, l_kmaj)} (no epilogue), bound "
+              f"{bound:.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+              f"{bound / k_ms:.3f} of bound ({bound / d_ms:.3f} on the "
+              f"device clock); kernel / library on the device clock "
+              f"{d_ms / ld_ms:.3f}")
+
     def int4_row(self, M, K, N):
         """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
-        bound ms) of one int4_matmul launch at (M, K, N), f32 output."""
+        bound ms, kernel device ms, torch._int_mm device ms) of one
+        int4_matmul launch at (M, K, N), f32 output."""
         from repro_torch.core import bitfluid as bf
         from repro_torch.kernels import int4_matmul as i4mm
         x, w, s = self.rand_i8((M, K)), self.rand_u8((K, N // 2)), \
             self.rand_scale(N)
         k_ms = self.time_ms(lambda: i4mm.int4_matmul(x, w, s))
+        d_ms = self.device_ms(lambda: i4mm.int4_matmul(x, w, s))
         p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s))
-        l_ms, padded, l_row, l_kmaj = self.library_int_mm(
+        l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bf.unpack_int4_halves(w))
         t_bytes = (M * K + K * N // 2 + 4 * N + 4 * M * N) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
-        print(f"{self.tag} int4_matmul ({M},{K},{N}) f32 out: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch._int_mm on the "
-              f"unpacked int8 weight {l_ms:.4f} ms"
-              f"{self.lib_note(padded, l_row, l_kmaj)} (no epilogue), "
-              f"bound {max(t_bytes, t_ops):.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
-              f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
-        return k_ms, p_ms, l_ms, t_bytes, t_ops
+        self.row_note(f"int4_matmul ({M},{K},{N}) f32 out",
+                      i4mm.plan(M, K, N).path, k_ms, d_ms, p_ms, l_ms, ld_ms,
+                      padded, l_row, l_kmaj, t_bytes, t_ops,
+                      " on the unpacked int8 weight")
+        return k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms
 
     def quant_row(self, M, K, N, act, out_dtype):
-        """The same five numbers for one quant_matmul launch."""
+        """The same seven numbers for one quant_matmul launch."""
         from repro_torch.kernels import quant_matmul as qmm
         x, w, s = self.rand_i8((M, K)), self.rand_i8((K, N)), \
             self.rand_scale(N)
         bias = self.rand_scale(N)
         k_ms = self.time_ms(lambda: qmm.quant_matmul(
             x, w, s, bias, act=act, out_dtype=out_dtype))
+        d_ms = self.device_ms(lambda: qmm.quant_matmul(
+            x, w, s, bias, act=act, out_dtype=out_dtype))
         p_ms = self.time_ms(lambda: qmm.quant_matmul_ref(
             x, w, s, bias, act, out_dtype))
-        l_ms, padded, l_row, l_kmaj = self.library_int_mm(x, w)
+        l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(x, w)
         out_b = 2 if out_dtype == self.torch.bfloat16 else 4
         t_bytes = (M * K + K * N + 8 * N + out_b * M * N) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
-        print(f"{self.tag} quant_matmul ({M},{K},{N}) act={act} "
-              f"{str(out_dtype).split('.')[-1]} out: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, torch._int_mm {l_ms:.4f} ms"
-              f"{self.lib_note(padded, l_row, l_kmaj)} (no epilogue), bound "
-              f"{max(t_bytes, t_ops):.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
-              f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
-        return k_ms, p_ms, l_ms, t_bytes, t_ops
+        self.row_note(f"quant_matmul ({M},{K},{N}) act={act} "
+                      f"{str(out_dtype).split('.')[-1]} out",
+                      qmm.plan(M, K, N).path, k_ms, d_ms, p_ms, l_ms, ld_ms,
+                      padded, l_row, l_kmaj, t_bytes, t_ops)
+        return k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms
 
     def hold_bitplane(self, x, w, n):
         from repro_torch.kernels import bitplane_matmul as bpm
@@ -343,30 +368,30 @@ class Bench:
 
     def gemm_row(self, M, K, N, n):
         """(kernel ms, plain ms, torch._int_mm ms, bytes bound ms, ops
-        bound ms, kernel device ms) of one bit-plane launch at (M, K, N),
-        n planes.  Kernel ms is per launch over back-to-back launches (host
-        time included where it exceeds the device's); device ms is the
-        same launches run back to back on the card (see device_ms), the
-        pre-pass or memset included."""
+        bound ms, kernel device ms, torch._int_mm device ms) of one
+        bit-plane launch at (M, K, N), n planes.  Kernel ms is per launch
+        over back-to-back launches (host time included where it exceeds
+        the device's); device ms is the same launches run back to back on
+        the card (see device_ms), the pre-pass or memset included."""
         from repro_torch.kernels import bitplane_matmul as bpm
         x, w = self.rand_i8((M, K)), self.rand_i8((K, N))
         k_ms = self.time_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
         d_ms = self.device_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
         p_ms = self.time_ms(lambda: bpm.bitplane_matmul_ref(x, w, n))
         # library yardstick: one torch._int_mm on the sign-extended weights
-        l_ms, padded, l_row, l_kmaj = self.library_int_mm(
+        l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bpm.sign_extend_field(w, n))
         t_bytes = (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
         print(f"{self.tag} bitplane_matmul ({M},{K},{N}) n_planes={n}: "
               f"kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, "
-              f"torch._int_mm {l_ms:.4f} ms"
+              f"torch._int_mm {l_ms:.4f} ms (device {ld_ms:.4f})"
               f"{self.lib_note(padded, l_row, l_kmaj)}, "
               f"{bpm.plan(M, K, N).regime} regime, bound "
               f"{max(t_bytes, t_ops):.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{max(t_bytes, t_ops) / k_ms:.3f} of bound")
-        return k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms
+        return k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms
 
 
 def trace(torch, tag, label, fn, match):
@@ -601,18 +626,18 @@ def cnn_path(b: Bench) -> dict:
     per_shape = {(M, K, N, n): b.gemm_row(M, K, N, n)
                  for M, K, N in shapes for n in fams}
     # one served batch's 42 launches, summed over the path's layers
-    tot = [0.0] * 6
+    tot = [0.0] * 7
     bound_ms = 0.0
     for _, M, K, N, _ in gemms:
         for n in fams:
             row = per_shape[(M, K, N, n)]
             tot = [a + r for a, r in zip(tot, row)]
             bound_ms += max(row[3], row[4])
-    k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms = tot
+    k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms = tot
     print(f"{tag} bitplane_matmul per served batch ({per_batch} launches): "
           f"kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, "
           f"torch._int_mm "
-          f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"{l_ms:.4f} ms (device {ld_ms:.4f}), bound {bound_ms:.4f} ms "
           f"({bound_ms / k_ms:.3f} of bound); batch wall {med * 1e3:.3f} ms")
 
     # ---- where one served batch's time goes
@@ -622,8 +647,8 @@ def cnn_path(b: Bench) -> dict:
     torch.cuda.empty_cache()
     return {"launches": sum(launches.values()), "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "t_bytes": t_bytes, "t_ops": t_ops,
-            "library_ms": l_ms, "device_ms": d_ms, "paths": paths,
-            "wall_ms": med * 1e3}
+            "library_ms": l_ms, "device_ms": d_ms, "library_device_ms": ld_ms,
+            "paths": paths, "wall_ms": med * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +658,21 @@ def cnn_path(b: Bench) -> dict:
 def alexnet_configs():
     from repro_torch.core.policy import fixed
     return {"int4": fixed(4), "int8": fixed(8)}
+
+
+def check_paths(label, got, per_unit, units, plan, shapes):
+    """Launches by path against the expectation per unit of work, and
+    against what the kernel's plan says for the path's shapes (x at an
+    aligned base): on a mismatch, print why."""
+    want = {p: n * units for p, n in per_unit.items()}
+    planned: dict = {}
+    for M, K, N in shapes:
+        path = plan(M, K, N).path
+        planned[path] = planned.get(path, 0) + units
+    check(got == want, f"{label} launches by path {got}, expected {want}; "
+          f"the plans of the path's shapes give {planned} with x at "
+          f"16-byte aligned bases, so an x that arrived unaligned moves "
+          f"large_m launches to large_m_copy_x")
 
 
 def reset_gemm_launches():
@@ -789,11 +829,13 @@ def alexnet_path(b: Bench) -> dict:
         fwd_s.append(time.perf_counter() - t0)
         fouts.append(out)
     b_i4, b_bp = i4mm.launches, dict(bpm.launches)
-    b_paths = dict(bpm.path_launches)
+    b_paths, b_i4_paths = dict(bpm.path_launches), dict(i4mm.path_launches)
     peak_b = torch.cuda.max_memory_allocated() / 2 ** 20
     check(b_i4 == len(ungrouped) * SERVED,
           f"(b) int4_matmul launches {b_i4}, expected {len(ungrouped)} per "
           f"forward x {SERVED}")
+    check_paths("(b) int4_matmul", b_i4_paths, INT4_PATHS, SERVED,
+                i4mm.plan, ungrouped)
     check(sum(b_bp.values()) == b_bp[8] == grouped_slices * SERVED
           and sum(qmm.launches.values()) == 0 and fa.launches == 0,
           f"(b) bit-plane launches {b_bp}, expected {grouped_slices} per "
@@ -820,7 +862,8 @@ def alexnet_path(b: Bench) -> dict:
           f"logits, max |diff| {float((plain4 - out4).abs().max())}")
     print(f"(b) fixed-INT4 forward x {SERVED} (B={BATCH}): logits finite, "
           f"identical across forwards, == plain-version forward on the card; "
-          f"int4_matmul launches {len(ungrouped)} per forward, bit-plane "
+          f"int4_matmul launches {len(ungrouped)} per forward (by path "
+          f"{b_i4_paths}), bit-plane "
           f"{grouped_slices} per forward at n_planes 8 (by path {b_paths}); "
           f"peak memory "
           f"{peak_b:.1f} MiB")
@@ -839,10 +882,12 @@ def alexnet_path(b: Bench) -> dict:
                               out_dtype=torch.bfloat16)
              for x, q, s, bias, act in drive]
     torch.cuda.synchronize()
-    c_launches = dict(qmm.launches)
+    c_launches, c_paths = dict(qmm.launches), dict(qmm.path_launches)
     check(sum(c_launches.values()) == slices
           and sum(bpm.launches.values()) == 0 and i4mm.launches == 0,
           f"(c) quant_matmul launches {c_launches}, expected {slices}")
+    check_paths("(c) quant_matmul", c_paths, QUANT_PATHS, 1, qmm.plan,
+                [(M, K, N) for _, M, K, N, G in gemms for _ in range(G)])
     for got, (x, q, s, bias, act) in zip(c_out, drive):
         check(torch.equal(got, qmm.quant_matmul_ref(x, q, s, bias, act,
                                                     torch.bfloat16)),
@@ -850,8 +895,8 @@ def alexnet_path(b: Bench) -> dict:
               f"{tuple(q.shape)}")
     print(f"(c) ops.quant_matmul over one forward's {slices} int8 GEMMs "
           f"(the layer's own weights, act relu / none, bf16 out): launches "
-          f"{ {a: c for a, c in c_launches.items() if c} }, each == plain "
-          f"version")
+          f"{ {a: c for a, c in c_launches.items() if c} } (by path "
+          f"{c_paths}), each == plain version")
     del drive, c_out
 
     # ---- small input: the card agrees with the port on the CPU
@@ -895,6 +940,11 @@ def alexnet_path(b: Bench) -> dict:
     q_rows = {(M, K, N, acts[name]): b.quant_row(M, K, N, acts[name],
                                                  torch.bfloat16)
               for name, M, K, N, _ in gemms}
+    # the regime threshold at fc6's width: one row more takes the large-M
+    # tile
+    for M in (bpm.SMALL_M, bpm.SMALL_M + 1):
+        b.int4_row(M, 9216, 4096)
+        b.quant_row(M, 9216, 4096, "relu", torch.bfloat16)
 
     def total(rows, keys):
         tot = [0.0] * len(rows[keys[0]])
@@ -907,6 +957,8 @@ def alexnet_path(b: Bench) -> dict:
                "t_bytes": tot[3], "t_ops": tot[4], "bound_ms": bound}
         if len(tot) > 5:
             out["device_ms"] = tot[5]
+        if len(tot) > 6:
+            out["library_device_ms"] = tot[6]
         return out
 
     bp_a = total(bp_rows, [(M, K, N, n) for _, M, K, N, G in gemms
@@ -925,9 +977,11 @@ def alexnet_path(b: Bench) -> dict:
                             None)):
         dev_note = (f" (device {t['device_ms']:.4f})" if "device_ms" in t
                     else "")
+        lib_note = (f" (device {t['library_device_ms']:.4f})"
+                    if "library_device_ms" in t else "")
         print(f"{tag} {label}: kernel {t['ms']:.4f} ms{dev_note}, plain "
               f"{t['plain_ms']:.4f} ms, torch._int_mm {t['library_ms']:.4f} "
-              f"ms, bound {t['bound_ms']:.4f} ms "
+              f"ms{lib_note}, bound {t['bound_ms']:.4f} ms "
               f"({'bytes' if t['t_bytes'] >= t['t_ops'] else 'operations'}; "
               f"{t['t_bytes'] / 1e3 * HBM_BYTES_PER_S / 1e6:.1f} MB), "
               f"{t['bound_ms'] / t['ms']:.3f} of bound"
@@ -945,8 +999,8 @@ def alexnet_path(b: Bench) -> dict:
     bp_a["paths"], bp_a["wall_ms"] = a_paths, med_a * 1e3
     bp_b["launches"] = sum(b_bp.values())
     bp_b["paths"], bp_b["wall_ms"] = b_paths, med_b * 1e3
-    i4["launches"] = b_i4
-    qm["launches"] = sum(c_launches.values())
+    i4["launches"], i4["paths"] = b_i4, b_i4_paths
+    qm["launches"], qm["paths"] = sum(c_launches.values()), c_paths
     return {"bitplane_served_batch": bp_a, "bitplane_int4_forward": bp_b,
             "int4": i4, "quant": qm}
 
@@ -1239,7 +1293,7 @@ def lm_path(b: Bench) -> dict:
     # the bit-plane GEMM shapes, and their sums over one generate call
     per_shape = {(M, K, N, n): b.gemm_row(M, K, N, n)
                  for M in (M_pre, M_dec) for K, N in kn for n in fams}
-    tot = [0.0] * 6
+    tot = [0.0] * 7
     bound_ms = 0.0
     for K, N in linears:
         for n in fams:
@@ -1247,11 +1301,12 @@ def lm_path(b: Bench) -> dict:
                 row = per_shape[(M, K, N, n)]
                 tot = [a + reps * L * r for a, r in zip(tot, row)]
                 bound_ms += reps * L * max(row[3], row[4])
-    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms = tot
+    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms, bld_ms = tot
     print(f"{tag} bitplane_matmul per generate call ({per_call_bp} "
           f"launches): kernel {bk_ms:.4f} ms (device {bd_ms:.4f}), plain "
           f"{bp_ms:.4f} ms, "
-          f"torch._int_mm {bl_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"torch._int_mm {bl_ms:.4f} ms (device {bld_ms:.4f}), bound "
+          f"{bound_ms:.4f} ms "
           f"({bound_ms / bk_ms:.3f} of bound); flash per generate call "
           f"({L} launches): kernel {L * f_ms:.4f} ms, bound "
           f"{L * f_bound:.4f} ms; generate wall {med_gen * 1e3:.3f} ms")
@@ -1276,7 +1331,8 @@ def lm_path(b: Bench) -> dict:
         "bitplane": {"launches": bp_total, "ms": bk_ms, "plain_ms": bp_ms,
                      "bound_ms": bound_ms, "t_bytes": bt_bytes,
                      "t_ops": bt_ops, "library_ms": bl_ms,
-                     "device_ms": bd_ms, "paths": bp_paths},
+                     "device_ms": bd_ms, "library_device_ms": bld_ms,
+                     "paths": bp_paths},
         "e2e": {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
                 "generate_ms": med_gen * 1e3},
         "flash": {"launches": fa_total, "ms": L * f_ms,
@@ -1334,7 +1390,7 @@ def ptxas_summary(log: str):
 
     def kernel_name(mangled):
         # the shortest <length><name> ending in _kernel, then its template
-        # ints
+        # arguments (ints, f32 "f", bf16)
         for m in re.finditer(r"_kernel", mangled):
             end = m.end()
             for start in range(m.start() - 1, 0, -1):
@@ -1342,11 +1398,14 @@ def ptxas_summary(log: str):
                 if mangled[start].isalpha() and \
                         mangled[start - len(digits):start] == digits:
                     name = mangled[start:end]
-                    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+                    args = re.match(r"I((?:Li-?\d+E|f|13__nv_bfloat16)+)E",
+                                    mangled[end:])
                     if not args:
                         return name
-                    ints = re.findall(r"Li(-?\d+)E", args.group(1))
-                    return f"{name}<{','.join(ints)}>"
+                    toks = re.findall(r"Li(-?\d+)E|(f)|13__nv_(bfloat16)",
+                                      args.group(1))
+                    vals = [i or ("f32" if f else "bf16") for i, f, _ in toks]
+                    return f"{name}<{','.join(vals)}>"
         return mangled
 
     entry, spill = None, ""
@@ -1383,9 +1442,15 @@ def kernel_row(name, source, replaces, err, parts) -> dict:
            "library_ms": tot["library_ms"]}
     if dev:
         out["device_ms"] = sum(dev)
+    if all("library_device_ms" in p for p in parts.values()):
+        out["library_device_ms"] = sum(p["library_device_ms"]
+                                        for p in parts.values())
+    if len(parts) == 1 and "paths" in next(iter(parts.values())):
+        out["paths"] = next(iter(parts.values()))["paths"]
     if len(parts) > 1:
         out["per_path"] = {n: {k: p[k] for k in ROW_KEYS
-                               + ("device_ms", "paths") if k in p}
+                               + ("device_ms", "library_device_ms", "paths")
+                               if k in p}
                            for n, p in parts.items()}
     return out
 

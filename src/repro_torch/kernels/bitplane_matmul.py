@@ -60,10 +60,11 @@ def reset_launches() -> None:
 
 @dataclass(frozen=True)
 class Plan:
-    """How the kernel runs one ``(M, K) @ (K, N)``.  ``regime`` is
-    ``"small_m"`` or ``"large_m"``.  A GEMV splits K into ``splits``
-    slices of ``steps`` 32-deep steps, one block per slice and 128
-    output columns; the large-M regime needs an
+    """How a kernel runs one ``(M, K) @ (K, N)``: the bit-plane kernel's
+    plan, shared by ``quant_matmul`` and ``int4_matmul`` (N in logical
+    columns).  ``regime`` is ``"small_m"`` or ``"large_m"``.  A GEMV
+    splits K into ``splits`` slices of ``steps`` 32-deep steps, one block
+    per slice and 128 output columns; the large-M regime needs an
     ``(N, k_pad)`` int8 scratch, and ``(M, k_pad)`` more when ``copy_x``
     (x's rows are not 16-byte aligned, so TMA reads a re-pitched copy)."""
     regime: str
@@ -79,13 +80,27 @@ class Plan:
     def scratch_bytes(self, M: int, N: int) -> int:
         return (N + (M if self.copy_x else 0)) * self.k_pad
 
+    @staticmethod
+    def slabs(N: int) -> int:
+        """GEMV blocks across N: one per :data:`GEMV_COLS` columns."""
+        return -(-N // GEMV_COLS)
+
+    def partial_bytes(self, M: int, N: int) -> int:
+        """The int32 (M, N) scratch a split GEMV whose output is not its
+        int32 sum (``quant_matmul``, ``int4_matmul``) adds its partials
+        into before the epilogue; none when K is not split."""
+        return 4 * M * N if self.regime == "small_m" and self.splits > 1 \
+            else 0
+
 
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, K: int, N: int, sms: int = H100_SMS,
          x_aligned: bool = True) -> Plan:
-    """The regime from M; for a GEMV, the split of K that puts about two
-    blocks on each of ``sms`` SMs, with at least one k32 step per warp and
-    at most :data:`GEMV_MAX_STEPS` steps per split; for the large-M
+    """The regime from M; for a GEMV, the split of K that fills one wave
+    of two blocks on each of ``sms`` SMs (the most a GEMV block's
+    registers let an SM hold: a block more starts a second, mostly idle
+    wave), with at least one k32 step per warp and at most
+    :data:`GEMV_MAX_STEPS` steps per split; for the large-M
     regime, whether x must be re-pitched (K % 16, or ``x_aligned`` false:
     its base is not 16-byte aligned)."""
     if M <= 0 or K <= 0 or N <= 0:
@@ -94,13 +109,27 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS,
     if M > SMALL_M:
         return Plan("large_m", k_pad=-(-K // K_PAD) * K_PAD,
                     copy_x=bool(K % K_PAD) or not x_aligned)
-    cols = -(-N // GEMV_COLS)
+    cols = Plan.slabs(N)
     total = -(-K // 32)
-    want = -(-2 * sms // cols)
+    want = 2 * sms // cols
     splits = max(1, min(want, total // GEMV_WARPS))
     steps = min(-(-total // splits), GEMV_MAX_STEPS)
     splits = -(-total // steps)
     return Plan("small_m", splits=splits, steps=steps)
+
+
+def alloc_scratch(p: Plan, M: int, N: int, device, partials: bool = False):
+    """The plan's scratch for one call (nothing is cached): the large-M
+    regime's K-major weight and re-pitched x; with ``partials``, a split
+    GEMV's int32 partial and one arrival counter per slab.  None where
+    the plan needs none."""
+    if p.regime == "large_m":
+        nbytes = p.scratch_bytes(M, N)
+    elif partials and p.splits > 1:
+        nbytes = p.partial_bytes(M, N) + 4 * p.slabs(N)
+    else:
+        return None
+    return torch.empty(nbytes, dtype=torch.int8, device=device)
 
 
 def sign_extend_field(w_q: torch.Tensor, n_planes: int) -> torch.Tensor:
@@ -153,17 +182,12 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
     if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"bitplane_matmul: ({M}, {K}) @ ({K}, {N}) exceeds "
                          f"the kernel's grid")
-    p = plan(M, K, N, _sms(dev), x_q.data_ptr() % 16 == 0)
+    p = plan(M, K, N, sm_count(dev), x_q.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
-    scratch = None                       # per call: nothing is cached
-    if p.regime == "large_m":
-        scratch = torch.empty(p.scratch_bytes(M, N), dtype=torch.int8,
-                              device=dev)
-    stream = (_raw_stream(dev.index) if _raw_stream is not None
-              else torch.cuda.current_stream(dev).cuda_stream)
+    scratch = alloc_scratch(p, M, N, dev)
     err = _entry()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                   scratch.data_ptr() if scratch is not None else None,
-                   M, N, K, n_planes, p.steps, int(p.copy_x), stream)
+                   ptr_or_none(scratch), M, N, K, n_planes, p.steps,
+                   int(p.copy_x), current_stream(dev))
     if err != 0:
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "
                            f"error {err} at ({M}, {K}) @ ({K}, {N}), "
@@ -178,8 +202,20 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
+def ptr_or_none(t):
+    return t.data_ptr() if t is not None else None
+
+
+def current_stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current stream, for a launch (the thin
+    path of the three int8 GEMM wrappers)."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 @functools.cache
-def _sms(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

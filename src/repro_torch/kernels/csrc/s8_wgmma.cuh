@@ -1,5 +1,5 @@
-// The int8 wgmma GEMM tile for Hopper (sm_90a), used by
-// bitplane_matmul.cu's large-M regime.
+// The int8 wgmma GEMM tile for Hopper (sm_90a), used by the large-M
+// regime of bitplane_matmul.cu, quant_matmul.cu and int4_matmul.cu.
 //
 // One block computes 128 x 128 int32 tiles of x (M, K) @ w^T, where w is
 // given K-MAJOR, as an (N, K') row-major array: int8 wgmma reads both of
@@ -16,9 +16,12 @@
 // the next tile's loads overlap this tile's epilogue.  Tiles are taken
 // grouped by 8 row tiles, so the tiles in flight share their x rows and
 // w columns in L2.  The epilogue is the caller's: it receives each
-// consumer thread's accumulator registers.
+// consumer thread's accumulator registers, and store_tile() writes them
+// through shared memory as f(column, acc) in the output's type.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "hopper.cuh"
 
@@ -180,13 +183,35 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* map_x,
   }
 }
 
-// Epilogue helper: the warpgroup's 64 x 128 int32 tile through shared
-// memory, then out rows as coalesced 16-byte stores (scalar stores at the
-// ragged column edge, or everywhere when N % 4 != 0).
-__device__ __forceinline__ void store_tile_s32(const int (&acc)[64], int wg,
-                                               int m0, int n0,
-                                               int32_t* __restrict__ out,
-                                               int M, int N) {
+__device__ __forceinline__ void put1(int32_t* o, int v) { *o = v; }
+__device__ __forceinline__ void put1(float* o, float v) { *o = v; }
+__device__ __forceinline__ void put1(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void put4(int32_t* o, int a, int b, int c, int d) {
+  *reinterpret_cast<int4*>(o) = make_int4(a, b, c, d);
+}
+__device__ __forceinline__ void put4(float* o, float a, float b, float c,
+                                     float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void put4(__nv_bfloat16* o, float a, float b,
+                                     float c, float d) {
+  const __nv_bfloat162 h[2] = {__floats2bfloat162_rn(a, b),
+                               __floats2bfloat162_rn(c, d)};
+  *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(h);
+}
+
+// Epilogue: the warpgroup's 64 x 128 int32 tile through shared memory,
+// then out rows as f(column, acc), four columns a thread: one 16-byte
+// (int32, f32) or 8-byte (bf16, rounded to nearest even) store where
+// N % 4 == 0, element by element at the ragged column edge or elsewhere.
+// The int32 tile never reaches device memory unless OutT is int32_t.
+template <class OutT, class F>
+__device__ __forceinline__ void store_tile(const int (&acc)[64], int wg,
+                                           int m0, int n0,
+                                           OutT* __restrict__ out, int M,
+                                           int N, F f) {
   int32_t* so = reinterpret_cast<int32_t*>(smem_base() + EPI_OFF) +
                 wg * 64 * LDO;
   const int ct = threadIdx.x & 127;
@@ -211,17 +236,65 @@ __device__ __forceinline__ void store_tile_s32(const int (&acc)[64], int wg,
     const int gn = n0 + c;
     if (gm >= M || gn >= N) continue;
     const int4 v = *reinterpret_cast<const int4*>(so + r * LDO + c);
-    int32_t* o = out + static_cast<size_t>(gm) * N + gn;
+    OutT* o = out + static_cast<size_t>(gm) * N + gn;
     if (vec && gn + 3 < N) {
-      *reinterpret_cast<int4*>(o) = v;
+      put4(o, f(gn, v.x), f(gn + 1, v.y), f(gn + 2, v.z), f(gn + 3, v.w));
     } else {
-      o[0] = v.x;
-      if (gn + 1 < N) o[1] = v.y;
-      if (gn + 2 < N) o[2] = v.z;
-      if (gn + 3 < N) o[3] = v.w;
+      put1(o, f(gn, v.x));
+      if (gn + 1 < N) put1(o + 1, f(gn + 1, v.y));
+      if (gn + 2 < N) put1(o + 2, f(gn + 2, v.z));
+      if (gn + 3 < N) put1(o + 3, f(gn + 3, v.w));
     }
   }
   named_sync(1 + wg, 128);            // staging free for the next tile
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Raise `kernel`'s dynamic shared memory limit to SMEM_BYTES, once: the
+// caller keeps `done`, one per kernel instantiation.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  done = e == cudaSuccess;
+  return e;
+}
+
+// the persistent grid for an (M, N) output: one block per tile, at most
+// one per SM
+inline int grid_blocks(int M, int N) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  return tiles < sms ? tiles : sms;
+}
+
+// The tensor maps of one large-M GEMM: x (M, K) with row stride K (or its
+// re-pitched copy xp with stride Kp), and the K-major weight wt (N, Kp).
+inline bool make_maps(CUtensorMap* map_x, CUtensorMap* map_w, const void* x,
+                      const int8_t* xp, const int8_t* wt, int M, int N,
+                      int K, int Kp) {
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims_w[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(N)};
+  const cuuint64_t stride_w[1] = {static_cast<cuuint64_t>(Kp)};
+  const cuuint32_t box_w[2] = {BK, BN};
+  const cuuint64_t dims_x[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(M)};
+  const cuuint64_t stride_x[1] = {static_cast<cuuint64_t>(xp ? Kp : K)};
+  const cuuint32_t box_x[2] = {BK, BM};
+  return make_map(map_w, u8, 2, wt, dims_w, stride_w, box_w) &&
+         make_map(map_x, u8, 2, xp ? static_cast<const void*>(xp) : x,
+                  dims_x, stride_x, box_x);
 }
 
 }  // namespace s8wg

@@ -10,26 +10,40 @@ the fixed-INT4 path's GEMM: the weights cross device memory at half the
 bytes of an int8 container.
 
 On a CUDA tensor the wrapper launches ``csrc/int4_matmul.cu``, or raises:
-there is no fallback.  On a CPU tensor it takes the plain version,
-:func:`int4_matmul_ref`, which is also the oracle the kernel is held
-against on the card.
+there is no fallback.  The kernel runs in the bit-plane kernel's two
+regimes, and :func:`plan` (the bit-plane kernel's, shared, with N in
+logical columns: a GEMV block's 128 of them are 64 packed byte columns)
+picks one per call: a split-K GEMV on the packed bytes for ``M <= 16``,
+else a pre-pass that unpacks the weight K-major and the ``wgmma`` tile.
+On a CPU tensor it takes the plain version, :func:`int4_matmul_ref`,
+which is also the oracle the kernel is held against on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict
 
 import torch
 
 from repro_torch.core import bitfluid as bf
+from repro_torch.kernels import bitplane_matmul as bpm
 from repro_torch.kernels import cuda_build
 
+# the regime's plan, shared with the bit-plane kernel (lru_cached, pure;
+# N logical)
+plan = bpm.plan
+
 launches = 0          # kernel launches (the main path's proof it ran here)
+# the same launches by path (bpm.PATHS)
+path_launches: Dict[str, int] = {p: 0 for p in bpm.PATHS}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for p in path_launches:
+        path_launches[p] = 0
 
 
 def int4_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
@@ -80,23 +94,25 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor,
             and scale.is_contiguous()):
         raise ValueError("int4_matmul: the kernel takes contiguous "
                          "row-major operands")
+    dev = x_q.device
     M, K = x_q.shape
     N = 2 * w_packed.shape[1]
-    if max(M, K, N) >= 2 ** 31 or -(-(N // 2) // 32) > 65535:
+    if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"int4_matmul: ({M}, {K}) @ ({K}, {N // 2}) "
                          f"exceeds the kernel's grid")
-    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-    fn = _entry()
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        err = fn(x_q.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), M, N, K, int(out_dtype == torch.bfloat16),
-                 stream)
+    p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    scratch = bpm.alloc_scratch(p, M, N, dev, partials=True)
+    err = _entry()(x_q.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                   out.data_ptr(), bpm.ptr_or_none(scratch), M, N, K,
+                   int(out_dtype == torch.bfloat16), p.steps, int(p.copy_x),
+                   bpm.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error "
-                           f"{err} at ({M}, {K}) @ ({K}, {N // 2})")
+                           f"{err} at ({M}, {K}) @ ({K}, {N // 2}), plan {p}")
     global launches
     launches += 1
+    path_launches[p.path] += 1
     return out
 
 
@@ -104,7 +120,7 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor,
 def _entry():
     lib = cuda_build.load("int4_matmul")
     fn = lib.int4_matmul_s4
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

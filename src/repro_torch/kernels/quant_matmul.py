@@ -10,9 +10,14 @@ kernel ``repro.kernels.quant_matmul.quant_matmul``, the fixed-precision
 int8 GEMM with its epilogue fused.
 
 On a CUDA tensor the wrapper launches ``csrc/quant_matmul.cu``, or raises:
-there is no fallback.  On a CPU tensor it takes the plain version,
-:func:`quant_matmul_ref`, which is also the oracle the kernel is held
-against on the card.
+there is no fallback.  The kernel runs in the bit-plane kernel's two
+regimes, with the epilogue on the whole int32 sum; :func:`plan` (the
+bit-plane kernel's, shared) picks one per call: a split-K GEMV for
+``M <= 16`` (the int32 partials of a split K go through an ``(M, N)``
+scratch before the epilogue), else a K-major pre-pass and the ``wgmma``
+tile, with x re-pitched where its rows are not 16-byte aligned.  On a
+CPU tensor it takes the plain version, :func:`quant_matmul_ref`, which
+is also the oracle the kernel is held against on the card.
 """
 from __future__ import annotations
 
@@ -23,18 +28,27 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import bitplane_matmul as bpm
 from repro_torch.kernels import cuda_build
+
+# the regime's plan, shared with the bit-plane kernel (lru_cached, pure)
+plan = bpm.plan
 
 ACTS = ("none", "relu", "silu", "gelu")
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
-# kernel launches per act (the main path's proof it ran here)
+# kernel launches per act (the main path's proof it ran here), and the
+# same launches by path (bpm.PATHS: the GEMV, or the large-M tile with x
+# read in place or re-pitched)
 launches: Dict[str, int] = {a: 0 for a in ACTS}
+path_launches: Dict[str, int] = {p: 0 for p in bpm.PATHS}
 
 
 def reset_launches() -> None:
     for a in launches:
         launches[a] = 0
+    for p in path_launches:
+        path_launches[p] = 0
 
 
 def activate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -97,22 +111,26 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if not all(t.is_contiguous() for t in (x_q, w_q, scale, bias)):
         raise ValueError("quant_matmul: the kernel takes contiguous "
                          "row-major operands")
+    dev = x_q.device
     M, K = x_q.shape
     N = w_q.shape[1]
-    if max(M, K, N) >= 2 ** 31 or -(-N // 64) > 65535:
+    if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"quant_matmul: ({M}, {K}) @ ({K}, {N}) exceeds "
                          f"the kernel's grid")
-    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-    fn = _entry()
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        err = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), M, N, K, ACTS.index(act),
-                 int(out_dtype == torch.bfloat16), stream)
+    p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    scratch = bpm.alloc_scratch(p, M, N, dev, partials=True)
+    err = _entry()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                   bias.data_ptr(), out.data_ptr(),
+                   bpm.ptr_or_none(scratch), M, N, K, ACTS.index(act),
+                   int(out_dtype == torch.bfloat16), p.steps, int(p.copy_x),
+                   bpm.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
-                           f"{err} at ({M}, {K}) @ ({K}, {N}), act={act}")
+                           f"{err} at ({M}, {K}) @ ({K}, {N}), act={act}, "
+                           f"plan {p}")
     launches[act] += 1
+    path_launches[p.path] += 1
     return out
 
 
@@ -120,7 +138,7 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
 def _entry():
     lib = cuda_build.load("quant_matmul")
     fn = lib.quant_matmul_s8
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

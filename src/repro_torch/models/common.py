@@ -37,9 +37,10 @@ def resolve_device(device) -> torch.device:
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, scale: Optional[float] = None,
-               lead: Tuple[int, ...] = (), device="cpu") -> dict:
+               lead: Tuple[int, ...] = (), device) -> dict:
     """bf16 Normal(0, scale) weights (scale defaults to d_in^-1/2), zero
     bias; ``lead`` prepends stack dims (``(L,)`` for a layer stack).
+    ``device`` is required: the entry points resolve it.
 
     The normals are drawn from ``gen`` on the generator's own device, so
     a CPU generator gives the same weights on every device, and a CUDA
@@ -136,7 +137,7 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-5
 
 
 def norm_init(d: int, kind: str, *, lead: Tuple[int, ...] = (),
-              device="cpu") -> dict:
+              device) -> dict:
     shape = tuple(lead) + (d,)
     p = {"scale": torch.ones(shape, dtype=DTYPE, device=device)}
     if kind == "layer":

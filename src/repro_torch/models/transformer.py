@@ -40,7 +40,7 @@ FLASH_THRESHOLD = 2048
 # Init (stacked: every leaf carries the leading ``lead`` dims)
 # ---------------------------------------------------------------------------
 
-def attn_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
+def attn_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(lead=lead, device=device)
     p = {
@@ -58,7 +58,7 @@ def attn_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
 
 
 def mlp_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
-             lead=(), device="cpu") -> dict:
+             lead=(), device) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     kw = dict(lead=lead, device=device)
     if cfg.mlp_type == "swiglu":
@@ -70,7 +70,7 @@ def mlp_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None, *,
             "wd": cm.dense_init(gen, f, d, bias=bias, scale=f ** -0.5, **kw)}
 
 
-def block_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
+def block_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
     kw = dict(lead=lead, device=device)
     return {
         "ln1": cm.norm_init(cfg.d_model, cfg.norm_type, **kw),
@@ -80,7 +80,7 @@ def block_init(gen: torch.Generator, cfg, *, lead=(), device="cpu") -> dict:
     }
 
 
-def empty_cache(cfg, batch: int, max_len: int, device="cpu") -> dict:
+def empty_cache(cfg, batch: int, max_len: int, *, device) -> dict:
     """Stacked (n_layers, ...) bf16 cache with every slot empty."""
     if cfg.kv_cache_bits == 8:
         raise NotImplementedError(

@@ -173,7 +173,8 @@ def _tiny_params():
     layers = _tiny_layers()
     gen = torch.Generator().manual_seed(0)
     params = {l.name: tcm.dense_init(gen, l.hk * l.wk * l.cin if l.kind ==
-                                     "conv" else l.cin, l.cout, bias=True)
+                                     "conv" else l.cin, l.cout, bias=True,
+                                     device="cpu")
               for l in gemm_layers(layers)}
     return params, layers
 

@@ -221,3 +221,79 @@ def test_int4_linear_other_bits_unpack(rng, monkeypatch, wbits):
          "b": jnp.asarray(b.numpy())}, jnp.asarray(x.numpy()),
         jnp.asarray(4, jnp.int32) if wbits == "tensor" else wbits, 8)
     np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# The two kernels' host-side plan (the bit-plane kernel's, shared; N in
+# logical columns): the regime, the split of K, the scratch
+# ---------------------------------------------------------------------------
+
+# AlexNet@227 at B=16: conv1 .. conv5 (grouped convs per group), fc6 .. fc8
+ALEX_SHAPES = [(48400, 363, 96), (11664, 1200, 128), (2704, 2304, 384),
+               (2704, 1728, 192), (2704, 1728, 128), (16, 9216, 4096),
+               (16, 4096, 4096), (16, 4096, 1000)]
+PLANS = {"quant": qmm, "int4": i4mm}
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+@pytest.mark.parametrize("M,K,N", ALEX_SHAPES)
+def test_plan_at_the_alexnet_path_shapes(kernel, M, K, N):
+    from repro_torch.kernels import bitplane_matmul as bpm
+    p = PLANS[kernel].plan(M, K, N)
+    if M <= 16:
+        assert p.regime == "small_m" and p.path == "small_m"
+        assert p.splits * p.steps * 32 >= K > (p.splits - 1) * p.steps * 32
+        assert p.scratch_bytes(M, N) == 0
+        assert p.partial_bytes(M, N) == (4 * M * N if p.splits > 1 else 0)
+        # the wrapper's scratch: the int32 partial, one counter per slab
+        s = bpm.alloc_scratch(p, M, N, "cpu", partials=True)
+        assert s.numel() == 4 * M * N + 4 * -(-N // 128)
+        return
+    assert p.regime == "large_m" and p.partial_bytes(M, N) == 0
+    k_pad = -(-K // 16) * 16
+    assert p.k_pad == k_pad and p.copy_x == (K % 16 != 0)
+    assert p.scratch_bytes(M, N) == N * k_pad + (M * k_pad if p.copy_x
+                                                 else 0)
+    assert bpm.alloc_scratch(p, M, N, "cpu", partials=True).numel() == \
+        p.scratch_bytes(M, N)
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+@pytest.mark.parametrize("M", [1, 16, 17, 64])
+def test_plan_regime_threshold(kernel, M):
+    p = PLANS[kernel].plan(M, 9216, 4096)
+    assert p.regime == ("small_m" if M <= 16 else "large_m")
+
+
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+def test_plan_copy_x_unaligned_and_empty(kernel):
+    plan = PLANS[kernel].plan
+    assert plan(48400, 363, 96).copy_x              # conv1: K = 363
+    aligned, moved = plan(2704, 2304, 384), plan(2704, 2304, 384,
+                                                 x_aligned=False)
+    assert not aligned.copy_x and moved.copy_x and moved.path == \
+        "large_m_copy_x"
+    assert moved.scratch_bytes(2704, 384) == (384 + 2704) * 2304
+    assert not plan(16, 363, 96, x_aligned=False).copy_x   # the GEMV
+    with pytest.raises(ValueError, match="empty"):
+        plan(0, 64, 64)
+
+
+def test_plan_paths_of_the_int4_forward_and_the_gemm_set():
+    """The launches by path chip_smoke.py expects: the fixed-INT4 forward
+    (b) runs int4_matmul on the five ungrouped layers, (c) quant_matmul on
+    all eleven GEMMs (grouped convs per group)."""
+    groups = [1, 2, 1, 2, 2, 1, 1, 1]
+
+    def count(plan, shapes):
+        out = {"small_m": 0, "large_m": 0, "large_m_copy_x": 0}
+        for M, K, N in shapes:
+            out[plan(M, K, N).path] += 1
+        return out
+
+    ungrouped = [s for s, g in zip(ALEX_SHAPES, groups) if g == 1]
+    assert count(i4mm.plan, ungrouped) == {
+        "small_m": 3, "large_m": 1, "large_m_copy_x": 1}
+    every = [s for s, g in zip(ALEX_SHAPES, groups) for _ in range(g)]
+    assert count(qmm.plan, every) == {
+        "small_m": 3, "large_m": 7, "large_m_copy_x": 1}

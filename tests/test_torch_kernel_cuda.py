@@ -299,3 +299,73 @@ def test_packed_and_stacked_dispatch_on_card(cuda):
         got = ops.serve_linear_stacked(p, xs.to(cuda), wb.to(cuda), 8)
     assert {n: bpm.launches[n] - before[n] for n in (4, 8)} == {4: 2, 8: 2}
     assert torch.equal(got.cpu(), want)
+
+
+# both regimes of int4_matmul and quant_matmul: the split-K GEMV (M <= 16,
+# K split where it is long enough) and the large-M wgmma tile with x read
+# in place (K % 16 == 0) or re-pitched; odd and ragged N, K = 1, 17, 363
+REGIME_MK = [(M, K) for M in (1, 16, 17, 130) for K in (1, 17, 363, 512,
+                                                         1500)]
+
+
+def _path(mod, M, K, N, x):
+    return mod.plan(M, K, N, x_aligned=x.data_ptr() % 16 == 0).path
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [2, 96, 130, 1000, 4098])
+def test_int4_kernel_regimes_equal_plain_version(cuda, N, out_dtype):
+    for i, (M, K) in enumerate(REGIME_MK):
+        x, w = _rand((M, K), cuda, 60 + i), _packed((K, N), cuda, 160 + i)
+        s = _scale(N, cuda, 260 + i)
+        before = dict(i4mm.path_launches)
+        got = i4mm.int4_matmul(x, w, s, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ran = [p for p in bpm.PATHS if i4mm.path_launches[p] != before[p]]
+        assert ran == [_path(i4mm, M, K, N, x)], (M, K, N)
+        assert torch.equal(got, i4mm.int4_matmul_ref(x, w, s, out_dtype)), \
+            (M, K, N)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", qmm.ACTS)
+@pytest.mark.parametrize("N", [1, 7, 65, 1000, 4096])
+def test_quant_kernel_regimes_match_plain_version(cuda, N, act, out_dtype):
+    for i, (M, K) in enumerate(REGIME_MK):
+        x, w = _rand((M, K), cuda, 70 + i), _rand((K, N), cuda, 170 + i)
+        s = _scale(N, cuda, 270 + i)
+        b = torch.from_numpy(np.random.default_rng(370 + i).normal(
+            size=(1, N)).astype(np.float32)).to(cuda)
+        before = dict(qmm.path_launches)
+        got = qmm.quant_matmul(x, w, s, b, act=act, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ran = [p for p in bpm.PATHS if qmm.path_launches[p] != before[p]]
+        assert ran == [_path(qmm, M, K, N, x)], (M, K, N)
+        want = qmm.quant_matmul_ref(x, w, s, b, act, out_dtype)
+        if act in ("none", "relu"):
+            assert torch.equal(got, want), (M, K, N)
+        else:
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= QUANT_TOL[out_dtype]
+                         * (1 + want.float().abs())).all()), (M, K, N)
+
+
+@pytest.mark.parametrize("M", [4, 16, 17, 300])
+def test_int4_and_quant_unaligned_views_in_both_regimes(cuda, M):
+    """x and w as views at odd byte offsets: the large-M regime re-pitches
+    x, and the GEMVs' weight loads fall back to narrower pieces."""
+    xf = _rand((1 + M * 640,), cuda, 80 + M)
+    x = xf[1:].view(M, 640)
+    wf = _rand((3 + 640 * 96,), cuda, 81)
+    w = wf[3:].view(640, 96)
+    s, b = _scale(96, cuda, 82), _scale(96, cuda, 83)
+    for od in (torch.float32, torch.bfloat16):
+        assert torch.equal(qmm.quant_matmul(x, w, s, b, act="relu",
+                                            out_dtype=od),
+                           qmm.quant_matmul_ref(x, w, s, b, "relu", od))
+    pf = _packed((640 * 97 + 1, 2), cuda, 84).view(-1)
+    wp = pf[1:1 + 640 * 97].view(640, 97)              # rows of 97 bytes
+    s4 = _scale(194, cuda, 85)
+    for od in (torch.float32, torch.bfloat16):
+        assert torch.equal(i4mm.int4_matmul(x, wp, s4, out_dtype=od),
+                           i4mm.int4_matmul_ref(x, wp, s4, od))

@@ -222,11 +222,15 @@ def test_bitplane_plan_covers_the_shape(M, K, N):
     # the splits tile K exactly: none empty, none past the end
     assert p.steps * p.splits >= total > p.steps * (p.splits - 1)
     assert 1 <= p.steps <= bpm.GEMV_MAX_STEPS
-    # about two blocks (a column slab's K slice each) per SM, unless K is
-    # too short to give each warp of a split a step
-    enough = min(2 * bpm.H100_SMS, cols * max(1, total // bpm.GEMV_WARPS))
-    assert cols * p.splits >= min(enough,
-                                  cols * -(-total // bpm.GEMV_MAX_STEPS))
+    # one wave of two blocks (a column slab's K slice each) per SM: never
+    # a block more unless the steps per split are at their cap, and filled
+    # up to the rounding of the split, unless K is too short to give each
+    # warp of a split a step
+    blocks, wave = cols * p.splits, 2 * bpm.H100_SMS
+    assert p.steps == bpm.GEMV_MAX_STEPS or blocks <= max(cols, wave)
+    enough = min(cols * max(1, wave // cols),
+                 cols * max(1, total // bpm.GEMV_WARPS))
+    assert 9 * blocks >= 8 * enough
     assert p.splits == 1 or p.steps >= min(bpm.GEMV_WARPS, total)
 
 
@@ -241,6 +245,11 @@ def test_bitplane_plan_follows_the_sm_count_and_rejects_empty():
     from repro_torch.kernels import bitplane_matmul as bpm
     few, many = bpm.plan(4, 9728, 2560, sms=16), bpm.plan(4, 9728, 2560)
     cols = -(-2560 // bpm.GEMV_COLS)
-    assert few.splits < many.splits and cols * few.splits >= 2 * 16
+    assert few.splits < many.splits
+    # on 16 SMs the cap on steps per split sets the split, not the wave
+    assert few.steps == bpm.GEMV_MAX_STEPS
+    mid = bpm.plan(4, 9728, 2560, sms=64)
+    assert few.splits <= mid.splits <= many.splits
+    assert cols * mid.splits <= 2 * 64 and cols * many.splits <= 2 * 132
     with pytest.raises(ValueError, match="empty"):
         bpm.plan(0, 64, 64)
