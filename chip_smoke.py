@@ -3,8 +3,9 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --paths 4  # some paths only, no result lines
 
-Three paths, each at full width with random weights from a seed:
+Four paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -23,7 +24,15 @@ Three paths, each at full width with random weights from a seed:
   prompts whose latency budgets resolve to int4, mixed, int8 and int8;
   prefill runs every layer's self-attention through the flash kernel and
   every linear through the bit-plane kernel, then 15 tokens decode on
-  the bf16 KV cache.
+  the bf16 KV cache;
+* the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
+  ``submit_at`` / ``run``): (a) 12 requests (prompts of 64 to 1024
+  tokens, 16 to 32 new tokens, budgets cycling int4, mixed, int8) through
+  8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
+  decoding 8 tokens for all slots at once; (b) 8 of them again with
+  speculative decoding (4 int4 drafts a round, verified in one chunk of
+  9 positions per row; one request at draft_k=0).  The bit-plane kernel
+  runs at M = 1024, 8 and 72.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -57,7 +66,21 @@ result line:
      logits as ``gate_logits`` says), check prices against the AP model
      and a SMOKE-size card-vs-CPU prefill, time prefill, decode, the
      flash kernel and the GEMM shapes against their bounds and library
-     yardsticks, and trace one prefill and one decode step.
+     yardsticks, and trace one prefill and one decode step;
+  7. continuous batching: the decode path's float reductions give a row
+     the same bits among 1, 8 and 72 rows; hold the bit-plane kernel at
+     the path's shapes, run (a) and (b), and gate: each request's tokens
+     in (a) EQUAL the request run alone (batch-1 prefill + decode_step
+     loop), and (b)'s EQUAL (a)'s; a free pool with every kpos at
+     EMPTY_POS after run(); AP records equal to the AP model's price of
+     each budget's bits; the spec ledger adding up to the tokens
+     delivered; the bit-plane launches by M and regime as ``plan()``
+     gives them; a SMOKE-size card-vs-CPU run of both (equal up to the
+     first step whose top-2 logit gap is under LOGIT_TOL x max|logit|:
+     the two devices' float libraries round apart).
+     Then time to first token, tokens/s per tick, the accept rate, run
+     walls, the bit-plane device sum per run(), and traces of a prefill
+     row, a decode tick and a speculative round.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -134,9 +157,16 @@ LM_ARCH = "qwen3_4b"
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
 LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 16, 4112
 LM_BUDGETS = [0.4, 0.8, 10.0, 1e30]      # -> int4, mixed, int8, int8
-LM_CALLS = 3          # timed generate calls after one warm-up
+LM_CALLS = 2          # timed generate calls after one warm-up
 LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
 LOGIT_TOL = 2e-2      # x max|logit|: bf16 attention + quantizer steps
+# path 4: continuous batching (a) and speculative decoding (b) on Qwen3-4B
+CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
+CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 12, 8, 2
+CB_PROMPT, CB_NEW = (64, 1024), (16, 32)
+CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
+CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
+CB_SMOKE_PREFILL = 24
 
 
 def fail(msg: str) -> None:
@@ -1037,9 +1067,42 @@ def gate_logits(label, got, plain, other_plain):
           f"{floor})")
 
 
-def lm_path(b: Bench) -> dict:
-    torch, dev, tag = b.torch, b.dev, b.tag
+def lm_weights(b: Bench):
+    """Qwen3-4B FULL at its published widths: train-form weights drawn on
+    the card from seed 0, quantized to the int8 serve form (the train
+    form freed).  Returns (cfg, qparams), shared by paths 3 and 4."""
+    torch, dev = b.torch, b.dev
     from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.get(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
+          f"{LM_ARCH} FULL is not the published width: {cfg}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    qparams = lm.quantize_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{LM_ARCH} FULL: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); weights drawn and "
+          f"quantized on the card in {time.perf_counter() - t0:.3f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB resident")
+    return cfg, qparams
+
+
+def lm_linears(cfg):
+    """(K, N) of a layer's seven serve linears, in order."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return [(d, H * hd), (d, KV * hd), (d, KV * hd), (H * hd, d),
+            (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+
+
+def lm_path(b: Bench, cfg, qparams) -> dict:
+    torch, dev, tag = b.torch, b.dev, b.tag
     from repro_torch.apsim import metrics as apm
     from repro_torch.kernels import bitplane_matmul as bpm
     from repro_torch.kernels import flash_attention as fa
@@ -1047,14 +1110,9 @@ def lm_path(b: Bench) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine, default_controller
 
-    cfg = configs.get(LM_ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
-          f"{LM_ARCH} FULL is not the published width: {cfg}")
     L = cfg.n_layers
-    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    linears = [(d, H * hd), (d, KV * hd), (d, KV * hd), (H * hd, d),
-               (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    d = cfg.d_model
+    linears = lm_linears(cfg)
     fams = (4, 8)
     M_pre, M_dec = LM_B * LM_S, LM_B
 
@@ -1067,20 +1125,6 @@ def lm_path(b: Bench) -> dict:
     print(f"kernel == plain: {len(kn)} Qwen3-4B (K, N) shapes at M = "
           f"{M_pre} (prefill) and M = {M_dec} (decode) x n_planes {fams}")
 
-    # ---- weights: drawn on the card from seed 0, quantized, train form
-    # freed
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = lm.init_params(cfg, gen, device=dev)
-    qparams = lm.quantize_params(params, cfg)
-    del params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    print(f"{LM_ARCH} FULL: {L} layers, d {d}, {H}/{KV} heads, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); "
-          f"weights drawn and quantized on the card in "
-          f"{time.perf_counter() - t0:.3f} s; "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB resident")
     ctrl = default_controller(lm.n_bit_slots(cfg))
     engine = ServeEngine(cfg, qparams, max_len=LM_MAX_LEN, controller=ctrl,
                          device=dev)
@@ -1383,6 +1427,493 @@ def smoke_card_vs_cpu(b: Bench) -> None:
                 f"[10.0, 0.4]), card vs CPU", card, cpu_tiled, cpu)
 
 
+# ---------------------------------------------------------------------------
+# Path 4: Qwen3-4B continuous batching and speculative decoding
+# ---------------------------------------------------------------------------
+
+def cb_requests(vocab: int, n: int, prompt_range, new_range, seed: int):
+    """``n`` requests drawn from ``seed``: (prompt, max_new_tokens,
+    budget), budgets cycling LM_BUDGETS (int4, mixed, int8, int8)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_range[0], prompt_range[1] + 1, n)
+    news = rng.integers(new_range[0], new_range[1] + 1, n)
+    return [(rng.integers(0, vocab, (int(S),)).astype(np.int32), int(m),
+             LM_BUDGETS[i % len(LM_BUDGETS)])
+            for i, (S, m) in enumerate(zip(lens, news))]
+
+
+def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
+    """Submit ``reqs[:upfront]`` now and the rest through ``submit_at`` at
+    ``late_tick``, then ``run()``.  Returns (rids in request order, run
+    seconds, {rid: time of the first token}, per-tick (seconds, tokens,
+    rows) of vanilla ticks and of speculative rounds, {rid: tokens
+    delivered by vanilla ticks}, {rid: tokens delivered by rounds})."""
+    import numpy as np
+    first_at, ticks, rounds = {}, [], []
+    by_tick: dict = {}
+    by_round: dict = {}
+    occupy, tick, rnd = (engine.slots.occupy, engine._decode_tick,
+                         engine._spec_round)
+
+    def on_first(slot, rid, **kw):
+        first_at[rid] = time.time()
+        occupy(slot, rid, **kw)
+
+    def timed(fn, log, where):
+        def call(active, *args):
+            rids = [int(engine.slots.rid[s]) for s in np.nonzero(active)[0]]
+            before = {r: len(engine.requests[r].tokens) for r in rids}
+            t0 = time.perf_counter()
+            fn(active, *args)                   # ends in a host copy
+            dt = time.perf_counter() - t0
+            got = {r: len(engine.requests[r].tokens) - n
+                   for r, n in before.items()}
+            for r, n in got.items():
+                where[r] = where.get(r, 0) + n
+            log.append((dt, sum(got.values()), len(rids)))
+        return call
+
+    engine.slots.occupy = on_first
+    engine._decode_tick = timed(tick, ticks, by_tick)
+    engine._spec_round = timed(rnd, rounds, by_round)
+    rids = []
+
+    def submit(i):
+        prompt, m, budget = reqs[i]
+        kw = {} if draft_ks is None or draft_ks[i] is None \
+            else {"draft_k": draft_ks[i]}
+        rids.append(engine.submit(prompt, max_new_tokens=m, budget_s=budget,
+                                  **kw))
+
+    try:
+        for i in range(upfront):
+            submit(i)
+        for i in range(upfront, len(reqs)):
+            engine.submit_at(late_tick, lambda i=i: submit(i))
+        t0 = time.perf_counter()
+        engine.run()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.slots.occupy = occupy
+        del engine._decode_tick, engine._spec_round
+    return rids, wall, first_at, ticks, rounds, by_tick, by_round
+
+
+def cb_standalone(engine, prompt, max_new: int, budget, prefill_len: int):
+    """One request alone: ``lm.prefill(lengths=)`` at batch 1 on the
+    engine's padded row, then a ``decode_step`` loop at the same bits,
+    greedy.  Returns (tokens, the top-2 logit gap of each step over
+    max|logit|)."""
+    import torch
+    from repro_torch.models import lm
+    dev, cfg = engine.device, engine.cfg
+    V = cfg.vocab_size
+    wv, av = engine.controller.resolve(torch.tensor(budget))
+    wv, av = wv.to(dev), av.to(dev)
+    S = len(prompt)
+    toks = torch.zeros((1, prefill_len), dtype=torch.int32)
+    toks[0, :S] = torch.from_numpy(prompt)
+    cache = lm.empty_cache(cfg, 1, engine.max_len, device=dev)
+    out, gaps = [], []
+
+    def take(logits):
+        lg = logits[0, -1, :V].float()
+        top2 = lg.topk(2).values
+        gaps.append((top2[0] - top2[1]) / lg.abs().max())
+        out.append(lg.argmax().to(torch.int32))
+        return out[-1].reshape(1, 1)
+
+    with engine.compute_ctx():
+        logits, cache = lm.prefill(engine.qparams, {"tokens": toks.to(dev)},
+                                   cfg, wv, av, cache,
+                                   lengths=torch.tensor([S]).to(dev))
+        tok = take(logits)
+        for i in range(max_new - 1):
+            logits, cache = lm.decode_step(engine.qparams, tok,
+                                           torch.tensor([S + i]).to(dev),
+                                           cache, cfg, wv, av)
+            tok = take(logits)
+    return (torch.stack(out).cpu().tolist(),
+            torch.stack(gaps).cpu().tolist())
+
+
+def tokens_agree(label, got, want, gaps):
+    """``got`` against ``want`` (greedy streams of one request): EQUAL, or
+    equal up to the first step whose top-2 logit gap (in ``gaps``, the
+    run that gave ``want``) is under LOGIT_TOL x max|logit|: the rule for
+    a float-order difference, where a near-tie may legitimately go the
+    other way.  Returns (tokens compared, exact?)."""
+    if got == want:
+        return len(want), True
+    close = [i for i, g in enumerate(gaps) if g < LOGIT_TOL]
+    n = close[0] if close else len(want)
+    first = next(i for i, (a, c) in enumerate(zip(got, want)) if a != c) \
+        if len(got) == len(want) else min(len(got), len(want))
+    check(len(got) == len(want) and first >= n,
+          f"{label}: tokens part at step {first} (gap {gaps[first]:.4g} of "
+          f"max|logit|), before the first step with a gap under "
+          f"{LOGIT_TOL} (step {n}): got {got}, want {want}")
+    return n, False
+
+
+def row_independence(b: Bench, cfg) -> None:
+    """The decode path's float reductions give a row the same bits among
+    1, 8 and 72 rows (a decode tick's and a verify chunk's row counts):
+    ``rms_norm`` and the decode attention (``_sdpa_rows``), both summed
+    by ``common.row_sum``.  Printed beside them, what the library's own
+    reductions do at the same widths."""
+    torch, dev = b.torch, b.dev
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+    H, KV, hd, Sc = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1064
+    x = torch.randn((72, 1, cfg.d_model), generator=b.gen,
+                    device=dev).to(cm.DTYPE)
+    scale = torch.randn((cfg.d_model,), generator=b.gen, device=dev)
+    q = torch.randn((72, 1, H, hd), generator=b.gen, device=dev).to(cm.DTYPE)
+    kv = torch.randn((72, Sc, KV, hd), generator=b.gen,
+                     device=dev).to(cm.DTYPE)
+    bias = torch.zeros((72, 1, Sc), device=dev)
+    rows = (1, 8, 72)
+    norm = [cm.rms_norm(x[:m], scale, cfg.norm_eps)[0] for m in rows]
+    attn = [tf._sdpa_rows(q[:m], kv[:m], kv[:m], bias[:m])[0] for m in rows]
+    lib_norm = [(x[:m].float() ** 2).mean(-1)[0] for m in rows]
+    lib_attn = [tf._sdpa(q[:m], kv[:m], kv[:m], bias[:m], cfg)[0]
+                for m in rows]
+
+    def same(v):
+        return [torch.equal(v[0], v[1]), torch.equal(v[1], v[2])]
+
+    check(same(norm) == [True, True] and same(attn) == [True, True],
+          f"a row's rms_norm / decode attention depends on the rows beside "
+          f"it: 1 vs 8, 8 vs 72 rows {same(norm)} / {same(attn)}")
+    print(f"row independence on the card: rms_norm and _sdpa_rows give "
+          f"row 0 the same bits among 1, 8 and 72 rows; the library's "
+          f"mean and batched-matmul attention (1 vs 8, 8 vs 72 rows): "
+          f"{same(lib_norm)}, {same(lib_attn)}")
+
+
+def cb_smoke_card_vs_cpu(b: Bench) -> None:
+    """Path 4 at SMOKE size: the same continuous and speculative streams
+    on the card and on the CPU (plain versions there) give the same
+    tokens, up to the float-order rule against the CPU's standalone gaps
+    (the two devices' float libraries round apart)."""
+    torch = b.torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import (SPEC_K_MAX, ServeEngine,
+                                          default_controller)
+    scfg = configs.get_smoke(LM_ARCH)
+    sg = torch.Generator().manual_seed(3)
+    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
+    reqs = cb_requests(scfg.vocab_size, 6, (3, CB_SMOKE_PREFILL),
+                       (6, 12), seed=5)
+    kw = dict(max_len=CB_SMOKE_PREFILL + 12 + SPEC_K_MAX, n_slots=3,
+              prefill_len=CB_SMOKE_PREFILL, decode_block=4)
+    toks = {}
+    for where, on in (("card", b.dev), ("cpu", torch.device("cpu"))):
+        for spec in (None, CB_SPEC_K):
+            eng = ServeEngine(scfg, sqp, controller=default_controller(
+                lm.n_bit_slots(scfg)), device=on, spec_k=spec,
+                draft_budget_s=CB_DRAFT_BUDGET, **kw)
+            rids = cb_serve(eng, reqs, 4, 1)[0]
+            toks[where, spec] = [eng.requests[r].tokens for r in rids]
+    ref = ServeEngine(scfg, sqp, controller=default_controller(
+        lm.n_bit_slots(scfg)), device="cpu", **kw)
+    compared, exact = 0, 0
+    for i, (prompt, m, budget) in enumerate(reqs):
+        want, gaps = cb_standalone(ref, prompt, m, budget, CB_SMOKE_PREFILL)
+        check(toks["cpu", None][i] == want and toks["cpu", CB_SPEC_K][i]
+              == want, f"SMOKE request {i} on the CPU: continuous "
+              f"{toks['cpu', None][i]}, speculative "
+              f"{toks['cpu', CB_SPEC_K][i]}, standalone {want}")
+        for spec in (None, CB_SPEC_K):
+            n, same = tokens_agree(f"SMOKE request {i} (spec_k={spec}) card "
+                                   f"vs CPU", toks["card", spec][i], want,
+                                   gaps)
+            compared += n
+            exact += same
+    print(f"SMOKE {LM_ARCH} continuous + speculative (6 requests, 3 slots, "
+          f"spec_k={CB_SPEC_K}): card vs CPU tokens exact in {exact} of 12 "
+          f"streams, {compared} tokens compared; on the CPU continuous == "
+          f"speculative == standalone")
+
+
+def cb_path(b: Bench, cfg, qparams) -> dict:
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import EMPTY_POS
+    from repro_torch.serve.engine import (SPEC_K_MAX, ServeEngine,
+                                          default_controller)
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    linears = lm_linears(cfg)
+    kn = sorted(set(linears))
+    fams = (4, 8)
+    M_pre, M_dec, M_ver = CB_PREFILL, CB_SLOTS, CB_SLOTS * (SPEC_K_MAX + 1)
+    max_len = CB_PREFILL + CB_NEW[1] + SPEC_K_MAX
+    reqs = cb_requests(V, CB_REQUESTS, CB_PROMPT, CB_NEW, seed=4)
+
+    row_independence(b, cfg)
+
+    # ---- hold the bit-plane kernel at the path's shapes: the prefill row
+    # at the container width, the tick and the verify chunk per family
+    for K, N in kn:
+        b.hold_bitplane(b.rand_i8((M_pre, K)), b.rand_i8((K, N)), 8)
+        for M in (M_dec, M_ver):
+            for n in fams:
+                b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
+    print(f"kernel == plain: {len(kn)} Qwen3-4B (K, N) shapes at M = "
+          f"{M_pre} (prefill row, n_planes 8), M = {M_dec} (decode tick) "
+          f"and M = {M_ver} (verify chunk) x n_planes {fams}")
+
+    ctrl = default_controller(lm.n_bit_slots(cfg))
+    common = dict(max_len=max_len, controller=ctrl, n_slots=CB_SLOTS,
+                  prefill_len=CB_PREFILL, decode_block=CB_BLOCK, device=dev)
+
+    def reset():
+        torch.cuda.synchronize()
+        bpm.reset_launches()
+        fa.reset_launches()
+        i4mm.reset_launches()
+        qmm.reset_launches()
+
+    def launches():
+        return (dict(bpm.shape_launches), dict(bpm.path_launches),
+                fa.launches, i4mm.launches,
+                sum(qmm.launches.values()))
+
+    # ---- (a) vanilla continuous batching
+    eng_a = ServeEngine(cfg, qparams, **common)
+    check(eng_a.families == fams, f"bit families {eng_a.families}")
+    reset()
+    rids_a, wall_a, first_a, ticks_a, _, _, _ = cb_serve(
+        eng_a, reqs, CB_UPFRONT, CB_LATE_TICK)
+    shapes_a, paths_a, fl, i4, qm = launches()
+    check(fl == 0 and i4 == 0 and qm == 0, f"(a) launched flash {fl}, "
+          f"int4 {i4}, quant {qm} times: not on this path")
+    recs_a = [eng_a.requests[r] for r in rids_a]
+    tok_a = [r.tokens for r in recs_a]
+    check(all(r.done for r in recs_a) and eng_a.stats.unserved == 0,
+          "(a) left requests unserved")
+    check(all(len(t) == m for t, (_, m, _) in zip(tok_a, reqs)),
+          "(a) delivered the wrong number of tokens")
+    check(all(0 <= x < V for t in tok_a for x in t),
+          "(a) token ids outside the vocabulary")
+    check(eng_a.pool.free_slots == CB_SLOTS
+          and bool((eng_a.pool.cache["kpos"] == EMPTY_POS).all()),
+          "(a) after run(): a slot is still held or a kpos is not EMPTY_POS")
+    check(sorted(r.slot for r in recs_a[:CB_SLOTS]) == list(range(CB_SLOTS))
+          and recs_a[-1].submitted_tick == CB_LATE_TICK,
+          "(a) the slots did not recycle as submitted")
+    for r, (_, m, budget) in zip(recs_a, reqs):
+        wv, av = eng_a.host_bits(budget)
+        want = apm.price_bit_vector(lm.layer_gemm_dims(cfg), wv.tolist(),
+                                    av.tolist(), head=lm.head_gemm_dims(cfg))
+        check(r.ap_cost == eng_a.price_bits(wv, av) == want,
+              f"(a) request {r.rid}: ap_cost differs from the AP model's "
+              f"price of its bits")
+    print(f"(a) continuous: {CB_REQUESTS} requests ({CB_UPFRONT} up front, "
+          f"{CB_REQUESTS - CB_UPFRONT} at tick {CB_LATE_TICK}), prompts "
+          f"{[len(p) for p, _, _ in reqs]}, new tokens "
+          f"{[m for _, m, _ in reqs]}; {eng_a.stats.ticks} ticks, calls "
+          f"{eng_a.calls}; all slots free and every kpos EMPTY_POS after "
+          f"run(); ap_cost == price_bits(host_bits(budget)) per request")
+
+    # ---- each request alone: batch-1 prefill + decode_step loop
+    t0 = time.perf_counter()
+    alone = [cb_standalone(eng_a, p, m, bud, CB_PREFILL)
+             for p, m, bud in reqs]
+    alone_s = time.perf_counter() - t0
+    for i, (got, (want, _)) in enumerate(zip(tok_a, alone)):
+        check(got == want, f"(a) request {i} != the request alone: got "
+              f"{got}, want {want}")
+    print(f"(a) == each request alone (batch-1 prefill + decode_step loop, "
+          f"{alone_s:.3f} s): all {CB_REQUESTS} requests, "
+          f"{sum(len(t) for t in tok_a)} tokens EQUAL")
+
+    # ---- (b) speculative decoding on 8 of the requests
+    eng_b = ServeEngine(cfg, qparams, spec_k=CB_SPEC_K,
+                        draft_budget_s=CB_DRAFT_BUDGET, **common)
+    reqs_b = reqs[:CB_SPEC_REQUESTS]
+    draft_ks = [0 if i == CB_DRAFT0 else None for i in range(len(reqs_b))]
+    reset()
+    rids_b, wall_b, first_b, ticks_b, rounds_b, by_tick, by_round = \
+        cb_serve(eng_b, reqs_b, len(reqs_b), 0, draft_ks)
+    shapes_b, paths_b, fl, i4, qm = launches()
+    check(fl == 0 and i4 == 0 and qm == 0, f"(b) launched flash {fl}, "
+          f"int4 {i4}, quant {qm} times")
+    recs_b = [eng_b.requests[r] for r in rids_b]
+    check(all(r.done for r in recs_b) and eng_b.pool.free_slots == CB_SLOTS
+          and bool((eng_b.pool.cache["kpos"] == EMPTY_POS).all()),
+          "(b) after run(): a request unserved, a slot held or a kpos set")
+    for i, r in enumerate(recs_b):
+        check(r.tokens == tok_a[i], f"(b) request {i} != (a): got "
+              f"{r.tokens}, want {tok_a[i]}")
+        rid = r.rid
+        if r.spec_k:
+            check(r.draft_units == r.spec_k * r.spec_rounds
+                  and r.verify_units == (r.spec_k + 1) * r.spec_rounds
+                  and r.spec_tokens == r.accepted_units + r.spec_rounds
+                  and r.spec_tokens == by_round.get(rid, 0),
+                  f"(b) request {i}: spec ledger {r.spec_rounds} rounds, "
+                  f"{r.draft_units} drafted, {r.verify_units} verified, "
+                  f"{r.accepted_units} accepted, {r.spec_tokens} delivered "
+                  f"by rounds ({by_round.get(rid, 0)} counted)")
+        else:
+            check(r.spec_rounds == r.draft_units == 0,
+                  f"(b) request {i} (draft_k=0) drafted")
+        check(1 + by_round.get(rid, 0) + by_tick.get(rid, 0)
+              == len(r.tokens) == reqs_b[i][1],
+              f"(b) request {i}: 1 + {by_round.get(rid, 0)} (rounds) + "
+              f"{by_tick.get(rid, 0)} (ticks) != {len(r.tokens)} delivered")
+        _, m, budget = reqs_b[i]
+        check(r.ap_cost == eng_b.price_bits(*eng_b.host_bits(budget)),
+              f"(b) request {i}: ap_cost")
+    drafted = sum(r.draft_units for r in recs_b)
+    accepted = sum(r.accepted_units for r in recs_b)
+    n_rounds = sum(r.spec_rounds for r in recs_b)
+    spec_toks = sum(r.spec_tokens for r in recs_b)
+    print(f"(b) speculative (spec_k={CB_SPEC_K}, int4 drafts, request "
+          f"{CB_DRAFT0} at draft_k=0): tokens == (a)'s for all "
+          f"{len(recs_b)} requests; {len(rounds_b)} "
+          f"rounds, {len(ticks_b)} vanilla ticks, calls {eng_b.calls}; "
+          f"accept rate {accepted / max(drafted, 1):.4f} ({accepted} of "
+          f"{drafted} drafts); {spec_toks / max(n_rounds, 1):.4f} tokens "
+          f"delivered per request-round; the ledger adds up to the tokens "
+          f"delivered")
+
+    # ---- launches by regime and by M against plan()
+    shapes = dict(shapes_a)
+    for k, v in shapes_b.items():
+        shapes[k] = shapes.get(k, 0) + v
+    calls = {k: eng_a.calls[k] + eng_b.calls[k] for k in eng_a.calls}
+    per_fwd = {M_pre: (calls["prefill"], (8,)),
+               M_dec: (calls["decode"] + calls["draft"], fams),
+               M_ver: (calls["verify"], fams)}
+    want_shapes: dict = {}
+    want_paths = {p: 0 for p in bpm.PATHS}
+    for M, (n_fwd, nps) in per_fwd.items():
+        for _ in range(L):
+            for K, N in linears:
+                for n in nps:
+                    key = (M, K, N, n)
+                    want_shapes[key] = want_shapes.get(key, 0) + n_fwd
+                    want_paths[bpm.plan(M, K, N).path] += n_fwd
+    want_shapes = {k: v for k, v in want_shapes.items() if v}
+    paths = {p: paths_a[p] + paths_b[p] for p in bpm.PATHS}
+    by_m = {M: sum(v for k, v in shapes.items() if k[0] == M)
+            for M in per_fwd}
+    check(shapes == want_shapes, f"bit-plane launches by shape "
+          f"{sorted(shapes.items())} != {sorted(want_shapes.items())}")
+    check(paths == want_paths, f"bit-plane launches by regime {paths} != "
+          f"plan()'s {want_paths}")
+    check(all(by_m[M] > 0 for M in per_fwd),
+          f"a regime of the path never launched: {by_m}")
+    print(f"bit-plane launches on path 4: by M {by_m} ((a) "
+          f"{sum(shapes_a.values())}, (b) {sum(shapes_b.values())}); by "
+          f"regime {paths}, as plan() gives for M = {M_pre}, {M_dec}, "
+          f"{M_ver}: " + ", ".join(f"{M} -> {bpm.plan(M, *kn[0]).path}"
+                                    for M in per_fwd))
+
+    cb_smoke_card_vs_cpu(b)
+
+    # ---- timings
+    ttft = sorted(first_a[r] - eng_a.requests[r].submitted_s
+                  for r in rids_a)
+    tps = sorted(n / s for s, n, _ in ticks_a)
+    print(f"{tag} (a) run(): {wall_a:.3f} s wall for {CB_REQUESTS} requests, "
+          f"{sum(len(t) for t in tok_a)} tokens; time to first token median "
+          f"{statistics.median(ttft) * 1e3:.3f} ms, max {ttft[-1] * 1e3:.3f} "
+          f"ms (all {[round(x * 1e3, 3) for x in ttft]}); decode tokens/s "
+          f"per tick median {statistics.median(tps):.3f} (all "
+          f"{[round(x, 3) for x in tps]}; {CB_BLOCK} steps a tick, "
+          f"{[n for _, _, n in ticks_a]} rows)")
+    rps = sorted(n / s for s, n, _ in rounds_b)
+    ttft_b = sorted(first_b[r] - eng_b.requests[r].submitted_s
+                    for r in rids_b)
+    print(f"{tag} (b) run(): {wall_b:.3f} s wall for {len(recs_b)} requests; "
+          f"time to first token median {statistics.median(ttft_b) * 1e3:.3f} "
+          f"ms, max {ttft_b[-1] * 1e3:.3f} ms; per round median "
+          f"{statistics.median([s for s, _, _ in rounds_b]) * 1e3:.3f} ms, "
+          f"tokens/s per round median {statistics.median(rps):.3f}; tokens "
+          f"per round (all rows) {[n for _, n, _ in rounds_b]}")
+    per_shape = {k: b.gemm_row(*k) for k in sorted(shapes)}
+    parts = {}
+    for label, sh in (("a", shapes_a), ("b", shapes_b)):
+        dev_sum = sum(n * per_shape[k][5] for k, n in sh.items())
+        parts[label] = dev_sum
+        by = {M: sum(n * per_shape[k][5] for k, n in sh.items()
+                     if k[0] == M) for M in per_fwd}
+        print(f"{tag} bitplane_matmul device-clock sum per run() ({label}): "
+              f"{dev_sum:.4f} ms over {sum(sh.values())} launches; by M "
+              + ", ".join(f"{M}: {v:.4f} ms" for M, v in by.items()))
+    tot = [sum(n * per_shape[k][j] for k, n in shapes.items())
+           for j in range(7)]
+    bound_ms = sum(n * max(per_shape[k][3], per_shape[k][4])
+                   for k, n in shapes.items())
+
+    # ---- where a prefill row's, a decode tick's and a spec round's time
+    # goes (on the engines' own state)
+    wv8 = ctrl.resolve(torch.tensor([LM_BUDGETS[i % 4]
+                                     for i in range(CB_SLOTS)]))
+    wv, av = wv8[0].to(dev), wv8[1].to(dev)
+    p0, _, b0 = reqs[0]
+    rwv, rav = (t.to(dev) for t in ctrl.resolve(torch.tensor(b0)))
+    toks = torch.zeros((1, CB_PREFILL), dtype=torch.int32)
+    toks[0, :len(p0)] = torch.from_numpy(p0)
+    toks, length = toks.to(dev), torch.tensor([len(p0)]).to(dev)
+
+    def prefill_row():
+        with eng_a.compute_ctx():
+            eng_a._prefill_row(toks, length, rwv, rav)
+
+    tok = torch.zeros((CB_SLOTS, 1), dtype=torch.int32, device=dev)
+    t = torch.full((CB_SLOTS,), CB_PREFILL, dtype=torch.int32, device=dev)
+    temp = torch.zeros((CB_SLOTS,), device=dev)
+    topk = torch.zeros((CB_SLOTS,), dtype=torch.int32, device=dev)
+    k_eff = torch.full((CB_SLOTS,), CB_SPEC_K, dtype=torch.int64,
+                       device=dev)
+
+    def decode_tick():
+        with eng_a.compute_ctx():
+            eng_a._decode_block(tok, t, eng_a.pool.cache, wv, av, temp, topk,
+                                CB_BLOCK)
+
+    def spec_round():
+        with eng_b.compute_ctx():
+            dwv, dav = eng_b._draft_bits()
+            dt, dp = eng_b._draft_scan(tok, t, eng_b.pool.cache, dwv, dav,
+                                       temp, topk, CB_SPEC_K)
+            eng_b._spec_verify(tok, dt, dp, t, eng_b.pool.cache, wv, av,
+                               k_eff, temp, topk)
+
+    trace(torch, tag, f"one prefill row (M = {M_pre})", prefill_row,
+          ("bitplane_matmul",))
+    trace(torch, tag, f"one decode tick ({CB_BLOCK} steps, M = {M_dec})",
+          decode_tick, ("bitplane_matmul",))
+    trace(torch, tag, f"one speculative round ({CB_SPEC_K} drafts + the "
+          f"verify, M = {M_dec} and {M_ver})", spec_round,
+          ("bitplane_matmul",))
+    for eng in (eng_a, eng_b):          # the traced calls wrote the pools
+        eng.pool.rollback(torch.full((CB_SLOTS,), -1))
+    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms, bld_ms = tot
+    return {
+        "bitplane": {"launches": sum(shapes.values()), "ms": bk_ms,
+                     "plain_ms": bp_ms, "bound_ms": bound_ms,
+                     "t_bytes": bt_bytes, "t_ops": bt_ops,
+                     "library_ms": bl_ms, "device_ms": bd_ms,
+                     "library_device_ms": bld_ms, "paths": paths},
+        "e2e": {"run_a_s": wall_a, "run_b_s": wall_b,
+                "ttft_median_ms": statistics.median(ttft) * 1e3}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -1456,6 +1987,7 @@ def kernel_row(name, source, replaces, err, parts) -> dict:
 
 
 def main() -> None:
+    sys.stdout.reconfigure(line_buffering=True)   # progress survives a cut
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
@@ -1531,15 +2063,38 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4./5./6. the three paths
+    # ---- 4.-7. the four paths (a development run may pick some with
+    # --paths 1,4; only a run of all four prints the result lines)
+    picked = {1, 2, 3, 4}
+    if "--paths" in sys.argv:
+        picked = {int(x) for x in
+                  sys.argv[sys.argv.index("--paths") + 1].split(",")}
+    if picked != {1, 2, 3, 4}:
+        if 1 in picked:
+            cnn_path(b)
+        if 2 in picked:
+            alexnet_path(b)
+        if picked & {3, 4}:
+            cfg, qparams = lm_weights(b)
+            if 3 in picked:
+                lm_path(b, cfg, qparams)
+            if 4 in picked:
+                cb_path(b, cfg, qparams)
+        print(card)
+        print(f"paths {sorted(picked)} passed; no result line for a "
+              f"partial run")
+        return
     cnn = cnn_path(b)
     alex = alexnet_path(b)
-    lmr = lm_path(b)
+    cfg, qparams = lm_weights(b)
+    lmr = lm_path(b, cfg, qparams)
+    cbr = cb_path(b, cfg, qparams)
 
     bp_paths = {"resnet18_served_batch": cnn,
                 "alexnet_served_batch": alex["bitplane_served_batch"],
                 "alexnet_int4_forward": alex["bitplane_int4_forward"],
-                "qwen3_4b_generate_call": lmr["bitplane"]}
+                "qwen3_4b_generate_call": lmr["bitplane"],
+                "qwen3_4b_continuous_and_speculative_runs": cbr["bitplane"]}
     fl = lmr["flash"]
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
@@ -1559,7 +2114,10 @@ def main() -> None:
           f"batch, (b) {alex['bitplane_int4_forward']['wall_ms']:.3f} ms per "
           f"fixed-INT4 forward; Qwen3-4B prefill {e2e['prefill_ms']:.3f} ms, "
           f"decode {e2e['decode_ms']:.3f} ms per step, generate "
-          f"{e2e['generate_ms']:.3f} ms per call")
+          f"{e2e['generate_ms']:.3f} ms per call; continuous run() "
+          f"{cbr['e2e']['run_a_s']:.3f} s (time to first token median "
+          f"{cbr['e2e']['ttft_median_ms']:.3f} ms), speculative run() "
+          f"{cbr['e2e']['run_b_s']:.3f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -42,6 +42,8 @@ launches: Dict[int, int] = {n: 0 for n in range(1, 9)}
 # with x read in place or re-pitched first (rows not 16-byte aligned)
 PATHS = ("small_m", "large_m", "large_m_copy_x")
 path_launches: Dict[str, int] = {p: 0 for p in PATHS}
+# the same launches by shape: (M, K, N, n_planes) -> count
+shape_launches: Dict[Tuple[int, int, int, int], int] = {}
 
 SMALL_M = 16          # the GEMV's rows: one m16 tile of mma.sync
 GEMV_COLS = 128       # output columns per GEMV block
@@ -56,6 +58,7 @@ def reset_launches() -> None:
         launches[n] = 0
     for p in path_launches:
         path_launches[p] = 0
+    shape_launches.clear()
 
 
 @dataclass(frozen=True)
@@ -194,6 +197,8 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
                            f"n_planes={n_planes}, plan {p}")
     launches[n_planes] += 1
     path_launches[p.path] += 1
+    key = (M, K, N, n_planes)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return out
 
 

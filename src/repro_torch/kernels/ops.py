@@ -22,6 +22,8 @@ family's plane count, and each row gathers its result from its family's
 accumulator.  Rows between families snap UP to the next family; rows
 above the largest family clamp DOWN to it, so a family set must hold its
 policy's widest bit-width (engines derive it from their controller).
+Per-row activations quantize with one scale per request, or one per
+token position under :func:`token_scale_mode` (the speculative verify).
 
 Attention over flat heads reaches the flash kernel only through
 :func:`flash_attention`, which launches it for CUDA tensors and takes a
@@ -70,6 +72,31 @@ def bit_families(fams: Sequence[int]):
         yield
     finally:
         _families = prev
+
+
+_token_scales = False
+
+
+@contextlib.contextmanager
+def token_scale_mode():
+    """Per-token activation scales in the per-row serve path.
+
+    The default per-row path reduces the activation amax over every axis
+    past the batch axis: one scale per request, which is what a
+    ``(B, 1, K)`` single-token decode step computes.  A speculative
+    verify chunk runs ``(B, U, K)`` token positions in one forward, and
+    one scale shared across the U tokens would quantize them apart from
+    U sequential steps.  Under this context the amax reduces only the
+    feature axis, so each token row of the flattened ``(B*U, K)`` grouped
+    GEMM carries the scale sequential decode gives it.
+    """
+    global _token_scales
+    prev = _token_scales
+    _token_scales = True
+    try:
+        yield
+    finally:
+        _token_scales = prev
 
 
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale,
@@ -254,8 +281,12 @@ def _serve_linear_rows(p, x, wbits, abits):
     x2 = x.float()
     # per-row dynamic activation quantization at per-row abits: one scale
     # per request, over every axis past the batch axis (for a conv, the
-    # im2col'd patches — exactly the pixels the GEMM reads)
-    amax = x2.abs().amax(dim=tuple(range(1, x2.ndim)), keepdim=True)
+    # im2col'd patches — exactly the pixels the GEMM reads);
+    # token_scale_mode keeps one scale per token position instead (verify
+    # chunks)
+    axes = ((x2.ndim - 1,) if _token_scales
+            else tuple(range(1, x2.ndim)))
+    amax = x2.abs().amax(dim=axes, keepdim=True)
     lim = bf.qmax(ab.reshape((B,) + (1,) * (x2.ndim - 1)))
     x_scale = amax.clamp_min(1e-8) / lim
     x_q = torch.maximum(torch.minimum(torch.round(x2 / x_scale), lim),

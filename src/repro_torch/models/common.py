@@ -113,18 +113,38 @@ def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (kept, size 1) in a fixed pairwise order
+    built from elementwise adds.
+
+    A library reduction may sum a row in an order that depends on how
+    many rows share the launch (PyTorch's CUDA reduction picks its
+    thread layout from the output count), and under 4-bit activation
+    quantizers one ulp grows into a different token.  Elementwise adds
+    round each element alone, so each row's sum here depends only on
+    that row: a request decodes to the same bits in a batch of 1, 8 or
+    72 rows (the reference's row independence)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = n // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([y, x[..., 2 * h:]], dim=-1) if n % 2 else y
+    return x
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = row_sum(x32 * x32) / x.shape[-1]
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    n = x.shape[-1]
+    mu = row_sum(x32) / n
+    var = row_sum((x32 - mu) * (x32 - mu)) / n
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 

@@ -1,38 +1,52 @@
 """LM wiring for the dense family: embeddings, the layer stack, logits,
-prefill/decode, and the train/serve parameter forms.
+prefill/decode, the slot-based cache pool, and the train/serve parameter
+forms.
 
 The counterpart of ``repro.models.lm``:
   init_params(cfg, gen, device=)             -> train-form dict (bf16)
   quantize_params(params, cfg, container)    -> serve-form (int8/int4 + scales)
-  prefill(params, batch, cfg, wvec, avec, cache)
+  prefill(params, batch, cfg, wvec, avec, cache, lengths=None)
                                              -> (last_logits, cache)
   decode_step(params, tok, t, cache, cfg, wvec, avec) -> (logits, cache)
+  decode_chunk(params, toks, t, cache, cfg, wvec, avec) -> (logits, cache)
   empty_cache(cfg, batch, max_len, device=)  -> stacked KV cache
+  CachePool(cfg, n_slots, max_len, device=)  -> slot-based persistent cache
 
 Parameters keep the reference's stacked layout: every layer leaf has a
 leading ``(L, ...)`` axis.  The reference scans the stack with
 ``lax.scan``; here a Python loop runs it layer by layer.  ``wvec`` /
 ``avec`` are per-layer bit vectors: ``(n_layers,)`` shared across the
-batch, or ``(B, n_layers)`` matrices for per-request precision.
+batch, or ``(B, n_layers)`` matrices for per-request precision.  ``t`` in
+the decode calls is a scalar (lock-step batch) or ``(B,)`` per-row
+positions (continuous batching); ``lengths`` in prefill marks per-row
+valid prompt lengths of a right-padded batch.
 
 Only the dense family is ported; the others (moe, ssm, hybrid, encdec,
-vlm) raise ``NotImplementedError`` naming the family, as do ragged
-(per-row ``lengths``) prefill and the continuous-batching cache pool.
+vlm) raise ``NotImplementedError`` naming the family.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 PORTED_FAMILIES = ("dense",)
-# Families whose layer stacks accept (B, n_layers) per-request bit
-# matrices (the reference's list; only "dense" is ported).
+# The reference's family lists (only "dense" is ported; the others raise
+# through _require_ported).  Families whose layer stacks accept
+# (B, n_layers) per-request bit matrices:
 PER_ROW_BIT_FAMILIES = ("dense", "vlm", "ssm")
+# Families whose prefill takes ragged per-row prompt lengths (attention
+# masks the padding; a recurrence would consume the pad tokens):
+RAGGED_PREFILL_FAMILIES = ("dense", "vlm")
+# Families whose decode takes chunked (multi-position) steps, the
+# speculative verify (attention masks future positions exactly):
+SPEC_CHUNK_FAMILIES = ("dense", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -188,8 +202,14 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8
               ) -> torch.Tensor:
     h = cm.apply_norm(params["ln_f"], h, cfg.norm_type, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = torch.einsum("...d,vd->...v", h.float(),
-                              params["emb"].float())
+        # one token row at a time: a float matmul sums in an order that
+        # may depend on its row count, and a request's logits must not
+        # depend on its batch (decode tick, verify chunk, alone)
+        emb = params["emb"].float().T
+        rows = h.float().reshape(-1, h.shape[-1])
+        logits = torch.cat([rows[i:i + 1] @ emb
+                            for i in range(rows.shape[0])])
+        logits = logits.reshape(h.shape[:-1] + (emb.shape[1],))
     else:
         logits = cm.apply_linear(params["head"], h, wb, ab).float()
     if cfg.padded_vocab != cfg.vocab_size:       # mask padding ids
@@ -217,20 +237,45 @@ def _last_layer_bits(vec):
 
 def prefill(params, batch: dict, cfg: ModelConfig, wvec, avec, cache: dict,
             lengths=None) -> Tuple[torch.Tensor, dict]:
-    """Full-context lock-step forward filling ``cache`` (in place);
-    returns the last-token logits (B, 1, V) and the cache."""
-    if lengths is not None:
-        raise NotImplementedError(
-            "ragged (per-row lengths) prefill is not ported yet; it comes "
-            "with continuous batching")
+    """Full-context forward filling ``cache`` (in place); returns the
+    last-token logits (B, 1, V) and the cache.
+
+    ``lengths`` (B,) marks per-row valid prompt lengths of a right-padded
+    batch (continuous batching): padded positions take EMPTY_POS (never
+    visible to real queries nor in the cache) and zeroed embeddings, and
+    each row's logits are gathered at its own last real token."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
+    B, S = tokens.shape
     x = embed(params, tokens)
-    S = x.shape[1]
-    # (1, S): rows share positions, so attention keeps one (S, S) mask
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    if lengths is None:
+        # (1, S): rows share positions, so attention keeps one (S, S) mask
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    else:
+        if cfg.family not in RAGGED_PREFILL_FAMILIES:
+            raise NotImplementedError(
+                f"ragged (per-row lengths) prefill is not supported for "
+                f"family {cfg.family!r}")
+        if S > tf.FLASH_THRESHOLD:
+            raise NotImplementedError(
+                f"ragged prefill uses the masked-SDPA path; keep the padded "
+                f"prompt length <= {tf.FLASH_THRESHOLD}")
+        lens = torch.as_tensor(lengths, dtype=torch.int32).to(
+            x.device).reshape(B)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+        valid = pos < lens[:, None]                       # (B, S)
+        positions = torch.where(valid, pos, tf.EMPTY_POS).to(torch.int32)
+        # zero pad embeddings so per-row dynamic activation scales see only
+        # real tokens
+        x = torch.where(valid[..., None], x, 0).to(x.dtype)
     h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
                                   positions=positions, cache=cache)
-    return (logits_fn(params, h[:, -1:], cfg, _last_layer_bits(wvec),
+    if lengths is None:
+        h_last = h[:, -1:]
+    else:
+        idx = (lens - 1).clamp_min(0).long()
+        h_last = h[torch.arange(B, device=x.device), idx][:, None]
+    return (logits_fn(params, h_last, cfg, _last_layer_bits(wvec),
                       _last_layer_bits(avec)), new_cache)
 
 
@@ -240,9 +285,152 @@ def decode_step(params, tok: torch.Tensor, t, cache: dict, cfg: ModelConfig,
     Returns (logits (B, 1, V), cache) with the cache updated in place."""
     B = tok.shape[0]
     x = embed(params, tok)
-    t = torch.as_tensor(t, dtype=torch.int32, device=x.device)
+    t = torch.as_tensor(t, dtype=torch.int32).to(x.device)
     positions = t.expand(B)[:, None]                      # (B, 1)
     h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
                                   positions=positions, cache=cache, t=t)
     return (logits_fn(params, h, cfg, _last_layer_bits(wvec),
                       _last_layer_bits(avec)), new_cache)
+
+
+def decode_chunk(params, toks: torch.Tensor, t, cache: dict,
+                 cfg: ModelConfig, wvec, avec) -> Tuple[torch.Tensor, dict]:
+    """Decode U consecutive positions per row in one forward.
+
+    ``toks`` (B, U) with ``toks[:, i]`` at position ``t + i`` (``t``
+    scalar or (B,)).  This is the speculative verify step: the chunked
+    attention branch writes the ring slots sequential decode would, each
+    query sees exactly its ``kpos <= pos`` prefix, and activations
+    quantize under per-token scales (``ops.token_scale_mode``), so on
+    the per-row bit-matrix path the logits are those of U sequential
+    :func:`decode_step` calls.  Returns (logits (B, U, V), cache), the
+    cache updated in place."""
+    _require_ported(cfg)
+    if cfg.family not in SPEC_CHUNK_FAMILIES:
+        raise NotImplementedError(
+            f"chunked decode is implemented for the attention families "
+            f"{SPEC_CHUNK_FAMILIES}, not {cfg.family!r}")
+    B, U = toks.shape
+    x = embed(params, toks)
+    t = torch.as_tensor(t, dtype=torch.int32).to(x.device)
+    positions = (t.expand(B)[:, None]
+                 + torch.arange(U, dtype=torch.int32, device=x.device)[None])
+    with kops.token_scale_mode():
+        h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
+                                      positions=positions, cache=cache, t=t)
+        logits = logits_fn(params, h, cfg, _last_layer_bits(wvec),
+                           _last_layer_bits(avec))
+    return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Slot-based persistent cache pool (continuous batching)
+# ---------------------------------------------------------------------------
+
+class CachePool:
+    """A persistent, slot-based KV cache for continuous batching.
+
+    The pool owns ONE cache of batch capacity ``n_slots`` on ``device``
+    that lives across requests: :meth:`alloc` hands out a free slot,
+    :meth:`write_row` installs a freshly prefilled single-row cache into
+    it, :meth:`free` / :meth:`reset_slot` recycle it.  Per-slot valid
+    lengths and the free list live on the host.  Visibility inside
+    attention is carried by the per-row ``kpos`` columns, so a reset slot
+    is invisible by construction (EMPTY_POS) rather than by zeroing data.
+    Every install copies the incoming row into the pool; the pool never
+    holds a reference to a caller's tensors.
+    """
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
+                 device="cuda"):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.device = cm.resolve_device(device)
+        self.cache = empty_cache(cfg, n_slots, max_len, device=self.device)
+        self.lengths = np.zeros((n_slots,), np.int64)
+        self._free = list(range(n_slots - 1, -1, -1))
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot (None when the pool is full)."""
+        return self._free.pop() if self._free else None
+
+    def free(self, slot: int) -> None:
+        """Return a slot to the pool and mask its cache row."""
+        if slot in self._free:
+            raise ValueError(f"slot {slot} double-freed")
+        self.reset_slot(slot)
+        self._free.append(slot)
+
+    def reset_slot(self, slot: int) -> None:
+        """Mask a slot's cache row (kpos -> EMPTY_POS) and zero its length."""
+        self.lengths[slot] = 0
+        self.cache["kpos"][:, slot] = tf.EMPTY_POS
+
+    def _check_install(self, slot: int, length: int) -> None:
+        """Guard every row install: an out-of-range length poisons the
+        host-side length table, and a write into an unallocated slot is
+        clobbered by the next ``alloc``."""
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {self.n_slots})")
+        if slot in self._free:
+            raise ValueError(f"slot {slot} is free — alloc() it before "
+                             f"installing a row")
+        if not 0 <= length <= self.max_len:
+            raise ValueError(f"row length {length} not in "
+                             f"[0, max_len={self.max_len}]")
+
+    def _install(self, row_cache: dict, slot: int, keep=None) -> None:
+        for name, dst in self.cache.items():
+            src = row_cache[name]
+            if src.shape[0] != dst.shape[0] or src.shape[1] != 1 \
+                    or src.shape[2:] != dst.shape[2:]:
+                raise ValueError(
+                    f"row cache {name!r} {tuple(src.shape)} does not fit "
+                    f"the pool's {tuple(dst.shape)} as one row")
+            src = src[:, 0].to(dst.device, dst.dtype)
+            if keep is not None and name == "kpos":
+                src = torch.where(src >= keep, tf.EMPTY_POS, src)
+            dst[:, slot] = src                            # a copy
+
+    def write_row(self, row_cache: dict, slot: int, length: int) -> None:
+        """Install (copy) a prefilled single-row cache into ``slot``."""
+        self._check_install(slot, length)
+        self.lengths[slot] = length
+        self._install(row_cache, slot)
+
+    def install_prefix(self, row_cache: dict, slot: int, keep: int) -> None:
+        """Install the first ``keep`` tokens of a cached single-row cache
+        into ``slot``: positions >= ``keep`` are masked EMPTY on the way
+        in, and the source row is copied, never aliased."""
+        self._check_install(slot, keep)
+        self.lengths[slot] = keep
+        self._install(row_cache, slot, keep)
+
+    def rollback(self, keeps) -> None:
+        """Mask every cache entry past ``keeps[slot]`` per slot (the
+        speculative-decode rejection path): ``kpos > keep`` becomes
+        EMPTY_POS in every layer.  ``keeps`` is an ``(n_slots,)`` vector
+        of last-kept absolute positions; a slot passing a value >=
+        EMPTY_POS is untouched.  K/V payloads stay in place, masked."""
+        kpos = self.cache["kpos"]
+        keeps = torch.as_tensor(keeps).to(kpos.device, torch.int64)
+        kpos.masked_fill_(kpos.long() > keeps[None, :, None], tf.EMPTY_POS)
+
+    def copy_row(self, src: int, dst: int,
+                 length: Optional[int] = None) -> None:
+        """Duplicate one resident row into another allocated slot."""
+        if src in self._free:
+            raise ValueError(f"source slot {src} is free — nothing to "
+                             f"copy")
+        n = int(self.lengths[src] if length is None else length)
+        self._check_install(dst, n)
+        self.lengths[dst] = n
+        if src != dst:
+            for buf in self.cache.values():
+                buf[:, dst] = buf[:, src].clone()

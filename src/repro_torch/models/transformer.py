@@ -19,9 +19,13 @@ tensors in place, which saves the copy.  A layer's cache entries are
 views of the stacked ``(L, ...)`` cache, so an in-place insert updates
 the stack.
 
+A decode call with U > 1 tokens per row (``lm.decode_chunk``, the
+speculative verify) writes its U entries into the ring slots that U
+sequential steps would write, in place, and masks each query to its own
+``kpos <= pos`` prefix.
+
 Not ported yet, and raising ``NotImplementedError``: the int8 KV cache
-(``kv_cache_bits=8``), the chunked (multi-token) decode branch and
-cross-attention.
+(``kv_cache_bits=8``) and cross-attention.
 """
 from __future__ import annotations
 
@@ -123,8 +127,9 @@ def _sdpa(q, k, v, bias, cfg):
     """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd); bias: (Sq,Sk) or (B,Sq,Sk).
 
     Grouped-query attention with the scores in f32 (bf16 operands,
-    accumulated in f32); used for decode (Sq == 1) and short sequences.
-    Long sequences take :func:`_flash`."""
+    accumulated in f32); used for prefills up to FLASH_THRESHOLD tokens.
+    Long sequences take :func:`_flash`, the decode branches
+    :func:`_sdpa_rows`."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -139,6 +144,31 @@ def _sdpa(q, k, v, bias, cfg):
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(k.dtype).float(),
                        v.float())
     return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
+
+
+def _sdpa_rows(q, k, v, bias):
+    """The decode branches' attention: q (B,Sq,H,hd); k, v (B,Sc,KV,hd);
+    bias (B,Sq,Sc).  The arithmetic of :func:`_sdpa` (bf16 operands, f32
+    sums, probabilities rounded to bf16), but every (row, query) output
+    comes from elementwise products and :func:`common.row_sum`, never
+    from a batched matmul whose summation order may depend on how many
+    rows or queries share it.  So a request's decode step gives the same
+    bits alone, beside 7 other slots, or inside a verify chunk.  One query
+    position at a time, to bound the (B, KV, G, Sc, hd) products."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    kt = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B,KV,1,Sc,hd)
+    vt = v.float().permute(0, 2, 3, 1)[:, :, None]       # (B,KV,1,hd,Sc)
+    out = []
+    for u in range(Sq):
+        qu = q[:, u].float().reshape(B, KV, G, 1, hd)
+        scores = cm.row_sum(qu * kt)[..., 0] * (hd ** -0.5)   # (B,KV,G,Sc)
+        scores = scores + bias[:, u, None, None]
+        probs = torch.softmax(scores, dim=-1).to(k.dtype).float()
+        o = cm.row_sum(probs[..., None, :] * vt)[..., 0]      # (B,KV,G,hd)
+        out.append(o.reshape(B, 1, H * hd))
+    return torch.cat(out, dim=1).to(cm.DTYPE)
 
 
 def _flash(q, k, v, cfg, causal: bool):
@@ -199,10 +229,30 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         k = _row_insert(cache["k"], k_new, slot)
         v = _row_insert(cache["v"], v_new, slot)
         new_cache = {"k": k, "v": v, "kpos": kpos}
-        out = _sdpa(q, k, v, bias, cfg)
+        out = _sdpa_rows(q, k, v, bias)
     elif cache is not None and t is not None:            # chunked decode
-        raise NotImplementedError(
-            "chunked (multi-token) decode is not ported yet")
+        # speculative verify: U consecutive positions per row in one
+        # forward.  The writes land in the ring slots sequential decode
+        # uses, and each query sees exactly its kpos <= pos prefix, so the
+        # chunk computes what U single-token steps compute (the draft's
+        # stale entries past each query are masked; the caller rolls
+        # rejected slots back to EMPTY_POS)
+        B = x.shape[0]
+        Sc = cache["k"].shape[1]
+        pos = positions.to(torch.int32).expand(B, -1)    # (B, U)
+        slots = (pos % Sc).long()
+        rows = torch.arange(B, device=x.device)[:, None]
+        kpos = cache["kpos"]
+        kpos[rows, slots] = pos
+        visible = kpos[:, None, :] <= pos[:, :, None]    # (B, U, Sc)
+        if cfg.sliding_window:
+            visible &= kpos[:, None, :] > pos[:, :, None] - cfg.sliding_window
+        bias = cm.visibility_bias(visible)
+        k, v = cache["k"], cache["v"]
+        k[rows, slots] = k_new.to(k.dtype)
+        v[rows, slots] = v_new.to(v.dtype)
+        new_cache = {"k": k, "v": v, "kpos": kpos}
+        out = _sdpa_rows(q, k, v, bias)
     else:                                                # full sequence
         pos1 = positions[0]
         S = x.shape[1]

@@ -33,6 +33,11 @@ class RuntimeStats:
     use the derived ``stats.prefill_traces`` / ``decode_traces`` /
     ``forward_traces`` attributes — any ``<program>_traces`` name reads
     the counter for ``<program>`` (0 if it never traced).
+
+    In the port nothing is compiled: the engines run their programs
+    eagerly and never call ``trace``, so every ``<program>_traces`` reads
+    0 and there is no zero-retrace property to claim.  The other counters
+    mean what they mean in the reference.
     """
 
     def __init__(self) -> None:

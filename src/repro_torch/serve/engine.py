@@ -1,29 +1,63 @@
-"""Bit-fluid LM serving, whole-batch API, on one device.
+"""Bit-fluid LM serving on one device: continuous batching, speculative
+decoding and the whole-batch API.
 
-The counterpart of ``repro.serve.engine.ServeEngine`` for the lock-step
-path: ``set_budget(scalar | (B,) vector)`` + ``generate(batch, steps)``.
-Each request's budget resolves through a
+The counterpart of ``repro.serve.engine.ServeEngine``.  Each request
+carries its own latency budget, resolved by a
 :class:`~repro_torch.core.policy.BudgetController` into a per-layer bit
-vector; the batch's ``(B, n_layers)`` bit matrix runs through the
+vector; a batch's ``(B, n_layers)`` bit matrix runs through the
 bit-grouped dispatch (one bit-plane kernel launch per linear and bit
-family); a prompt longer than ``transformer.FLASH_THRESHOLD`` sends every
-layer's self-attention through the flash kernel; decode runs on the bf16
-KV cache.  ``price_budget`` prices a budget's bit vector through the
-copied AP cost model.
+family).  The queue, the EDP-aware admission scheduler, the slot table
+and the pricing live in :class:`~repro_torch.serve.runtime.ServeRuntime`;
+this module owns what is LM-shaped.
 
-The reference jit-compiles prefill and a scan-fused decode block; here
-both run eagerly, so ``fused=True`` and ``fused=False`` run the same
-per-token loop and give the same tokens.  Sampling draws from an explicit
-``torch.Generator`` seeded from ``seed``: greedy (temperature 0) rows
-equal the reference's tokens, sampled rows match it in distribution only.
+  * continuous: ``submit(prompt, budget_s=, ...) -> rid`` and ``run()``
+    (or ``step()``, or ``submit_at(tick, thunk)`` for deferred arrivals).
+    An admitted request's prompt prefills alone on a right-padded
+    ``(1, prefill_len)`` row (``lm.prefill(lengths=)``) whose cache is
+    copied into a persistent :class:`~repro_torch.models.lm.CachePool`
+    slot; each tick then decodes ``decode_block`` tokens for every slot
+    together, each row at its own bits, position and sampling params.
+  * speculative (``spec_k``): a round drafts up to ``SPEC_K_MAX`` tokens
+    per row at the draft bits (``draft_budget_s``), verifies the current
+    token and the drafts in one ``(SPEC_K_MAX + 1)``-wide
+    ``lm.decode_chunk`` at each row's own bits, delivers the longest
+    accepted prefix plus one token (greedy: exact match; sampled:
+    rejection resampling against the draft densities), and rolls the
+    rejected cache entries back (``CachePool.rollback``).
+  * whole-batch: ``set_budget(scalar | (B,) vector)`` + ``generate(batch,
+    steps)``; a prompt longer than ``transformer.FLASH_THRESHOLD`` sends
+    every layer's self-attention through the flash kernel.
 
-Not ported yet, and raising ``NotImplementedError``: continuous batching
-(``submit``/``run``), meshes and placement plans, the prefix cache and
-speculative decoding.
+The reference jit-compiles each program (a scan-fused decode block, one
+draft and one verify program for every depth); here each runs eagerly as
+a method, so ``generate(fused=)`` changes nothing.  Two consequences:
+the draft runs only as deep as the deepest row of the round can accept
+(the reference always drafts ``SPEC_K_MAX``; tokens past a row's depth
+are never accepted, so no output changes), and ``stats`` (the copied
+``RuntimeStats``) counts no traces: nothing is compiled, so the
+reference's zero-retrace property has no counterpart.  ``calls`` counts
+the model forwards the continuous API runs instead.  Rows that hold no
+request still decode in every tick (the batch is always ``n_slots``
+wide, as in the reference); the port masks their cache entries again
+after the tick, so a free slot's ``kpos`` stays EMPTY_POS (the
+reference leaves them visible in the free row until the next install
+overwrites it).
+
+Randomness comes from one ``torch.Generator`` seeded from ``seed``:
+greedy (temperature 0) rows equal the reference's tokens, sampled rows
+match it in distribution only.  The pool and every forward stay on the
+engine's device; a CUDA tensor reaches the kernels or raises.
+
+Not ported yet, and raising ``NotImplementedError``: meshes and
+placement plans (``mesh=``, ``plan=``), the prefix cache
+(``prefix_cache=``), vlm prefixes, the closed-loop ``FluidController``,
+and the families outside ``lm.PORTED_FAMILIES``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,9 +66,27 @@ from repro_torch.core import policy as pol
 from repro_torch.core.policy import BudgetController, PrecisionPolicy
 from repro_torch.models import common as cm
 from repro_torch.models import lm
-from repro_torch.serve.runtime import ServeRuntime
+from repro_torch.models.transformer import EMPTY_POS
+from repro_torch.serve.accounting import RequestStats
+from repro_torch.serve.runtime import (ServeRuntime, SlotTable,
+                                       UNCONSTRAINED_BUDGET)
 
 TOPK_MAX = 64          # top-k sort width; per-row k <= TOPK_MAX
+SPEC_K_MAX = 8         # draft depth ceiling: a speculative round verifies
+                       # one (SPEC_K_MAX + 1)-wide chunk per row
+
+
+@dataclasses.dataclass
+class Request:
+    """A queued generation request with its own budget + sampling params."""
+    rid: int
+    prompt: np.ndarray                  # (S,) int32
+    max_new_tokens: int
+    budget_s: Optional[float]
+    temperature: float = 0.0
+    top_k: int = 0
+    draft_k: Optional[int] = None       # speculative draft depth override
+                                        # (None: the engine decides)
 
 
 def default_controller(n: int) -> BudgetController:
@@ -73,39 +125,74 @@ def _sample_tokens(logits: torch.Tensor, gen: torch.Generator,
     (``jax.random.categorical`` is the same construction)."""
     logits = logits.float()
     greedy = logits.argmax(dim=-1).to(torch.int32)
-    scaled = _scaled_logits(logits, temperature, top_k)
-    u = torch.rand(scaled.shape, generator=gen, device=gen.device)
+    sampled = _categorical(_scaled_logits(logits, temperature, top_k), gen)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+def _categorical(logits: torch.Tensor, gen: torch.Generator
+                 ) -> torch.Tensor:
+    """One draw per row from softmax(logits) (B, V): the Gumbel-max
+    argmax(logits + Gumbel noise), int32."""
+    u = torch.rand(logits.shape, generator=gen, device=gen.device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    sampled = (scaled - torch.log(-torch.log(u))).argmax(dim=-1)
-    return torch.where(temperature > 0, sampled.to(torch.int32), greedy)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
 
 
 class ServeEngine(ServeRuntime):
-    """Bit-fluid LM serving engine (whole-batch API, one device).
+    """Bit-fluid LM serving engine on one device.
 
     ``qparams`` are serve-form parameters (``lm.quantize_params``); they
-    are placed on ``device`` — CUDA unless the caller passes another.
+    are placed on ``device``, CUDA unless the caller passes another, and
+    so is the cache pool.
     """
 
     def __init__(self, cfg, qparams, *, max_len: int = 256,
                  controller: Optional[BudgetController] = None,
                  policy: Optional[PrecisionPolicy] = None,
-                 mesh=None, seed: int = 0, prefix_cache=None,
+                 mesh=None, n_slots: int = 4, prefill_len: int = 32,
+                 decode_block: int = 8, eos_id: Optional[int] = None,
+                 seed: int = 0, prefix_cache=None,
                  spec_k: Optional[int] = None,
                  draft_budget_s: Optional[float] = None, plan=None,
                  device="cuda"):
         for name, val in (("mesh", mesh), ("plan", plan),
-                          ("prefix_cache", prefix_cache),
-                          ("spec_k", spec_k),
-                          ("draft_budget_s", draft_budget_s)):
+                          ("prefix_cache", prefix_cache)):
             if val is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet: the port "
-                    f"serves on one device without a prefix cache or "
-                    f"speculative decoding")
+                    f"serves on one device without a prefix cache")
         self.cfg = cfg
+        # speculative decoding: spec_k=None disables it; an int enables
+        # self-drafting at that default depth.  draft_budget_s picks the
+        # draft bit configuration through the same controller tables
+        # (None -> 0.0 -> the cheapest config).
+        if spec_k is not None:
+            if not 0 <= spec_k <= SPEC_K_MAX:
+                raise ValueError(
+                    f"spec_k={spec_k} not in [0, {SPEC_K_MAX}]")
+            if cfg.sliding_window:
+                raise ValueError(
+                    "speculative decoding needs a non-wrapping KV ring; "
+                    "sliding_window models must serve with spec_k=None")
+            if cfg.family not in lm.SPEC_CHUNK_FAMILIES:
+                raise ValueError(
+                    f"speculative decoding needs the chunked verify path; "
+                    f"family {cfg.family!r} is unsupported "
+                    f"(supported: {lm.SPEC_CHUNK_FAMILIES})")
+        self.spec_k = spec_k
+        self._draft_budget_f = (0.0 if draft_budget_s is None
+                                else float(draft_budget_s))
+        self._draft_bits_c = None
+        self._draft_price = None
+        self._draft_idx = -1            # config index the draft caches hold
+        self._draft_price_idx = -1
+        self._draft_wbits_f = 0.0       # mean weight bits of that config
         self.device = cm.resolve_device(device)
         self.max_len = max_len
+        self.n_slots = n_slots
+        self.prefill_len = prefill_len
+        self.decode_block = decode_block
+        self.eos_id = eos_id
         n = lm.n_bit_slots(cfg)
         if controller is None:
             p = policy or _default_policy()
@@ -123,6 +210,20 @@ class ServeEngine(ServeRuntime):
         self.budget_s = torch.tensor(1e9, dtype=torch.float32)
         self.row_bits = cfg.family in lm.PER_ROW_BIT_FAMILIES
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        # continuous-batching state (the pool is built on first admission)
+        self.pool: Optional[lm.CachePool] = None
+        self.slots = SlotTable(
+            n_slots,
+            tok=(np.int64, 0), t=(np.int64, 0),
+            budget=(np.float64, 0.0),           # freed rows: cheapest bits
+            temp=(np.float64, 0.0), topk=(np.int64, 0),
+            remaining=(np.int64, 0),
+            k=(np.int64, 0))                    # speculative draft depth
+        self._just_finished: List[int] = []
+        # model forwards run by the continuous API: request prefills,
+        # decode and draft steps, verify chunks
+        self.calls = {"prefill": 0, "decode": 0, "draft": 0, "verify": 0}
 
     # ------------------------------------------------------------------
     # Shared plumbing
@@ -145,6 +246,148 @@ class ServeEngine(ServeRuntime):
         """Per-token AP cost of the configuration a scalar budget selects."""
         return self.price_bits(*self.controller.resolve(
             torch.tensor(budget_s, dtype=torch.float32)))
+
+    def _draft_index(self) -> int:
+        """Stacked-config index the drafts run at: the draft budget's
+        config (the reference's autotuner shift comes with the
+        FluidController)."""
+        return self._host_index(self._draft_budget_f)
+
+    def _draft_bits(self):
+        """Device-side draft bit matrix (n_slots, L): the draft config
+        broadcast across rows, cached per config index."""
+        idx = self._draft_index()
+        if self._draft_bits_c is None or idx != self._draft_idx:
+            wtab, atab = self.controller.stacked_tables()
+            wv = wtab[idx].expand(self.n_slots, -1).to(self.device)
+            av = atab[idx].expand(self.n_slots, -1).to(self.device)
+            self._draft_bits_c = (wv, av)
+            self._draft_idx = idx
+            self._draft_wbits_f = float(np.mean(self.host_tables()[0][idx]))
+            self._draft_price = None
+        return self._draft_bits_c
+
+    def _draft_pricing(self):
+        """Per-token AP cost of one draft step at the draft bits (cached
+        per config index)."""
+        idx = self._draft_index()
+        if self._draft_price is None or idx != self._draft_price_idx:
+            wtab, atab = self.host_tables()
+            self._draft_price = self.price_bits(wtab[idx], atab[idx])
+            self._draft_price_idx = idx
+            self._draft_wbits_f = float(np.mean(wtab[idx]))
+        return self._draft_price
+
+    def _resolve_draft_k(self, req: Request) -> int:
+        """Draft depth for one admission: the request's explicit
+        ``draft_k``, else the engine default (spec_k=None disables)."""
+        if req.draft_k is not None:
+            return int(req.draft_k)
+        if self.spec_k is None:
+            return 0
+        return self.spec_k
+
+    # ------------------------------------------------------------------
+    # The engine's programs, run eagerly
+    # ------------------------------------------------------------------
+
+    def _prefill_row(self, tokens, length, wv, av):
+        """One request's right-padded (1, prefill_len) prefill into a
+        fresh single-row cache; returns (logits (1, 1, V), row cache)."""
+        self.calls["prefill"] += 1
+        cache = lm.empty_cache(self.cfg, 1, self.max_len, device=self.device)
+        return lm.prefill(self.qparams, {"tokens": tokens}, self.cfg, wv, av,
+                          cache, lengths=length)
+
+    def _decode_block(self, tok, t, cache, wv, av, temp, topk, steps):
+        """``steps`` decode steps with per-row sampling; returns the last
+        token (B, 1), the next positions and the tokens (B, steps)."""
+        out = []
+        for _ in range(steps):
+            logits, cache = lm.decode_step(self.qparams, tok, t, cache,
+                                           self.cfg, wv, av)
+            nxt = _sample_tokens(logits[:, -1], self.gen, temp, topk)
+            tok, t = nxt[:, None], t + 1
+            out.append(nxt)
+        self.calls["decode"] += steps
+        return tok, t, torch.stack(out, dim=1)
+
+    def _draft_scan(self, tok, t, cache, wv, av, temp, topk, steps):
+        """Speculative self-draft: ``steps`` decode steps at the draft
+        bits.  Returns the drafts (B, SPEC_K_MAX) and each draft's
+        sampling density (B, SPEC_K_MAX, V), the rejection test's q;
+        positions past ``steps`` repeat the last draft with density 0
+        (no row can accept them)."""
+        toks, probs = [], []
+        for _ in range(steps):
+            logits, cache = lm.decode_step(self.qparams, tok, t, cache,
+                                           self.cfg, wv, av)
+            flat = logits[:, -1].float()
+            nxt = _sample_tokens(flat, self.gen, temp, topk)
+            probs.append(torch.softmax(_scaled_logits(flat, temp, topk),
+                                       dim=-1))
+            toks.append(nxt)
+            tok, t = nxt[:, None], t + 1
+        self.calls["draft"] += steps
+        pad = SPEC_K_MAX - steps
+        toks += [toks[-1]] * pad
+        probs += [torch.zeros_like(probs[-1])] * pad
+        return torch.stack(toks, dim=1), torch.stack(probs, dim=1)
+
+    def _spec_verify(self, tok, draft_toks, draft_probs, t, cache, wv, av,
+                     k_eff, temp, topk):
+        """The verify: one (SPEC_K_MAX + 1)-wide chunk scores the current
+        token and every draft at each row's own bits, overwriting the
+        draft-bit cache entries.  Greedy rows accept the longest
+        exact-argmax prefix; sampled rows run rejection resampling against
+        the draft densities (accept u < p/q, resample the first rejection
+        from normalize(max(p - q, 0)), a bonus draw from p on full
+        accept).  ``k_eff`` (B,) clamps each row's acceptance.  Returns
+        (next token (B,), next positions, emitted (B, U), count a + 1,
+        keep watermark t + a)."""
+        self.calls["verify"] += 1
+        B, K = draft_toks.shape
+        U = K + 1
+        dev = tok.device
+        toks = torch.cat([tok, draft_toks], dim=1)               # (B, U)
+        logits, _ = lm.decode_chunk(self.qparams, toks, t, cache, self.cfg,
+                                    wv, av)
+        logits = logits.float()
+        ver = logits.argmax(dim=-1).to(torch.int32)              # (B, U)
+        p = torch.softmax(_scaled_logits(
+            logits.reshape(B * U, -1), temp.repeat_interleave(U),
+            topk.repeat_interleave(U)), dim=-1).reshape(B, U, -1)
+        idx = draft_toks.long()[..., None]
+        p_g = torch.gather(p[:, :K], 2, idx)[..., 0]             # (B, K)
+        q_g = torch.gather(draft_probs, 2, idx)[..., 0]
+        u = torch.rand(draft_toks.shape, generator=self.gen, device=dev)
+        ok = torch.where(temp[:, None] > 0,
+                         u * q_g.clamp_min(1e-20) < p_g,         # u < p/q
+                         draft_toks == ver[:, :K])
+        ok &= torch.arange(K, device=dev)[None] < k_eff[:, None]
+        a = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)  # (B,)
+        rows = torch.arange(B, device=dev)
+        p_a = p[rows, a]
+        q_pad = torch.cat([draft_probs, torch.zeros_like(draft_probs[:, :1])],
+                          dim=1)
+        q_a = q_pad[rows, a]
+        resid = torch.where((a < k_eff)[:, None],
+                            (p_a - q_a).clamp_min(0.0), p_a)
+        tot = resid.sum(dim=-1, keepdim=True)
+        rdist = torch.where(tot > 0, resid / tot.clamp_min(1e-30), p_a)
+        extra = torch.where(temp > 0,
+                            _categorical(torch.log(rdist + 1e-30), self.gen),
+                            ver[rows, a])
+        emitted = torch.where(
+            torch.arange(U, device=dev)[None] < a[:, None],
+            torch.cat([draft_toks, draft_toks[:, -1:]], dim=1),
+            extra[:, None])                                      # (B, U)
+        # extra is the round's last delivered token, the next round's
+        # input; t + a is the rollback watermark
+        return extra, t + a + 1, emitted, a + 1, t + a
+
+    def _sample_first(self, logits, temp, topk):
+        return _sample_tokens(logits[:, -1], self.gen, temp, topk)
 
     # ------------------------------------------------------------------
     # Whole-batch API
@@ -190,22 +433,280 @@ class ServeEngine(ServeRuntime):
         self.stats.tokens += B * steps
         return torch.cat(out, dim=1)
 
-    def _sample_first(self, logits, temp, topk):
-        return _sample_tokens(logits[:, -1], self.gen, temp, topk)
-
     # ------------------------------------------------------------------
-    # Continuous batching: not ported yet
+    # Continuous-batching API
     # ------------------------------------------------------------------
 
-    def submit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "continuous batching (submit/run) is not ported yet; use "
-            "generate()")
+    def submit(self, prompt, *, max_new_tokens: int = 16,
+               budget_s: Optional[float] = None, temperature: float = 0.0,
+               top_k: int = 0, prefix=None,
+               draft_k: Optional[int] = None) -> int:
+        """Enqueue a request; returns its id.  ``budget_s`` caps this
+        request's precision configuration (None = loosest, most
+        accurate).  ``draft_k`` overrides the speculative draft depth for
+        this request (0 = vanilla decode; None = the engine decides)."""
+        if self.cfg.family not in lm.RAGGED_PREFILL_FAMILIES:
+            raise NotImplementedError(
+                f"the continuous-batching API needs ragged prefill; family "
+                f"{self.cfg.family!r} serves via generate() only "
+                f"(supported: {lm.RAGGED_PREFILL_FAMILIES})")
+        if self.cfg.family not in lm.PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} ({self.cfg.name}) is not "
+                f"ported yet; the port runs {lm.PORTED_FAMILIES}")
+        if prefix is not None:
+            raise NotImplementedError("vlm prefixes are not ported yet")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if not 1 <= prompt.shape[0] <= self.prefill_len:
+            raise ValueError(f"prompt length {prompt.shape[0]} not in "
+                             f"[1, {self.prefill_len}]")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens={max_new_tokens} must be >= 1")
+        if (self.prefill_len + max_new_tokens > self.max_len
+                and not self.cfg.sliding_window):
+            raise ValueError("prefill_len + max_new_tokens exceeds max_len "
+                             "(KV ring would wrap)")
+        if top_k > TOPK_MAX:
+            raise ValueError(f"top_k={top_k} exceeds TOPK_MAX={TOPK_MAX}")
+        if draft_k is not None and not 0 <= draft_k <= SPEC_K_MAX:
+            raise ValueError(f"draft_k={draft_k} not in [0, {SPEC_K_MAX}]")
+        # speculative rounds write up to SPEC_K_MAX positions past the
+        # accepted point before rollback: the KV ring must never wrap
+        # under them (wrapped slots would expose stale-lap entries to the
+        # chunked verify), whenever this request could draft
+        spec_possible = (draft_k or 0) > 0 or (
+            draft_k is None and self.spec_k is not None and self.spec_k > 0)
+        if spec_possible:
+            if self.cfg.sliding_window:
+                raise ValueError(
+                    "speculative decoding needs a non-wrapping KV ring; "
+                    "sliding_window requests must submit draft_k=0")
+            if self.cfg.family not in lm.SPEC_CHUNK_FAMILIES:
+                raise ValueError(
+                    f"speculative decoding unsupported for family "
+                    f"{self.cfg.family!r} "
+                    f"(supported: {lm.SPEC_CHUNK_FAMILIES})")
+            if self.prefill_len + max_new_tokens + SPEC_K_MAX > self.max_len:
+                raise ValueError(
+                    "prefill_len + max_new_tokens + SPEC_K_MAX exceeds "
+                    "max_len (a speculative round could wrap the KV ring); "
+                    "submit draft_k=0 or shrink the request")
+        rid = self.next_rid()
+        req = Request(rid, prompt, max_new_tokens,
+                      None if budget_s is None else float(budget_s),
+                      float(temperature), int(top_k), draft_k=draft_k)
+        record = RequestStats(
+            rid=rid,
+            budget_s=(float(budget_s) if budget_s is not None
+                      else UNCONSTRAINED_BUDGET),
+            prompt_len=int(prompt.shape[0]), submitted_s=time.time())
+        return self.new_record(record, req, budget_s)
 
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(
-            "continuous batching (submit/run) is not ported yet; use "
-            "generate()")
+    def _ensure_pool(self) -> lm.CachePool:
+        if self.pool is None:
+            self.pool = lm.CachePool(self.cfg, self.n_slots, self.max_len,
+                                     device=self.device)
+        return self.pool
+
+    def _admit(self) -> List[int]:
+        """Move queued requests into free pool slots, in the runtime's
+        EDP-aware, starvation-free admission order: price, prefill the
+        prompt on its own padded row, install the row, sample the first
+        token (the one host sync per admission)."""
+        pool = self._ensure_pool()
+        dev = self.device
+        admitted = []
+        while self.queued and pool.free_slots:
+            req: Request = self.next_admission()
+            slot = pool.alloc()
+            S = req.prompt.shape[0]
+            record = self.requests[req.rid]
+            planned = S + req.max_new_tokens
+            eff = self.admission_budget(req.budget_s)
+            # speculative plan: draft + verify pricing for the planned
+            # rounds (full acceptance)
+            k_req = self._resolve_draft_k(req)
+            spec = None
+            if k_req > 0 and req.max_new_tokens > 1:
+                swv, sav = self.host_bits(eff)
+                spec = (k_req, self._draft_pricing(),
+                        self.price_verify_bits(swv, sav, k_req + 1),
+                        -(-(req.max_new_tokens - 1) // (k_req + 1)),
+                        req.max_new_tokens - 1)
+            else:
+                k_req = 0
+            wv, av = self.admit_record(record, req.budget_s, planned,
+                                       eff=eff, spec=spec)
+            tokens = np.zeros((1, self.prefill_len), np.int32)
+            tokens[0, :S] = req.prompt
+            logits, row_cache = self._prefill_row(
+                torch.from_numpy(tokens).to(dev),
+                torch.tensor([S], dtype=torch.int32).to(dev),
+                wv.to(dev), av.to(dev))
+            pool.write_row(row_cache, slot, S)
+            del row_cache
+            first = self._sample_first(
+                logits, torch.tensor([req.temperature],
+                                     dtype=torch.float32).to(dev),
+                torch.tensor([req.top_k], dtype=torch.int32).to(dev))
+            first0 = int(first[0])          # the per-admission host sync
+            record.slot = slot
+            record.tokens.append(first0)
+            self.stats.tokens += 1
+            self.slots.occupy(slot, req.rid, tok=first0, t=S,
+                              budget=record.budget_s, temp=req.temperature,
+                              topk=req.top_k,
+                              remaining=req.max_new_tokens - 1, k=k_req)
+            admitted.append(req.rid)
+            if self.slots["remaining"][slot] <= 0 or (
+                    self.eos_id is not None and first0 == self.eos_id):
+                self._finish(slot)
+        return admitted
+
+    def _finish(self, slot: int) -> None:
+        rid = int(self.slots.rid[slot])
+        self.finish_record(rid)
+        self.slots.release(slot)
+        self.pool.free(slot)
+        self._just_finished.append(rid)
+
+    def _has_active(self) -> bool:
+        return bool(self.slots.active.any())
+
+    def _active_count(self) -> int:
+        return int(self.slots.active.sum())
+
+    def _can_admit(self) -> bool:
+        return self.n_slots >= 1
+
+    def step(self) -> List[int]:
+        """One scheduler tick: admit into free slots, decode one block (or
+        run one speculative round), harvest tokens, retire finished
+        requests.  Returns the rids that completed during this tick."""
+        with self.compute_ctx():
+            return self._step()
+
+    def _step(self) -> List[int]:
+        self.age_queue()
+        self._admit()
+        slots = self.slots
+        active = slots.active
+        if active.any():
+            # a round can accept at most remaining - 1 drafts (the +1
+            # verified token must not overshoot max_new_tokens), so a
+            # batch whose every row is clamped to 0 takes the vanilla block
+            k_eff = np.where(
+                active, np.minimum(slots["k"], slots["remaining"] - 1),
+                0).astype(np.int64)
+            if k_eff.max() > 0:
+                self._spec_round(active, k_eff)
+            else:
+                self._decode_tick(active)
+        done = self._just_finished
+        self._just_finished = []
+        return done
+
+    def _batch_bits(self):
+        """Per-slot budgets (frozen at admission) resolved to an
+        (n_slots, L) bit matrix on the device."""
+        wv, av = self.controller.resolve(
+            torch.as_tensor(self.slots["budget"], dtype=torch.float32))
+        return wv.to(self.device), av.to(self.device)
+
+    def _slot_inputs(self):
+        dev, slots = self.device, self.slots
+        return (torch.as_tensor(slots["tok"][:, None],
+                                dtype=torch.int32).to(dev),
+                torch.as_tensor(slots["t"], dtype=torch.int32).to(dev),
+                torch.as_tensor(slots["temp"], dtype=torch.float32).to(dev),
+                torch.as_tensor(slots["topk"], dtype=torch.int32).to(dev))
+
+    def _mask_idle_rows(self, active, keep=None) -> None:
+        """Roll back every cache entry of the rows that held no request
+        during this tick (they decoded masked garbage), and, for the rest,
+        past ``keep`` (the speculative watermark; None keeps all)."""
+        if keep is None:
+            if active.all():
+                return
+            keep = torch.full((self.n_slots,), EMPTY_POS, dtype=torch.int64,
+                              device=self.device)
+        idle = torch.as_tensor(~active).to(self.device)
+        self.pool.rollback(torch.where(idle, -1, keep.long()))
+
+    def _decode_tick(self, active) -> None:
+        """Vanilla tick: one decode block for every slot, per-row bits."""
+        pool = self.pool
+        slots = self.slots
+        wv, av = self._batch_bits()
+        tok, t, temp, topk = self._slot_inputs()
+        _, _, toks = self._decode_block(tok, t, pool.cache, wv, av, temp,
+                                        topk, self.decode_block)
+        self._mask_idle_rows(active)
+        toks_h = toks.cpu().numpy()         # one device-to-host copy a tick
+        slots["tok"][:] = toks_h[:, -1].astype(np.int64)
+        slots["t"][:] += self.decode_block
+        for slot in np.nonzero(active)[0]:
+            rid = int(slots.rid[slot])
+            st = self.requests[rid]
+            take = int(min(slots["remaining"][slot], self.decode_block))
+            new = toks_h[slot, :take].tolist()
+            if self.eos_id is not None and self.eos_id in new:
+                new = new[:new.index(self.eos_id) + 1]
+            st.tokens.extend(int(x) for x in new)
+            self.stats.tokens += len(new)
+            slots["remaining"][slot] -= take
+            hit_eos = (self.eos_id is not None and new
+                       and new[-1] == self.eos_id)
+            if slots["remaining"][slot] <= 0 or hit_eos:
+                self._finish(slot)
+
+    def _spec_round(self, active, k_eff_h) -> None:
+        """One speculative round for the whole batch: draft at the draft
+        bits, verify the current token and the drafts in one chunk at
+        each row's own bits, deliver the longest accepted prefix plus
+        one token, and roll the rejected cache entries back.  Rows with
+        k_eff == 0 ride along and deliver their one verified token."""
+        pool = self.pool
+        slots = self.slots
+        wv, av = self._batch_bits()
+        dwv, dav = self._draft_bits()
+        tok, t, temp, topk = self._slot_inputs()
+        k_eff = torch.as_tensor(k_eff_h, dtype=torch.int64).to(self.device)
+        draft_toks, draft_probs = self._draft_scan(
+            tok, t, pool.cache, dwv, dav, temp, topk, int(k_eff_h.max()))
+        nxt, t_next, emitted, count, keep = self._spec_verify(
+            tok, draft_toks, draft_probs, t, pool.cache, wv, av, k_eff,
+            temp, topk)
+        self._mask_idle_rows(active, keep)
+        # one device-to-host copy a round
+        out = torch.cat([nxt[:, None].long(), t_next[:, None].long(),
+                         count[:, None].long(), emitted.long()],
+                        dim=1).cpu().numpy()
+        slots["tok"][:] = out[:, 0]
+        slots["t"][:] = out[:, 1]
+        for slot in np.nonzero(active)[0]:
+            rid = int(slots.rid[slot])
+            st = self.requests[rid]
+            take = int(out[slot, 2])            # a + 1 <= remaining
+            new = out[slot, 3:3 + take].tolist()
+            if self.eos_id is not None and self.eos_id in new:
+                new = new[:new.index(self.eos_id) + 1]
+            st.tokens.extend(int(x) for x in new)
+            self.stats.tokens += len(new)
+            slots["remaining"][slot] -= take
+            k_req = int(slots["k"][slot])
+            if k_req > 0:
+                # per-round actuals at the request's chosen depth
+                st.spec_rounds += 1
+                st.draft_units += k_req
+                st.verify_units += k_req + 1
+                st.accepted_units += take - 1
+                st.spec_tokens += len(new)
+                st.draft_wbits = self._draft_wbits_f
+            hit_eos = (self.eos_id is not None and new
+                       and new[-1] == self.eos_id)
+            if slots["remaining"][slot] <= 0 or hit_eos:
+                self._finish(slot)
 
 
 def _to(tree, device):

@@ -1,21 +1,36 @@
-"""Serving runtime base, as far as batched CNN serving and whole-batch LM
-generation use it (DESIGN.md §8).
+"""Workload-agnostic serving runtime (DESIGN.md §8), on one device.
 
-The counterpart of ``repro.serve.runtime.ServeRuntime`` for one device
-and an open-loop controller: the controller check, the static bit-family
-set applied around every forward, the cached AP pricer (with the LM's
-logits head), the host-side mirrors of the controller's tables, batch
-admission planning and the per-request records.  The slot-pool
-scheduler, the mesh/placement-plan branches and the closed-loop
-``FluidController`` are not ported yet.
+The counterpart of ``repro.serve.runtime``:
+
+  * the request queue and admission scheduler: EDP-aware (the cheapest
+    modeled EDP admits first) with FIFO anti-starvation aging after
+    ``starvation_ticks`` ticks, deterministic;
+  * slot lifecycle state (:class:`SlotTable` for slot-pool workloads,
+    :meth:`ServeRuntime.plan_admissions` for batched ones), the
+    scheduler clock with deferred :meth:`~ServeRuntime.submit_at`
+    arrivals, and the :meth:`~ServeRuntime.run` loop;
+  * the stats, the per-request cost records and the cached AP pricer
+    (``serve/accounting.py``), with the host-side mirrors of the
+    controller's tables;
+  * the compute context: the controller's static bit-family set applied
+    around every forward.
+
+The port has no ``FluidController`` yet, so every admission takes the
+reference's open-loop branch: a request's own budget is its effective
+budget, nothing is charged against an SLO window (``charge`` and the
+closed-loop branches of ``admission_budget``, ``admit_record``,
+``plan_admissions``, ``finish_record`` and ``sched_tick`` are not
+ported), and there are no meshes or placement plans.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.apsim import metrics as apm
 from repro_torch.core.policy import BudgetController
@@ -27,12 +42,59 @@ from repro_torch.serve.accounting import (BitVectorPricer, CostRecord,
 UNCONSTRAINED_BUDGET = 1e30
 
 
+@dataclasses.dataclass
+class _QueueEntry:
+    """One queued admission: workload payload + scheduling metadata."""
+    rid: int
+    payload: object
+    est_edp: float                      # modeled per-unit EDP (ordering)
+    age: int = 0                        # scheduler ticks spent waiting
+
+
+class SlotTable:
+    """Host-side per-slot scheduler state for slot-pool workloads.
+
+    The slot -> request ownership array plus named numpy columns (decode
+    position, sampling params, countdowns, ...).  The runtime owns the
+    occupy/release lifecycle; workload adapters read and write columns.
+    """
+
+    def __init__(self, n_slots: int,
+                 **columns: Tuple[type, float]) -> None:
+        self.n_slots = n_slots
+        self.rid = np.full((n_slots,), -1, np.int64)
+        self._fill = {name: fill for name, (_, fill) in columns.items()}
+        self.cols: Dict[str, np.ndarray] = {
+            name: np.full((n_slots,), fill, dtype)
+            for name, (dtype, fill) in columns.items()}
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.cols[name]
+
+    @property
+    def active(self) -> np.ndarray:
+        return self.rid >= 0
+
+    def occupy(self, slot: int, rid: int, **values) -> None:
+        self.rid[slot] = rid
+        for name, v in values.items():
+            self.cols[name][slot] = v
+
+    def release(self, slot: int) -> None:
+        """Free a slot; columns reset to their fills (a freed row decodes
+        masked garbage — its reset budget resolves the cheapest config)."""
+        self.rid[slot] = -1
+        for name, arr in self.cols.items():
+            arr[slot] = self._fill[name]
+
+
 class ServeRuntime:
-    """Shared serving base: accounting, admission planning, bit families."""
+    """Shared serving base: queue, scheduler, accounting, bit families."""
 
     def __init__(self, controller: BudgetController, n_layers: int, *,
                  gemms: Optional[Sequence[Sequence]] = None,
                  head: Optional[Tuple[int, int]] = None,
+                 starvation_ticks: int = 8,
                  slot_desc: str = "bit-slot layers") -> None:
         if controller.n_layers != n_layers:
             raise ValueError(
@@ -40,6 +102,7 @@ class ServeRuntime:
                 f"this workload has {n_layers} {slot_desc}")
         self.controller = controller
         self.n_layers = n_layers
+        self.starvation_ticks = starvation_ticks
         # grouped per-row dispatch runs one GEMM per *distinct* weight
         # bit-width the controller can emit (kernels/ops.py)
         wtab, _ = controller.stacked_tables()
@@ -50,12 +113,24 @@ class ServeRuntime:
         self.stats = RuntimeStats()
         self.requests: Dict[int, CostRecord] = {}
         self._next_rid = 0
+        self._pending: List[_QueueEntry] = []
+        self._config_costs: Optional[List[apm.BitVectorCost]] = None
         self._lats_np: Optional[np.ndarray] = None
         self._tabs_np: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # scheduler clock + deferred (timestamped) arrivals: submit_at()
+        # registers a submit thunk for a future tick; run() drains the due
+        # thunks at the top of each tick
+        self._tick = 0
+        self._arrivals: Dict[int, List[Callable[[], int]]] = {}
 
     def price_bits(self, wv, av) -> apm.BitVectorCost:
         """AP cycles/energy of one resolved bit vector pair (cached)."""
         return self.pricer.price(np.asarray(wv), np.asarray(av))
+
+    def price_verify_bits(self, wv, av, u: int) -> apm.BitVectorCost:
+        """:meth:`BitVectorPricer.price_verify`: one u-token verify chunk
+        at this bit vector."""
+        return self.pricer.price_verify(np.asarray(wv), np.asarray(av), u)
 
     def price_matrix_bits(self, wmat, amat) -> List[apm.BitVectorCost]:
         """One-pass batch pricing (rows share cached cost objects)."""
@@ -98,24 +173,179 @@ class ServeRuntime:
         i = self._host_index(budget)
         return wtab[i], atab[i]
 
+    def _config_cost(self, idx: int) -> apm.BitVectorCost:
+        """Priced AP cost of the controller's idx-th stacked config."""
+        if self._config_costs is None:
+            wtab, atab = self.host_tables()
+            self._config_costs = [self.pricer.price(wtab[i], atab[i])
+                                  for i in range(wtab.shape[0])]
+        return self._config_costs[idx]
+
+    def admission_budget(self, requested: Optional[float] = None) -> float:
+        """Effective budget for the next admission: the request's own
+        budget (open loop), unconstrained when it has none."""
+        return (float(requested) if requested is not None
+                else UNCONSTRAINED_BUDGET)
+
+    def admit_record(self, record: CostRecord, requested: Optional[float],
+                     units: int, *, eff: Optional[float] = None,
+                     spec: Optional[Tuple] = None):
+        """Resolve one admission end to end: effective budget -> bit
+        vectors -> AP pricing, written into ``record``.  ``units`` is the
+        admission's planned AP unit count (LM: prompt + max new tokens).
+        ``spec`` = (spec_k, draft_cost, verify_cost, planned_rounds,
+        planned_tokens) installs a speculative-decoding plan on the
+        record.  Returns the (wbits, abits) vectors (host tensors)."""
+        if eff is None:
+            eff = self.admission_budget(requested)
+        wv, av = self.controller.resolve(
+            torch.tensor(eff, dtype=torch.float32))
+        # price through the cached host mirrors (host_bits == resolve)
+        wv_h, av_h = self.host_bits(eff)
+        record.budget_s = eff
+        record.ap_cost = self.price_bits(wv_h, av_h)
+        record.mean_wbits = float(np.mean(np.asarray(wv_h, np.float64)))
+        record.planned_units = units
+        record.admitted_tick = self._tick
+        if spec is not None:
+            (record.spec_k, record.draft_cost, record.verify_cost,
+             record.planned_spec_rounds, record.planned_spec_tokens) = spec
+        self.stats.admitted += 1
+        return wv, av
+
     def plan_admissions(self, budgets: Sequence[Optional[float]]
                         ) -> np.ndarray:
         """Effective budgets for a batch of admissions (open loop: each
         request's own budget passes through; ``None`` is unconstrained)."""
-        return np.asarray([UNCONSTRAINED_BUDGET if b is None else float(b)
-                           for b in budgets], np.float64)
+        return np.asarray([self.admission_budget(b) for b in budgets],
+                          np.float64)
+
+    # ------------------------------------------------------------------
+    # Queue + admission scheduler
+    # ------------------------------------------------------------------
+
+    def new_record(self, record: CostRecord, payload: object,
+                   requested: Optional[float], *,
+                   est_scale: float = 1.0) -> int:
+        """Register a submitted request and enqueue it for admission.
+        ``est_scale`` discounts the modeled EDP used for admission
+        ordering (the reference's prefix cache passes its predicted miss
+        fraction)."""
+        record.submitted_tick = self._tick
+        self.requests[record.rid] = record
+        est = 0.0
+        if self.pricer is not None:
+            open_budget = (float(requested) if requested is not None
+                           else UNCONSTRAINED_BUDGET)
+            est = (self._config_cost(self._host_index(open_budget)).edp
+                   * float(est_scale))
+        self._pending.append(_QueueEntry(record.rid, payload, est))
+        return record.rid
+
+    def submit_at(self, tick: int, submit: Callable[[], int]) -> None:
+        """Register a deferred arrival: ``submit`` (a thunk that calls the
+        adapter's ``submit(...)``) runs when the scheduler clock reaches
+        ``tick`` inside :meth:`run`."""
+        t = int(tick)
+        if t < self._tick:
+            raise ValueError(f"arrival tick {t} is in the past "
+                             f"(scheduler clock is at {self._tick})")
+        self._arrivals.setdefault(t, []).append(submit)
 
     def next_rid(self) -> int:
         rid = self._next_rid
         self._next_rid += 1
         return rid
 
+    @property
+    def queued(self) -> int:
+        return len(self._pending)
+
+    def age_queue(self) -> None:
+        """One scheduler tick of waiting for everything still queued."""
+        for e in self._pending:
+            e.age += 1
+
+    def next_admission(self) -> Optional[object]:
+        """EDP-aware admission pick: the queued request with the lowest
+        modeled per-unit EDP admits first, except that any request that
+        has waited ``starvation_ticks`` ticks is admitted FIFO first.
+        Deterministic (ties break by rid)."""
+        if not self._pending:
+            return None
+        starved = [e for e in self._pending
+                   if e.age >= self.starvation_ticks]
+        pick = (min(starved, key=lambda e: e.rid) if starved
+                else min(self._pending, key=lambda e: (e.est_edp, e.rid)))
+        self._pending.remove(pick)
+        return pick.payload
+
     def finish_record(self, rid: int) -> CostRecord:
         record = self.requests[rid]
         record.done = True
         record.finished_s = time.time()
+        record.finished_tick = self._tick
         self.stats.completed += 1
         return record
+
+    # ------------------------------------------------------------------
+    # Scheduler loop (slot-pool workloads)
+    # ------------------------------------------------------------------
+
+    def step(self) -> List[int]:                # pragma: no cover - abstract
+        raise NotImplementedError("workload adapter must implement step()")
+
+    def _has_active(self) -> bool:              # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _active_count(self) -> int:
+        """Occupied-slot count for the queue-depth instrumentation."""
+        return 0
+
+    def _can_admit(self) -> bool:
+        return True
+
+    def sched_tick(self) -> List[int]:
+        """One instrumented scheduler tick: run the adapter's
+        :meth:`step`, record queue depth, advance the clock.  Returns the
+        rids that finished during the tick."""
+        done = self.step()
+        self.stats.record_tick(self.queued, self._active_count())
+        self._tick += 1
+        return done
+
+    def run(self, max_ticks: int = 10_000, *,
+            on_exhaust: str = "raise") -> Dict[int, CostRecord]:
+        """Pump the scheduler until every submitted request, deferred
+        :meth:`submit_at` arrivals included, completes; returns
+        {rid: record}.
+
+        If the queue cannot drain within ``max_ticks``, the leftover
+        requests are counted in ``stats.unserved`` (their records stay
+        ``done=False``) and the runtime raises, or, with
+        ``on_exhaust="report"``, returns the partial result."""
+        if on_exhaust not in ("raise", "report"):
+            raise ValueError(f"on_exhaust must be 'raise' or 'report', "
+                             f"got {on_exhaust!r}")
+        for _ in range(max_ticks):
+            for submit in self._arrivals.pop(self._tick, ()):
+                submit()
+            if (not self._pending and not self._has_active()
+                    and not self._arrivals):
+                return dict(self.requests)
+            if self._pending and not self._can_admit():
+                raise RuntimeError("engine has no slots; requests can "
+                                   "never be admitted")
+            self.sched_tick()
+        still = sorted(r.rid for r in self.requests.values() if not r.done)
+        late = sum(len(v) for v in self._arrivals.values())
+        self.stats.unserved = len(still) + late
+        if self.stats.unserved and on_exhaust == "raise":
+            raise RuntimeError(
+                f"run() exhausted {max_ticks} ticks with {len(still)} "
+                f"requests still pending ({late} arrivals never enqueued): "
+                f"rids {still}")
+        return dict(self.requests)
 
     @contextlib.contextmanager
     def compute_ctx(self):

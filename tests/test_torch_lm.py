@@ -251,14 +251,20 @@ def test_not_ported_branches_raise(smoke):
     toks = torch.zeros((1, 4), dtype=torch.long)
     cache = tlm.empty_cache(tcfg, 1, 8, device="cpu")
     wv = torch.tensor([8, 8])
+    # ragged prefill and the chunked decode run for the dense family; a
+    # family outside the port, and a padded length past the masked-SDPA
+    # path, still raise
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tlm.prefill(tq, {"tokens": toks}, tcfg.with_(family="ssm"), wv, wv,
+                    cache, lengths=[3])
+    long = torch.zeros((1, ttf.FLASH_THRESHOLD + 1), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ragged"):
-        tlm.prefill(tq, {"tokens": toks}, tcfg, wv, wv, cache,
-                    lengths=[3])
+        tlm.prefill(tq, {"tokens": long}, tcfg, wv, wv, cache, lengths=[3])
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tlm.decode_chunk(tq, toks, 0, cache, tcfg.with_(family="ssm"), wv,
+                         wv)
     lp = tlm._layer(tq["layers"], 0)["attn"]
     x = torch.zeros((1, 3, tcfg.d_model), dtype=tcm.DTYPE)
     pos = torch.arange(3)[None]
-    with pytest.raises(NotImplementedError, match="chunked"):
-        ttf.attention(lp, x, tcfg, positions=pos,
-                      cache=tlm._layer(cache, 0), t=torch.tensor(0))
     with pytest.raises(NotImplementedError, match="cross-attention"):
         ttf.attention(lp, x, tcfg, positions=pos, kv=(x, x))

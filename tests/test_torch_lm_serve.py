@@ -176,12 +176,11 @@ def test_prices_and_host_mirrors_equal_the_reference(smoke):
 
 def test_not_ported_options_raise(smoke):
     for kw in ({"mesh": object()}, {"plan": "auto"},
-               {"prefix_cache": object()}, {"spec_k": 2},
-               {"draft_budget_s": 0.1}):
+               {"prefix_cache": object()}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             _engine(smoke, **kw)
+    # continuous batching needs a family the port runs
     eng = _engine(smoke)
-    with pytest.raises(NotImplementedError, match="continuous batching"):
+    eng.cfg = smoke["tcfg"].with_(family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm"):
         eng.submit(np.zeros(4, np.int32))
-    with pytest.raises(NotImplementedError, match="continuous batching"):
-        eng.run()
