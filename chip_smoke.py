@@ -3,9 +3,9 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --paths 4  # some paths only, no result lines
+    python3 chip_smoke.py --paths 5  # some paths only, no result lines
 
-Four paths, each at full width with random weights from a seed:
+Five paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -32,7 +32,17 @@ Four paths, each at full width with random weights from a seed:
   decoding 8 tokens for all slots at once; (b) 8 of them again with
   speculative decoding (4 int4 drafts a round, verified in one chunk of
   9 positions per row; one request at draft_k=0).  The bit-plane kernel
-  runs at M = 1024, 8 and 72.
+  runs at M = 1024, 8 and 72;
+* the prefix cache and the closed loop, replayed from seeded traces
+  through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
+  shape with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  keys (512-1024-token prompts, int8), plus four late prompts that
+  share the first two keys' prefixes, so misses, full hits and partial
+  hits (extended token by token through ``decode_step``, the bit-plane
+  kernel at M = 1) all occur, and the same replay without the cache;
+  (b) the cached replay under an EDP-axis ``FluidController`` whose SLO
+  is 0.6 of what the uncached run charges; (c) ResNet18@224 under a
+  traffic spike, open loop and through a tick-windowed FluidController.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -80,7 +90,22 @@ result line:
      the two devices' float libraries round apart).
      Then time to first token, tokens/s per tick, the accept rate, run
      walls, the bit-plane device sum per run(), and traces of a prefill
-     row, a decode tick and a speculative round.
+     row, a decode tick and a speculative round;
+  8. prefix cache and closed loop: hold the bit-plane kernel at the
+     extension's M = 1 shapes; replay (a) cached and uncached and gate:
+     the ledger as the trace implies, full hits' tokens EQUAL the
+     uncached run's, each partial hit's logits and tokens EQUAL a replay
+     with the plain version patched in, the cache entries bitwise
+     unchanged after extensions, launches by M equal to the engine's
+     calls (a full hit adds no prefill row), a drained pool; (b) spend
+     within 1.1 x the SLO, saved > 0, budgets and bits EQUAL a host-only
+     FluidController replay; (c) nothing unserved, the closed loop's
+     burst arrivals at fewer bits than its calm ones (the open loop's
+     equal), launches per batch per family, one batch's logits EQUAL the
+     plain version's; AP records equal the AP model everywhere; SMOKE
+     card-vs-CPU runs of all three.  Then admission walls and time to
+     first token by hit kind, the bit-plane device sum per replay, the
+     spike replays' images/s and a trace of one partial-hit extension.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -167,6 +192,19 @@ CB_PROMPT, CB_NEW = (64, 1024), (16, 32)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
 CB_SMOKE_PREFILL = 24
+# path 5: the prefix cache and the closed loop, on path 4's engine shape
+PC_SEED = 0
+PC_TRACE = dict(ticks=8, rate=2.0, repetition=0.5, prompt_len=1024,
+                max_new_tokens=8, budget=(10.0,))
+PC_INT8_BUDGET = 10.0                    # default_controller: -> int8
+PC_CHUNK, PC_CAPACITY, PC_MAX_LEN = 64, 8, 1040
+PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
+PC_SOURCES = 2          # keys whose prompts the late prompts extend
+PC_SLO_FRACTION = 0.6
+PC_SMOKE_PREFILL = 24
+SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
+             cnn_frac=1.0, cnn_archs=("resnet18",))
+SPIKE_WINDOW = 4                         # the closed loop's window, ticks
 
 
 def fail(msg: str) -> None:
@@ -1450,15 +1488,10 @@ def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
     rows) of vanilla ticks and of speculative rounds, {rid: tokens
     delivered by vanilla ticks}, {rid: tokens delivered by rounds})."""
     import numpy as np
-    first_at, ticks, rounds = {}, [], []
+    ticks, rounds = [], []
     by_tick: dict = {}
     by_round: dict = {}
-    occupy, tick, rnd = (engine.slots.occupy, engine._decode_tick,
-                         engine._spec_round)
-
-    def on_first(slot, rid, **kw):
-        first_at[rid] = time.time()
-        occupy(slot, rid, **kw)
+    tick, rnd = engine._decode_tick, engine._spec_round
 
     def timed(fn, log, where):
         def call(active, *args):
@@ -1474,7 +1507,6 @@ def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
             log.append((dt, sum(got.values()), len(rids)))
         return call
 
-    engine.slots.occupy = on_first
     engine._decode_tick = timed(tick, ticks, by_tick)
     engine._spec_round = timed(rnd, rounds, by_round)
     rids = []
@@ -1495,8 +1527,8 @@ def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
         engine.run()
         wall = time.perf_counter() - t0
     finally:
-        engine.slots.occupy = occupy
         del engine._decode_tick, engine._spec_round
+    first_at = {r: engine.requests[r].first_token_s for r in rids}
     return rids, wall, first_at, ticks, rounds, by_tick, by_round
 
 
@@ -1914,6 +1946,797 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
                 "ttft_median_ms": statistics.median(ttft) * 1e3}}
 
 
+# ---------------------------------------------------------------------------
+# Path 5: the prefix cache and the closed loop
+# ---------------------------------------------------------------------------
+
+def pc_stream(engine, trace, late, budget, use_budgets=True, order=None):
+    """Replay ``trace`` through ``engine`` with ``TraceReplayer``, plus the
+    ``late`` prompts, submitted through ``submit_at`` at PC_LATE_TICK
+    (``sched_tick`` submits them when its clock gets there).  Just before
+    they arrive, every prefix-cache entry's row and logits are cloned.
+    ``admit_record`` is wrapped to log each admission in order with the
+    bits it resolved; the walls and first-token times are the records'
+    own clocks.  Returns a dict: the replay's result and wall, the rids of
+    the trace's arrivals and of the late ones, the admission order
+    (``order``, or the list given), each admission's (wbits, abits) by
+    rid, and the entries' clones by content key."""
+    import torch
+    from repro_torch.serve.traffic import TraceReplayer
+    out = {"order": [] if order is None else order, "bits": {},
+           "late": [], "entries_before": {}}
+    admit = engine.admit_record
+
+    def logged(record, *args, **kw):
+        wv, av = admit(record, *args, **kw)
+        out["order"].append(record.rid)
+        out["bits"][record.rid] = (wv.clone(), av.clone())
+        return wv, av
+
+    def snapshot():
+        if engine.prefix_cache is not None:
+            out["entries_before"] = {
+                key: ({k: v.clone() for k, v in e.row_cache.items()},
+                      e.logits.clone())
+                for key, e in engine.prefix_cache.entries.items()}
+
+    engine.submit_at(PC_LATE_TICK, snapshot)
+    for p in late:
+        engine.submit_at(PC_LATE_TICK, lambda p=p: out["late"].append(
+            engine.submit(p, max_new_tokens=PC_TRACE["max_new_tokens"],
+                          budget_s=budget if use_budgets else None)))
+    engine.admit_record = logged
+    try:
+        t0 = time.perf_counter()
+        out["result"] = TraceReplayer(trace, {LM_ARCH: engine},
+                                      use_budgets=use_budgets).replay()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+    finally:
+        del engine.admit_record
+    check(not engine._arrivals and len(out["late"]) == len(late),
+          "a deferred arrival was never submitted")
+    out["trace_rids"] = [r for r in sorted(engine.requests)
+                         if r not in out["late"]]
+    return out
+
+
+def pc_trace(vocab: int, *, prompt_len: int, keep: int, prefix: int,
+             fresh: int):
+    """The path's trace (PC_TRACE at ``prompt_len``, seed PC_SEED) and its
+    late prompts: for each of the first PC_SOURCES keys of the trace, the
+    key's prompt's first ``keep`` tokens plus ``fresh`` fresh ones (a
+    chunk-aligned partial hit, tail ``fresh``) and its first ``prefix``
+    tokens exactly (the strict prefix: keep ``prefix`` - 1, tail 1).
+    Returns (trace, the late prompts, the keep each should hit with, the
+    prompt each extends)."""
+    import numpy as np
+    from repro_torch.serve.traffic import payload_tokens, synth_trace
+    tr = synth_trace("poisson", seed=PC_SEED,
+                     **dict(PC_TRACE, prompt_len=prompt_len))
+    first: dict = {}
+    for r in tr.requests:
+        first.setdefault(r.key, r)
+    check(len(first) >= PC_SOURCES, f"the trace holds {len(first)} keys, "
+          f"fewer than the {PC_SOURCES} the late prompts extend")
+    rng = np.random.default_rng(PC_SEED + 100)
+    late, keeps, sources = [], [], []
+    for r in list(first.values())[:PC_SOURCES]:
+        src = payload_tokens(tr, r, vocab)
+        check(r.t < PC_LATE_TICK and src.shape[0] > keep,
+              f"key {r.key} first arrives at tick {r.t} with "
+              f"{src.shape[0]} tokens: not stored before tick "
+              f"{PC_LATE_TICK}, or not past {keep} tokens")
+        new = rng.integers(0, vocab, (fresh,)).astype(np.int32)
+        late += [np.concatenate([src[:keep], new]), src[:prefix].copy()]
+        keeps += [keep, prefix - 1]
+        sources += [src, src]
+    return tr, late, keeps, sources
+
+
+def pc_expect(trace, late, keeps, vocab):
+    """The cache ledger the trace implies when nothing is evicted: a
+    key's first arrival misses, each repeat is a full hit, every late
+    prompt is a partial hit at its keep, and each miss and partial hit
+    stores a new entry."""
+    from repro_torch.serve.traffic import payload_tokens
+    seen, hits, hit_tok, comp = set(), 0, 0, 0
+    for r in trace.requests:
+        S = payload_tokens(trace, r, vocab).shape[0]
+        if r.key in seen:
+            hits, hit_tok = hits + 1, hit_tok + S
+        else:
+            seen.add(r.key)
+            comp += S
+    hit_tok += sum(keeps)
+    comp += sum(len(p) - k for p, k in zip(late, keeps))
+    return {"hits": hits, "partial_hits": len(late), "misses": len(seen),
+            "lookups": trace.n_requests + len(late), "hit_tokens": hit_tok,
+            "computed_tokens": comp, "refreshes": 0, "evictions": 0,
+            "rejected": 0, "entries": len(seen) + len(late)}
+
+
+class LogitGaps:
+    """Records, per request, each sampled step's top-2 logit gap over
+    max|logit| (the near-tie measure of ``tokens_agree``) while an engine
+    runs: the first token from ``_sample_first`` (the request being
+    admitted is the last one picked) and every decode step's rows."""
+
+    def __init__(self, engine, order):
+        import repro_torch.serve.engine as emod
+        self.emod, self.engine, self.order = emod, engine, order
+        self.gaps: dict = {}
+        self.sample = emod._sample_tokens
+        emod._sample_tokens = self.wrapped
+
+    def wrapped(self, logits, gen, temp, topk):
+        V = self.engine.cfg.vocab_size
+        lg = logits[..., :V].float()
+        top2 = lg.topk(2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) / lg.abs().amax(-1)).cpu().tolist()
+        if logits.shape[0] == 1 and self.order:
+            rids = [self.order[-1]]
+        else:
+            rids = self.engine.slots.rid.tolist()
+        for rid, g in zip(rids, gap):
+            if rid >= 0:
+                self.gaps.setdefault(rid, []).append(g)
+        return self.sample(logits, gen, temp, topk)
+
+    def close(self):
+        self.emod._sample_tokens = self.sample
+
+
+def pc_smoke_card_vs_cpu(b: Bench) -> None:
+    """Path 5 (a) and (b) at Qwen3-4B SMOKE and (c) at 32 px, on the card
+    and on the CPU (plain versions there): the LM streams equal up to the
+    float-order rule of ``tokens_agree`` (against the CPU run's own
+    gaps), the cache ledgers, the admissions' budgets and bits and the AP
+    records EQUAL; the CNN replay's entries and every batch's logits
+    EQUAL."""
+    torch = b.torch
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.policy import (FluidController,
+                                         cnn_budget_controller)
+    from repro_torch.models import cnn, lm
+    from repro_torch.serve.cnn import CNNServeEngine
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.traffic import TraceReplayer, synth_trace
+
+    scfg = configs.get_smoke(LM_ARCH)
+    sg = torch.Generator().manual_seed(6)
+    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
+    n = lm.n_bit_slots(scfg)
+    tr, late, _, _ = pc_trace(scfg.vocab_size, prompt_len=PC_SMOKE_PREFILL,
+                              keep=8, prefix=4, fresh=4)
+    slo = PC_SLO_FRACTION * int8_charge(scfg, tr, late, PC_SMOKE_PREFILL)
+    kw = dict(max_len=PC_SMOKE_PREFILL + PC_TRACE["max_new_tokens"],
+              n_slots=3, prefill_len=PC_SMOKE_PREFILL, decode_block=4)
+    runs = {}
+    for where, on in (("card", b.dev), ("cpu", torch.device("cpu"))):
+        for loop in ("a", "b"):
+            if loop == "a":
+                ctrl = default_controller(n)
+            else:
+                ctrl = FluidController.from_open_loop(
+                    edp_controller(scfg, n, PC_SMOKE_PREFILL), slo=slo,
+                    window=tr.n_requests + 2)
+            eng = ServeEngine(scfg, sqp, controller=ctrl, device=on,
+                              prefix_cache=PrefixCache(
+                                  chunk=4, capacity=PC_CAPACITY,
+                                  hit_policy="exact"), **kw)
+            order: list = []
+            gaps = LogitGaps(eng, order)
+            try:
+                out = pc_stream(eng, tr, late, PC_INT8_BUDGET,
+                                use_budgets=loop == "a", order=order)
+            finally:
+                gaps.close()
+            runs[where, loop] = (eng, out, gaps.gaps)
+    compared = exact = 0
+    for loop in ("a", "b"):
+        (ce, co, _), (pe, po, pgaps) = runs["card", loop], runs["cpu", loop]
+        check(co["order"] == po["order"] and
+              ce.prefix_cache.ledger.as_dict()
+              == pe.prefix_cache.ledger.as_dict(),
+              f"SMOKE ({loop}) card vs CPU: admission order or ledger")
+        for rid in po["order"]:
+            c, p = ce.requests[rid], pe.requests[rid]
+            check((c.budget_s, c.mean_wbits, c.cache_hit, c.cached_units,
+                   c.planned_units, c.edp) == (p.budget_s, p.mean_wbits,
+                                               p.cache_hit, p.cached_units,
+                                               p.planned_units, p.edp),
+                  f"SMOKE ({loop}) request {rid}: card vs CPU records")
+            got, same = tokens_agree(
+                f"SMOKE ({loop}) request {rid} card vs CPU", c.tokens,
+                p.tokens, pgaps[rid][:len(p.tokens)])
+            compared += got
+            exact += same
+        if loop == "b":
+            check((ce.controller.spent, ce.controller.saved)
+                  == (pe.controller.spent, pe.controller.saved),
+                  "SMOKE (b) card vs CPU: controller state")
+    n_streams = sum(len(runs["cpu", lp][1]["order"]) for lp in ("a", "b"))
+    kinds = [runs["cpu", "a"][0].requests[r].cache_hit or "miss"
+             for r in runs["cpu", "a"][1]["order"]]
+    print(f"SMOKE {LM_ARCH} prefix cache (a) and closed loop (b), "
+          f"{tr.n_requests} + {len(late)} arrivals, hit kinds {kinds}: card "
+          f"vs CPU tokens exact in {exact} of {n_streams} streams "
+          f"({compared} tokens compared); ledgers, budgets, bits and AP "
+          f"records EQUAL")
+
+    # (c) at 32 px: a spike trace through the closed loop
+    g32 = torch.Generator().manual_seed(7)
+    p32, l32 = cnn.init_cnn("resnet18", g32, image=32, device="cpu")
+    base = cnn_budget_controller("resnet18", layers=l32)
+    med = base.predicted_latency_s["hawqv3-medium"]
+    spike = dict(SPIKE, ticks=10, burst_at=3, burst_len=2, rate=2.0)
+    got = {}
+    for where, on in (("card", b.dev), ("cpu", "cpu")):
+        ctrl = FluidController.from_open_loop(
+            base, slo=SPIKE_WINDOW * 2 * med, window_ticks=SPIKE_WINDOW)
+        eng = CNNServeEngine(p32, l32, controller=ctrl, max_batch=4,
+                             device=on)
+        logits = []
+        serve = eng.serve
+        eng.serve = lambda x, bud: logits.append(serve(x, bud)) or logits[-1]
+        res = TraceReplayer(synth_trace("spike", **spike), {},
+                            cnn_engines={"resnet18": eng}, image_hw=32,
+                            use_budgets=False).replay()
+        got[where] = (res, [lg for lg, _ in logits])
+    (cres, clog), (pres, plog) = got["card"], got["cpu"]
+    check(cres.entries == pres.entries and len(clog) == len(plog)
+          and all(np.array_equal(x, y) for x, y in zip(clog, plog)),
+          "SMOKE (c) ResNet18@32 spike replay: card vs CPU entries or "
+          "logits differ")
+    print(f"ResNet18@32 spike replay (closed loop, {len(cres.entries)} "
+          f"images in {len(clog)} batches, mean wbits "
+          f"{sorted({e['mean_wbits'] for e in cres.entries})}): card vs "
+          f"CPU entries and logits EQUAL")
+
+
+def int8_charge(cfg, tr, late, prompt_len):
+    """The EDP an open-loop int8 engine without a cache charges for the
+    trace and the late prompts: each request's prompt plus its new tokens
+    at the int8 price (the closed loop's SLO is a fraction of it)."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve.accounting import BitVectorPricer, axis_cost
+    from repro_torch.serve.traffic import payload_tokens
+    n = lm.n_bit_slots(cfg)
+    cost = BitVectorPricer(lm.layer_gemm_dims(cfg),
+                           head=lm.head_gemm_dims(cfg)).price(
+        np.full((n,), 8), np.full((n,), 8))
+    lens = [len(payload_tokens(tr, r, cfg.vocab_size)) for r in tr.requests]
+    return sum(axis_cost(cost, "edp", S + PC_TRACE["max_new_tokens"])
+               for S in lens + [len(p) for p in late])
+
+
+def edp_controller(cfg, n, prompt_len):
+    """The default controller's three configurations priced on the EDP
+    axis for a request of ``prompt_len`` + PC_TRACE's new tokens: the
+    closed loop's prediction table."""
+    from repro_torch.core.policy import BudgetController
+    from repro_torch.models import lm
+    from repro_torch.serve.accounting import predict_table
+    from repro_torch.serve.engine import default_controller
+    base = default_controller(n)
+    preds = predict_table(
+        lm.layer_gemm_dims(cfg), base.configs, axis="edp",
+        units=prompt_len + PC_TRACE["max_new_tokens"],
+        head=lm.head_gemm_dims(cfg))
+    return BudgetController(dict(base.configs), preds, n, budget_axis="edp")
+
+
+def pc_path(b: Bench, cfg, qparams) -> dict:
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.core.policy import FluidController
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import EMPTY_POS
+    from repro_torch.serve.accounting import axis_cost
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.traffic import payload_tokens
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    n = lm.n_bit_slots(cfg)
+    linears = lm_linears(cfg)
+    kn = sorted(set(linears))
+    fams = (4, 8)
+    per_row = L * len(linears)          # launches of one forward at 8 planes
+    gemms, head = lm.layer_gemm_dims(cfg), lm.head_gemm_dims(cfg)
+    NEW = PC_TRACE["max_new_tokens"]
+    key_of = PrefixCache.content_key
+
+    tr, late, keeps, sources = pc_trace(
+        V, prompt_len=PC_TRACE["prompt_len"], keep=PC_KEEP, prefix=PC_PREFIX,
+        fresh=PC_FRESH)
+    keys = [r.key for r in tr.requests]
+    repeats = len(keys) - len(set(keys))
+    print(f"path 5 trace (poisson, {PC_TRACE['ticks']} ticks, rate "
+          f"{PC_TRACE['rate']}, repetition {PC_TRACE['repetition']}, seed "
+          f"{PC_SEED}): {tr.n_requests} arrivals at ticks "
+          f"{[r.t for r in tr.requests]}, keys {keys} ({repeats} "
+          f"repeats), prompts "
+          f"{[len(payload_tokens(tr, r, V)) for r in tr.requests]}; "
+          f"{len(late)} late at tick {PC_LATE_TICK}: "
+          f"{[len(p) for p in late]} tokens (of the first {PC_SOURCES} "
+          f"keys' prompts: the first {PC_KEEP} + {PC_FRESH} fresh, and the "
+          f"first {PC_PREFIX})")
+    check(repeats >= 3, f"the trace holds {repeats} repeated keys: too few "
+          f"full hits to time")
+
+    # ---- hold the bit-plane kernel at the extension's GEMV shape (M = 1,
+    # 8 planes: its bits arrive per layer); M = 1024 and 8 are path 4's
+    for K, N in kn:
+        b.hold_bitplane(b.rand_i8((1, K)), b.rand_i8((K, N)), 8)
+    print(f"kernel == plain: {len(kn)} Qwen3-4B (K, N) shapes at M = 1 "
+          f"(partial-hit extension, n_planes 8)")
+
+    common = dict(max_len=PC_MAX_LEN, n_slots=CB_SLOTS, prefill_len=CB_PREFILL,
+                  decode_block=CB_BLOCK, device=dev)
+
+    def cache():
+        return PrefixCache(chunk=PC_CHUNK, capacity=PC_CAPACITY,
+                           hit_policy="exact")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_gemm_launches()
+        out = fn()
+        return out, dict(bpm.shape_launches)
+
+    def by_m(shapes):
+        out: dict = {}
+        for (M, _, _, _), c in shapes.items():
+            out[M] = out.get(M, 0) + c
+        return out
+
+    def want_shapes(calls):
+        want: dict = {}
+        for M, n_fwd, nps in ((CB_PREFILL, calls["prefill"], (8,)),
+                              (1, calls["extend"], (8,)),
+                              (CB_SLOTS, calls["decode"], fams)):
+            for K, N in linears:
+                for npl in nps:
+                    if n_fwd:
+                        key = (M, K, N, npl)
+                        want[key] = want.get(key, 0) + n_fwd * L
+        return want
+
+    def drained(eng, label):
+        check(eng.pool.free_slots == CB_SLOTS
+              and bool((eng.pool.cache["kpos"] == EMPTY_POS).all()),
+              f"{label}: after the replay a slot is held or a kpos is not "
+              f"EMPTY_POS")
+
+    # ---- (a) open loop, fixed int8: with the cache, then without
+    eng_c = ServeEngine(cfg, qparams, controller=default_controller(n),
+                        prefix_cache=cache(), **common)
+    run_c, shapes_c = counted(lambda: pc_stream(eng_c, tr, late,
+                                                PC_INT8_BUDGET))
+    eng_u = ServeEngine(cfg, qparams, controller=default_controller(n),
+                        **common)
+    run_u, shapes_u = counted(lambda: pc_stream(eng_u, tr, late,
+                                                PC_INT8_BUDGET))
+    for label, eng, run in (("(a) cached", eng_c, run_c),
+                            ("(a) uncached", eng_u, run_u)):
+        recs = [eng.requests[r] for r in sorted(eng.requests)]
+        check(run["result"].unserved == 0 and all(
+            r.done and len(r.tokens) == NEW for r in recs),
+              f"{label}: a request unserved or short")
+        check(all(0 <= x < V for r in recs for x in r.tokens),
+              f"{label}: token ids outside the vocabulary")
+        check(all(r.mean_wbits == 8.0 for r in recs),
+              f"{label}: a request left int8")
+        drained(eng, label)
+        for r in recs:
+            wv, av = eng.host_bits(r.budget_s)
+            want = apm.price_bit_vector(gemms, wv.tolist(), av.tolist(),
+                                        head=head)
+            u = r.ap_units
+            check(r.ap_cost == want and r.edp == (u * want.energy_j)
+                  * (u * want.latency_s),
+                  f"{label} request {r.rid}: AP record differs from the AP "
+                  f"model's price of its bits")
+    check(run_c["trace_rids"] == run_u["trace_rids"]
+          and run_c["late"] == run_u["late"],
+          "(a) the two replays numbered their requests differently")
+    led = eng_c.prefix_cache.ledger
+    want_led = pc_expect(tr, late, keeps, V)
+    got_led = dict(led.as_dict(), entries=len(eng_c.prefix_cache))
+    check({k: got_led[k] for k in want_led} == want_led,
+          f"(a) cache ledger {got_led} != the trace's {want_led}")
+    kinds = {r: eng_c.requests[r].cache_hit or "miss"
+             for r in sorted(eng_c.requests)}
+    full = [r for r, k in kinds.items() if k == "full"]
+    miss = [r for r, k in kinds.items() if k == "miss"]
+    partial = [r for r, k in kinds.items() if k == "partial"]
+    check(partial == run_c["late"] and len(full) == want_led["hits"]
+          and [eng_c.requests[r].cached_units for r in partial] == keeps,
+          f"(a) hit kinds {kinds}, partial keeps "
+          f"{[eng_c.requests[r].cached_units for r in partial]} != {keeps}")
+    for r in full:
+        check(eng_c.requests[r].tokens == eng_u.requests[r].tokens,
+              f"(a) full hit {r}: tokens {eng_c.requests[r].tokens} != the "
+              f"uncached run's {eng_u.requests[r].tokens}")
+
+    # the entries as they stood when the late prompts arrived are bitwise
+    # unchanged after every extension from them
+    before = run_c["entries_before"]
+    check(set(map(key_of, sources)) <= set(before),
+          "(a) a late prompt's source entry was not resident when it came")
+    for key, (row, logits) in before.items():
+        e = eng_c.prefix_cache.entries[key]
+        check(torch.equal(e.logits, logits)
+              and all(torch.equal(e.row_cache[k], v) for k, v in row.items()),
+              f"(a) the entry of a {len(e.tokens)}-token prompt changed "
+              f"while partial hits extended from it")
+
+    # each partial hit against a replay with the plain version patched in:
+    # the source entry's row cloned and masked to keep, decode_step per
+    # tail token (logits and row EQUAL the refreshed entry the extension
+    # stored), then a batch-1 greedy decode_step loop
+    seen = []
+
+    def plain_gemm(x_q, w_q, *, n_planes):
+        seen.append(x_q.shape[0])
+        return bpm.bitplane_matmul_ref(x_q, w_q, n_planes)
+
+    part_lines = []
+    for rid, prompt, keep, src in zip(partial, late, keeps, sources):
+        rec = eng_c.requests[rid]
+        wv, av = (t.to(dev) for t in run_c["bits"][rid])
+        stored = eng_c.prefix_cache.entries.get(key_of(prompt))
+        check(stored is not None, f"(a) partial hit {rid} stored no entry")
+        row = {k: v.clone() for k, v in before[key_of(src)][0].items()}
+        row["kpos"].masked_fill_(row["kpos"] >= keep, EMPTY_POS)
+        tokens = torch.from_numpy(prompt)[None].to(dev)
+        toks, gaps = [], []
+        with mock.patch.object(ops, "bitplane_matmul", plain_gemm), \
+                eng_c.compute_ctx():
+            for pos in range(keep, len(prompt)):
+                logits, row = lm.decode_step(
+                    eng_c.qparams, tokens[:, pos:pos + 1], pos, row, cfg,
+                    wv, av)
+            check(torch.equal(logits, stored.logits) and all(
+                torch.equal(row[k], v) for k, v in stored.row_cache.items()),
+                  f"(a) partial hit {rid}: the extension's logits or row != "
+                  f"the plain-version replay's (max |logit diff| "
+                  f"{(logits - stored.logits).abs().max().item()})")
+            for i in range(NEW):
+                lg = logits[0, -1, :V].float()
+                top2 = lg.topk(2).values
+                gaps.append(float((top2[0] - top2[1]) / lg.abs().max()))
+                toks.append(int(lg.argmax()))
+                if i + 1 < NEW:
+                    logits, row = lm.decode_step(
+                        eng_c.qparams, torch.tensor([[toks[-1]]], device=dev),
+                        rec.prompt_len + i, row, cfg, wv, av)
+        check(toks == rec.tokens, f"(a) partial hit {rid}: tokens "
+              f"{rec.tokens} != the plain-version replay's {toks}")
+        fresh = eng_u.requests[rid].tokens
+        r = len(prompt) - keep
+        if fresh == toks:
+            part_lines.append(f"{rid} (keep {keep}, tail {r}): equals the "
+                              f"uncached stream")
+        else:
+            d = next(i for i, (x, y) in enumerate(zip(toks, fresh)) if x != y)
+            part_lines.append(f"{rid} (keep {keep}, tail {r}): parts from "
+                              f"the uncached stream at step {d}, top-2 gap "
+                              f"{gaps[d]:.4g} of max|logit| there")
+    check(set(seen) == {1}, f"plain replay GEMM rows {set(seen)}")
+    print(f"(a) partial hits == the plain-version replay (logits, extended "
+          f"row and {NEW} tokens each; the entries bitwise unchanged): "
+          + "; ".join(part_lines))
+
+    # launches by M against the engine's calls and plan(); the full hits
+    # add no prefill row
+    for label, eng, sh in (("cached", eng_c, shapes_c),
+                           ("uncached", eng_u, shapes_u)):
+        check(eng.calls["decode"] % CB_BLOCK == 0, f"(a) {label} decode "
+              f"steps {eng.calls['decode']} not whole ticks")
+        check(sh == want_shapes(eng.calls), f"(a) {label} bit-plane launches "
+              f"by shape {sorted(sh.items())} != the calls' "
+              f"{eng.calls} x {per_row} per forward")
+    m_c, m_u = by_m(shapes_c), by_m(shapes_u)
+    tail = sum(len(p) - k for p, k in zip(late, keeps))
+    check(m_c.get(CB_PREFILL, 0) == led.misses * per_row
+          and m_c.get(1, 0) == tail * per_row
+          and eng_c.calls["extend"] == tail
+          and m_u.get(CB_PREFILL, 0) == want_led["lookups"] * per_row
+          and 1 not in m_u,
+          f"(a) launches by M: cached {m_c}, uncached {m_u}; misses "
+          f"{led.misses}, {tail} tail tokens, {per_row} launches per forward")
+    avoided = m_u[CB_PREFILL] - m_c[CB_PREFILL]
+    print(f"(a) prefix cache, open loop, int8: ledger {led.as_dict()} == the "
+          f"trace's; full hits {full} tokens == the uncached run's; "
+          f"bit-plane launches by M: cached {m_c}, uncached {m_u} (calls "
+          f"{eng_c.calls} / {eng_u.calls}); M = {CB_PREFILL} launches the "
+          f"hits avoided: {avoided} ({avoided // per_row} prefill rows); "
+          f"all slots free and every kpos EMPTY_POS after each replay; AP "
+          f"records == the AP model")
+
+    # ---- (b) closed loop with the cache
+    base = edp_controller(cfg, n, PC_TRACE["prompt_len"])
+    charged_u = sum(eng_u.requests[r].axis_planned("edp")
+                    for r in eng_u.requests)
+    check(charged_u == int8_charge(cfg, tr, late, PC_TRACE["prompt_len"]),
+          "(a) the uncached run's EDP charge")
+    slo = PC_SLO_FRACTION * charged_u
+    window = tr.n_requests + len(late)
+    fluid = FluidController.from_open_loop(base, slo=slo, window=window)
+    eng_b = ServeEngine(cfg, qparams, controller=fluid, prefix_cache=cache(),
+                        **common)
+    run_b, shapes_b = counted(lambda: pc_stream(eng_b, tr, late, None,
+                                                use_budgets=False))
+    recs_b = [eng_b.requests[r] for r in run_b["order"]]
+    check(run_b["result"].unserved == 0 and len(recs_b) == window
+          and all(r.done for r in recs_b), "(b) a request unserved")
+    drained(eng_b, "(b)")
+    check(shapes_b == want_shapes(eng_b.calls),
+          f"(b) bit-plane launches by shape != the calls' {eng_b.calls}")
+    spend = sum(r.axis_planned("edp") for r in recs_b)
+    # a fresh controller fed each admission's charge, computed here from
+    # the AP model's price of its bits over its miss units: a full hit
+    # charges the new tokens only, a partial hit its tail and new tokens
+    late_keep = dict(zip(run_b["late"], keeps))
+    fresh_c = FluidController.from_open_loop(base, slo=slo, window=window)
+    for r in recs_b:
+        wv, av = (t.tolist() for t in run_b["bits"][r.rid])
+        eff = fresh_c.admission_budget(None)
+        fw, fa_ = fresh_c.resolve(eff)
+        check(eff == r.budget_s and (fw.tolist(), fa_.tolist()) == (wv, av),
+              f"(b) request {r.rid}: effective budget {r.budget_s} / bits "
+              f"!= the host-only replay's {eff}")
+        S = r.prompt_len
+        cached = {"full": S, "partial": late_keep.get(r.rid, -1),
+                  "": 0}[r.cache_hit]
+        units = S + NEW - cached
+        cost = apm.price_bit_vector(gemms, wv, av, head=head)
+        check(r.cached_units == cached and r.planned_units == units,
+              f"(b) request {r.rid} ({r.cache_hit or 'miss'}): charged "
+              f"{r.planned_units} units with {r.cached_units} cached, want "
+              f"{units} with {cached}")
+        fresh_c.charge(axis_cost(cost, "edp", units))
+        if cached:
+            fresh_c.record_saved(axis_cost(cost, "edp", S + NEW)
+                                 - axis_cost(cost, "edp", units))
+        u = r.ap_units
+        check(r.ap_cost == cost and r.edp == (u * cost.energy_j)
+              * (u * cost.latency_s),
+              f"(b) request {r.rid}: AP record != the AP model's price")
+    check((fluid.spent, fluid.served, fluid.saved)
+          == (fresh_c.spent, fresh_c.served, fresh_c.saved),
+          f"(b) controller state {(fluid.spent, fluid.served, fluid.saved)} "
+          f"!= the host-only replay's "
+          f"{(fresh_c.spent, fresh_c.served, fresh_c.saved)}")
+    check(spend <= 1.1 * slo, f"(b) spent {spend} > 1.1 x the SLO {slo}")
+    check(fluid.saved > 0, "(b) the cache saved the window nothing")
+    kinds_b = [r.cache_hit or "miss" for r in recs_b]
+    print(f"(b) closed loop (EDP SLO {slo:.6g} J*s = {PC_SLO_FRACTION} x the "
+          f"{charged_u:.6g} the uncached run would charge, window {window}): "
+          f"spent {spend:.6g} ({spend / slo:.4f} x the SLO), saved "
+          f"{fluid.saved:.6g}; mean wbits by admission "
+          f"{[r.mean_wbits for r in recs_b]}, hit kinds {kinds_b}; budgets, "
+          f"bits and charges (the AP price of each admission's miss units) "
+          f"== a host-only FluidController replay; AP records == the AP "
+          f"model; launches by M {by_m(shapes_b)}")
+
+    # ---- (c) ResNet18 under a traffic spike, open and closed loop
+    cnn_r = pc_cnn(b)
+
+    pc_smoke_card_vs_cpu(b)
+
+    # ---- timings by hit kind, from the records' clocks
+    def ms(xs):
+        return (f"median {statistics.median(xs) * 1e3:.3f} ms (n = "
+                f"{len(xs)}, all {[round(x * 1e3, 3) for x in xs]})")
+
+    def wall(eng, r):
+        rec = eng.requests[r]
+        return rec.first_token_s - rec.admitted_s
+
+    def ttft(eng, r):
+        rec = eng.requests[r]
+        return rec.first_token_s - rec.submitted_s
+
+    by_tail: dict = {}
+    for r, p, k in zip(partial, late, keeps):
+        by_tail.setdefault(len(p) - k, []).append(r)
+    kind_rids = [("miss", miss), ("full hit", full)] + [
+        (f"partial hit, tail {t}", rs) for t, rs in sorted(by_tail.items())]
+    print(f"{tag} (a) admission wall by hit kind (picked to first token on "
+          f"the host): " + "; ".join(
+              f"{k} {ms([wall(eng_c, r) for r in rs])}"
+              for k, rs in kind_rids)
+          + "; per tail token: " + "; ".join(
+              f"tail {t} {ms([wall(eng_c, r) / t for r in rs])}"
+              for t, rs in sorted(by_tail.items()))
+          + f"; uncached (every admission a fresh prefill row): all "
+          f"{ms([wall(eng_u, r) for r in eng_u.requests])}, the partial "
+          f"hits' prompts {ms([wall(eng_u, r) for r in partial])}")
+    print(f"{tag} (a) time to first token by hit kind: " + "; ".join(
+        f"{k} {ms([ttft(eng_c, r) for r in rs])}" for k, rs in kind_rids)
+          + f"; uncached {ms([ttft(eng_u, r) for r in eng_u.requests])}; "
+          f"replay walls: cached {run_c['wall']:.3f} s, uncached "
+          f"{run_u['wall']:.3f} s, closed loop {run_b['wall']:.3f} s")
+    shapes = {}
+    for sh in (shapes_c, shapes_u, shapes_b):
+        for k, v in sh.items():
+            shapes[k] = shapes.get(k, 0) + v
+    per_shape = {k: b.gemm_row(*k) for k in sorted(shapes)}
+    for label, sh in (("(a) cached", shapes_c), ("(a) uncached", shapes_u),
+                      ("(b)", shapes_b)):
+        dev_sum = sum(c * per_shape[k][5] for k, c in sh.items())
+        by = {M: sum(c * per_shape[k][5] for k, c in sh.items()
+                     if k[0] == M) for M in sorted(by_m(sh))}
+        print(f"{tag} bitplane_matmul device-clock sum per replay "
+              f"({label}): {dev_sum:.4f} ms over {sum(sh.values())} "
+              f"launches; by M " + ", ".join(f"{M}: {v:.4f} ms"
+                                             for M, v in by.items()))
+    tot = [sum(c * per_shape[k][j] for k, c in shapes.items())
+           for j in range(7)]
+    bound_ms = sum(c * max(per_shape[k][3], per_shape[k][4])
+                   for k, c in shapes.items())
+
+    # ---- one partial-hit admission's extension and first token, traced
+    rid0, p0, k0, s0 = partial[0], late[0], keeps[0], sources[0]
+    src_row = before[key_of(s0)][0]
+    tok0 = torch.from_numpy(p0)[None].to(dev)
+    wv0, av0 = (t.to(dev) for t in run_c["bits"][rid0])
+
+    def partial_admission():
+        with eng_c.compute_ctx():
+            logits, _ = eng_c._extend_row(tok0, src_row, k0, len(p0) - k0,
+                                          wv0, av0)
+            z = torch.zeros((1,), device=dev)
+            int(eng_c._sample_first(logits, z, z.to(torch.int32))[0])
+
+    trace(torch, tag, f"one partial-hit admission's extension "
+          f"({len(p0) - k0} tail tokens through decode_step, M = 1) and "
+          f"first token", partial_admission, ("bitplane_matmul",))
+    bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms, bld_ms = tot
+    paths = {p: 0 for p in bpm.PATHS}
+    for (M, K, N, _), c in shapes.items():
+        paths[bpm.plan(M, K, N).path] += c
+    tail8 = by_tail[PC_FRESH]
+    return {
+        "bitplane": {"launches": sum(shapes.values()), "ms": bk_ms,
+                     "plain_ms": bp_ms, "bound_ms": bound_ms,
+                     "t_bytes": bt_bytes, "t_ops": bt_ops,
+                     "library_ms": bl_ms, "device_ms": bd_ms,
+                     "library_device_ms": bld_ms, "paths": paths},
+        "cnn": cnn_r,
+        "e2e": {"cached_s": run_c["wall"], "uncached_s": run_u["wall"],
+                "closed_s": run_b["wall"],
+                "partial_ms_per_tail": statistics.median(
+                    wall(eng_c, r) / PC_FRESH for r in tail8) * 1e3,
+                "miss_ms": statistics.median(
+                    wall(eng_c, r) for r in miss) * 1e3,
+                "images_per_s": cnn_r["images_per_s"]}}
+
+
+def pc_cnn(b: Bench) -> dict:
+    """Path 5 (c): ResNet18@224 under a traffic spike through the HAWQ-V3
+    EDP controller, open loop (no budgets: the highest bits) and closed
+    (tick-windowed FluidController)."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.core.policy import (FluidController,
+                                         cnn_budget_controller)
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+    from repro_torch.serve.traffic import (TraceReplayer, payload_image,
+                                           synth_trace)
+
+    gen_cpu = torch.Generator().manual_seed(0)
+    params, layers = cnn.init_cnn("resnet18", gen_cpu, image=IMAGE,
+                                  device=dev)
+    base = cnn_budget_controller("resnet18", layers=layers)
+    med = base.predicted_latency_s["hawqv3-medium"]
+    slo = SPIKE_WINDOW * 4 * med
+    spike = synth_trace("spike", **SPIKE)
+    burst = range(SPIKE["burst_at"], SPIKE["burst_at"] + SPIKE["burst_len"])
+    gemms = apm.network_gemms(layers)
+    n_gemm = len(path_gemms(layers, BATCH, IMAGE))
+    out = {}
+    for loop in ("open", "closed"):
+        ctrl = base if loop == "open" else FluidController.from_open_loop(
+            base, slo=slo, window_ticks=SPIKE_WINDOW)
+        eng = CNNServeEngine(params, layers, controller=ctrl, max_batch=BATCH,
+                             device=dev)
+        torch.cuda.synchronize()
+        reset_gemm_launches()
+        t0 = time.perf_counter()
+        res = TraceReplayer(spike, {}, cnn_engines={"resnet18": eng},
+                            image_hw=IMAGE,
+                            use_budgets=loop == "open").replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(bpm.launches)
+        paths = dict(bpm.path_launches)
+        check(res.unserved == 0 and all(e["done"] for e in res.entries)
+              and len(res.entries) == spike.n_requests,
+              f"(c) {loop}: images left unserved")
+        nb = eng.stats.batches
+        check({k: v for k, v in launches.items() if v}
+              == {f: n_gemm * nb for f in eng.families},
+              f"(c) {loop}: launches by n_planes {launches}, expected "
+              f"{n_gemm} per family per batch x {nb} batches")
+        recs = [eng.requests[r] for r in sorted(eng.requests)]
+        costs = apm.price_bit_matrix(gemms, [r.wbits for r in recs],
+                                     [r.abits for r in recs])
+        check([c.edp for c in costs] == [r.edp for r in recs],
+              f"(c) {loop}: per-image EDP != the AP model's price")
+        mb = [e["mean_wbits"] for e in res.entries if e["submitted_tick"]
+              in burst]
+        mc = [e["mean_wbits"] for e in res.entries if e["submitted_tick"]
+              not in burst]
+        out[loop] = {"eng": eng, "res": res, "wall": wall, "burst":
+                     float(np.mean(mb)), "calm": float(np.mean(mc)),
+                     "batches": nb, "recs": recs,
+                     "launches": sum(launches.values()), "paths": paths}
+    o, c = out["open"], out["closed"]
+    check(o["burst"] == o["calm"] == 8.0, f"(c) open loop: mean wbits burst "
+          f"{o['burst']}, calm {o['calm']}, expected 8 and 8")
+    check(c["burst"] < c["calm"], f"(c) closed loop: mean wbits over burst "
+          f"arrivals {c['burst']} not below calm {c['calm']}")
+
+    # one batch of the closed loop (mixed bits) against the plain version
+    eng = c["eng"]
+    recs = c["recs"][:BATCH]
+    images = torch.from_numpy(np.stack([
+        payload_image(spike, r, (IMAGE, IMAGE, 3))
+        for r in spike.requests[:BATCH]])).to(dev)
+    wmat = torch.tensor([r.wbits for r in recs], dtype=torch.int32,
+                        device=dev)
+    amat = torch.tensor([r.abits for r in recs], dtype=torch.int32,
+                        device=dev)
+    with eng.compute_ctx():
+        got = cnn.cnn_forward(eng.qparams, images, layers, wmat, amat)
+        with mock.patch.object(ops, "bitplane_matmul",
+                               lambda x, w, *, n_planes:
+                               bpm.bitplane_matmul_ref(x, w, n_planes)):
+            plain = cnn.cnn_forward(eng.qparams, images, layers, wmat, amat)
+    check(torch.equal(got, plain), f"(c) one batch's logits != the "
+          f"plain-version forward's, max |diff| "
+          f"{(got - plain).abs().max().item()}")
+    n_img = spike.n_requests
+    print(f"(c) ResNet18@{IMAGE} spike (rate {SPIKE['rate']}, x"
+          f"{SPIKE['burst_mag']} at ticks {SPIKE['burst_at']}.."
+          f"{SPIKE['burst_at'] + SPIKE['burst_len'] - 1}): {n_img} images; "
+          f"open loop {o['batches']} batches, mean wbits burst "
+          f"{o['burst']:.4f} == calm {o['calm']:.4f}; closed loop (SLO "
+          f"{slo:.6g} J*s per {SPIKE_WINDOW} ticks) {c['batches']} batches, "
+          f"mean wbits burst {c['burst']:.4f} < calm {c['calm']:.4f}; "
+          f"queue peak open {max(o['res'].queue_depth)}, closed "
+          f"{max(c['res'].queue_depth)}; EDP == the AP model; launches per "
+          f"batch {n_gemm} per family; one batch's logits == the "
+          f"plain-version forward")
+    ips = {k: n_img / v["wall"] for k, v in out.items()}
+    ret = {"images_per_s": ips["closed"],
+           "batches": o["batches"] + c["batches"],
+           "launches": o["launches"] + c["launches"],
+           "paths": {p: o["paths"][p] + c["paths"][p] for p in o["paths"]}}
+    print(f"{tag} (c) replay: open loop {o['wall']:.3f} s "
+          f"({ips['open']:.3f} images/s), closed loop {c['wall']:.3f} s "
+          f"({ips['closed']:.3f} images/s), {out['open']['res'].ticks} and "
+          f"{c['res'].ticks} ticks")
+    del params, out, eng
+    torch.cuda.empty_cache()
+    return ret
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -2065,21 +2888,24 @@ def main() -> None:
 
     # ---- 4.-7. the four paths (a development run may pick some with
     # --paths 1,4; only a run of all four prints the result lines)
-    picked = {1, 2, 3, 4}
+    every = {1, 2, 3, 4, 5}
+    picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
                   sys.argv[sys.argv.index("--paths") + 1].split(",")}
-    if picked != {1, 2, 3, 4}:
+    if picked != every:
         if 1 in picked:
             cnn_path(b)
         if 2 in picked:
             alexnet_path(b)
-        if picked & {3, 4}:
+        if picked & {3, 4, 5}:
             cfg, qparams = lm_weights(b)
             if 3 in picked:
                 lm_path(b, cfg, qparams)
             if 4 in picked:
                 cb_path(b, cfg, qparams)
+            if 5 in picked:
+                pc_path(b, cfg, qparams)
         print(card)
         print(f"paths {sorted(picked)} passed; no result line for a "
               f"partial run")
@@ -2089,12 +2915,21 @@ def main() -> None:
     cfg, qparams = lm_weights(b)
     lmr = lm_path(b, cfg, qparams)
     cbr = cb_path(b, cfg, qparams)
+    pcr = pc_path(b, cfg, qparams)
+    # the spike replays pad every batch to BATCH images: path 1's shapes
+    nb = pcr["cnn"]["batches"]
+    spike = {k: cnn[k] * nb for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "t_bytes", "t_ops",
+                                      "device_ms", "library_device_ms")}
+    spike.update(launches=pcr["cnn"]["launches"], paths=pcr["cnn"]["paths"])
 
     bp_paths = {"resnet18_served_batch": cnn,
                 "alexnet_served_batch": alex["bitplane_served_batch"],
                 "alexnet_int4_forward": alex["bitplane_int4_forward"],
                 "qwen3_4b_generate_call": lmr["bitplane"],
-                "qwen3_4b_continuous_and_speculative_runs": cbr["bitplane"]}
+                "qwen3_4b_continuous_and_speculative_runs": cbr["bitplane"],
+                "qwen3_4b_prefix_cache_and_closed_loop": pcr["bitplane"],
+                "resnet18_spike_replays": spike}
     fl = lmr["flash"]
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
@@ -2117,7 +2952,12 @@ def main() -> None:
           f"{e2e['generate_ms']:.3f} ms per call; continuous run() "
           f"{cbr['e2e']['run_a_s']:.3f} s (time to first token median "
           f"{cbr['e2e']['ttft_median_ms']:.3f} ms), speculative run() "
-          f"{cbr['e2e']['run_b_s']:.3f} s")
+          f"{cbr['e2e']['run_b_s']:.3f} s; prefix-cache replay "
+          f"{pcr['e2e']['cached_s']:.3f} s against {pcr['e2e']['uncached_s']:.3f}"
+          f" s uncached, closed loop {pcr['e2e']['closed_s']:.3f} s, a "
+          f"partial hit {pcr['e2e']['partial_ms_per_tail']:.3f} ms per tail "
+          f"token against a miss {pcr['e2e']['miss_ms']:.3f} ms; ResNet18 "
+          f"spike {pcr['e2e']['images_per_s']:.3f} images/s closed loop")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

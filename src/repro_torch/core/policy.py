@@ -11,8 +11,12 @@ gather, never a rebuild.
     configurations from a per-request budget (paper §V.B).
   * ``cnn_budget_controller`` — a controller whose prediction table holds
     the calibrated AP model's per-image cost of each configuration.
+  * ``FluidController`` — dynamic, closed loop: charges each admission's
+    priced AP cost against a system-level SLO window and resolves
+    precision from the REMAINING budget (DESIGN.md §8).
 
-The closed-loop ``FluidController`` is not ported yet.
+The reference's placement co-decision (``BudgetController.adopt_plan``)
+is not ported yet: the port has no placement plans.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.apsim.workloads import HAWQV3_RESNET18
 
+FP_BITS = 16  # sentinel: >=16 means "leave in bf16/f32" (fake_quant identity)
 
 @dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
@@ -39,9 +44,17 @@ class PrecisionPolicy:
             return torch.tensor(vals, dtype=torch.int32)
         return expand(self.weight_bits), expand(self.act_bits)
 
+    @property
+    def avg_bits(self) -> float:
+        return sum(self.weight_bits) / len(self.weight_bits)
+
 
 def fixed(bits: int, name: Optional[str] = None) -> PrecisionPolicy:
     return PrecisionPolicy(name or f"int{bits}", (bits,), (bits,))
+
+
+def full_precision() -> PrecisionPolicy:
+    return PrecisionPolicy("fp", (FP_BITS,), (FP_BITS,))
 
 
 def per_layer(weight_bits: Sequence[int],
@@ -174,3 +187,188 @@ class BudgetController:
         wtab, atab = self.stacked_tables()
         idx = self.select(budget_s).long()
         return wtab[idx], atab[idx]
+
+
+@dataclasses.dataclass
+class FluidController(BudgetController):
+    """Closed-loop bit fluidity: precision from the REMAINING budget.
+
+    :class:`BudgetController` is open-loop — a static prediction table
+    maps each request's own budget to a configuration once, with no
+    feedback from what the system has actually spent.  The fluid
+    controller closes the loop the way the paper's §V.B run describes
+    ("switching between the three mixed-precision configurations
+    dynamically, as imposed by the changing run-time resource
+    requirements"): the serving runtime charges every admission's
+    *priced* AP cost (``serve/accounting.py``) against a system-level
+    SLO window of ``slo`` budget-axis units per ``window`` admissions,
+    and each new admission's effective budget is its share of whatever
+    budget remains — so over-spending early requests push later ones
+    into cheaper (lower-bit) configurations and under-spending relaxes
+    them, Table VII's latency-budget sweep run as a live control loop
+    (cf. LRMP's runtime precision re-allocation, arXiv:2312.03146).
+
+    The loop lives entirely host-side: ``admission_budget()`` returns an
+    ordinary float and selection stays the inherited gather, so a
+    closed-loop config switch changes data, not code.  Window rollover
+    expires unused credit but carries debt, keeping the long-run average
+    at the SLO.
+
+    Two window shapes (the rollover semantics under bursty arrivals):
+
+      * admission-count (``window_ticks == 0``, the default): ``slo``
+        units per ``window`` admissions.  Load-independent — a 10x
+        burst spends the window 10x faster and later admissions tighten,
+        but an idle hour and a busy hour get the same budget per
+        request.
+      * tick-based (``window_ticks > 0``): ``slo`` units per
+        ``window_ticks`` *scheduler ticks* — a rate SLO.  The serving
+        runtime calls :meth:`tick` once per scheduler tick; headroom
+        splits the remaining window budget over the admissions known to
+        be waiting (``pending``), so a burst that deepens the queue
+        tightens every admission's share immediately while a trough
+        (empty queue) relaxes back to full precision.  This is the
+        window shape the traffic harness's diurnal/spike experiments
+        drive (``serve/traffic.py``).
+    """
+    slo: float = float("inf")      # budget-axis units per window
+    window: int = 32               # admissions per SLO window
+    window_ticks: int = 0          # >0: roll on scheduler ticks instead
+    spent: float = 0.0             # charged so far in this window
+    served: int = 0                # admissions charged in this window
+    ticks: int = 0                 # scheduler ticks elapsed in this window
+    saved: float = 0.0             # cumulative budget-axis cost avoided by
+                                   # the prefix-cache tier (hits charge only
+                                   # their miss fraction; this tracks the
+                                   # difference — introspection, not spend)
+    # ---- draft-bit autotuning (DESIGN.md §11 stretch): the closed loop
+    # watches an EMA of the speculative accept rate and shifts the DRAFT
+    # configuration index — low acceptance means the cheap drafts are
+    # being rejected (wasted draft+verify spend), so drafting moves to a
+    # higher-bit config; high acceptance means the drafts are already
+    # good enough and a cheaper config would do.  Off by default (the
+    # speculative baselines stay byte-stable).
+    draft_autotune: bool = False
+    draft_ema_alpha: float = 0.2   # EMA smoothing of per-round accept rates
+    draft_accept_low: float = 0.45     # EMA below this: raise draft bits
+    draft_accept_high: float = 0.85    # EMA above this: lower draft bits
+    draft_accept_ema: float = -1.0     # -1 = no observation yet (reset
+                                       # after each shift: hysteresis)
+    draft_shift: int = 0           # config-index offset applied to the
+                                   # engine's base draft configuration
+
+    def headroom(self, pending: int = 1) -> float:
+        """Per-admission share of the remaining window budget.
+
+        ``pending`` (tick-based windows only) is how many admissions are
+        known to be competing for the remainder — the runtime passes its
+        queue depth; admission-count windows split over the window's
+        remaining admission slots instead."""
+        if self.window_ticks:
+            left = max(pending, 1)
+        else:
+            left = max(self.window - self.served, 1)
+        return max(self.slo - self.spent, 0.0) / left
+
+    def admission_budget(self, requested: Optional[float] = None,
+                         pending: int = 1) -> float:
+        """Effective budget for the next admission: the closed-loop
+        headroom, tightened by the request's own budget when it has one."""
+        h = self.headroom(pending)
+        return h if requested is None else min(float(requested), h)
+
+    def charge(self, amount: float) -> None:
+        """Record one admission's actual (priced) budget-axis cost."""
+        self.spent += float(amount)
+        self.served += 1
+        if not self.window_ticks and self.served >= self.window:
+            self._roll()
+
+    def tick(self) -> None:
+        """One scheduler tick (tick-based windows; no-op otherwise)."""
+        if not self.window_ticks:
+            return
+        self.ticks += 1
+        if self.ticks >= self.window_ticks:
+            self._roll()
+
+    def _roll(self) -> None:
+        # roll the window: unused credit expires, debt carries over
+        self.spent = max(self.spent - self.slo, 0.0)
+        self.served = 0
+        self.ticks = 0
+
+    # Draft depths the closed loop can hand out, slowest-headroom first.
+    DRAFT_DEPTHS = (0, 2, 4, 8)
+
+    def draft_depth(self) -> int:
+        """Speculative draft depth for the next admission, from SLO
+        headroom.  Drafting spends extra budget-axis units now (k draft
+        tokens + a (k+1)-wide verify per round) to buy latency later, so
+        depth scales with the *fraction* of the window budget this
+        admission's share represents: a window with plenty of slack
+        drafts deep (k=8), a tight one shallow, and a window in debt
+        falls back to k=0 — exactly today's non-speculative path, so the
+        closed loop degrades gracefully under pressure (DESIGN.md §11).
+        """
+        if self.slo == float("inf"):
+            return self.DRAFT_DEPTHS[-1]
+        if self.slo <= 0:
+            return 0
+        frac = max(self.slo - self.spent, 0.0) / self.slo
+        if frac >= 0.5:
+            return 8
+        if frac >= 0.25:
+            return 4
+        if frac >= 0.10:
+            return 2
+        return 0
+
+    def observe_accept(self, rate: float) -> None:
+        """Feed one speculative round's accept rate (accepted/drafted)
+        into the draft-bit autotuner.  EMA-smoothed; when the average
+        leaves the [low, high] deadband the draft config index shifts by
+        one (up = more bits on low acceptance, down = fewer on high) and
+        the EMA resets so the next decision waits for fresh evidence
+        under the new bits (hysteresis).  The engine clamps the final
+        index into its config range, so the shift itself only needs a
+        loose clamp here."""
+        if not self.draft_autotune:
+            return
+        r = min(max(float(rate), 0.0), 1.0)
+        a = self.draft_ema_alpha
+        if self.draft_accept_ema < 0.0:
+            self.draft_accept_ema = r
+        else:
+            self.draft_accept_ema = (1.0 - a) * self.draft_accept_ema + a * r
+        if self.draft_accept_ema < self.draft_accept_low:
+            self.draft_shift = min(self.draft_shift + 1, 8)
+            self.draft_accept_ema = -1.0
+        elif self.draft_accept_ema > self.draft_accept_high:
+            self.draft_shift = max(self.draft_shift - 1, -8)
+            self.draft_accept_ema = -1.0
+
+    def record_saved(self, amount: float) -> None:
+        """Track budget-axis cost a cache hit avoided charging.  The
+        SLO window itself only ever sees the miss fraction (that's the
+        point: hits free budget for higher-precision admissions); this
+        running total is the controller's own view of how much the
+        cache tier is subsidizing the window."""
+        self.saved += float(amount)
+
+    def reconcile(self, delta: float) -> None:
+        """Adjust the ledger after a request finishes: admissions are
+        charged their PLANNED unit count up front (so headroom reacts
+        immediately), and an early-terminating request (eos) refunds the
+        difference here — the window's spend tracks reality, not plans."""
+        self.spent = max(self.spent + float(delta), 0.0)
+
+    @classmethod
+    def from_open_loop(cls, ctrl: BudgetController, *, slo: float,
+                       window: int = 32,
+                       window_ticks: int = 0) -> "FluidController":
+        """Wrap an existing controller's configs/predictions in a
+        closed-loop SLO window (axis carried over)."""
+        return cls(dict(ctrl.configs), dict(ctrl.predicted_latency_s),
+                   ctrl.n_layers, budget_axis=ctrl.budget_axis,
+                   slo=slo, window=window, window_ticks=window_ticks)

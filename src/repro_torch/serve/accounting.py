@@ -2,7 +2,7 @@
 
 A copy of ``repro.serve.accounting`` (numpy only), so that per-request
 costs and ``aggregate()`` dicts are equal to the reference's by
-construction; the closed-loop controller it mentions is not ported yet.
+construction.
 
 One cost vocabulary for every serve workload: :class:`RuntimeStats`
 counts compiled-program traces (the zero-retrace proof) and engine-wide
@@ -13,7 +13,7 @@ of that precision priced through the paper's calibrated model, so
 latency/energy/EDP read identically across workloads and aggregate with
 :func:`aggregate`; :class:`BitVectorPricer` is the shared cached pricer
 (vector and one-pass matrix forms) whose charges also drive the
-closed-loop ``FluidController``.
+closed-loop :class:`repro_torch.core.policy.FluidController`.
 """
 from __future__ import annotations
 
@@ -238,6 +238,10 @@ class RequestStats(CostRecord):
     """LM request record: token stream + per-token AP pricing."""
     prompt_len: int = 0
     slot: int = -1
+    # host clock (time.time()) when the scheduler picked the request and
+    # when its first token reached the host: the admission's wall
+    admitted_s: float = 0.0
+    first_token_s: float = 0.0
     tokens: List[int] = dataclasses.field(default_factory=list)
 
     @property

@@ -3,11 +3,13 @@
 The counterpart of ``repro.serve.cnn``: weights are quantized once at
 engine construction (int8 containers, packed int4 where every registered
 configuration keeps a layer at <= 4 bits), each image's budget resolves
-through a :class:`~repro_torch.core.policy.BudgetController` into a
-per-layer bit vector, the batch's ``(B, n_gemm)`` bit matrix runs through
-the bit-grouped dispatch (one bit-plane kernel launch per layer, or per
-group of a grouped conv, and bit family), and the resolved matrix is
-priced in one pass through the paper's calibrated AP cost model.
+through a :class:`~repro_torch.core.policy.BudgetController` (or the
+closed-loop :class:`~repro_torch.core.policy.FluidController`, charged
+image by image through ``plan_admissions``) into a per-layer bit vector,
+the batch's ``(B, n_gemm)`` bit matrix runs through the bit-grouped
+dispatch (one bit-plane kernel launch per layer, or per group of a
+grouped conv, and bit family), and the resolved matrix is priced in one
+pass through the paper's calibrated AP cost model.
 
 The reference counts compiled programs to show that configuration
 switches never recompile; the port runs eagerly, and its counterpart is
@@ -102,6 +104,8 @@ class CNNServeEngine(ServeRuntime):
         else:
             req = np.broadcast_to(np.asarray(budgets, np.float64),
                                   (B,)).tolist()
+        # batch admission planning: a closed-loop controller is charged
+        # image by image, so effective budgets tighten within the batch
         bud = self.plan_admissions(req)
         # pad to the fixed batch shape: padded rows take the cheapest
         # configuration (budget 0 fits nothing -> fastest) and are dropped

@@ -3,7 +3,9 @@ decoding and the whole-batch API.
 
 The counterpart of ``repro.serve.engine.ServeEngine``.  Each request
 carries its own latency budget, resolved by a
-:class:`~repro_torch.core.policy.BudgetController` into a per-layer bit
+:class:`~repro_torch.core.policy.BudgetController` (or the closed-loop
+:class:`~repro_torch.core.policy.FluidController`, which picks precision
+from what is left of a system-level SLO window) into a per-layer bit
 vector; a batch's ``(B, n_layers)`` bit matrix runs through the
 bit-grouped dispatch (one bit-plane kernel launch per linear and bit
 family).  The queue, the EDP-aware admission scheduler, the slot table
@@ -24,9 +26,16 @@ this module owns what is LM-shaped.
     accepted prefix plus one token (greedy: exact match; sampled:
     rejection resampling against the draft densities), and rolls the
     rejected cache entries back (``CachePool.rollback``).
+  * prefix cache (``prefix_cache=PrefixCache(...)``): each admission
+    looks its prompt up first.  A full hit installs the cached row and
+    reuses its stored logits (no prefill); a partial hit installs the
+    shared prefix and extends the rest token by token through
+    ``lm.decode_step`` (``_extend_row``); a miss prefills and stores the
+    row.  Only the miss fraction is charged to a FluidController.
   * whole-batch: ``set_budget(scalar | (B,) vector)`` + ``generate(batch,
     steps)``; a prompt longer than ``transformer.FLASH_THRESHOLD`` sends
-    every layer's self-attention through the flash kernel.
+    every layer's self-attention through the flash kernel.  It is open
+    loop, so it refuses a FluidController.
 
 The reference jit-compiles each program (a scan-fused decode block, one
 draft and one verify program for every depth); here each runs eagerly as
@@ -36,7 +45,14 @@ the draft runs only as deep as the deepest row of the round can accept
 are never accepted, so no output changes), and ``stats`` (the copied
 ``RuntimeStats``) counts no traces: nothing is compiled, so the
 reference's zero-retrace property has no counterpart.  ``calls`` counts
-the model forwards the continuous API runs instead.  Rows that hold no
+the model forwards the continuous API runs instead (``"extend"`` counts
+the decode steps of partial-hit extensions, the counterpart of the
+reference's ``extend`` program).  A partial hit extends exactly its ``r``
+tail tokens; the reference's one compiled program runs ``prefill_len``
+steps with the tail clamped, recomputing the last token with identical
+inputs, so the logits and the cache are the same.  The port's decode
+writes the cache in place, so the extension clones the entry's row
+first: a cache entry is never written.  Rows that hold no
 request still decode in every tick (the batch is always ``n_slots``
 wide, as in the reference); the port masks their cache entries again
 after the tick, so a free slot's ``kpos`` stays EMPTY_POS (the
@@ -49,9 +65,8 @@ match it in distribution only.  The pool and every forward stay on the
 engine's device; a CUDA tensor reaches the kernels or raises.
 
 Not ported yet, and raising ``NotImplementedError``: meshes and
-placement plans (``mesh=``, ``plan=``), the prefix cache
-(``prefix_cache=``), vlm prefixes, the closed-loop ``FluidController``,
-and the families outside ``lm.PORTED_FAMILIES``.
+placement plans (``mesh=``, ``plan=``), vlm prefixes, and the families
+outside ``lm.PORTED_FAMILIES``.
 """
 from __future__ import annotations
 
@@ -63,11 +78,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import policy as pol
-from repro_torch.core.policy import BudgetController, PrecisionPolicy
+from repro_torch.core.policy import (BudgetController, FluidController,
+                                     PrecisionPolicy)
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.models.transformer import EMPTY_POS
 from repro_torch.serve.accounting import RequestStats
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.runtime import (ServeRuntime, SlotTable,
                                        UNCONSTRAINED_BUDGET)
 
@@ -85,8 +102,11 @@ class Request:
     budget_s: Optional[float]
     temperature: float = 0.0
     top_k: int = 0
+    rep_key: Optional[int] = None       # traffic repetition key (the
+                                        # prefix-cache count signal)
     draft_k: Optional[int] = None       # speculative draft depth override
-                                        # (None: the engine decides)
+                                        # (None: the engine/controller
+                                        # decides)
 
 
 def default_controller(n: int) -> BudgetController:
@@ -151,19 +171,19 @@ class ServeEngine(ServeRuntime):
                  policy: Optional[PrecisionPolicy] = None,
                  mesh=None, n_slots: int = 4, prefill_len: int = 32,
                  decode_block: int = 8, eos_id: Optional[int] = None,
-                 seed: int = 0, prefix_cache=None,
+                 seed: int = 0, prefix_cache: Optional[PrefixCache] = None,
                  spec_k: Optional[int] = None,
                  draft_budget_s: Optional[float] = None, plan=None,
                  device="cuda"):
-        for name, val in (("mesh", mesh), ("plan", plan),
-                          ("prefix_cache", prefix_cache)):
+        for name, val in (("mesh", mesh), ("plan", plan)):
             if val is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet: the port "
-                    f"serves on one device without a prefix cache")
+                    f"serves on one device without a placement plan")
         self.cfg = cfg
         # speculative decoding: spec_k=None disables it; an int enables
-        # self-drafting at that default depth.  draft_budget_s picks the
+        # self-drafting at that default depth (a FluidController overrides
+        # it per admission through draft_depth()).  draft_budget_s picks the
         # draft bit configuration through the same controller tables
         # (None -> 0.0 -> the cheapest config).
         if spec_k is not None:
@@ -197,19 +217,30 @@ class ServeEngine(ServeRuntime):
         if controller is None:
             p = policy or _default_policy()
             controller = BudgetController({p.name: p}, {p.name: 0.0}, n)
-        if controller.budget_axis != "latency":
+        if (controller.budget_axis != "latency"
+                and not isinstance(controller, FluidController)):
+            # a FluidController may run its SLO loop on the energy or EDP
+            # axis (request budgets then live on that axis too); an
+            # open-loop controller there is a wiring fault
             raise ValueError(
                 f"ServeEngine budgets are LATENCY budgets (seconds) but the "
                 f"controller's prediction table lives on the "
                 f"{controller.budget_axis!r} axis — its budgets would "
                 f"always- or never-fit; build the controller with latency "
-                f"predictions")
+                f"predictions, or use a FluidController for an energy/EDP "
+                f"SLO loop")
         super().__init__(controller, n, gemms=lm.layer_gemm_dims(cfg),
                          head=lm.head_gemm_dims(cfg))
         self.qparams = _to(qparams, self.device)
         self.budget_s = torch.tensor(1e9, dtype=torch.float32)
         self.row_bits = cfg.family in lm.PER_ROW_BIT_FAMILIES
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # cross-request prefix cache: only prompts that fit the cache ring
+        # entirely are cacheable (a wrapped prefix would install an
+        # incomplete row)
+        self.prefix_cache = prefix_cache
+        self._cache_sc = (min(max_len, cfg.sliding_window)
+                          if cfg.sliding_window else max_len)
 
         # continuous-batching state (the pool is built on first admission)
         self.pool: Optional[lm.CachePool] = None
@@ -222,8 +253,10 @@ class ServeEngine(ServeRuntime):
             k=(np.int64, 0))                    # speculative draft depth
         self._just_finished: List[int] = []
         # model forwards run by the continuous API: request prefills,
-        # decode and draft steps, verify chunks
-        self.calls = {"prefill": 0, "decode": 0, "draft": 0, "verify": 0}
+        # decode and draft steps, verify chunks, partial-hit extension
+        # steps
+        self.calls = {"prefill": 0, "decode": 0, "draft": 0, "verify": 0,
+                      "extend": 0}
 
     # ------------------------------------------------------------------
     # Shared plumbing
@@ -248,10 +281,13 @@ class ServeEngine(ServeRuntime):
             torch.tensor(budget_s, dtype=torch.float32)))
 
     def _draft_index(self) -> int:
-        """Stacked-config index the drafts run at: the draft budget's
-        config (the reference's autotuner shift comes with the
-        FluidController)."""
-        return self._host_index(self._draft_budget_f)
+        """Stacked-config index the drafts run at: the draft budget's base
+        config, offset by a FluidController's autotuner shift
+        (``observe_accept``), clamped into the config range."""
+        base = self._host_index(self._draft_budget_f)
+        shift = int(getattr(self.controller, "draft_shift", 0) or 0)
+        n = self.host_tables()[0].shape[0]
+        return min(max(base + shift, 0), n - 1)
 
     def _draft_bits(self):
         """Device-side draft bit matrix (n_slots, L): the draft config
@@ -280,11 +316,14 @@ class ServeEngine(ServeRuntime):
 
     def _resolve_draft_k(self, req: Request) -> int:
         """Draft depth for one admission: the request's explicit
-        ``draft_k``, else the engine default (spec_k=None disables)."""
+        ``draft_k``, else the FluidController's headroom-scaled depth,
+        else the engine default (spec_k=None disables)."""
         if req.draft_k is not None:
             return int(req.draft_k)
         if self.spec_k is None:
             return 0
+        if isinstance(self.controller, FluidController):
+            return min(self.controller.draft_depth(), SPEC_K_MAX)
         return self.spec_k
 
     # ------------------------------------------------------------------
@@ -389,6 +428,23 @@ class ServeEngine(ServeRuntime):
     def _sample_first(self, logits, temp, topk):
         return _sample_tokens(logits[:, -1], self.gen, temp, topk)
 
+    def _extend_row(self, tokens, row, start: int, r: int, wv, av):
+        """Partial prefix-cache hit: ``row`` (an entry's single-row cache)
+        holds a longer or equal prompt.  A clone of it is masked down to
+        its first ``start`` tokens, then the remaining ``r`` prompt tokens
+        run through ``lm.decode_step`` at positions start..start+r-1.
+        Returns (the last step's logits (1, 1, V), the extended row).  The
+        entry itself is never written: decode writes its cache in
+        place."""
+        self.calls["extend"] += r
+        row = {name: buf.clone() for name, buf in row.items()}
+        row["kpos"].masked_fill_(row["kpos"] >= start, EMPTY_POS)
+        for pos in range(start, start + r):
+            logits, row = lm.decode_step(self.qparams,
+                                         tokens[:, pos:pos + 1], pos, row,
+                                         self.cfg, wv, av)
+        return logits, row
+
     # ------------------------------------------------------------------
     # Whole-batch API
     # ------------------------------------------------------------------
@@ -399,6 +455,13 @@ class ServeEngine(ServeRuntime):
         """Generate ``steps`` tokens for one synchronous batch; returns
         (B, steps) int32 ids on the engine's device.  Greedy unless
         per-row temperature/top_k are given."""
+        if isinstance(self.controller, FluidController):
+            # the whole-batch path has no admissions to charge: it would
+            # silently run the fluid controller open-loop
+            raise ValueError(
+                "the whole-batch generate() API is open-loop; a "
+                "FluidController's SLO window is only charged by the "
+                "continuous scheduler — use submit()/run()")
         with self.compute_ctx():
             return self._generate(batch, steps, temperature, top_k, fused)
 
@@ -440,11 +503,16 @@ class ServeEngine(ServeRuntime):
     def submit(self, prompt, *, max_new_tokens: int = 16,
                budget_s: Optional[float] = None, temperature: float = 0.0,
                top_k: int = 0, prefix=None,
+               rep_key: Optional[int] = None,
                draft_k: Optional[int] = None) -> int:
         """Enqueue a request; returns its id.  ``budget_s`` caps this
-        request's precision configuration (None = loosest, most
-        accurate).  ``draft_k`` overrides the speculative draft depth for
-        this request (0 = vanilla decode; None = the engine decides)."""
+        request's precision configuration (None = loosest, most accurate;
+        under a FluidController the closed loop may tighten it further).
+        ``rep_key`` threads a traffic repetition key to the prefix cache
+        (hits are content-keyed either way; the key feeds the
+        repetition-aware eviction value).  ``draft_k`` overrides the
+        speculative draft depth for this request (0 = vanilla decode;
+        None = the engine/controller decides)."""
         if self.cfg.family not in lm.RAGGED_PREFILL_FAMILIES:
             raise NotImplementedError(
                 f"the continuous-batching API needs ragged prefill; family "
@@ -475,7 +543,9 @@ class ServeEngine(ServeRuntime):
         # under them (wrapped slots would expose stale-lap entries to the
         # chunked verify), whenever this request could draft
         spec_possible = (draft_k or 0) > 0 or (
-            draft_k is None and self.spec_k is not None and self.spec_k > 0)
+            draft_k is None and self.spec_k is not None
+            and (self.spec_k > 0
+                 or isinstance(self.controller, FluidController)))
         if spec_possible:
             if self.cfg.sliding_window:
                 raise ValueError(
@@ -494,13 +564,22 @@ class ServeEngine(ServeRuntime):
         rid = self.next_rid()
         req = Request(rid, prompt, max_new_tokens,
                       None if budget_s is None else float(budget_s),
-                      float(temperature), int(top_k), draft_k=draft_k)
+                      float(temperature), int(top_k), rep_key=rep_key,
+                      draft_k=draft_k)
         record = RequestStats(
             rid=rid,
             budget_s=(float(budget_s) if budget_s is not None
                       else UNCONSTRAINED_BUDGET),
             prompt_len=int(prompt.shape[0]), submitted_s=time.time())
-        return self.new_record(record, req, budget_s)
+        est_scale = 1.0
+        if self._cacheable(req):
+            # the admission planner sees the predicted hit: the modeled EDP
+            # is discounted by the predicted cached fraction, so likely hits
+            # admit earlier (they really are cheaper to serve)
+            total = prompt.shape[0] + max_new_tokens
+            est_scale = max(total - self.prefix_cache.peek(prompt),
+                            1) / total
+        return self.new_record(record, req, budget_s, est_scale=est_scale)
 
     def _ensure_pool(self) -> lm.CachePool:
         if self.pool is None:
@@ -508,23 +587,42 @@ class ServeEngine(ServeRuntime):
                                      device=self.device)
         return self.pool
 
+    def _cacheable(self, req: Request) -> bool:
+        return (self.prefix_cache is not None
+                and req.prompt.shape[0] <= self._cache_sc)
+
     def _admit(self) -> List[int]:
         """Move queued requests into free pool slots, in the runtime's
-        EDP-aware, starvation-free admission order: price, prefill the
-        prompt on its own padded row, install the row, sample the first
-        token (the one host sync per admission)."""
+        EDP-aware, starvation-free admission order.  With a prefix cache,
+        each admission consults it before prefilling: a full hit installs
+        the cached row and reuses its stored logits (no prefill), a
+        partial hit installs the shared prefix and extends the rest
+        through the decode path, and a miss prefills its own padded row
+        and stores or refreshes the entry.  Only the miss fraction is
+        charged to a FluidController.  Sampling the first token is the
+        one host sync per admission."""
         pool = self._ensure_pool()
         dev = self.device
         admitted = []
         while self.queued and pool.free_slots:
             req: Request = self.next_admission()
+            record = self.requests[req.rid]
+            record.admitted_s = time.time()
             slot = pool.alloc()
             S = req.prompt.shape[0]
-            record = self.requests[req.rid]
             planned = S + req.max_new_tokens
+            hit = wv_np = av_np = None
+            # the effective budget first: the prefix cache's precision gate
+            # and the speculative plan's pricing both need the bits before
+            # anything is charged
             eff = self.admission_budget(req.budget_s)
+            if self._cacheable(req):
+                wv_np, av_np = self.host_bits(eff)
+                hit = self.prefix_cache.lookup(
+                    req.prompt, wv_np, av_np, rep_key=req.rep_key)
+            cached = hit.keep if hit is not None else 0
             # speculative plan: draft + verify pricing for the planned
-            # rounds (full acceptance)
+            # rounds (full acceptance; finish_record reconciles)
             k_req = self._resolve_draft_k(req)
             spec = None
             if k_req > 0 and req.max_new_tokens > 1:
@@ -536,20 +634,55 @@ class ServeEngine(ServeRuntime):
             else:
                 k_req = 0
             wv, av = self.admit_record(record, req.budget_s, planned,
-                                       eff=eff, spec=spec)
+                                       eff=eff,
+                                       charge_units=planned - cached,
+                                       spec=spec)
+            wv, av = wv.to(dev), av.to(dev)
+            if hit is not None:
+                record.cached_units = cached
+                record.cache_hit = "full" if hit.full else "partial"
+                record.cached_cost = self.price_bits(hit.entry.wbits,
+                                                     hit.entry.abits)
+                record.cached_mean_wbits = float(np.mean(hit.entry.wbits))
+                self.prefix_cache.ledger.prefill_edp_saved_js += \
+                    record.prefill_edp_saved_js
             tokens = np.zeros((1, self.prefill_len), np.int32)
             tokens[0, :S] = req.prompt
-            logits, row_cache = self._prefill_row(
-                torch.from_numpy(tokens).to(dev),
-                torch.tensor([S], dtype=torch.int32).to(dev),
-                wv.to(dev), av.to(dev))
-            pool.write_row(row_cache, slot, S)
-            del row_cache
+            tokens = torch.from_numpy(tokens).to(dev)
+            if hit is not None and hit.full:
+                # full hit: the cached row IS the prefill output at the
+                # entry's bits; install it and reuse its stored logits
+                pool.install_prefix(hit.entry.row_cache, slot, S)
+                logits = hit.entry.logits
+            elif hit is not None:
+                # partial hit: extend a clone of the entry's row by the
+                # uncached tail, then install it
+                logits, row_cache = self._extend_row(
+                    tokens, hit.entry.row_cache, cached, S - cached, wv, av)
+                pool.write_row(row_cache, slot, S)
+                # refresh only when precision-pure: the extended row mixes
+                # the entry's bits (prefix) with the resolved bits (tail)
+                # unless they match
+                if (np.array_equal(hit.entry.wbits, wv_np)
+                        and np.array_equal(hit.entry.abits, av_np)):
+                    self.prefix_cache.store(
+                        req.prompt, row_cache, logits, wv_np, av_np,
+                        record.ap_cost, rep_key=req.rep_key)
+            else:
+                logits, row_cache = self._prefill_row(
+                    tokens, torch.tensor([S], dtype=torch.int32).to(dev),
+                    wv, av)
+                pool.write_row(row_cache, slot, S)
+                if wv_np is not None:   # cacheable miss: store or refresh
+                    self.prefix_cache.store(
+                        req.prompt, row_cache, logits, wv_np, av_np,
+                        record.ap_cost, rep_key=req.rep_key)
             first = self._sample_first(
                 logits, torch.tensor([req.temperature],
                                      dtype=torch.float32).to(dev),
                 torch.tensor([req.top_k], dtype=torch.int32).to(dev))
             first0 = int(first[0])          # the per-admission host sync
+            record.first_token_s = time.time()
             record.slot = slot
             record.tokens.append(first0)
             self.stats.tokens += 1
@@ -703,6 +836,11 @@ class ServeEngine(ServeRuntime):
                 st.accepted_units += take - 1
                 st.spec_tokens += len(new)
                 st.draft_wbits = self._draft_wbits_f
+                if isinstance(self.controller, FluidController):
+                    # close the draft-bit loop: this round's accept rate
+                    # feeds the EMA that may shift the next round's draft
+                    # config
+                    self.controller.observe_accept((take - 1) / k_req)
             hit_eos = (self.eos_id is not None and new
                        and new[-1] == self.eos_id)
             if slots["remaining"][slot] <= 0 or hit_eos:

@@ -5,6 +5,12 @@ The counterpart of ``repro.serve.runtime``:
   * the request queue and admission scheduler: EDP-aware (the cheapest
     modeled EDP admits first) with FIFO anti-starvation aging after
     ``starvation_ticks`` ticks, deterministic;
+  * the closed control loop: when the controller is a
+    :class:`~repro_torch.core.policy.FluidController`, every admission's
+    effective budget comes from the *remaining* SLO-window budget and its
+    priced AP cost is charged back (only the miss fraction of a
+    prefix-cache hit); a finished request reconciles what it really ran,
+    and tick-windowed controllers advance once per scheduler tick;
   * slot lifecycle state (:class:`SlotTable` for slot-pool workloads,
     :meth:`ServeRuntime.plan_admissions` for batched ones), the
     scheduler clock with deferred :meth:`~ServeRuntime.submit_at`
@@ -15,12 +21,9 @@ The counterpart of ``repro.serve.runtime``:
   * the compute context: the controller's static bit-family set applied
     around every forward.
 
-The port has no ``FluidController`` yet, so every admission takes the
-reference's open-loop branch: a request's own budget is its effective
-budget, nothing is charged against an SLO window (``charge`` and the
-closed-loop branches of ``admission_budget``, ``admit_record``,
-``plan_admissions``, ``finish_record`` and ``sched_tick`` are not
-ported), and there are no meshes or placement plans.
+Not ported yet: meshes and placement plans (the reference's ``mesh=``,
+``plan=`` and the plan-amortized pricing), so every price here is the
+single-copy AP price.
 """
 from __future__ import annotations
 
@@ -33,10 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch.apsim import metrics as apm
-from repro_torch.core.policy import BudgetController
+from repro_torch.core.policy import BudgetController, FluidController
 from repro_torch.kernels import ops as kops
 from repro_torch.serve.accounting import (BitVectorPricer, CostRecord,
-                                          RuntimeStats)
+                                          RuntimeStats, axis_cost)
 
 # "no budget": fits every configuration on any axis (most accurate wins)
 UNCONSTRAINED_BUDGET = 1e30
@@ -118,8 +121,8 @@ class ServeRuntime:
         self._lats_np: Optional[np.ndarray] = None
         self._tabs_np: Optional[Tuple[np.ndarray, np.ndarray]] = None
         # scheduler clock + deferred (timestamped) arrivals: submit_at()
-        # registers a submit thunk for a future tick; run() drains the due
-        # thunks at the top of each tick
+        # registers a submit thunk for a future tick; sched_tick() drains
+        # the due thunks at the top of each tick
         self._tick = 0
         self._arrivals: Dict[int, List[Callable[[], int]]] = {}
 
@@ -181,44 +184,87 @@ class ServeRuntime:
                                   for i in range(wtab.shape[0])]
         return self._config_costs[idx]
 
-    def admission_budget(self, requested: Optional[float] = None) -> float:
-        """Effective budget for the next admission: the request's own
-        budget (open loop), unconstrained when it has none."""
+    def admission_budget(self, requested: Optional[float] = None,
+                         pending: Optional[int] = None) -> float:
+        """Effective budget for the next admission: closed-loop headroom
+        under a FluidController, the request's own budget otherwise.
+        ``pending`` (tick-windowed controllers) is how many admissions
+        compete for the remaining window budget; it defaults to this
+        admission plus everything still queued."""
+        if isinstance(self.controller, FluidController):
+            if pending is None:
+                pending = self.queued + 1
+            return self.controller.admission_budget(requested,
+                                                    pending=pending)
         return (float(requested) if requested is not None
                 else UNCONSTRAINED_BUDGET)
 
+    def charge(self, cost: apm.BitVectorCost, units: int = 1) -> None:
+        """Feed one admission's priced cost back into the control loop."""
+        if isinstance(self.controller, FluidController):
+            self.controller.charge(
+                axis_cost(cost, self.controller.budget_axis, units))
+
     def admit_record(self, record: CostRecord, requested: Optional[float],
                      units: int, *, eff: Optional[float] = None,
+                     charge_units: Optional[int] = None,
                      spec: Optional[Tuple] = None):
         """Resolve one admission end to end: effective budget -> bit
-        vectors -> AP pricing, written into ``record``.  ``units`` is the
-        admission's planned AP unit count (LM: prompt + max new tokens).
-        ``spec`` = (spec_k, draft_cost, verify_cost, planned_rounds,
-        planned_tokens) installs a speculative-decoding plan on the
-        record.  Returns the (wbits, abits) vectors (host tensors)."""
+        vectors -> AP pricing -> control-loop charge, written into
+        ``record``.  ``units`` is the admission's planned AP unit count
+        (LM: prompt + max new tokens).  An engine that consulted the
+        prefix cache passes the pre-computed ``eff`` (so the gate and the
+        charge see the same headroom) and ``charge_units`` = the miss
+        fraction: cache-served units are never charged against a
+        FluidController's SLO window, and the avoided share is recorded on
+        the controller.  ``spec`` = (spec_k, draft_cost, verify_cost,
+        planned_rounds, planned_tokens) installs a speculative-decoding
+        plan on the record; :meth:`finish_record` reconciles against the
+        rounds that ran.  Returns the (wbits, abits) vectors (host
+        tensors)."""
         if eff is None:
             eff = self.admission_budget(requested)
         wv, av = self.controller.resolve(
             torch.tensor(eff, dtype=torch.float32))
         # price through the cached host mirrors (host_bits == resolve)
         wv_h, av_h = self.host_bits(eff)
+        cost = self.price_bits(wv_h, av_h)
         record.budget_s = eff
-        record.ap_cost = self.price_bits(wv_h, av_h)
+        record.ap_cost = cost
         record.mean_wbits = float(np.mean(np.asarray(wv_h, np.float64)))
-        record.planned_units = units
+        record.planned_units = units if charge_units is None \
+            else charge_units
         record.admitted_tick = self._tick
         if spec is not None:
             (record.spec_k, record.draft_cost, record.verify_cost,
              record.planned_spec_rounds, record.planned_spec_tokens) = spec
+        if isinstance(self.controller, FluidController):
+            axis = self.controller.budget_axis
+            self.controller.charge(record.axis_planned(axis))
+            if charge_units is not None and charge_units != units:
+                self.controller.record_saved(
+                    axis_cost(cost, axis, units)
+                    - axis_cost(cost, axis, charge_units))
         self.stats.admitted += 1
         return wv, av
 
-    def plan_admissions(self, budgets: Sequence[Optional[float]]
-                        ) -> np.ndarray:
-        """Effective budgets for a batch of admissions (open loop: each
-        request's own budget passes through; ``None`` is unconstrained)."""
-        return np.asarray([self.admission_budget(b) for b in budgets],
-                          np.float64)
+    def plan_admissions(self, budgets: Sequence[Optional[float]],
+                        units: int = 1) -> np.ndarray:
+        """Batch admission planning (the batched-forward lifecycle): under
+        a FluidController each admission is charged at its selected
+        config's priced cost before the next one's headroom is computed,
+        so the closed loop adapts within the batch.  Open-loop budgets
+        pass through (``None`` is unconstrained).  Returns the effective
+        budgets."""
+        fluid = isinstance(self.controller, FluidController)
+        eff = np.empty((len(budgets),), np.float64)
+        for i, b in enumerate(budgets):
+            # the rest of this batch competes for the same window budget
+            e = self.admission_budget(b, pending=len(budgets) - i)
+            if fluid:
+                self.charge(self._config_cost(self._host_index(e)), units)
+            eff[i] = e
+        return eff
 
     # ------------------------------------------------------------------
     # Queue + admission scheduler
@@ -244,8 +290,9 @@ class ServeRuntime:
 
     def submit_at(self, tick: int, submit: Callable[[], int]) -> None:
         """Register a deferred arrival: ``submit`` (a thunk that calls the
-        adapter's ``submit(...)``) runs when the scheduler clock reaches
-        ``tick`` inside :meth:`run`."""
+        adapter's ``submit(...)``) runs at the start of the
+        :meth:`sched_tick` that finds the scheduler clock at ``tick``, so
+        :meth:`run` and a trace replay both see it."""
         t = int(tick)
         if t < self._tick:
             raise ValueError(f"arrival tick {t} is in the past "
@@ -286,6 +333,17 @@ class ServeRuntime:
         record.finished_s = time.time()
         record.finished_tick = self._tick
         self.stats.completed += 1
+        # admissions were charged their PLANNED cost; a request that ended
+        # early (eos), or whose speculative rounds diverged from the plan,
+        # refunds or charges the difference, so the SLO window tracks the
+        # stream's real spend
+        if (isinstance(self.controller, FluidController)
+                and record.ap_cost is not None):
+            axis = self.controller.budget_axis
+            actual = record.axis_actual(axis)
+            planned = record.axis_planned(axis)
+            if actual != planned:
+                self.controller.reconcile(actual - planned)
         return record
 
     # ------------------------------------------------------------------
@@ -306,9 +364,14 @@ class ServeRuntime:
         return True
 
     def sched_tick(self) -> List[int]:
-        """One instrumented scheduler tick: run the adapter's
-        :meth:`step`, record queue depth, advance the clock.  Returns the
-        rids that finished during the tick."""
+        """One instrumented scheduler tick: submit the :meth:`submit_at`
+        arrivals due now, advance a tick-windowed FluidController, run the
+        adapter's :meth:`step`, record queue depth, advance the clock.
+        Returns the rids that finished during the tick."""
+        for submit in self._arrivals.pop(self._tick, ()):
+            submit()
+        if isinstance(self.controller, FluidController):
+            self.controller.tick()
         done = self.step()
         self.stats.record_tick(self.queued, self._active_count())
         self._tick += 1
@@ -328,8 +391,6 @@ class ServeRuntime:
             raise ValueError(f"on_exhaust must be 'raise' or 'report', "
                              f"got {on_exhaust!r}")
         for _ in range(max_ticks):
-            for submit in self._arrivals.pop(self._tick, ()):
-                submit()
             if (not self._pending and not self._has_active()
                     and not self._arrivals):
                 return dict(self.requests)

@@ -175,12 +175,14 @@ def test_prices_and_host_mirrors_equal_the_reference(smoke):
 
 
 def test_not_ported_options_raise(smoke):
-    for kw in ({"mesh": object()}, {"plan": "auto"},
-               {"prefix_cache": object()}):
+    for kw in ({"mesh": object()}, {"plan": "auto"}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             _engine(smoke, **kw)
-    # continuous batching needs a family the port runs
+    # the prefix cache is ported; vlm prefixes are not
     eng = _engine(smoke)
+    with pytest.raises(NotImplementedError, match="vlm prefixes"):
+        eng.submit(np.zeros(4, np.int32), prefix=np.zeros((1, 1)))
+    # continuous batching needs a family the port runs
     eng.cfg = smoke["tcfg"].with_(family="vlm")
     with pytest.raises(NotImplementedError, match="vlm"):
         eng.submit(np.zeros(4, np.int32))
