@@ -3,9 +3,9 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --paths 5  # some paths only, no result lines
+    python3 chip_smoke.py --paths 6  # some paths only, no result lines
 
-Five paths, each at full width with random weights from a seed:
+Six paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -29,8 +29,9 @@ Five paths, each at full width with random weights from a seed:
   ``submit_at`` / ``run``): (a) 12 requests (prompts of 64 to 1024
   tokens, 16 to 32 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
-  decoding 8 tokens for all slots at once; (b) 8 of them again with
-  speculative decoding (4 int4 drafts a round, verified in one chunk of
+  decoding 8 tokens for all slots at once; (b) 8 of them again, each to
+  its first 8 new tokens, with speculative decoding (4 int4 drafts a
+  round, verified in one chunk of
   9 positions per row; one request at draft_k=0).  The bit-plane kernel
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
@@ -42,7 +43,16 @@ Five paths, each at full width with random weights from a seed:
   kernel at M = 1) all occur, and the same replay without the cache;
   (b) the cached replay under an EDP-axis ``FluidController`` whose SLO
   is 0.6 of what the uncached run charges; (c) ResNet18@224 under a
-  traffic spike, open loop and through a tick-windowed FluidController.
+  traffic spike, open loop and through a tick-windowed FluidController;
+* placement and row scale-out: two data ranks, spawned processes that
+  share the card in one gloo group (``repro_torch.dist.DataMesh``),
+  serve with ``plan="auto"`` (fully replicated: every rank holds every
+  weight): (a) path 4 (a)'s Qwen3-4B requests, each rank decoding its 4
+  of the 8 slots (the bit-plane GEMV at M = 4); (b) path 1's ResNet18
+  batch, 8 rows a rank; and on one rank, (c) partial plans (4 devices,
+  1.5 model copies) for both models, and path 5 (c)'s spike through a
+  tick-windowed FluidController with the ResNet18 plan and without it,
+  at one SLO.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -81,8 +91,8 @@ result line:
      the same bits among 1, 8 and 72 rows; hold the bit-plane kernel at
      the path's shapes, run (a) and (b), and gate: each request's tokens
      in (a) EQUAL the request run alone (batch-1 prefill + decode_step
-     loop), and (b)'s EQUAL (a)'s; a free pool with every kpos at
-     EMPTY_POS after run(); AP records equal to the AP model's price of
+     loop), and (b)'s EQUAL the first 8 of (a)'s; a free pool with every
+     kpos at EMPTY_POS after run(); AP records equal to the AP model's price of
      each budget's bits; the spec ledger adding up to the tokens
      delivered; the bit-plane launches by M and regime as ``plan()``
      gives them; a SMOKE-size card-vs-CPU run of both (equal up to the
@@ -105,7 +115,23 @@ result line:
      plain version's; AP records equal the AP model everywhere; SMOKE
      card-vs-CPU runs of all three.  Then admission walls and time to
      first token by hit kind, the bit-plane device sum per replay, the
-     spike replays' images/s and a trace of one partial-hit extension.
+     spike replays' images/s and a trace of one partial-hit extension;
+  9. placement and scale-out: hold the bit-plane kernel at the per-rank
+     shapes (M = 4 at Qwen3-4B's widths, ResNet18's GEMMs at B = 8); run
+     (a) and (b) on the two ranks and gate: the plans fully replicated
+     (ResNet18's with its layer names), the row split engaged, each
+     rank's pool holding only its rows and drained after run(); (a)'s
+     tokens EQUAL path 4 (a)'s, the ranks' records identical, each
+     priced at PlacementPlan.price of the AP model's price of its bits
+     (latency / 2, energy unchanged), launches by M equal to each rank's
+     calls; (b)'s logits EQUAL path 1's, each rank's rows alone EQUAL
+     the same rows of the whole batch's forward, latency / 2; (c)
+     plan_gain EQUAL a host-only recomputation, every image priced at
+     plan.price(...), the mean bits higher with the plan, launches per
+     family per batch.  A rank that fails, or misses the rendezvous,
+     fails the run.  Then the path's wall, each rank's tick wall (two
+     ranks sharing one card: not a scale-out speed) and bit-plane device
+     sum.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -182,7 +208,7 @@ LM_ARCH = "qwen3_4b"
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
 LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 16, 4112
 LM_BUDGETS = [0.4, 0.8, 10.0, 1e30]      # -> int4, mixed, int8, int8
-LM_CALLS = 2          # timed generate calls after one warm-up
+LM_CALLS = 1          # timed generate calls after one warm-up
 LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
 LOGIT_TOL = 2e-2      # x max|logit|: bf16 attention + quantizer steps
 # path 4: continuous batching (a) and speculative decoding (b) on Qwen3-4B
@@ -191,6 +217,7 @@ CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 12, 8, 2
 CB_PROMPT, CB_NEW = (64, 1024), (16, 32)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
+CB_SPEC_NEW = 8         # (b) runs each request's first 8 new tokens
 CB_SMOKE_PREFILL = 24
 # path 5: the prefix cache and the closed loop, on path 4's engine shape
 PC_SEED = 0
@@ -205,6 +232,10 @@ PC_SMOKE_PREFILL = 24
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
+# path 6: placement and row scale-out
+SO_RANKS = 2            # data ranks, all on cuda:0 (a gloo group)
+SO_TIMEOUT_S = 300      # rendezvous and collective timeout
+SO_PARTIAL = dict(n_devices=4, memory_budget=1.5)    # (c)'s partial plan
 
 
 def fail(msg: str) -> None:
@@ -562,6 +593,19 @@ def hold_flash(b: Bench, BH, Sq, Sk, hd, causal, window) -> float:
 # Path 1: ResNet18 serving
 # ---------------------------------------------------------------------------
 
+def cnn_inputs(torch, dev, ctrl):
+    """Path 1's batch: BATCH images drawn on the card from seed 1, and
+    budgets cycling the tightest, each configuration's prediction x 1.01,
+    and unconstrained."""
+    preds = [ctrl.predicted_latency_s[k] for k in ctrl.order()]
+    cycle = [0.0] + [p * 1.01 for p in preds] + [1e30]
+    budgets = [cycle[i % len(cycle)] for i in range(BATCH)]
+    img_gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=img_gen,
+                         device=dev)
+    return images, budgets
+
+
 def cnn_path(b: Bench) -> dict:
     torch, dev, tag = b.torch, b.dev, b.tag
     import numpy as np
@@ -595,11 +639,7 @@ def cnn_path(b: Bench) -> dict:
     # ---- serve the path
     preds = [ctrl.predicted_latency_s[k] for k in ctrl.order()]
     tight, loose = 0.0, 1e30
-    cycle = [tight] + [p * 1.01 for p in preds] + [loose]
-    budgets = [cycle[i % len(cycle)] for i in range(BATCH)]
-    img_gen = torch.Generator(device=dev).manual_seed(1)
-    images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=img_gen,
-                         device=dev)
+    images, budgets = cnn_inputs(torch, dev, ctrl)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_gemm_launches()
@@ -716,7 +756,8 @@ def cnn_path(b: Bench) -> dict:
     return {"launches": sum(launches.values()), "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "t_bytes": t_bytes, "t_ops": t_ops,
             "library_ms": l_ms, "device_ms": d_ms, "library_device_ms": ld_ms,
-            "paths": paths, "wall_ms": med * 1e3}
+            "paths": paths, "wall_ms": med * 1e3, "logits": logits,
+            "per_shape": per_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -1105,25 +1146,32 @@ def gate_logits(label, got, plain, other_plain):
           f"{floor})")
 
 
-def lm_weights(b: Bench):
-    """Qwen3-4B FULL at its published widths: train-form weights drawn on
-    the card from seed 0, quantized to the int8 serve form (the train
-    form freed).  Returns (cfg, qparams), shared by paths 3 and 4."""
-    torch, dev = b.torch, b.dev
+def draw_lm_weights(torch, dev):
+    """Qwen3-4B FULL's train-form weights drawn on the card from seed 0,
+    quantized to the int8 serve form (the train form freed).  Returns
+    (cfg, qparams); the same on every call on one card."""
     from repro_torch import configs
     from repro_torch.models import lm
 
     cfg = configs.get(LM_ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
-          f"{LM_ARCH} FULL is not the published width: {cfg}")
-    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen, device=dev)
     qparams = lm.quantize_params(params, cfg)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return cfg, qparams
+
+
+def lm_weights(b: Bench):
+    """Qwen3-4B FULL at its published widths (``draw_lm_weights``).
+    Returns (cfg, qparams), shared by paths 3 to 6."""
+    torch, dev = b.torch, b.dev
+    t0 = time.perf_counter()
+    cfg, qparams = draw_lm_weights(torch, dev)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
+          f"{LM_ARCH} FULL is not the published width: {cfg}")
     print(f"{LM_ARCH} FULL: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size} (padded {cfg.padded_vocab}); weights drawn and "
@@ -1770,10 +1818,12 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
           f"{alone_s:.3f} s): all {CB_REQUESTS} requests, "
           f"{sum(len(t) for t in tok_a)} tokens EQUAL")
 
-    # ---- (b) speculative decoding on 8 of the requests
+    # ---- (b) speculative decoding on 8 of the requests, each to its
+    # first CB_SPEC_NEW tokens (a greedy stream's prefix)
     eng_b = ServeEngine(cfg, qparams, spec_k=CB_SPEC_K,
                         draft_budget_s=CB_DRAFT_BUDGET, **common)
-    reqs_b = reqs[:CB_SPEC_REQUESTS]
+    reqs_b = [(p, min(m, CB_SPEC_NEW), bud)
+              for p, m, bud in reqs[:CB_SPEC_REQUESTS]]
     draft_ks = [0 if i == CB_DRAFT0 else None for i in range(len(reqs_b))]
     reset()
     rids_b, wall_b, first_b, ticks_b, rounds_b, by_tick, by_round = \
@@ -1786,8 +1836,9 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
           and bool((eng_b.pool.cache["kpos"] == EMPTY_POS).all()),
           "(b) after run(): a request unserved, a slot held or a kpos set")
     for i, r in enumerate(recs_b):
-        check(r.tokens == tok_a[i], f"(b) request {i} != (a): got "
-              f"{r.tokens}, want {tok_a[i]}")
+        want = tok_a[i][:reqs_b[i][1]]
+        check(r.tokens == want, f"(b) request {i} != (a)'s first "
+              f"{len(want)}: got {r.tokens}, want {want}")
         rid = r.rid
         if r.spec_k:
             check(r.draft_units == r.spec_k * r.spec_rounds
@@ -1813,8 +1864,9 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
     n_rounds = sum(r.spec_rounds for r in recs_b)
     spec_toks = sum(r.spec_tokens for r in recs_b)
     print(f"(b) speculative (spec_k={CB_SPEC_K}, int4 drafts, request "
-          f"{CB_DRAFT0} at draft_k=0): tokens == (a)'s for all "
-          f"{len(recs_b)} requests; {len(rounds_b)} "
+          f"{CB_DRAFT0} at draft_k=0, the first {CB_SPEC_NEW} new tokens "
+          f"each): tokens == (a)'s for all {len(recs_b)} requests; "
+          f"{len(rounds_b)} "
           f"rounds, {len(ticks_b)} vanilla ticks, calls {eng_b.calls}; "
           f"accept rate {accepted / max(drafted, 1):.4f} ({accepted} of "
           f"{drafted} drafts); {spec_toks / max(n_rounds, 1):.4f} tokens "
@@ -1943,7 +1995,8 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
                      "library_ms": bl_ms, "device_ms": bd_ms,
                      "library_device_ms": bld_ms, "paths": paths},
         "e2e": {"run_a_s": wall_a, "run_b_s": wall_b,
-                "ttft_median_ms": statistics.median(ttft) * 1e3}}
+                "ttft_median_ms": statistics.median(ttft) * 1e3},
+        "tokens": tok_a, "per_shape": per_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -2070,7 +2123,7 @@ class LogitGaps:
         self.sample = emod._sample_tokens
         emod._sample_tokens = self.wrapped
 
-    def wrapped(self, logits, gen, temp, topk):
+    def wrapped(self, logits, gen, temp, topk, rows=None):
         V = self.engine.cfg.vocab_size
         lg = logits[..., :V].float()
         top2 = lg.topk(2, dim=-1).values
@@ -2082,7 +2135,7 @@ class LogitGaps:
         for rid, g in zip(rids, gap):
             if rid >= 0:
                 self.gaps.setdefault(rid, []).append(g)
-        return self.sample(logits, gen, temp, topk)
+        return self.sample(logits, gen, temp, topk, rows)
 
     def close(self):
         self.emod._sample_tokens = self.sample
@@ -2737,6 +2790,550 @@ def pc_cnn(b: Bench) -> dict:
     return ret
 
 
+# ---------------------------------------------------------------------------
+# Path 6: placement and row scale-out
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
+    from repro_torch.kernels import quant_matmul as qmm
+    bpm.reset_launches()
+    fa.reset_launches()
+    i4mm.reset_launches()
+    qmm.reset_launches()
+
+
+def off_path_launches() -> tuple:
+    """Launches of the kernels path 6 must not reach: flash, int4, quant."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int4_matmul as i4mm
+    from repro_torch.kernels import quant_matmul as qmm
+    return fa.launches, i4mm.launches, sum(qmm.launches.values())
+
+
+def record_view(r) -> dict:
+    """A record's deterministic fields (its wall clocks left out): what
+    every rank must hold identically."""
+    return {"rid": r.rid, "tokens": list(r.tokens), "slot": r.slot,
+            "budget_s": r.budget_s, "mean_wbits": r.mean_wbits,
+            "cycles": r.ap_cost.per_layer_cycles,
+            "energy": r.ap_cost.per_layer_energy_j,
+            "plan_replicas": r.plan_replicas, "done": r.done,
+            "planned_units": r.planned_units,
+            "ticks": (r.submitted_tick, r.admitted_tick, r.finished_tick)}
+
+
+def so_rank_lm(torch, dev, mesh, reqs) -> dict:
+    """Path 6 (a) on one rank: path 4 (a)'s requests through a Qwen3-4B
+    engine on the mesh with plan="auto"."""
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import EMPTY_POS
+    from repro_torch.serve.engine import (SPEC_K_MAX, ServeEngine,
+                                          default_controller)
+    t0 = time.perf_counter()
+    cfg, qparams = draw_lm_weights(torch, dev)
+    weights_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, qparams, controller=default_controller(
+        lm.n_bit_slots(cfg)), max_len=CB_PREFILL + CB_NEW[1] + SPEC_K_MAX,
+        n_slots=CB_SLOTS, prefill_len=CB_PREFILL, decode_block=CB_BLOCK,
+        device=dev, mesh=mesh, plan="auto")
+    torch.cuda.synchronize()
+    reset_all_launches()
+    rids, wall, first_at, ticks, _, _, _ = cb_serve(
+        eng, reqs, CB_UPFRONT, CB_LATE_TICK)
+    torch.cuda.synchronize()
+    recs = [eng.requests[r] for r in rids]
+    out = {"plan": eng.plan, "rows": eng._rows, "calls": dict(eng.calls),
+           "shapes": dict(bpm.shape_launches),
+           "paths": dict(bpm.path_launches), "off_path": off_path_launches(),
+           "records": [record_view(r) for r in recs],
+           "ttft": [first_at[r] - eng.requests[r].submitted_s for r in rids],
+           "pool_rows": int(eng.pool.cache["kpos"].shape[1]),
+           "drained": eng.pool.free_slots == CB_SLOTS and bool(
+               (eng.pool.cache["kpos"] == EMPTY_POS).all()),
+           "unserved": eng.stats.unserved, "wall": wall, "ticks": ticks,
+           "weights_s": weights_s}
+    del eng, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def so_rank_cnn(torch, dev, mesh) -> dict:
+    """Path 6 (b) on one rank: path 1's batch through a ResNet18 engine on
+    the mesh with plan="auto", one warm-up serve, then the counted one."""
+    import numpy as np
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+    params, layers = cnn.init_cnn("resnet18", torch.Generator().manual_seed(0),
+                                  device=dev)
+    ctrl = cnn_budget_controller("resnet18", layers=layers)
+    images, budgets = cnn_inputs(torch, dev, ctrl)
+    eng = CNNServeEngine(params, layers, controller=ctrl, max_batch=BATCH,
+                         device=dev, mesh=mesh, plan="auto")
+    eng.serve(images, budgets)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, stats = eng.serve(images, budgets)          # ends in a gather
+    wall = time.perf_counter() - t0
+    out = {"plan": eng.plan, "rows": eng._rows, "logits": logits,
+           "shapes": dict(bpm.shape_launches),
+           "paths": dict(bpm.path_launches), "off_path": off_path_launches(),
+           "wbits": [s.wbits for s in stats], "abits": [s.abits for s in stats],
+           "cycles": [s.ap_cost.per_layer_cycles for s in stats],
+           "energy": [s.ap_cost.per_layer_energy_j for s in stats],
+           "plan_replicas": [s.plan_replicas for s in stats], "wall": wall}
+    # this rank's rows alone against the same rows in the whole batch's
+    # forward on this card: every float op of the forward is row-wise
+    lo, hi = eng._rows
+    wmat, amat = (t.to(dev) for t in ctrl.resolve(
+        torch.tensor(budgets, dtype=torch.float32)))
+    with eng.compute_ctx():
+        whole = cnn.cnn_forward(eng.qparams, images, layers, wmat, amat)
+        part = cnn.cnn_forward(eng.qparams, images[lo:hi], layers,
+                               wmat[lo:hi], amat[lo:hi])
+        out["rows_alone_max_diff"] = float(
+            (whole[lo:hi] - part).abs().max())
+        out["rows_alone_equal"] = bool(torch.equal(whole[lo:hi], part))
+    out["logits_equal_whole"] = bool(np.array_equal(
+        logits[lo:hi], whole[lo:hi].cpu().numpy()))
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def so_rank(rank: int, init_method: str, out_dir: str, reqs,
+            device: str) -> None:
+    """One data rank of path 6, in its own process on ``device`` (the
+    parent's card): join the gloo group (a missed rendezvous raises after
+    SO_TIMEOUT_S), run (a) and (b) on a ``DataMesh``, and save what the
+    parent gates.  Any failure raises, and the parent's spawn fails with
+    it."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.dist import DataMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=SO_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    try:
+        mesh = DataMesh()
+        out = {"lm": so_rank_lm(torch, dev, mesh, reqs),
+               "cnn": so_rank_cnn(torch, dev, mesh)}
+    finally:
+        tdist.destroy_process_group()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def shape_rows(b: Bench, shapes, known) -> dict:
+    """gemm_row of each (M, K, N, n_planes) in ``shapes``, taken from
+    ``known`` (an earlier path's rows) where it has it."""
+    return {k: known[k] if k in known else b.gemm_row(*k)
+            for k in sorted(shapes)}
+
+
+def so_path(b: Bench, cfg, qparams, cnn_ref=None, cb_ref=None) -> dict:
+    """Path 6: (a) Qwen3-4B and (b) ResNet18 served on SO_RANKS data ranks
+    sharing the card, each rank computing its block of rows with every
+    weight resident (plan="auto", fully replicated); (c) a partial plan's
+    co-decision at full width on one rank.  ``cnn_ref``/``cb_ref`` are
+    paths 1 and 4's results (logits, tokens, per-shape timings); a run
+    without them recomputes what it needs."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as tmp
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.apsim.workloads import NETWORKS, gemm_layers
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import cnn, lm
+    from repro_torch.serve.cnn import CNNServeEngine
+    from repro_torch.serve.engine import (SPEC_K_MAX, ServeEngine,
+                                          default_controller)
+
+    t_path = time.perf_counter()
+    L, V = cfg.n_layers, cfg.vocab_size
+    linears = lm_linears(cfg)
+    kn = sorted(set(linears))
+    fams = (4, 8)
+    M_pre, M_dec = CB_PREFILL, CB_SLOTS // SO_RANKS
+    B_rank = BATCH // SO_RANKS
+    layers = NETWORKS["resnet18"]()
+    gl = gemm_layers(layers)
+    cnn_rank = path_gemms(layers, B_rank, IMAGE)
+    reqs = cb_requests(V, CB_REQUESTS, CB_PROMPT, CB_NEW, seed=4)
+
+    # ---- the bit-plane kernel at the per-rank shapes
+    for K, N in kn:
+        for n in fams:
+            b.hold_bitplane(b.rand_i8((M_dec, K)), b.rand_i8((K, N)), n)
+    conv_rank = sorted({(M, K, N) for _, M, K, N, _ in cnn_rank})
+    for M, K, N in conv_rank:
+        for n in fams:
+            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
+    same_regime = all(bpm.plan(M_dec, K, N).path == bpm.plan(CB_SLOTS, K, N).path
+                      for K, N in kn)
+    print(f"kernel == plain at the per-rank shapes: {len(kn)} Qwen3-4B (K, "
+          f"N) at M = {M_dec} (a decode tick's rows a rank) and "
+          f"{len(conv_rank)} ResNet18@{IMAGE} GEMM shapes at B = {B_rank}, x "
+          f"n_planes {fams}; plan() at M = {M_dec}: "
+          + ", ".join(f"({K},{N}) {bpm.plan(M_dec, K, N).path}"
+                      for K, N in kn)
+          + f"; the same regime as at M = {CB_SLOTS}: {same_regime}")
+
+    # ---- what the ranks must equal: path 4 (a)'s tokens, path 1's logits
+    if cb_ref is None:
+        eng = ServeEngine(cfg, qparams, controller=default_controller(
+            lm.n_bit_slots(cfg)), max_len=CB_PREFILL + CB_NEW[1] + SPEC_K_MAX,
+            n_slots=CB_SLOTS, prefill_len=CB_PREFILL, decode_block=CB_BLOCK,
+            device=dev)
+        rids = cb_serve(eng, reqs, CB_UPFRONT, CB_LATE_TICK)[0]
+        want_tokens = [eng.requests[r].tokens for r in rids]
+        del eng
+        print("path 4 (a)'s tokens recomputed on one device (path 4 did not "
+              "run)")
+    else:
+        want_tokens = cb_ref["tokens"]
+    if cnn_ref is None:
+        params, clayers = cnn.init_cnn("resnet18",
+                                       torch.Generator().manual_seed(0),
+                                       device=dev)
+        ctrl = cnn_budget_controller("resnet18", layers=clayers)
+        images, budgets = cnn_inputs(torch, dev, ctrl)
+        want_logits = CNNServeEngine(params, clayers, controller=ctrl,
+                                     max_batch=BATCH, device=dev).serve(
+            images, budgets)[0]
+        del params
+        print("path 1's logits recomputed on one device (path 1 did not "
+              "run)")
+    else:
+        want_logits = cnn_ref["logits"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- (a) and (b) on SO_RANKS ranks sharing the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp.start_processes(so_rank, args=(
+            f"tcp://127.0.0.1:{free_port()}", d, reqs, str(dev)),
+            nprocs=SO_RANKS,
+            join=True, start_method="spawn")
+        ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                 for r in range(SO_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    n_loc = CB_SLOTS // SO_RANKS
+    gemms, head = lm.layer_gemm_dims(cfg), lm.head_gemm_dims(cfg)
+    host_ctrl = default_controller(lm.n_bit_slots(cfg))
+    for r, out in enumerate(ranks):
+        a = out["lm"]
+        plan = a["plan"]
+        check(plan is not None and plan.fully_replicated
+              and plan.dp == SO_RANKS and plan.has_head,
+              f"(a) rank {r}: plan {plan and plan.summary()}")
+        check(a["rows"] == (r * n_loc, (r + 1) * n_loc)
+              and a["pool_rows"] == n_loc,
+              f"(a) rank {r}: rows {a['rows']}, pool rows {a['pool_rows']}: "
+              f"the row split did not engage")
+        check(a["unserved"] == 0 and all(x["done"] for x in a["records"]),
+              f"(a) rank {r}: requests unserved")
+        check(a["drained"], f"(a) rank {r}: after run() a slot is held or "
+              f"a kpos is not EMPTY_POS")
+        check(a["off_path"] == (0, 0, 0), f"(a) rank {r}: flash, int4, "
+              f"quant launched {a['off_path']} times")
+        for i, x in enumerate(a["records"]):
+            check(x["tokens"] == want_tokens[i], f"(a) rank {r}, request "
+                  f"{i}: tokens {x['tokens']} != path 4 (a)'s "
+                  f"{want_tokens[i]}")
+            check(x["plan_replicas"] == float(SO_RANKS),
+                  f"(a) request {i}: plan_replicas {x['plan_replicas']}")
+            wv, av = host_ctrl.resolve(torch.tensor(reqs[i][2]))
+            base = apm.price_bit_vector(gemms, wv.tolist(), av.tolist(),
+                                        head=head)
+            want = plan.price(base)
+            check(x["cycles"] == want.per_layer_cycles
+                  and x["energy"] == base.per_layer_energy_j
+                  and sum(x["cycles"]) / want.freq_hz
+                  == base.latency_s / SO_RANKS,
+                  f"(a) request {i}: AP cost != PlacementPlan.price of the "
+                  f"AP model's price of its bits (latency base / "
+                  f"{SO_RANKS}, energy unchanged)")
+        # launches by M against this rank's calls, by regime against plan()
+        want_shapes: dict = {}
+        want_paths = {p: 0 for p in bpm.PATHS}
+        for M, n_fwd, nps in ((M_pre, a["calls"]["prefill"], (8,)),
+                              (M_dec, a["calls"]["decode"], fams)):
+            for _ in range(L):
+                for K, N in linears:
+                    for n in nps:
+                        want_shapes[(M, K, N, n)] = \
+                            want_shapes.get((M, K, N, n), 0) + n_fwd
+                        want_paths[bpm.plan(M, K, N).path] += n_fwd
+        want_shapes = {k: v for k, v in want_shapes.items() if v}
+        check(a["shapes"] == want_shapes and a["paths"] == want_paths,
+              f"(a) rank {r}: bit-plane launches by shape "
+              f"{sorted(a['shapes'].items())} / regime {a['paths']} != the "
+              f"calls' {sorted(want_shapes.items())} / {want_paths}")
+        check(a["calls"]["prefill"] > 0 and a["calls"]["decode"] > 0,
+              f"(a) rank {r}: calls {a['calls']}")
+    recs0 = ranks[0]["lm"]["records"]
+    check(all(out["lm"]["records"] == recs0 for out in ranks),
+          "(a) the ranks' records differ")
+    check(sum(out["lm"]["calls"]["prefill"] for out in ranks)
+          == CB_REQUESTS, "(a) the slot owners did not prefill every "
+          "request exactly once")
+    plan_a = ranks[0]["lm"]["plan"]
+    print(f"(a) Qwen3-4B FULL continuous on {SO_RANKS} ranks (cuda:0 each, "
+          f"gloo): plan {plan_a.summary()}; rows "
+          f"{[out['lm']['rows'] for out in ranks]}, each pool {n_loc} rows; "
+          f"all {CB_REQUESTS} requests' tokens EQUAL path 4 (a)'s "
+          f"({sum(len(t) for t in want_tokens)} tokens); the ranks' records "
+          f"identical; plan_replicas {SO_RANKS}.0 and ap_cost == "
+          f"plan.price(price_bit_vector(bits)): latency / {SO_RANKS}, energy "
+          f"unchanged; prefill rows by rank "
+          f"{[out['lm']['calls']['prefill'] for out in ranks]}; launches by "
+          f"M as the calls give them, by regime as plan() gives them "
+          f"({ranks[0]['lm']['paths']}); pools drained")
+
+    # ---- (b) ResNet18@224 on the same ranks
+    cnn_gemms = apm.network_gemms(layers)
+    names = tuple(l.name for l in gl)
+    want_cnn_shapes: dict = {}
+    for _, M, K, N, _ in cnn_rank:
+        for n in fams:
+            want_cnn_shapes[(M, K, N, n)] = \
+                want_cnn_shapes.get((M, K, N, n), 0) + 1
+    for r, out in enumerate(ranks):
+        c = out["cnn"]
+        check(c["plan"].fully_replicated and c["plan"].names == names
+              and c["plan"].dp == SO_RANKS,
+              f"(b) rank {r}: plan {c['plan'].summary()}, names "
+              f"{c['plan'].names}")
+        check(c["rows"] == (r * B_rank, (r + 1) * B_rank),
+              f"(b) rank {r}: rows {c['rows']}")
+        check(c["rows_alone_equal"], f"(b) rank {r}: its rows alone compute "
+              f"apart from the same rows in the whole batch, max |diff| "
+              f"{c['rows_alone_max_diff']}")
+        check(np.array_equal(c["logits"], want_logits),
+              f"(b) rank {r}: logits != the single-rank engine's, max |diff| "
+              f"{np.abs(c['logits'] - want_logits).max()}")
+        check(c["shapes"] == want_cnn_shapes and c["off_path"] == (0, 0, 0),
+              f"(b) rank {r}: launches {sorted(c['shapes'].items())} != one "
+              f"per layer and family at B = {B_rank}; off path "
+              f"{c['off_path']}")
+        base = apm.price_bit_matrix(cnn_gemms, c["wbits"], c["abits"])
+        for i, bc in enumerate(base):
+            check(sum(c["cycles"][i]) / bc.freq_hz == bc.latency_s / SO_RANKS
+                  and c["energy"][i] == bc.per_layer_energy_j
+                  and c["plan_replicas"][i] == float(SO_RANKS),
+                  f"(b) image {i}: latency not halved or energy changed")
+    check(all(np.array_equal(out["cnn"]["logits"], ranks[0]["cnn"]["logits"])
+              for out in ranks), "(b) the ranks' logits differ")
+    print(f"(b) ResNet18@{IMAGE}, B = {BATCH} on {SO_RANKS} ranks ({B_rank} "
+          f"rows each): plan fully replicated over {len(names)} named "
+          f"layers; logits EQUAL the single-rank engine's on path 1's images "
+          f"and budgets; each rank's rows alone EQUAL the same rows of the "
+          f"whole batch's forward; latency / {SO_RANKS}, energy unchanged; "
+          f"{sum(want_cnn_shapes.values())} launches a rank per batch")
+
+    # ---- (c) the co-decision at full width: one rank, no mesh
+    cdc = so_codecision(b, cfg)
+
+    # ---- timings
+    tick_s = {r: sorted(t for t, _, _ in out["lm"]["ticks"])
+              for r, out in enumerate(ranks)}
+    known = dict(cb_ref["per_shape"]) if cb_ref else {}
+    known.update(cnn_ref["per_shape"] if cnn_ref else {})
+    rank_shapes = [dict(out["lm"]["shapes"]) for out in ranks]
+    for rs, out in zip(rank_shapes, ranks):
+        for k, v in out["cnn"]["shapes"].items():
+            rs[k] = rs.get(k, 0) + v
+    shapes: dict = {}
+    for sh in rank_shapes + [cdc["shapes"]]:
+        for k, v in sh.items():
+            shapes[k] = shapes.get(k, 0) + v
+    per_shape = shape_rows(b, shapes, known)
+    dev_rank = [sum(n * per_shape[k][5] for k, n in out["lm"]["shapes"].items())
+                for out in ranks]
+    dev_m4 = [sum(n * per_shape[k][5] for k, n in out["lm"]["shapes"].items()
+                  if k[0] == M_dec) for out in ranks]
+    dev_cnn = [sum(n * per_shape[k][5] for k, n in out["cnn"]["shapes"].items())
+               for out in ranks]
+    print(f"{tag} (a) on {SO_RANKS} ranks sharing one card (not a scale-out "
+          f"speed): run() " + ", ".join(
+              f"rank {r} {out['lm']['wall']:.3f} s" for r, out in
+              enumerate(ranks))
+          + (f" (path 4 (a) on one rank: {cb_ref['e2e']['run_a_s']:.3f} s)"
+             if cb_ref else ""))
+    print(f"{tag} (a) tick wall, two ranks sharing one card, {CB_BLOCK} steps "
+          f"at {M_dec} rows a rank: median " + ", ".join(
+              f"rank {r} {statistics.median(t) * 1e3:.3f} ms (n = {len(t)}, "
+              f"all {[round(x * 1e3, 3) for x in t]})"
+              for r, t in tick_s.items())
+          + "; time to first token median " + ", ".join(
+              f"rank {r} {statistics.median(out['lm']['ttft']) * 1e3:.3f} ms"
+              for r, out in enumerate(ranks)))
+    print(f"{tag} bitplane_matmul device-clock sum a rank, (a): "
+          + ", ".join(f"rank {r} {v:.4f} ms (M = {M_dec}: {m:.4f} ms)"
+                      for r, (v, m) in enumerate(zip(dev_rank, dev_m4)))
+          + f"; (b) a batch: " + ", ".join(
+              f"rank {r} {v:.4f} ms" for r, v in enumerate(dev_cnn))
+          + (f" (path 1's whole batch on one rank: "
+             f"{cnn_ref['device_ms']:.4f} ms)" if cnn_ref else ""))
+    print(f"{tag} (b) serve wall, two ranks sharing one card: " + ", ".join(
+        f"rank {r} {out['cnn']['wall'] * 1e3:.3f} ms" for r, out in
+        enumerate(ranks)) + f"; weights drawn a rank in " + ", ".join(
+        f"{out['lm']['weights_s']:.3f} s" for out in ranks)
+        + f"; the ranks' processes {ranks_s:.3f} s")
+    paths = {p: sum(out["lm"]["paths"][p] + out["cnn"]["paths"][p]
+                    for out in ranks) + cdc["paths"][p] for p in bpm.PATHS}
+    tot = [sum(n * per_shape[k][j] for k, n in shapes.items())
+           for j in range(7)]
+    bound_ms = sum(n * max(per_shape[k][3], per_shape[k][4])
+                   for k, n in shapes.items())
+    k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms = tot
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 6 wall {wall:.3f} s (the ranks {ranks_s:.3f} s)")
+    return {"bitplane": {"launches": sum(shapes.values()), "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "t_bytes": t_bytes, "t_ops": t_ops,
+                         "library_ms": l_ms, "device_ms": d_ms,
+                         "library_device_ms": ld_ms, "paths": paths},
+            "e2e": {"wall_s": wall, "tick_median_ms": statistics.median(
+                tick_s[0]) * 1e3, "wbits": cdc["wbits"]}}
+
+
+def so_codecision(b: Bench, cfg) -> dict:
+    """Path 6 (c): partial plans (SO_PARTIAL) for ResNet18 (named layers)
+    and Qwen3-4B (with the head), and path 5 (c)'s spike replayed through
+    a tick-windowed FluidController with the ResNet18 plan and without
+    it, at one SLO."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.apsim.workloads import gemm_layers
+    from repro_torch.core.policy import (FluidController,
+                                         cnn_budget_controller)
+    from repro_torch.dist import plan_for_controller
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import cnn, lm
+    from repro_torch.serve.cnn import CNNServeEngine
+    from repro_torch.serve.engine import default_controller
+    from repro_torch.serve.traffic import TraceReplayer, synth_trace
+
+    params, layers = cnn.init_cnn("resnet18", torch.Generator().manual_seed(0),
+                                  image=IMAGE, device=dev)
+    gemms = apm.network_gemms(layers)
+    names = tuple(l.name for l in gemm_layers(layers))
+    base = cnn_budget_controller("resnet18", layers=layers)
+    plan_c = plan_for_controller(base, gemms, names=names, **SO_PARTIAL)
+    plan_l = plan_for_controller(
+        default_controller(lm.n_bit_slots(cfg)), lm.layer_gemm_dims(cfg),
+        head=lm.head_gemm_dims(cfg), **SO_PARTIAL)
+    for label, p in (("ResNet18", plan_c), ("Qwen3-4B", plan_l)):
+        check(not p.fully_replicated and p.replicated_entries,
+              f"(c) {label}: the plan {p.summary()} is not partial")
+        print(f"(c) {label} partial plan ({SO_PARTIAL}): replicas "
+              f"{list(p.replicas)}, replicated entries "
+              f"{list(p.replicated_entries)}, mean replicas "
+              f"{p.mean_replicas:.4f}, axis {p.axis}")
+    slo = SPIKE_WINDOW * 4 * base.predicted_latency_s["hawqv3-medium"]
+    spike = synth_trace("spike", **SPIKE)
+    n_gemm = len(names)
+    out = {}
+    shapes: dict = {}
+    paths = {p: 0 for p in bpm.PATHS}
+    for label, plan in (("no plan", None), ("plan", plan_c)):
+        ctrl = FluidController.from_open_loop(base, slo=slo,
+                                              window_ticks=SPIKE_WINDOW)
+        eng = CNNServeEngine(params, layers, controller=ctrl,
+                             max_batch=BATCH, device=dev, plan=plan)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = TraceReplayer(spike, {}, cnn_engines={"resnet18": eng},
+                            image_hw=IMAGE, use_budgets=False).replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nb = eng.stats.batches
+        check(res.unserved == 0 and len(res.entries) == spike.n_requests,
+              f"(c) {label}: images left unserved")
+        check({k: v for k, v in bpm.launches.items() if v}
+              == {f: n_gemm * nb for f in eng.families}
+              and off_path_launches() == (0, 0, 0),
+              f"(c) {label}: launches by n_planes {bpm.launches}, expected "
+              f"{n_gemm} per family per batch x {nb} batches")
+        for k, v in bpm.shape_launches.items():
+            shapes[k] = shapes.get(k, 0) + v
+        for p in bpm.PATHS:
+            paths[p] += bpm.path_launches[p]
+        recs = [eng.requests[r] for r in sorted(eng.requests)]
+        check({w for r in recs for w in r.wbits} <= set(eng.families),
+              f"(c) {label}: resolved bits outside the families")
+        costs = apm.price_bit_matrix(gemms, [r.wbits for r in recs],
+                                     [r.abits for r in recs])
+        for r, c in zip(recs, costs):
+            want = plan.price(c) if plan is not None else c
+            check(r.ap_cost.per_layer_cycles == want.per_layer_cycles
+                  and r.ap_cost.per_layer_energy_j == want.per_layer_energy_j,
+                  f"(c) {label}: image {r.rid}'s ap_cost != "
+                  f"plan.price(price_bit_vector(bits))")
+        if plan is not None:
+            # plan_gain against a host-only recomputation
+            for name, pol_ in base.configs.items():
+                wv, av = pol_.vectors(base.n_layers)
+                c0 = apm.price_bit_vector(gemms, wv.tolist(), av.tolist())
+                c1 = plan.price(c0)
+                ratio = (c1.energy_j * c1.latency_s) / (c0.energy_j
+                                                        * c0.latency_s)
+                check(ctrl.plan_gain[name] == ratio
+                      and ctrl.predicted_latency_s[name]
+                      == base.predicted_latency_s[name] * ratio,
+                      f"(c) plan_gain[{name}] {ctrl.plan_gain[name]} != "
+                      f"{ratio}")
+        out[label] = {"wbits": float(np.mean([r.mean_wbits for r in recs])),
+                      "wall": wall, "batches": nb,
+                      "gain": dict(ctrl.plan_gain or {})}
+        del eng
+    u, p = out["no plan"], out["plan"]
+    check(p["wbits"] > u["wbits"], f"(c) mean wbits with the plan "
+          f"{p['wbits']} not above without it {u['wbits']}")
+    print(f"(c) ResNet18@{IMAGE} spike ({spike.n_requests} images) through a "
+          f"tick-windowed FluidController at one SLO ({slo:.6g} J*s per "
+          f"{SPIKE_WINDOW} ticks): mean wbits {u['wbits']:.4f} without the "
+          f"plan, {p['wbits']:.4f} with it; plan_gain "
+          f"{ {k: round(v, 6) for k, v in p['gain'].items()} } == the "
+          f"host-only recomputation; ap_cost == plan.price(...) per image; "
+          f"launches {n_gemm} per family per batch ({u['batches']} and "
+          f"{p['batches']} batches)")
+    print(f"{tag} (c) replay wall: no plan {u['wall']:.3f} s, plan "
+          f"{p['wall']:.3f} s")
+    del params
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "paths": paths,
+            "wbits": (u["wbits"], p["wbits"])}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -2810,6 +3407,7 @@ def kernel_row(name, source, replaces, err, parts) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a cut
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2886,9 +3484,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-7. the four paths (a development run may pick some with
-    # --paths 1,4; only a run of all four prints the result lines)
-    every = {1, 2, 3, 4, 5}
+    # ---- 4.-9. the six paths (a development run may pick some with
+    # --paths 1,4; only a run of all six prints the result lines)
+    every = {1, 2, 3, 4, 5, 6}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -2898,24 +3496,38 @@ def main() -> None:
             cnn_path(b)
         if 2 in picked:
             alexnet_path(b)
-        if picked & {3, 4, 5}:
+        if picked & {3, 4, 5, 6}:
             cfg, qparams = lm_weights(b)
             if 3 in picked:
                 lm_path(b, cfg, qparams)
-            if 4 in picked:
-                cb_path(b, cfg, qparams)
+            cbr = cb_path(b, cfg, qparams) if 4 in picked else None
             if 5 in picked:
                 pc_path(b, cfg, qparams)
+            if 6 in picked:
+                so_path(b, cfg, qparams, cb_ref=cbr)
         print(card)
         print(f"paths {sorted(picked)} passed; no result line for a "
               f"partial run")
         return
-    cnn = cnn_path(b)
-    alex = alexnet_path(b)
+    walls = {"before the paths": time.perf_counter() - t_start}
+
+    def timed(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    cnn = timed("1", cnn_path, b)
+    alex = timed("2", alexnet_path, b)
     cfg, qparams = lm_weights(b)
-    lmr = lm_path(b, cfg, qparams)
-    cbr = cb_path(b, cfg, qparams)
-    pcr = pc_path(b, cfg, qparams)
+    lmr = timed("3", lm_path, b, cfg, qparams)
+    cbr = timed("4", cb_path, b, cfg, qparams)
+    pcr = timed("5", pc_path, b, cfg, qparams)
+    sor = timed("6", so_path, b, cfg, qparams, cnn_ref=cnn, cb_ref=cbr)
+    print(f"{b.tag} walls: " + ", ".join(
+        f"{k if not k.isdigit() else 'path ' + k} {v:.3f} s"
+        for k, v in walls.items())
+        + f"; the script so far {time.perf_counter() - t_start:.3f} s")
     # the spike replays pad every batch to BATCH images: path 1's shapes
     nb = pcr["cnn"]["batches"]
     spike = {k: cnn[k] * nb for k in ("ms", "plain_ms", "bound_ms",
@@ -2929,7 +3541,8 @@ def main() -> None:
                 "qwen3_4b_generate_call": lmr["bitplane"],
                 "qwen3_4b_continuous_and_speculative_runs": cbr["bitplane"],
                 "qwen3_4b_prefix_cache_and_closed_loop": pcr["bitplane"],
-                "resnet18_spike_replays": spike}
+                "resnet18_spike_replays": spike,
+                "two_ranks_and_co_decision": sor["bitplane"]}
     fl = lmr["flash"]
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
@@ -2957,7 +3570,12 @@ def main() -> None:
           f" s uncached, closed loop {pcr['e2e']['closed_s']:.3f} s, a "
           f"partial hit {pcr['e2e']['partial_ms_per_tail']:.3f} ms per tail "
           f"token against a miss {pcr['e2e']['miss_ms']:.3f} ms; ResNet18 "
-          f"spike {pcr['e2e']['images_per_s']:.3f} images/s closed loop")
+          f"spike {pcr['e2e']['images_per_s']:.3f} images/s closed loop; "
+          f"path 6 {sor['e2e']['wall_s']:.3f} s, its tick "
+          f"{sor['e2e']['tick_median_ms']:.3f} ms median with two ranks on "
+          f"one card, mean wbits of the spike {sor['e2e']['wbits'][0]:.4f} "
+          f"without a plan and {sor['e2e']['wbits'][1]:.4f} with the partial "
+          f"one")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

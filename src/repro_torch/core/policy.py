@@ -14,9 +14,10 @@ gather, never a rebuild.
   * ``FluidController`` — dynamic, closed loop: charges each admission's
     priced AP cost against a system-level SLO window and resolves
     precision from the REMAINING budget (DESIGN.md §8).
-
-The reference's placement co-decision (``BudgetController.adopt_plan``)
-is not ported yet: the port has no placement plans.
+  * ``BudgetController.adopt_plan`` — the placement co-decision: the
+    prediction table re-priced under a replication plan
+    (``repro_torch.dist.placement``), so the same budget resolves higher
+    bits (DESIGN.md §13).
 """
 from __future__ import annotations
 
@@ -144,6 +145,55 @@ class BudgetController:
         default=None, init=False, repr=False, compare=False)
     _lats: Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # placement co-decision state (adopt_plan): the adopted plan plus the
+    # per-config prediction scale it applied
+    _plan: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    plan_gain: Optional[Dict[str, float]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def adopt_plan(self, plan, pricer) -> None:
+        """Re-price the prediction table under a placement plan: the
+        precision-vs-replication co-decision (DESIGN.md §13).
+
+        Each registered config's predicted budget-axis cost is scaled by
+        the ratio its plan-amortized priced cost bears to its base cost
+        (``PlacementPlan.price`` divides per-entry latency by replicas;
+        energy is unchanged).  Replication makes every config cheaper on
+        the latency and EDP axes, so the same budget or SLO headroom now
+        resolves HIGHER bits.  ``pricer`` is the runtime's cached
+        :class:`~repro_torch.serve.accounting.BitVectorPricer` (the same
+        gemms/head the predictions were built from).  The table is
+        scaled in place: a controller belongs to one engine.  Adopting
+        the same plan again does nothing; a different one raises."""
+        if self._plan is plan:
+            return
+        if self._plan is not None:
+            raise ValueError("controller already adopted a different "
+                             "placement plan; build a fresh controller "
+                             "to re-plan")
+
+        def axis_val(cost) -> float:
+            if self.budget_axis == "latency":
+                return cost.latency_s
+            if self.budget_axis == "energy":
+                return cost.energy_j
+            return cost.energy_j * cost.latency_s
+
+        gain: Dict[str, float] = {}
+        for name, p in self.configs.items():
+            wv, av = p.vectors(self.n_layers)
+            base = pricer.price(wv.numpy(), av.numpy())
+            b = axis_val(base)
+            ratio = axis_val(plan.price(base)) / b if b > 0 else 1.0
+            gain[name] = ratio
+            self.predicted_latency_s[name] *= ratio
+        self._plan = plan
+        self.plan_gain = gain
+        # the predictions moved: drop the cached order and tables
+        self._order = None
+        self._tables = None
+        self._lats = None
 
     def order(self) -> list:
         if self._order is None:

@@ -339,17 +339,33 @@ class CachePool:
     is invisible by construction (EMPTY_POS) rather than by zeroing data.
     Every install copies the incoming row into the pool; the pool never
     holds a reference to a caller's tensors.
+
+    ``rows=(lo, hi)`` makes this one rank's part of a pool whose rows are
+    split across a data mesh: the cache holds only slots ``lo..hi-1``
+    (slot ``s`` at cache row ``s - lo``), while the slot bookkeeping (free
+    list, lengths) covers all ``n_slots`` and runs identically on every
+    rank.  An install into a slot another rank owns records its length
+    and copies nothing.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
-                 device="cuda"):
+                 device="cuda", rows: Optional[Tuple[int, int]] = None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = cm.resolve_device(device)
-        self.cache = empty_cache(cfg, n_slots, max_len, device=self.device)
+        lo, hi = (0, n_slots) if rows is None else rows
+        if not 0 <= lo < hi <= n_slots:
+            raise ValueError(f"rows [{lo}, {hi}) not inside the pool's "
+                             f"{n_slots} slots")
+        self.rows = (lo, hi)
+        self.cache = empty_cache(cfg, hi - lo, max_len, device=self.device)
         self.lengths = np.zeros((n_slots,), np.int64)
         self._free = list(range(n_slots - 1, -1, -1))
+
+    def owns(self, slot: int) -> bool:
+        """Whether ``slot``'s cache row lives in this pool."""
+        return self.rows[0] <= slot < self.rows[1]
 
     @property
     def free_slots(self) -> int:
@@ -369,7 +385,8 @@ class CachePool:
     def reset_slot(self, slot: int) -> None:
         """Mask a slot's cache row (kpos -> EMPTY_POS) and zero its length."""
         self.lengths[slot] = 0
-        self.cache["kpos"][:, slot] = tf.EMPTY_POS
+        if self.owns(slot):
+            self.cache["kpos"][:, slot - self.rows[0]] = tf.EMPTY_POS
 
     def _check_install(self, slot: int, length: int) -> None:
         """Guard every row install: an out-of-range length poisons the
@@ -385,7 +402,10 @@ class CachePool:
             raise ValueError(f"row length {length} not in "
                              f"[0, max_len={self.max_len}]")
 
-    def _install(self, row_cache: dict, slot: int, keep=None) -> None:
+    def _install(self, row_cache: Optional[dict], slot: int,
+                 keep=None) -> None:
+        if not self.owns(slot):
+            return
         for name, dst in self.cache.items():
             src = row_cache[name]
             if src.shape[0] != dst.shape[0] or src.shape[1] != 1 \
@@ -396,10 +416,12 @@ class CachePool:
             src = src[:, 0].to(dst.device, dst.dtype)
             if keep is not None and name == "kpos":
                 src = torch.where(src >= keep, tf.EMPTY_POS, src)
-            dst[:, slot] = src                            # a copy
+            dst[:, slot - self.rows[0]] = src             # a copy
 
-    def write_row(self, row_cache: dict, slot: int, length: int) -> None:
-        """Install (copy) a prefilled single-row cache into ``slot``."""
+    def write_row(self, row_cache: Optional[dict], slot: int,
+                  length: int) -> None:
+        """Install (copy) a prefilled single-row cache into ``slot`` (None
+        for a slot another rank owns)."""
         self._check_install(slot, length)
         self.lengths[slot] = length
         self._install(row_cache, slot)
@@ -420,6 +442,7 @@ class CachePool:
         EMPTY_POS is untouched.  K/V payloads stay in place, masked."""
         kpos = self.cache["kpos"]
         keeps = torch.as_tensor(keeps).to(kpos.device, torch.int64)
+        keeps = keeps[self.rows[0]:self.rows[1]]
         kpos.masked_fill_(kpos.long() > keeps[None, :, None], tf.EMPTY_POS)
 
     def copy_row(self, src: int, dst: int,
@@ -430,7 +453,12 @@ class CachePool:
                              f"copy")
         n = int(self.lengths[src] if length is None else length)
         self._check_install(dst, n)
+        lo, hi = self.rows
+        if src // (hi - lo) != dst // (hi - lo):
+            raise NotImplementedError(
+                f"slots {src} and {dst} live on different ranks' rows: "
+                f"moving a row across ranks is not ported")
         self.lengths[dst] = n
-        if src != dst:
+        if src != dst and self.owns(dst):
             for buf in self.cache.values():
-                buf[:, dst] = buf[:, src].clone()
+                buf[:, dst - lo] = buf[:, src - lo].clone()

@@ -1,4 +1,5 @@
-"""Batched, bit-fluid CNN image serving on one device.
+"""Batched, bit-fluid CNN image serving, on one device or row-split
+across a data mesh.
 
 The counterpart of ``repro.serve.cnn``: weights are quantized once at
 engine construction (int8 containers, packed int4 where every registered
@@ -16,6 +17,16 @@ switches never recompile; the port runs eagerly, and its counterpart is
 the bit-plane kernel's launch count per ``n_planes``
 (``repro_torch.kernels.bitplane_matmul.launches``), which only ever
 touches the controller's bit families.
+
+Placement (``mesh=``, ``plan=``): a plan without a mesh prices every
+image under it (latency amortized over the replicas, energy unchanged).
+A fully replicated plan on a data mesh whose ranks divide ``max_batch``
+splits the padded batch's rows: every rank holds all the weights,
+resolves and prices the whole batch on the host identically, runs its
+block of ``max_batch / dp`` rows through the forward and all-gathers the
+logits.  The caller is SPMD: every rank calls :meth:`CNNServeEngine.serve`
+with the same images and budgets.  Rows are independent, so the logits
+equal the single-device engine's.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.apsim import metrics as apm
 from repro_torch.apsim.workloads import (HAWQV3_RESNET18, Layer, gemm_layers,
                                          per_layer_bits)
@@ -48,25 +60,37 @@ class CNNServeEngine(ServeRuntime):
 
     ``params`` are train-form parameters (``cnn.init_cnn``, or the
     reference's through ``models.convert``); they are quantized onto
-    ``device`` — CUDA unless the caller passes another.
+    ``device`` — CUDA unless the caller passes another.  ``mesh`` and
+    ``plan`` place the engine (module docstring).
     """
 
     def __init__(self, params: dict, layers: Sequence[Layer], *,
                  controller: Optional[BudgetController] = None,
                  policy: Optional[PrecisionPolicy] = None,
-                 max_batch: int = 8, container: str = "auto",
-                 device="cuda"):
+                 max_batch: int = 8, container: str = "auto", mesh=None,
+                 plan=None, device="cuda"):
         self.device = cm.resolve_device(device)
         self.layers = list(layers)
-        self.n_gemm = len(gemm_layers(self.layers))
+        gl = gemm_layers(self.layers)
+        self.n_gemm = len(gl)
         if controller is None:
             pol = policy or fixed(8)
             controller = BudgetController({pol.name: pol}, {pol.name: 0.0},
                                           self.n_gemm)
+        if plan == "auto":
+            # planned here, not in the runtime: a CNN plan carries the
+            # per-layer names (true per-layer replication)
+            m = mesh if mesh is not None else dist.active_mesh()
+            nd = dist.mesh_device_count(m)
+            plan = (dist.plan_for_controller(
+                        controller, apm.network_gemms(self.layers),
+                        n_devices=nd, names=tuple(l.name for l in gl))
+                    if nd > 1 else None)
         super().__init__(controller, self.n_gemm,
-                         gemms=apm.network_gemms(self.layers),
-                         slot_desc="GEMM (conv/fc) layers")
+                         gemms=apm.network_gemms(self.layers), mesh=mesh,
+                         plan=plan, slot_desc="GEMM (conv/fc) layers")
         self.max_batch = max_batch
+        self._rows = self._row_split(max_batch, "images per batch")
         wtab, _ = controller.stacked_tables()
         if container == "auto":
             int4_names = cnn.int4_eligible(self.layers, wtab)
@@ -116,14 +140,19 @@ class CNNServeEngine(ServeRuntime):
             bud = np.concatenate([bud, np.zeros((pad,), np.float64)])
         wmat, amat = self.controller.resolve(
             torch.as_tensor(bud, dtype=torch.float32))
+        rows = slice(*self._rows) if self._rows is not None else slice(None)
         with self.compute_ctx():
-            logits = cnn.cnn_forward(self.qparams, images, self.layers,
-                                     wmat.to(self.device),
-                                     amat.to(self.device))
+            logits = cnn.cnn_forward(self.qparams, images[rows], self.layers,
+                                     wmat[rows].to(self.device),
+                                     amat[rows].to(self.device))
+        if self._rows is not None:
+            logits = self.mesh.gather_rows(logits)
         logits_h = logits[:B].cpu().numpy()
         wmat_h = wmat.numpy().astype(np.int64)[:B]
         amat_h = amat.numpy().astype(np.int64)[:B]
         costs = self.price_matrix_bits(wmat_h, amat_h)     # one-pass batch
+        replicas = (self.plan.mean_replicas if self.plan is not None
+                    else 0.0)
         stats = []
         for i in range(B):
             rec = ImageStats(
@@ -131,7 +160,7 @@ class CNNServeEngine(ServeRuntime):
                 mean_wbits=float(np.mean(wmat_h[i])), ap_cost=costs[i],
                 wbits=tuple(int(b) for b in wmat_h[i]),
                 abits=tuple(int(b) for b in amat_h[i]),
-                submitted_s=submitted)
+                plan_replicas=replicas, submitted_s=submitted)
             self.requests[rec.rid] = rec
             self.finish_record(rec.rid)
             stats.append(rec)

@@ -1,5 +1,5 @@
-"""Bit-fluid LM serving on one device: continuous batching, speculative
-decoding and the whole-batch API.
+"""Bit-fluid LM serving: continuous batching, speculative decoding and
+the whole-batch API, on one device or row-split across a data mesh.
 
 The counterpart of ``repro.serve.engine.ServeEngine``.  Each request
 carries its own latency budget, resolved by a
@@ -64,9 +64,28 @@ greedy (temperature 0) rows equal the reference's tokens, sampled rows
 match it in distribution only.  The pool and every forward stay on the
 engine's device; a CUDA tensor reaches the kernels or raises.
 
-Not ported yet, and raising ``NotImplementedError``: meshes and
-placement plans (``mesh=``, ``plan=``), vlm prefixes, and the families
-outside ``lm.PORTED_FAMILIES``.
+Placement (``mesh=``, ``plan=``, DESIGN.md §13): a plan without a mesh
+prices every admission under it (latency amortized over the replicas,
+energy unchanged) and, for a FluidController, re-prices its SLO table.
+A fully replicated plan on a data mesh whose ranks divide ``n_slots``
+splits the continuous path's rows: slot ``s`` belongs to rank ``s //
+(n_slots / dp)`` and each rank's :class:`~repro_torch.models.lm.CachePool`
+holds only its own rows.  The host program (``submit``, admission, the
+scheduler, the controller, pricing, the records) runs identically on
+every rank: the caller is SPMD and submits the same requests everywhere.
+The slot's owner prefills an admitted request's row and broadcasts its
+first token; every decode tick runs the local rows (``n_slots / dp`` per
+GEMV) and all-gathers the tick's tokens.  Each sampling step draws its
+noise for the whole batch on every rank and each rank takes its rows, so
+sampled streams equal the single-device engine's too (the reference's
+``shard_map`` hands every shard the same key, so its shards draw the
+same noise for different rows).
+
+Not ported yet, and raising ``NotImplementedError``: a mesh without a
+fully replicated plan or with a tensor-parallel axis (sharded weights);
+``generate``, speculation and the prefix cache on a mesh (they would
+move rows across ranks); vlm prefixes; the families outside
+``lm.PORTED_FAMILIES``.
 """
 from __future__ import annotations
 
@@ -137,33 +156,48 @@ def _scaled_logits(logits: torch.Tensor, temperature: torch.Tensor,
 
 
 def _sample_tokens(logits: torch.Tensor, gen: torch.Generator,
-                   temperature: torch.Tensor, top_k: torch.Tensor
-                   ) -> torch.Tensor:
+                   temperature: torch.Tensor, top_k: torch.Tensor,
+                   rows=None) -> torch.Tensor:
     """Per-row sampling: logits (B, V); temperature/top_k (B,).
     temperature == 0 -> greedy.  Sampled rows take the Gumbel-max draw
     argmax(scaled + Gumbel noise), the categorical the reference samples
-    (``jax.random.categorical`` is the same construction)."""
+    (``jax.random.categorical`` is the same construction).  ``rows`` as
+    in :func:`_categorical`."""
     logits = logits.float()
     greedy = logits.argmax(dim=-1).to(torch.int32)
-    sampled = _categorical(_scaled_logits(logits, temperature, top_k), gen)
+    sampled = _categorical(_scaled_logits(logits, temperature, top_k), gen,
+                           rows)
     return torch.where(temperature > 0, sampled, greedy)
 
 
-def _categorical(logits: torch.Tensor, gen: torch.Generator
-                 ) -> torch.Tensor:
+def _uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    """The sampling noise: uniform draws on the generator's device."""
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
+def _categorical(logits: torch.Tensor, gen: torch.Generator,
+                 rows=None) -> torch.Tensor:
     """One draw per row from softmax(logits) (B, V): the Gumbel-max
-    argmax(logits + Gumbel noise), int32."""
-    u = torch.rand(logits.shape, generator=gen, device=gen.device)
+    argmax(logits + Gumbel noise), int32.  ``rows=(lo, hi, n)`` says the
+    logits are rows ``lo..hi-1`` of an ``n``-row batch: the noise is drawn
+    for all ``n`` rows and sliced, so a rank's draws equal the ones its
+    rows get on one device."""
+    if rows is None:
+        u = _uniform(gen, logits.shape)
+    else:
+        lo, hi, n = rows
+        u = _uniform(gen, (n,) + tuple(logits.shape[1:]))[lo:hi]
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return (logits - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
 
 
 class ServeEngine(ServeRuntime):
-    """Bit-fluid LM serving engine on one device.
+    """Bit-fluid LM serving engine.
 
     ``qparams`` are serve-form parameters (``lm.quantize_params``); they
     are placed on ``device``, CUDA unless the caller passes another, and
-    so is the cache pool.
+    so is the cache pool.  ``mesh`` and ``plan`` place the engine (module
+    docstring).
     """
 
     def __init__(self, cfg, qparams, *, max_len: int = 256,
@@ -175,11 +209,6 @@ class ServeEngine(ServeRuntime):
                  spec_k: Optional[int] = None,
                  draft_budget_s: Optional[float] = None, plan=None,
                  device="cuda"):
-        for name, val in (("mesh", mesh), ("plan", plan)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet: the port "
-                    f"serves on one device without a placement plan")
         self.cfg = cfg
         # speculative decoding: spec_k=None disables it; an int enables
         # self-drafting at that default depth (a FluidController overrides
@@ -230,7 +259,19 @@ class ServeEngine(ServeRuntime):
                 f"predictions, or use a FluidController for an energy/EDP "
                 f"SLO loop")
         super().__init__(controller, n, gemms=lm.layer_gemm_dims(cfg),
-                         head=lm.head_gemm_dims(cfg))
+                         head=lm.head_gemm_dims(cfg), mesh=mesh, plan=plan)
+        if self.mesh is not None:
+            for name, val in (("spec_k", spec_k),
+                              ("prefix_cache", prefix_cache)):
+                if val is not None:
+                    raise NotImplementedError(
+                        f"ServeEngine({name}=...) on a mesh is not ported: "
+                        f"it would move cache rows across ranks")
+        # this rank's block of slots under the row split (None off a mesh)
+        self._rows = self._row_split(n_slots, "slots")
+        self._sl = slice(*self._rows) if self._rows else slice(None)
+        self._noise_rows = (self._rows + (n_slots,) if self._rows
+                            else None)
         self.qparams = _to(qparams, self.device)
         self.budget_s = torch.tensor(1e9, dtype=torch.float32)
         self.row_bits = cfg.family in lm.PER_ROW_BIT_FAMILIES
@@ -345,7 +386,8 @@ class ServeEngine(ServeRuntime):
         for _ in range(steps):
             logits, cache = lm.decode_step(self.qparams, tok, t, cache,
                                            self.cfg, wv, av)
-            nxt = _sample_tokens(logits[:, -1], self.gen, temp, topk)
+            nxt = _sample_tokens(logits[:, -1], self.gen, temp, topk,
+                                 self._noise_rows)
             tok, t = nxt[:, None], t + 1
             out.append(nxt)
         self.calls["decode"] += steps
@@ -455,6 +497,10 @@ class ServeEngine(ServeRuntime):
         """Generate ``steps`` tokens for one synchronous batch; returns
         (B, steps) int32 ids on the engine's device.  Greedy unless
         per-row temperature/top_k are given."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "generate() on a mesh is not ported: its batch is not "
+                "split across ranks; use submit()/run()")
         if isinstance(self.controller, FluidController):
             # the whole-batch path has no admissions to charge: it would
             # silently run the fluid controller open-loop
@@ -538,6 +584,10 @@ class ServeEngine(ServeRuntime):
             raise ValueError(f"top_k={top_k} exceeds TOPK_MAX={TOPK_MAX}")
         if draft_k is not None and not 0 <= draft_k <= SPEC_K_MAX:
             raise ValueError(f"draft_k={draft_k} not in [0, {SPEC_K_MAX}]")
+        if self.mesh is not None and (draft_k or 0) > 0:
+            raise NotImplementedError(
+                "speculative decoding on a mesh is not ported: it would "
+                "move cache rows across ranks")
         # speculative rounds write up to SPEC_K_MAX positions past the
         # accepted point before rollback: the KV ring must never wrap
         # under them (wrapped slots would expose stale-lap entries to the
@@ -584,7 +634,7 @@ class ServeEngine(ServeRuntime):
     def _ensure_pool(self) -> lm.CachePool:
         if self.pool is None:
             self.pool = lm.CachePool(self.cfg, self.n_slots, self.max_len,
-                                     device=self.device)
+                                     device=self.device, rows=self._rows)
         return self.pool
 
     def _cacheable(self, req: Request) -> bool:
@@ -600,7 +650,8 @@ class ServeEngine(ServeRuntime):
         through the decode path, and a miss prefills its own padded row
         and stores or refreshes the entry.  Only the miss fraction is
         charged to a FluidController.  Sampling the first token is the
-        one host sync per admission."""
+        one host sync per admission.  Under the row split only the slot's
+        owner prefills (:meth:`_first_token`)."""
         pool = self._ensure_pool()
         dev = self.device
         admitted = []
@@ -669,19 +720,17 @@ class ServeEngine(ServeRuntime):
                         req.prompt, row_cache, logits, wv_np, av_np,
                         record.ap_cost, rep_key=req.rep_key)
             else:
-                logits, row_cache = self._prefill_row(
-                    tokens, torch.tensor([S], dtype=torch.int32).to(dev),
-                    wv, av)
+                logits = row_cache = None
+                if pool.owns(slot):
+                    logits, row_cache = self._prefill_row(
+                        tokens, torch.tensor([S], dtype=torch.int32).to(dev),
+                        wv, av)
                 pool.write_row(row_cache, slot, S)
                 if wv_np is not None:   # cacheable miss: store or refresh
                     self.prefix_cache.store(
                         req.prompt, row_cache, logits, wv_np, av_np,
                         record.ap_cost, rep_key=req.rep_key)
-            first = self._sample_first(
-                logits, torch.tensor([req.temperature],
-                                     dtype=torch.float32).to(dev),
-                torch.tensor([req.top_k], dtype=torch.int32).to(dev))
-            first0 = int(first[0])          # the per-admission host sync
+            first0 = self._first_token(logits, slot, req)
             record.first_token_s = time.time()
             record.slot = slot
             record.tokens.append(first0)
@@ -695,6 +744,25 @@ class ServeEngine(ServeRuntime):
                     self.eos_id is not None and first0 == self.eos_id):
                 self._finish(slot)
         return admitted
+
+    def _first_token(self, logits, slot: int, req: Request) -> int:
+        """Sample an admission's first token (the per-admission host
+        sync).  Under the row split a rank that does not own ``slot`` has
+        no logits: it draws the same noise, so the generator stays in
+        lockstep on every rank, and takes the owner's token."""
+        dev = self.device
+        if logits is None:
+            _uniform(self.gen, (1, self.cfg.padded_vocab))
+            first = torch.zeros((1,), dtype=torch.int32)
+        else:
+            first = self._sample_first(
+                logits, torch.tensor([req.temperature],
+                                     dtype=torch.float32).to(dev),
+                torch.tensor([req.top_k], dtype=torch.int32).to(dev))
+        if self._rows is not None:
+            n = self._rows[1] - self._rows[0]
+            first = self.mesh.broadcast(first, src=slot // n)
+        return int(first[0])
 
     def _finish(self, slot: int) -> None:
         rid = int(self.slots.rid[slot])
@@ -740,19 +808,23 @@ class ServeEngine(ServeRuntime):
         return done
 
     def _batch_bits(self):
-        """Per-slot budgets (frozen at admission) resolved to an
-        (n_slots, L) bit matrix on the device."""
+        """Per-slot budgets (frozen at admission) resolved to a bit matrix
+        on the device: (n_slots, L), this rank's rows under the split."""
         wv, av = self.controller.resolve(
             torch.as_tensor(self.slots["budget"], dtype=torch.float32))
-        return wv.to(self.device), av.to(self.device)
+        return wv[self._sl].to(self.device), av[self._sl].to(self.device)
 
     def _slot_inputs(self):
-        dev, slots = self.device, self.slots
-        return (torch.as_tensor(slots["tok"][:, None],
+        """Each slot's token, position and sampling params on the device
+        (this rank's rows under the split)."""
+        dev, slots, sl = self.device, self.slots, self._sl
+        return (torch.as_tensor(slots["tok"][sl, None],
                                 dtype=torch.int32).to(dev),
-                torch.as_tensor(slots["t"], dtype=torch.int32).to(dev),
-                torch.as_tensor(slots["temp"], dtype=torch.float32).to(dev),
-                torch.as_tensor(slots["topk"], dtype=torch.int32).to(dev))
+                torch.as_tensor(slots["t"][sl], dtype=torch.int32).to(dev),
+                torch.as_tensor(slots["temp"][sl],
+                                dtype=torch.float32).to(dev),
+                torch.as_tensor(slots["topk"][sl],
+                                dtype=torch.int32).to(dev))
 
     def _mask_idle_rows(self, active, keep=None) -> None:
         """Roll back every cache entry of the rows that held no request
@@ -775,7 +847,10 @@ class ServeEngine(ServeRuntime):
         _, _, toks = self._decode_block(tok, t, pool.cache, wv, av, temp,
                                         topk, self.decode_block)
         self._mask_idle_rows(active)
-        toks_h = toks.cpu().numpy()         # one device-to-host copy a tick
+        # one device-to-host copy a tick (every rank's rows under the
+        # split, so the host state stays identical)
+        toks_h = (self.mesh.gather_rows(toks) if self._rows is not None
+                  else toks.cpu()).numpy()
         slots["tok"][:] = toks_h[:, -1].astype(np.int64)
         slots["t"][:] += self.decode_block
         for slot in np.nonzero(active)[0]:

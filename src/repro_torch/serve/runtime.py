@@ -19,11 +19,15 @@ The counterpart of ``repro.serve.runtime``:
     (``serve/accounting.py``), with the host-side mirrors of the
     controller's tables;
   * the compute context: the controller's static bit-family set applied
-    around every forward.
-
-Not ported yet: meshes and placement plans (the reference's ``mesh=``,
-``plan=`` and the plan-amortized pricing), so every price here is the
-single-copy AP price.
+    around every forward;
+  * placement (DESIGN.md §13): the mesh (``mesh=``, else the active
+    ``dist.use_mesh`` one) and a :class:`~repro_torch.dist.PlacementPlan`
+    (``plan=``, or ``"auto"`` to plan one from the mesh's device count).
+    Every price goes through :meth:`ServeRuntime._planned`, which
+    amortizes latency over the plan's replicas (energy unchanged); a
+    FluidController adopts the plan, so its SLO resolves higher bits;
+    and :meth:`ServeRuntime._row_split` gives each rank its block of
+    request rows when the plan is fully replicated.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.apsim import metrics as apm
 from repro_torch.core.policy import BudgetController, FluidController
 from repro_torch.kernels import ops as kops
@@ -97,13 +102,14 @@ class ServeRuntime:
     def __init__(self, controller: BudgetController, n_layers: int, *,
                  gemms: Optional[Sequence[Sequence]] = None,
                  head: Optional[Tuple[int, int]] = None,
-                 starvation_ticks: int = 8,
+                 mesh=None, starvation_ticks: int = 8, plan=None,
                  slot_desc: str = "bit-slot layers") -> None:
         if controller.n_layers != n_layers:
             raise ValueError(
                 f"controller resolves {controller.n_layers} bit slots but "
                 f"this workload has {n_layers} {slot_desc}")
         self.controller = controller
+        self.mesh = mesh if mesh is not None else dist.active_mesh()
         self.n_layers = n_layers
         self.starvation_ticks = starvation_ticks
         # grouped per-row dispatch runs one GEMM per *distinct* weight
@@ -113,6 +119,24 @@ class ServeRuntime:
             {min(max(int(v), 1), 8) for v in wtab.flatten().tolist()}))
         self.pricer = (BitVectorPricer(gemms, head=head)
                        if gemms is not None else None)
+        # placement plan: "auto" plans from the controller's bit families
+        # over this runtime's priced gemms and the mesh's device count
+        # (None on one device: nothing to replicate onto)
+        if plan == "auto":
+            nd = dist.mesh_device_count(self.mesh)
+            plan = (dist.plan_for_controller(controller, gemms,
+                                             n_devices=nd, head=head)
+                    if gemms is not None and nd > 1 else None)
+        self.plan = plan
+        # plan-amortized costs by base-object identity; each entry holds
+        # its base object, so an id() key is never reused
+        self._plan_costs: Dict[int, Tuple[apm.BitVectorCost,
+                                          apm.BitVectorCost]] = {}
+        if self.plan is not None and isinstance(controller, FluidController):
+            if self.pricer is None:
+                raise ValueError("a placement plan needs priced gemms "
+                                 "(pass gemms=) to co-decide precision")
+            controller.adopt_plan(self.plan, self.pricer)
         self.stats = RuntimeStats()
         self.requests: Dict[int, CostRecord] = {}
         self._next_rid = 0
@@ -126,18 +150,72 @@ class ServeRuntime:
         self._tick = 0
         self._arrivals: Dict[int, List[Callable[[], int]]] = {}
 
+    def _planned(self, cost: apm.BitVectorCost) -> apm.BitVectorCost:
+        """Amortize a priced cost under the placement plan (identity
+        without one).  Cached per base object, so one distinct bit vector
+        keeps one planned cost object (callers rely on identity)."""
+        if self.plan is None:
+            return cost
+        hit = self._plan_costs.get(id(cost))
+        if hit is None:
+            hit = (cost, self.plan.price(cost))
+            self._plan_costs[id(cost)] = hit
+        return hit[1]
+
     def price_bits(self, wv, av) -> apm.BitVectorCost:
-        """AP cycles/energy of one resolved bit vector pair (cached)."""
-        return self.pricer.price(np.asarray(wv), np.asarray(av))
+        """AP cycles/energy of one resolved bit vector pair (cached;
+        plan-amortized under a placement plan)."""
+        return self._planned(self.pricer.price(np.asarray(wv),
+                                               np.asarray(av)))
 
     def price_verify_bits(self, wv, av, u: int) -> apm.BitVectorCost:
-        """:meth:`BitVectorPricer.price_verify`: one u-token verify chunk
-        at this bit vector."""
-        return self.pricer.price_verify(np.asarray(wv), np.asarray(av), u)
+        """Plan-amortized :meth:`BitVectorPricer.price_verify`: one
+        u-token verify chunk at this bit vector."""
+        return self._planned(self.pricer.price_verify(
+            np.asarray(wv), np.asarray(av), u))
 
     def price_matrix_bits(self, wmat, amat) -> List[apm.BitVectorCost]:
-        """One-pass batch pricing (rows share cached cost objects)."""
-        return self.pricer.price_matrix(wmat, amat)
+        """Plan-amortized one-pass batch pricing (rows share cached cost
+        objects)."""
+        return [self._planned(c)
+                for c in self.pricer.price_matrix(wmat, amat)]
+
+    def _row_split(self, n_rows: int, what: str
+                   ) -> Optional[Tuple[int, int]]:
+        """This rank's block ``[lo, hi)`` of ``n_rows`` request rows on
+        the mesh's data axis, or None off a mesh.
+
+        The split needs every weight on every rank: a fully replicated
+        plan, no tensor-parallel axis, and rows that divide evenly.  The
+        reference serves the other combinations with sharded weights
+        (GSPMD), which the port has no sharding rules for, so they
+        raise."""
+        if self.mesh is None:
+            return None
+        if dist.tp_size(self.mesh) > 1:
+            raise NotImplementedError(
+                f"a mesh with a 'model' axis of {dist.tp_size(self.mesh)} "
+                f"shards weights (tensor parallelism), which the port does "
+                f"not do yet; serve on a data-only mesh")
+        if self.plan is None:
+            raise NotImplementedError(
+                "a mesh without a placement plan serves with sharded "
+                "weights in the reference (GSPMD), which the port does not "
+                "do yet; pass plan='auto' (a fully replicated plan) to "
+                "split request rows across the data axis")
+        if not self.plan.fully_replicated:
+            raise NotImplementedError(
+                f"a partial placement plan (replicas {self.plan.replicas} "
+                f"of {self.plan.n_devices}) on a mesh keeps sharded "
+                f"weights, which the port does not do yet; serve it "
+                f"without a mesh (pricing only) or fully replicated")
+        dp = dist.dp_size(self.mesh)
+        if n_rows % dp:
+            raise NotImplementedError(
+                f"{n_rows} {what} do not split evenly over the mesh's "
+                f"{dp} data ranks")
+        n = n_rows // dp
+        return self.mesh.rank * n, (self.mesh.rank + 1) * n
 
     def _host_index(self, budget: float) -> int:
         """Host-side mirror of ``controller.select`` for one budget (the
@@ -180,7 +258,7 @@ class ServeRuntime:
         """Priced AP cost of the controller's idx-th stacked config."""
         if self._config_costs is None:
             wtab, atab = self.host_tables()
-            self._config_costs = [self.pricer.price(wtab[i], atab[i])
+            self._config_costs = [self.price_bits(wtab[i], atab[i])
                                   for i in range(wtab.shape[0])]
         return self._config_costs[idx]
 
@@ -232,6 +310,8 @@ class ServeRuntime:
         record.budget_s = eff
         record.ap_cost = cost
         record.mean_wbits = float(np.mean(np.asarray(wv_h, np.float64)))
+        if self.plan is not None:
+            record.plan_replicas = self.plan.mean_replicas
         record.planned_units = units if charge_units is None \
             else charge_units
         record.admitted_tick = self._tick

@@ -221,10 +221,25 @@ def test_generate_refuses_a_fluid_controller(smoke):
                     controller=tpol.BudgetController(
                         _configs(tpol), dict(smoke["preds"]), smoke["n"],
                         budget_axis="edp"))
-    for name in ("mesh", "plan"):
-        with pytest.raises(NotImplementedError, match=name):
-            ServeEngine(smoke["tcfg"], smoke["tq"], device="cpu",
-                        **{name: object()})
+    # placement is ported: a plan alone re-prices the fluid controller's
+    # table (tests/test_torch_placement.py holds it against the
+    # reference); a mesh without a plan still raises
+    from repro_torch.dist import plan_for_controller
+    fresh = tpol.FluidController(_configs(tpol), dict(smoke["preds"]),
+                                 smoke["n"], budget_axis="edp", slo=1.0)
+    plan = plan_for_controller(fresh, tlm.layer_gemm_dims(smoke["tcfg"]),
+                               n_devices=2,
+                               head=tlm.head_gemm_dims(smoke["tcfg"]))
+    ServeEngine(smoke["tcfg"], smoke["tq"], device="cpu", controller=fresh,
+                plan=plan)
+    assert fresh.plan_gain is not None
+
+    class DataOnlyMesh:
+        shape, axis_names, rank = {"data": 2}, ("data",), 0
+
+    with pytest.raises(NotImplementedError, match="placement plan"):
+        ServeEngine(smoke["tcfg"], smoke["tq"], device="cpu",
+                    mesh=DataOnlyMesh())
 
 
 def test_fluid_speculation_takes_the_controllers_depth_and_autotunes(smoke):

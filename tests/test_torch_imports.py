@@ -30,6 +30,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -38,8 +39,10 @@ def test_import_loads_no_jax_and_no_reference_module():
     res = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True,
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    n, bad = (res.stdout.splitlines() + [""])[:2]
+    n, bad, names = (res.stdout.splitlines() + ["", ""])[:3]
     assert int(n) >= 15                      # every submodule was imported
+    assert {"repro_torch.dist", "repro_torch.dist.api",
+            "repro_torch.dist.placement"} <= set(names.split(","))
     assert bad == "", f"importing repro_torch loaded {bad}"
 
 

@@ -174,10 +174,47 @@ def test_prices_and_host_mirrors_equal_the_reference(smoke):
         np.testing.assert_array_equal(a, b)
 
 
+class FakeMesh:
+    """A duck-typed data mesh: axis sizes and this process's rank."""
+
+    def __init__(self, shape_map, rank=0):
+        self.shape = shape_map
+        self.axis_names = tuple(shape_map)
+        self.rank = rank
+
+
 def test_not_ported_options_raise(smoke):
-    for kw in ({"mesh": object()}, {"plan": "auto"}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    # mesh= and plan= are ported: a plan alone prices, and a fully
+    # replicated plan on a data mesh splits the slots (two ranks run it in
+    # tests/test_torch_scaleout.py); the combinations that would need
+    # sharded weights or rows moved across ranks raise
+    from repro_torch.dist import plan_for_controller
+    mesh = FakeMesh({"data": 2})
+    cfg = smoke["tcfg"]
+    partial = plan_for_controller(
+        smoke["tctrl"], tlm.layer_gemm_dims(cfg), n_devices=2,
+        head=tlm.head_gemm_dims(cfg), memory_budget=1.5)
+    assert not partial.fully_replicated
+    assert _engine(smoke, plan=partial).plan is partial     # pricing only
+    for kw, match in (({"mesh": mesh}, "without a placement plan"),
+                      ({"mesh": mesh, "plan": partial}, "partial"),
+                      ({"mesh": FakeMesh({"data": 2, "model": 2}),
+                        "plan": "auto"}, "tensor parallelism"),
+                      ({"mesh": mesh, "plan": "auto", "spec_k": 4},
+                       "spec_k"),
+                      ({"mesh": mesh, "plan": "auto",
+                        "prefix_cache": tengine.PrefixCache(chunk=4)},
+                       "prefix_cache"),
+                      ({"mesh": mesh, "plan": "auto", "n_slots": 3},
+                       "split evenly")):
+        with pytest.raises(NotImplementedError, match=match):
             _engine(smoke, **kw)
+    eng = _engine(smoke, mesh=mesh, plan="auto")
+    assert eng.plan.fully_replicated and eng._rows == (0, 2)
+    with pytest.raises(NotImplementedError, match="generate"):
+        eng.generate({"tokens": np.zeros((1, 4), np.int32)}, 2)
+    with pytest.raises(NotImplementedError, match="speculative"):
+        eng.submit(np.zeros(4, np.int32), draft_k=2)
     # the prefix cache is ported; vlm prefixes are not
     eng = _engine(smoke)
     with pytest.raises(NotImplementedError, match="vlm prefixes"):
