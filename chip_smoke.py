@@ -3,9 +3,9 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --paths 6  # some paths only, no result lines
+    python3 chip_smoke.py --paths 7  # some paths only, no result lines
 
-Six paths, each at full width with random weights from a seed:
+Seven paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -26,7 +26,7 @@ Six paths, each at full width with random weights from a seed:
   every linear through the bit-plane kernel, then 15 tokens decode on
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
-  ``submit_at`` / ``run``): (a) 12 requests (prompts of 64 to 1024
+  ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
   tokens, 16 to 32 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
   decoding 8 tokens for all slots at once; (b) 8 of them again, each to
@@ -36,7 +36,7 @@ Six paths, each at full width with random weights from a seed:
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
   through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
-  shape with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  shape, cut to its first 18 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
   keys (512-1024-token prompts, int8), plus four late prompts that
   share the first two keys' prefixes, so misses, full hits and partial
   hits (extended token by token through ``decode_step``, the bit-plane
@@ -52,7 +52,22 @@ Six paths, each at full width with random weights from a seed:
   batch, 8 rows a rank; and on one rank, (c) partial plans (4 devices,
   1.5 model copies) for both models, and path 5 (c)'s spike through a
   tick-windowed FluidController with the ResNet18 plan and without it,
-  at one SLO.
+  at one SLO;
+* the MoE family, vlm prefixes and the int8 KV cache: (a)
+  Moonshot-v1-16B-A3B (48 layers, d_model 2048, 16 heads of 128, 64
+  experts top-6 plus 2 shared, d_ff 1408, vocab 163840), its int8 serve
+  form drawn and quantized layer by layer (``lm.init_serve_params``),
+  through ``ServeEngine.generate``: B=2 prompts of 4096 tokens, 8 new,
+  at the tightest (int4) and the loosest (int8) whole-batch budget;
+  every expert stack through the bit-plane kernel, one launch per
+  expert (9553 a forward), flash at hd 128; (b) InternVL2-1B (24 layers,
+  d_model 896, GQA 14/2 of hd 64, qkv bias, tied embeddings, 256 prefix
+  tokens as seeded patch embeddings): ``generate`` on B=4 prompts of
+  4096 tokens behind their prefixes (flash at hd 64, budgets int4,
+  mixed, int8, int8), 8 requests with prefixes by continuous batching
+  (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
+  and 4 of them with ``spec_k=4``; (c) the same with the int8 KV cache
+  (``kv_cache_bits=8``).
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -131,7 +146,27 @@ result line:
      family per batch.  A rank that fails, or misses the rendezvous,
      fails the run.  Then the path's wall, each rank's tick wall (two
      ranks sharing one card: not a scale-out speed) and bit-plane device
-     sum.
+     sum;
+ 10. MoE, vlm and the int8 cache: (a) hold the bit-plane kernel at the
+     expert, shared, attention and head shapes and flash at (32, 4096,
+     128); two generate budgets after a warm-up, gated: launches per
+     forward (48 x (4 + 3 x 64 + 3) + 1) and by path as ``plan()``
+     gives them, flash 48 a prefill, two identical calls give the same
+     tokens and every layer's routing, each layer's MoE block on its
+     own captured input EQUAL to the block with the plain bit-plane
+     version, prices equal the AP model under moe's ``layer_gemm_dims``,
+     a SMOKE card-vs-CPU run (every routed call, fed the card's own
+     input, EQUAL but for tokens within MOE_ROUTE_TOL of a router tie);
+     then prefill and
+     decode ms, choices dropped by capacity, the bit-plane device sum
+     per forward (experts and the rest), traces of a prefill and a
+     decode step; (b) flash at (56, 4352, 64) and on every layer's own
+     q/k/v, launches per generate, continuous streams EQUAL each request
+     alone, speculative streams EQUAL their first 8 tokens, no prefix
+     cache lookups, drained pools, AP records, SMOKE card-vs-CPU runs;
+     (c) the same on the int8 cache, and one layer's decode-step QK and
+     PV int32 accumulators EQUAL an int64 recomputation on the card;
+     cache bytes and decode ms against (b).
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -213,7 +248,9 @@ LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
 LOGIT_TOL = 2e-2      # x max|logit|: bf16 attention + quantizer steps
 # path 4: continuous batching (a) and speculative decoding (b) on Qwen3-4B
 CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
-CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 12, 8, 2
+# 9 requests: 8 fill the slots, 1 arrives late (a depth cut that keeps
+# the whole script inside its time limit; PERF.md §4)
+CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 9, 8, 2
 CB_PROMPT, CB_NEW = (64, 1024), (16, 32)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
@@ -229,6 +266,9 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
+# path 5 runs the first 18 of Qwen3-4B's 36 layers at full width (a depth
+# cut that keeps the whole script inside its time limit; PERF.md §4)
+PC_LAYERS = 18
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -236,6 +276,25 @@ SPIKE_WINDOW = 4                         # the closed loop's window, ticks
 SO_RANKS = 2            # data ranks, all on cuda:0 (a gloo group)
 SO_TIMEOUT_S = 300      # rendezvous and collective timeout
 SO_PARTIAL = dict(n_devices=4, memory_budget=1.5)    # (c)'s partial plan
+# path 7: the MoE family (Moonshot-v1-16B-A3B), vlm prefixes and the int8
+# KV cache (InternVL2-1B), at their published widths
+MOE_ARCH = "moonshot_v1_16b_a3b"
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, experts,
+# top-k, shared experts) published
+MOE_WIDTHS = (48, 2048, 16, 16, 1408, 163840, 128, 64, 6, 2)
+MOE_B, MOE_S, MOE_STEPS = 2, 4096, 8
+MOE_BUDGETS = (0.4, 10.0)  # default_controller's tightest and loosest
+# router margin under which the card and the CPU may route apart: two
+# neighbours among a token's k + 1 largest router probabilities within
+# 2^-6 of each other (relative), a few bf16 ulps of a logit of size 1
+MOE_ROUTE_TOL = 2.0 ** -6
+VLM_ARCH = "internvl2_1b"
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, prefix
+# tokens) published
+VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
+VLM_B, VLM_S, VLM_STEPS = 4, 4096, 16
+VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 16
+VLM_SPEC, VLM_SPEC_NEW = 4, 8
 
 
 def fail(msg: str) -> None:
@@ -495,7 +554,10 @@ class Bench:
 
 def trace(torch, tag, label, fn, match):
     """torch.profiler over one call of ``fn``: the device's busy time and
-    idle share, and device time by kernel name; returns the summary."""
+    idle share, and device time by kernel name; returns the summary.  It
+    reads the profiler's raw events: building ``prof.events()``' tree
+    over a decode tick's quarter million events took minutes of host
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -505,11 +567,12 @@ def trace(torch, tag, label, fn, match):
         fn()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
     check(dev_events != [], f"the profiler recorded no device activity "
           f"in {label}")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                   for e in dev_events)
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -518,9 +581,9 @@ def trace(torch, tag, label, fn, match):
     busy_us += cur_e - cur_s
     by_name: dict = {}
     for e in dev_events:
-        key = e.name.replace("(anonymous namespace)::", "")
+        key = e.name().replace("(anonymous namespace)::", "")
         key = key.removeprefix("void ").split("(")[0][:90]
-        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+        by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e3
     dev_total = sum(by_name.values())
     shares = {m: sum(us for k, us in by_name.items()
                      if any(d in k for d in DEVICE_NAMES.get(m, (m,))))
@@ -1180,11 +1243,62 @@ def lm_weights(b: Bench):
     return cfg, qparams
 
 
+def lm_cut(cfg, qparams, n_layers: int):
+    """The model cut to its first ``n_layers`` layers at full width: the
+    config, and the serve parameters with every layer stack sliced (views,
+    nothing copied)."""
+    def first(t):
+        return {k: first(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n_layers]
+    return (cfg.with_(n_layers=n_layers),
+            {**qparams, "layers": first(qparams["layers"])})
+
+
 def lm_linears(cfg):
     """(K, N) of a layer's seven serve linears, in order."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return [(d, H * hd), (d, KV * hd), (d, KV * hd), (H * hd, d),
             (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+
+
+def flash_row(b: Bench, shape, label: str = "") -> dict:
+    """The flash kernel at ``shape`` (BH, S, hd), causal bf16: its time,
+    device time, the chunked plain version's and one
+    scaled_dot_product_attention call's, and the bound (half of
+    4*BH*S^2*hd flop, causal; q, k, v read and out written once), each in
+    ms per call."""
+    torch = b.torch
+    from repro_torch.kernels import flash_attention as fa
+    BH, S, hd = shape
+    q = torch.randn(shape, generator=b.gen, device=b.dev).bfloat16()
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    flops = 2.0 * BH * S * S * hd
+    nbytes = 4 * BH * S * hd * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = {"ms": b.time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+           "device_ms": b.device_ms(
+               lambda: fa.flash_attention(q, k, v, causal=True)),
+           "plain_ms": b.time_ms(
+               lambda: fa.flash_attention_chunked_ref(q, k, v, True), reps=3),
+           "library_ms": b.time_ms(lambda: sdpa(q[None], k[None], v[None],
+                                                is_causal=True)),
+           "t_ops": flops / BF16_FLOPS_PER_S * 1e3,
+           "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    row["bound_ms"] = bound = max(row["t_ops"], row["t_bytes"])
+    print(f"{b.tag} flash_attention {tuple(shape)} causal bf16{label}: kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), chunked "
+          f"plain {row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms "
+          f"({'operations' if row['t_ops'] >= row['t_bytes'] else 'bytes'}: "
+          f"{flops:.3e} flop, {nbytes / 1e6:.1f} MB), "
+          f"{bound / row['ms']:.3f} of bound; "
+          f"{flops / row['ms'] / 1e9:.1f} TFLOP/s")
+    return row
+
+
+def flash_entry(launches: int, row: dict, calls: int) -> dict:
+    """The JSON line's flash entry: ``row`` (ms per call) times ``calls``."""
+    return {"launches": launches, **{k: calls * v for k, v in row.items()}}
 
 
 def lm_path(b: Bench, cfg, qparams) -> dict:
@@ -1394,31 +1508,7 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
           f"({LM_B / dec:.3f} tokens/s at B={LM_B}); all "
           f"{[round(s * 1e3, 3) for s in dec_s]}")
 
-    # flash at the path shape: kernel, chunked plain version, library
-    BH, S, hdp = FLASH_PATH
-    q = torch.randn((BH, S, hdp), generator=b.gen, device=dev).bfloat16()
-    k = torch.randn_like(q)
-    v = torch.randn_like(q)
-    f_ms = b.time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    fd_ms = b.device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    fp_ms = b.time_ms(lambda: fa.flash_attention_chunked_ref(q, k, v, True),
-                      reps=3)
-    q4, k4, v4 = (x.view(1, BH, S, hdp) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fl_ms = b.time_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
-    f_flops = 2.0 * BH * S * S * hdp        # half of 4*BH*S^2*hd: causal
-    f_bytes = 4 * BH * S * hdp * 2          # q, k, v read, out written
-    ft_ops = f_flops / BF16_FLOPS_PER_S * 1e3
-    ft_bytes = f_bytes / HBM_BYTES_PER_S * 1e3
-    f_bound = max(ft_ops, ft_bytes)
-    print(f"{tag} flash_attention {FLASH_PATH} causal bf16: kernel "
-          f"{f_ms:.4f} ms (device {fd_ms:.4f}), chunked plain {fp_ms:.4f} ms, "
-          f"scaled_dot_product_attention {fl_ms:.4f} ms, bound "
-          f"{f_bound:.4f} ms ({'operations' if ft_ops >= ft_bytes else 'bytes'}"
-          f": {f_flops:.3e} flop, {f_bytes / 1e6:.1f} MB), "
-          f"{f_bound / f_ms:.3f} of bound; "
-          f"{f_flops / f_ms / 1e9:.1f} TFLOP/s")
-    del q, k, v, q4, k4, v4
+    fr = flash_row(b, FLASH_PATH)
 
     # the bit-plane GEMM shapes, and their sums over one generate call
     per_shape = {(M, K, N, n): b.gemm_row(M, K, N, n)
@@ -1438,8 +1528,8 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
           f"torch._int_mm {bl_ms:.4f} ms (device {bld_ms:.4f}), bound "
           f"{bound_ms:.4f} ms "
           f"({bound_ms / bk_ms:.3f} of bound); flash per generate call "
-          f"({L} launches): kernel {L * f_ms:.4f} ms, bound "
-          f"{L * f_bound:.4f} ms; generate wall {med_gen * 1e3:.3f} ms")
+          f"({L} launches): kernel {L * fr['ms']:.4f} ms, bound "
+          f"{L * fr['bound_ms']:.4f} ms; generate wall {med_gen * 1e3:.3f} ms")
 
     # the regime threshold: both sides of bpm.SMALL_M at a decode shape
     for M in (bpm.SMALL_M, bpm.SMALL_M + 1, 4 * bpm.SMALL_M):
@@ -1465,11 +1555,7 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
                      "paths": bp_paths},
         "e2e": {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
                 "generate_ms": med_gen * 1e3},
-        "flash": {"launches": fa_total, "ms": L * f_ms,
-                  "device_ms": L * fd_ms,
-                  "plain_ms": L * fp_ms, "bound_ms": L * f_bound,
-                  "bound_by": "operations" if ft_ops >= ft_bytes else "bytes",
-                  "library_ms": L * fl_ms}}
+        "flash": flash_entry(fa_total, fr, L)}
 
 
 def smoke_card_vs_cpu(b: Bench) -> None:
@@ -1529,9 +1615,11 @@ def cb_requests(vocab: int, n: int, prompt_range, new_range, seed: int):
             for i, (S, m) in enumerate(zip(lens, news))]
 
 
-def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
+def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None,
+             prefixes=None):
     """Submit ``reqs[:upfront]`` now and the rest through ``submit_at`` at
-    ``late_tick``, then ``run()``.  Returns (rids in request order, run
+    ``late_tick`` (each with its vlm prefix from ``prefixes``), then
+    ``run()``.  Returns (rids in request order, run
     seconds, {rid: time of the first token}, per-tick (seconds, tokens,
     rows) of vanilla ticks and of speculative rounds, {rid: tokens
     delivered by vanilla ticks}, {rid: tokens delivered by rounds})."""
@@ -1563,6 +1651,8 @@ def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
         prompt, m, budget = reqs[i]
         kw = {} if draft_ks is None or draft_ks[i] is None \
             else {"draft_k": draft_ks[i]}
+        if prefixes is not None:
+            kw["prefix"] = prefixes[i]
         rids.append(engine.submit(prompt, max_new_tokens=m, budget_s=budget,
                                   **kw))
 
@@ -1580,11 +1670,12 @@ def cb_serve(engine, reqs, upfront: int, late_tick: int, draft_ks=None):
     return rids, wall, first_at, ticks, rounds, by_tick, by_round
 
 
-def cb_standalone(engine, prompt, max_new: int, budget, prefill_len: int):
+def cb_standalone(engine, prompt, max_new: int, budget, prefill_len: int,
+                  prefix=None):
     """One request alone: ``lm.prefill(lengths=)`` at batch 1 on the
-    engine's padded row, then a ``decode_step`` loop at the same bits,
-    greedy.  Returns (tokens, the top-2 logit gap of each step over
-    max|logit|)."""
+    engine's padded row (behind its vlm ``prefix``), then a
+    ``decode_step`` loop at the same bits, greedy.  Returns (tokens, the
+    top-2 logit gap of each step over max|logit|)."""
     import torch
     from repro_torch.models import lm
     dev, cfg = engine.device, engine.cfg
@@ -1594,6 +1685,11 @@ def cb_standalone(engine, prompt, max_new: int, budget, prefill_len: int):
     S = len(prompt)
     toks = torch.zeros((1, prefill_len), dtype=torch.int32)
     toks[0, :S] = torch.from_numpy(prompt)
+    batch = {"tokens": toks.to(dev)}
+    P = 0
+    if prefix is not None:
+        batch["prefix"] = torch.as_tensor(prefix)[None].to(dev)
+        P = batch["prefix"].shape[1]
     cache = lm.empty_cache(cfg, 1, engine.max_len, device=dev)
     out, gaps = [], []
 
@@ -1605,13 +1701,12 @@ def cb_standalone(engine, prompt, max_new: int, budget, prefill_len: int):
         return out[-1].reshape(1, 1)
 
     with engine.compute_ctx():
-        logits, cache = lm.prefill(engine.qparams, {"tokens": toks.to(dev)},
-                                   cfg, wv, av, cache,
+        logits, cache = lm.prefill(engine.qparams, batch, cfg, wv, av, cache,
                                    lengths=torch.tensor([S]).to(dev))
         tok = take(logits)
         for i in range(max_new - 1):
             logits, cache = lm.decode_step(engine.qparams, tok,
-                                           torch.tensor([S + i]).to(dev),
+                                           torch.tensor([P + S + i]).to(dev),
                                            cache, cfg, wv, av)
             tok = take(logits)
     return (torch.stack(out).cpu().tolist(),
@@ -3334,6 +3429,841 @@ def so_codecision(b: Bench, cfg) -> dict:
             "wbits": (u["wbits"], p["wbits"])}
 
 
+# ---------------------------------------------------------------------------
+# Path 7: the MoE family, vlm prefixes and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def p7_configs():
+    """(Moonshot-v1-16B-A3B FULL, InternVL2-1B FULL), held to their
+    published widths."""
+    from repro_torch import configs
+    moe, vlm = configs.get(MOE_ARCH), configs.get(VLM_ARCH)
+    check((moe.n_layers, moe.d_model, moe.n_heads, moe.n_kv_heads,
+           moe.d_ff, moe.vocab_size, moe.head_dim, moe.n_experts,
+           moe.experts_per_token, moe.n_shared_experts) == MOE_WIDTHS,
+          f"{MOE_ARCH} FULL is not the published width: {moe}")
+    check((vlm.n_layers, vlm.d_model, vlm.n_heads, vlm.n_kv_heads,
+           vlm.d_ff, vlm.vocab_size, vlm.head_dim, vlm.n_prefix_tokens)
+          == VLM_WIDTHS, f"{VLM_ARCH} FULL is not the published width: "
+          f"{vlm}")
+    return moe, vlm
+
+
+def moe_forward_shapes(cfg, B: int, S: int):
+    """Bit-plane launches of one MoE forward over B rows of S tokens at
+    whole-batch bits (8 planes), by (M, K, N): (experts, the rest).  The
+    attention and the shared experts run at M = B S, each of the E
+    experts' three GEMMs at M = its capacity, the head at M = B."""
+    from repro_torch.models import moe
+    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    T = B * S
+    C = moe.capacity(T, cfg)
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    fs = f * cfg.n_shared_experts
+    experts, rest = {}, {}
+
+    def add(where, key, n):
+        where[key] = where.get(key, 0) + n
+
+    add(experts, (C, d, f), 2 * E * L)
+    add(experts, (C, f, d), E * L)
+    for K, N in ((d, hq), (d, hkv), (d, hkv), (hq, d), (d, fs), (d, fs),
+                 (fs, d)):
+        add(rest, (T, K, N), L)
+    add(rest, (B, d, cfg.padded_vocab), 1)
+    return experts, rest
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def forward_timer(lm):
+    """Patches for ``lm.prefill`` / ``lm.decode_step`` that record each
+    call's wall (synchronized before and after) into the returned dict."""
+    import torch
+    walls = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    patches = [mock.patch.object(lm, "prefill", timed("prefill", lm.prefill)),
+               mock.patch.object(lm, "decode_step",
+                                 timed("decode", lm.decode_step))]
+    return walls, patches
+
+
+def shapes_timing(b: Bench, per_fwd: dict, n: int = 8) -> list:
+    """gemm_row at every (M, K, N) of ``per_fwd`` (launches per forward),
+    summed with those multiplicities: [kernel ms, plain ms, _int_mm ms,
+    bytes ms, ops ms, device ms, _int_mm device ms, bound ms]."""
+    tot = [0.0] * 8
+    for (M, K, N), c in sorted(per_fwd.items()):
+        row = b.gemm_row(M, K, N, n)
+        tot = [a + c * r for a, r in zip(tot, list(row) + [max(row[3],
+                                                               row[4])])]
+    return tot
+
+
+def moe_smoke_card_vs_cpu(b: Bench) -> None:
+    """Moonshot SMOKE (2 layers, 8 experts top-2): a greedy prefill of
+    S > FLASH_THRESHOLD and decode steps at int8 on the card and on the
+    CPU (plain versions there, flash's at the kernel's key tile).  Every
+    routed call of the card's run is routed again by the CPU on the
+    card's own input, so a split in one layer never reaches the next:
+    each token's choices are EQUAL unless its router margin is under
+    MOE_ROUTE_TOL (cuBLAS and ATen round the bf16 router apart).  The
+    margin is the smallest relative gap between neighbours among its
+    k + 1 largest router probabilities: the k-th against the (k+1)-th
+    decides the set, the others the order of the choices, which decides
+    capacity.  The two runs' tokens are equal up to the first step whose
+    top-2 logit gap is under LOGIT_TOL or whose forwards routed apart."""
+    torch = b.torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.engine import default_controller
+
+    scfg = configs.get_smoke(MOE_ARCH)
+    sg = torch.Generator().manual_seed(4)
+    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
+    toks = torch.randint(0, scfg.vocab_size, (2, LM_SMOKE_S), generator=sg)
+    wv, av = default_controller(scfg.n_layers).resolve(torch.tensor(10.0))
+    k, L = scfg.experts_per_token, scfg.n_layers
+    real = moe._route
+    chunked = fa.flash_attention_chunked_ref
+    cpu_dev = torch.device("cpu")
+
+    def tiled(q, k_, v, causal, window):
+        return chunked(q, k_, v, causal, window, chunk=flash_tile())
+
+    def run(where):
+        """(tokens, top-2 gaps, per routed call (router, input, topi))."""
+        seen = []
+
+        def route(p, xf, c):
+            out = real(p, xf, c)
+            seen.append((p["router"], xf.cpu(), out[0].cpu()))
+            return out
+
+        q = tree_to(sqp, where)
+        cache = lm.empty_cache(scfg, 2, LM_SMOKE_S + 8, device=where)
+        out, gaps = [], []
+        with mock.patch.object(moe, "_route", route), \
+                mock.patch.object(fa, "flash_attention_chunked_ref", tiled):
+            logits, cache = lm.prefill(q, {"tokens": toks.to(where)}, scfg,
+                                       wv.to(where), av.to(where), cache)
+            for i in range(4):
+                lg = logits[:, -1, :scfg.vocab_size].float().cpu()
+                top2 = lg.topk(2, dim=-1).values
+                gaps.append(float(((top2[:, 0] - top2[:, 1])
+                                   / lg.abs().amax(-1)).min()))
+                out.append(lg.argmax(-1))
+                logits, cache = lm.decode_step(
+                    q, out[-1][:, None].to(where),
+                    torch.tensor(LM_SMOKE_S + i).to(where), cache, scfg,
+                    wv.to(where), av.to(where))
+        return torch.stack(out, 1), gaps, seen
+
+    card, _, seen_c = run(b.dev)
+    cpu, gaps, seen_p = run(cpu_dev)
+    n_calls = 5 * L                     # prefill + 4 decode steps, per layer
+    check(len(seen_c) == len(seen_p) == n_calls,
+          f"SMOKE {MOE_ARCH}: {len(seen_c)} / {len(seen_p)} routed calls, "
+          f"want {n_calls}")
+    equal = near = apart_n = n_tok = 0
+    for j, (router, xf, tc) in enumerate(seen_c):
+        p = {"router": tree_to(router, cpu_dev)}
+        tp = real(p, xf, scfg)[0]
+        probs = torch.softmax(cm.apply_linear(p["router"], xf, 16, 16)
+                              .float(), dim=-1)
+        top = probs.sort(dim=-1, descending=True).values[:, :k + 1]
+        margin = ((top[:, :-1] - top[:, 1:]) / top[:, :-1]).amin(-1)
+        apart = (tc != tp).any(dim=-1)
+        tie = margin < MOE_ROUTE_TOL
+        check(not bool((apart & ~tie).any()), f"SMOKE {MOE_ARCH} card vs "
+              f"CPU: routed call {j} (forward {j // L}, layer {j % L}) "
+              f"routes a token apart whose router margin is >= "
+              f"{MOE_ROUTE_TOL}: margins {margin[apart].tolist()}")
+        n_tok += xf.shape[0]
+        near += int(tie.sum())
+        apart_n += int(apart.sum())
+        equal += not bool(apart.any())
+    # the chained runs: token s comes from forwards 0..s
+    parted = [j // L for j, (c, p_) in enumerate(zip(seen_c, seen_p))
+              if not torch.equal(c[2], p_[2])]
+    first_part = parted[0] if parted else card.shape[1]
+    steps = 0
+    for s in range(min(first_part, card.shape[1])):
+        if gaps[s] < LOGIT_TOL:
+            break
+        check(torch.equal(card[:, s], cpu[:, s]),
+              f"SMOKE {MOE_ARCH} card vs CPU: tokens differ at step {s} "
+              f"(top-2 gap {gaps[s]:.4g})")
+        steps += 1
+    print(f"SMOKE {MOE_ARCH} prefill (B=2, S={LM_SMOKE_S}) + 4 steps at "
+          f"int8, card vs CPU: the CPU router on the card's input routes "
+          f"EQUAL in {equal} of {n_calls} routed calls, {n_tok - apart_n} "
+          f"of {n_tok} token-calls ({near} within the router margin "
+          f"{MOE_ROUTE_TOL}, {apart_n} of them routed apart); the chained runs route apart first in forward "
+          f"{first_part if parted else 'none'}; tokens held EQUAL over "
+          f"{steps} of {card.shape[1]} steps, equal in all: "
+          f"{torch.equal(card, cpu)} (card {card.tolist()}, CPU "
+          f"{cpu.tolist()})")
+
+
+def moe_path(b: Bench) -> dict:
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    cfg = p7_configs()[0]
+    L, E, k = cfg.n_layers, cfg.n_experts, cfg.experts_per_token
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qparams = lm.init_serve_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    w_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    print(f"{MOE_ARCH} FULL: {L} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {E} experts top-{k} "
+          f"+ {cfg.n_shared_experts} shared, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; the int8 serve form drawn and quantized layer "
+          f"by layer on the card in {time.perf_counter() - t0:.3f} s: "
+          f"{w_gib:.3f} GiB resident, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+    ex_pre, rest_pre = moe_forward_shapes(cfg, MOE_B, MOE_S)
+    ex_dec, rest_dec = moe_forward_shapes(cfg, MOE_B, 1)
+    per_fwd = sum(ex_pre.values()) + sum(rest_pre.values())
+    check(per_fwd == sum(ex_dec.values()) + sum(rest_dec.values())
+          == L * (4 + 3 * E + 3) + 1, f"launches per forward {per_fwd}")
+
+    # ---- the kernels at the path's shapes
+    for shapes in (ex_pre, rest_pre, ex_dec, rest_dec):
+        for M, K, N in shapes:
+            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), 8)
+    fl_shape = (MOE_B * cfg.n_heads, MOE_S, cfg.head_dim)
+    f_err = hold_flash(b, fl_shape[0], MOE_S, MOE_S, cfg.head_dim, True, 0)
+    print(f"kernel == plain: bit-plane at the expert, shared, attention "
+          f"and head shapes of prefill and decode "
+          f"{sorted({**ex_pre, **rest_pre, **ex_dec, **rest_dec})} "
+          f"(n_planes 8); flash at {fl_shape} causal within FLASH_TOL: "
+          f"max |err| {f_err:.6g}")
+
+    ctrl = default_controller(lm.n_bit_slots(cfg))
+    engine = ServeEngine(cfg, qparams, max_len=MOE_S + MOE_STEPS,
+                         controller=ctrl, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_S),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1), device=dev)
+    batch = {"tokens": tokens}
+    rec = {"topi": [], "drop": []}
+    real_route, real_pos = moe._route, moe._positions
+
+    def route(*a):
+        out = real_route(*a)
+        rec["topi"].append(out[0])
+        return out
+
+    def positions(*a):
+        out = real_pos(*a)
+        rec["drop"].append((~out[2]).sum())
+        return out
+
+    def call(budget):
+        """One generate call with counts reset just before it: (tokens,
+        its routing, dropped choices per forward, launches, paths, flash
+        launches, walls, peak GiB)."""
+        engine.set_budget(budget)
+        rec["topi"], rec["drop"] = [], []
+        walls, timers = forward_timer(lm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bpm.reset_launches()
+        fa.reset_launches()
+        with mock.patch.object(moe, "_route", route), \
+                mock.patch.object(moe, "_positions", positions), \
+                timers[0], timers[1]:
+            t0 = time.perf_counter()
+            toks = engine.generate(batch, MOE_STEPS).cpu()
+            wall = time.perf_counter() - t0
+        drop = torch.stack(rec["drop"]).reshape(-1, L).sum(1).tolist()
+        return {"tokens": toks, "topi": rec["topi"], "drop": drop,
+                "launches": dict(bpm.launches),
+                "paths": dict(bpm.path_launches), "flash": fa.launches,
+                "walls": walls, "wall": wall,
+                "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    warm = call(MOE_BUDGETS[0])
+    runs = [call(bud) for bud in MOE_BUDGETS]
+    n_fwd = MOE_STEPS
+    want_paths = {p: 0 for p in bpm.PATHS}
+    for shapes, reps in ((ex_pre, 1), (rest_pre, 1), (ex_dec, n_fwd - 1),
+                         (rest_dec, n_fwd - 1)):
+        for (M, K, N), c in shapes.items():
+            want_paths[bpm.plan(M, K, N).path] += c * reps
+    for bud, r in zip(MOE_BUDGETS, runs):
+        got = sum(r["launches"].values())
+        check(got == n_fwd * per_fwd and r["launches"][8] == got,
+              f"budget {bud}: bit-plane launches per generate "
+              f"{r['launches']}, expected {n_fwd} x {per_fwd} at 8 planes")
+        check(r["paths"] == want_paths, f"budget {bud}: launches by path "
+              f"{r['paths']} != plan()'s {want_paths}")
+        check(r["flash"] == L, f"budget {bud}: flash launches {r['flash']}")
+        check(r["tokens"].shape == (MOE_B, MOE_STEPS) and bool(
+            ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size)).all()),
+              f"budget {bud}: tokens {r['tokens']}")
+        check(len(r["topi"]) == n_fwd * L and len(r["drop"]) == n_fwd,
+              f"budget {bud}: {len(r['topi'])} routed calls")
+    check(torch.equal(warm["tokens"], runs[0]["tokens"])
+          and all(torch.equal(a, c) for a, c in zip(warm["topi"],
+                                                     runs[0]["topi"])),
+          "two identical generate calls gave different tokens or routing")
+    mean_w = [float(ctrl.resolve(torch.tensor(bud))[0].double().mean())
+              for bud in MOE_BUDGETS]
+    check(mean_w == [4.0, 8.0], f"budgets {MOE_BUDGETS} -> mean wbits "
+          f"{mean_w}")
+    print(f"generate (B={MOE_B}, S={MOE_S}, {MOE_STEPS} tokens) at budgets "
+          f"{list(MOE_BUDGETS)} (mean wbits {mean_w}): per call bit-plane "
+          f"launches {n_fwd} x {per_fwd} = {n_fwd * per_fwd} (48 x (4 "
+          f"attention + 3 x 64 experts + 3 shared) + the head, per forward; "
+          f"all at 8 planes: whole-batch bits are tensors), by path "
+          f"{runs[0]['paths']}; flash {L} per prefill, 0 per decode step; "
+          f"two identical calls: the same tokens and the same routing in "
+          f"all {n_fwd * L} routed calls; tokens "
+          + "; ".join(f"{bud}: {r['tokens'][0].tolist()}"
+                      for bud, r in zip(MOE_BUDGETS, runs)))
+    for bud, r in zip(MOE_BUDGETS, runs):
+        print(f"budget {bud}: choices dropped by capacity per forward "
+              f"(prefill of {MOE_B * MOE_S * k} choices, then decode steps "
+              f"of {MOE_B * k}; summed over {L} layers): {r['drop']}")
+
+    # ---- each layer's MoE block, on its own captured input, EQUALS the
+    # same block with the bit-plane kernel's plain version patched in
+    engine.set_budget(MOE_BUDGETS[1])
+    wv, av = engine._bits()
+    real_moe = moe.apply_moe
+    captured = []
+
+    def capture(p, x, c, wb, ab):
+        y = real_moe(p, x, c, wb, ab)
+        captured.append((p, x, wb, ab, y[0]))
+        return y
+
+    def run_prefill():
+        cache = lm.empty_cache(cfg, MOE_B, MOE_S + MOE_STEPS, device=dev)
+        with engine.compute_ctx():
+            return lm.prefill(engine.qparams, batch, cfg, wv, av, cache)
+
+    with mock.patch.object(moe, "apply_moe", capture):
+        run_prefill()
+    check(len(captured) == L, f"captured {len(captured)} MoE blocks")
+
+    def plain_gemm(x_q, w_q, *, n_planes):
+        return bpm.bitplane_matmul_ref(x_q, w_q, n_planes)
+
+    bpm.reset_launches()
+    with mock.patch.object(ops, "bitplane_matmul", plain_gemm):
+        for i, (p, x, wb, ab, y) in enumerate(captured):
+            y_plain, _ = moe.apply_moe(p, x, cfg, wb, ab)
+            check(torch.equal(y_plain, y), f"layer {i}: the MoE block with "
+                  f"the bit-plane kernel != with its plain version: max "
+                  f"|diff| {float((y_plain.float() - y.float()).abs().max())}")
+    check(sum(bpm.launches.values()) == 0, "the plain MoE blocks launched "
+          "the kernel")
+    del captured
+    print(f"each of the {L} MoE blocks of an int8 prefill, on its own "
+          f"captured input: kernel == plain version (routing, dispatch, "
+          f"the {3 * E} expert GEMMs, combine and the shared experts)")
+
+    # ---- prices against the AP model
+    for bud in MOE_BUDGETS:
+        w, a = ctrl.resolve(torch.tensor(bud))
+        want = apm.price_bit_vector(lm.layer_gemm_dims(cfg), w.tolist(),
+                                    a.tolist(), head=lm.head_gemm_dims(cfg))
+        check(engine.price_budget(bud) == want, f"price_budget({bud}) "
+              f"differs from the AP model's price of its bits")
+    print("price_budget == apsim.price_bit_vector under moe's layer_gemm_dims"
+          " (4 attention + 6 x 3 routed + 3 shared GEMMs a layer): EDP "
+          + ", ".join(f"{bud:g} -> {engine.price_budget(bud).edp:.4g} J*s"
+                      for bud in MOE_BUDGETS))
+
+    moe_smoke_card_vs_cpu(b)
+
+    # ---- timings
+    for bud, r in zip(MOE_BUDGETS, runs):
+        pre, dec = r["walls"]["prefill"], r["walls"]["decode"]
+        print(f"{tag} {MOE_ARCH} budget {bud}: generate {r['wall'] * 1e3:.3f}"
+              f" ms; prefill {pre[0] * 1e3:.3f} ms ({MOE_B * MOE_S / pre[0]:.1f}"
+              f" prompt tokens/s); decode median "
+              f"{statistics.median(dec) * 1e3:.3f} ms per step "
+              f"({MOE_B / statistics.median(dec):.3f} tokens/s), all "
+              f"{[round(x * 1e3, 3) for x in dec]}; peak memory "
+              f"{r['peak']:.3f} GiB")
+    sums = {}
+    for name, shapes in (("prefill experts", ex_pre), ("prefill rest",
+                                                       rest_pre),
+                         ("decode experts", ex_dec),
+                         ("decode rest", rest_dec)):
+        sums[name] = shapes_timing(b, shapes)
+    for fwd in ("prefill", "decode"):
+        e, r_ = sums[f"{fwd} experts"], sums[f"{fwd} rest"]
+        print(f"{tag} bitplane_matmul per {fwd} forward: experts "
+              f"{sum(ex_pre.values() if fwd == 'prefill' else ex_dec.values())}"
+              f" launches, device {e[5]:.4f} ms (kernel {e[0]:.4f}, bound "
+              f"{e[7]:.4f}, _int_mm device {e[6]:.4f}); the rest "
+              f"{sum(rest_pre.values() if fwd == 'prefill' else rest_dec.values())}"
+              f" launches, device {r_[5]:.4f} ms (kernel {r_[0]:.4f}, bound "
+              f"{r_[7]:.4f}, _int_mm device {r_[6]:.4f})")
+    per_call = [sums["prefill experts"][i] + sums["prefill rest"][i]
+                + (n_fwd - 1) * (sums["decode experts"][i]
+                                 + sums["decode rest"][i]) for i in range(8)]
+    fr = flash_row(b, fl_shape)
+
+    # ---- where one prefill's and one decode step's time goes
+    trace(torch, tag, f"one {MOE_ARCH} prefill", run_prefill,
+          ("bitplane_matmul", "flash_attention"))
+    _, cache = run_prefill()
+    tok = torch.zeros((MOE_B, 1), dtype=torch.long, device=dev)
+    t = torch.full((MOE_B,), MOE_S, dtype=torch.int32, device=dev)
+
+    def one_step():
+        with engine.compute_ctx():
+            lm.decode_step(engine.qparams, tok, t, cache, cfg, wv, av)
+
+    trace(torch, tag, f"one {MOE_ARCH} decode step", one_step,
+          ("bitplane_matmul",))
+    del cache, engine, qparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ncalls = len(MOE_BUDGETS)
+    kms, pms, lms, tb, to, dms, ldms, bms = per_call
+    return {
+        "bitplane": {"launches": sum(sum(r["launches"].values())
+                                     for r in runs),
+                     "ms": ncalls * kms, "plain_ms": ncalls * pms,
+                     "library_ms": ncalls * lms, "t_bytes": ncalls * tb,
+                     "t_ops": ncalls * to, "device_ms": ncalls * dms,
+                     "library_device_ms": ncalls * ldms,
+                     "bound_ms": ncalls * bms,
+                     "paths": {p: sum(r["paths"][p] for r in runs)
+                               for p in bpm.PATHS}},
+        "flash": flash_entry(sum(r["flash"] for r in runs), fr, ncalls * L),
+        "e2e": {"prefill_ms": runs[1]["walls"]["prefill"][0] * 1e3,
+                "decode_ms": statistics.median(runs[1]["walls"]["decode"])
+                * 1e3, "peak_gib": max(r["peak"] for r in runs),
+                "weights_gib": w_gib}}
+
+
+def vlm_smoke_card_vs_cpu(b: Bench) -> None:
+    """InternVL2 SMOKE on the card against the CPU (plain versions there):
+    a prefill behind prefixes with S + P > FLASH_THRESHOLD (logits as
+    ``gate_logits`` says), and continuous streams with prefixes on the bf16
+    and the int8 cache (tokens equal up to the float-order rule against
+    the CPU's standalone gaps)."""
+    torch = b.torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    scfg = configs.get_smoke(VLM_ARCH)
+    sg = torch.Generator().manual_seed(6)
+    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
+    P, d = scfg.n_prefix_tokens, scfg.d_model
+    ctrl = default_controller(lm.n_bit_slots(scfg))
+    S = LM_SMOKE_S - P + 8                      # S + P > FLASH_THRESHOLD
+    toks = torch.randint(0, scfg.vocab_size, (2, S), generator=sg)
+    pre = (torch.randn((2, P, d), generator=sg) * 0.02).bfloat16()
+
+    def prefill(where):
+        eng = ServeEngine(scfg, sqp, max_len=S + P + 8, controller=ctrl,
+                          device=where)
+        eng.set_budget([10.0, 0.4])
+        swv, sav = eng._bits()
+        cache = lm.empty_cache(scfg, 2, S + P + 8, device=where)
+        fa.reset_launches()
+        with eng.compute_ctx():
+            out, _ = lm.prefill(eng.qparams, {"tokens": toks.to(where),
+                                              "prefix": pre.to(where)},
+                                scfg, swv, sav, cache)
+        check(fa.launches == (scfg.n_layers if where.type == "cuda" else 0),
+              f"SMOKE vlm prefill on {where}: {fa.launches} flash launches")
+        return out[:, -1, :scfg.vocab_size].float().cpu()
+
+    card = prefill(b.dev)
+    cpu = prefill(torch.device("cpu"))
+    chunked = fa.flash_attention_chunked_ref
+    with mock.patch.object(fa, "flash_attention_chunked_ref",
+                           lambda q, k, v, causal, window:
+                           chunked(q, k, v, causal, window,
+                                   chunk=flash_tile())):
+        cpu_tiled = prefill(torch.device("cpu"))
+    gate_logits(f"SMOKE {VLM_ARCH} prefill behind prefixes (B=2, S={S}, "
+                f"P={P}, budgets [10.0, 0.4]), card vs CPU", card,
+                cpu_tiled, cpu)
+
+    reqs = cb_requests(scfg.vocab_size, 4, (3, CB_SMOKE_PREFILL), (4, 8),
+                       seed=8)
+    pfx = [(torch.randn((P, d), generator=sg) * 0.02).bfloat16()
+           for _ in reqs]
+    kw = dict(max_len=P + CB_SMOKE_PREFILL + 8, n_slots=2,
+              prefill_len=CB_SMOKE_PREFILL, decode_block=3)
+    exact = compared = 0
+    for kvb in (0, 8):
+        c = scfg.with_(kv_cache_bits=kvb)
+        toks_on = {}
+        for where, on in (("card", b.dev), ("cpu", torch.device("cpu"))):
+            eng = ServeEngine(c, sqp, controller=ctrl, device=on, **kw)
+            rids = cb_serve(eng, reqs, 3, 1, prefixes=pfx)[0]
+            toks_on[where] = [eng.requests[r].tokens for r in rids]
+        ref = ServeEngine(c, sqp, controller=ctrl, device="cpu", **kw)
+        for i, (prompt, m, budget) in enumerate(reqs):
+            want, gaps = cb_standalone(ref, prompt, m, budget,
+                                       CB_SMOKE_PREFILL, pfx[i])
+            check(toks_on["cpu"][i] == want, f"SMOKE vlm request {i} "
+                  f"(kv bits {kvb}) on the CPU: continuous "
+                  f"{toks_on['cpu'][i]} != standalone {want}")
+            n, same = tokens_agree(f"SMOKE vlm request {i} (kv bits {kvb})"
+                                   f" card vs CPU", toks_on["card"][i], want,
+                                   gaps)
+            compared += n
+            exact += same
+    print(f"SMOKE {VLM_ARCH} continuous with prefixes (4 requests, 2 slots; "
+          f"bf16 and int8 caches): card vs CPU tokens exact in {exact} of 8 "
+          f"streams, {compared} tokens compared; on the CPU continuous == "
+          f"standalone")
+
+
+def int64_dot(a, b_, spec: str):
+    """``transformer.int8_dot``'s two contractions recomputed in int64 by
+    elementwise products and sums (no matmul), on the operands' device."""
+    if spec == "bqkgd,bskd->bkgqs":        # a (B,Sq,KV,G,hd), b (B,Sc,KV,hd)
+        prod = (a.long().permute(0, 2, 3, 1, 4)[:, :, :, :, None, :]
+                * b_.long().permute(0, 2, 1, 3)[:, :, None, None])
+        return prod.sum(-1)
+    check(spec == "bkgqs,bskd->bqkgd", f"int8_dot spec {spec}")
+    prod = (a.long()[..., None]                 # (B,KV,G,Sq,Sc,1)
+            * b_.long().permute(0, 2, 1, 3)[:, :, None, None])
+    return prod.sum(-2).permute(0, 3, 1, 2, 4)
+
+
+def vlm_path(b: Bench) -> dict:
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import EMPTY_POS
+    from repro_torch.serve.engine import (SPEC_K_MAX, ServeEngine,
+                                          default_controller)
+    from repro_torch.serve.prefix_cache import PrefixCache
+
+    cfg = p7_configs()[1]
+    cfg8 = cfg.with_(kv_cache_bits=8)
+    L, V, P, d = cfg.n_layers, cfg.vocab_size, cfg.n_prefix_tokens, \
+        cfg.d_model
+    fams = (4, 8)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    qparams = lm.quantize_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{VLM_ARCH} FULL: {L} layers, d {d}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, qkv bias, d_ff "
+          f"{cfg.d_ff}, vocab {V} (padded {cfg.padded_vocab}), tied "
+          f"embeddings, {P} prefix tokens; weights drawn and quantized on "
+          f"the card in {time.perf_counter() - t0:.3f} s")
+    pg = torch.Generator(device=dev).manual_seed(5)
+
+    def prefixes(n):
+        """Seeded patch embeddings at the token embeddings' scale."""
+        return (torch.randn((n, P, d), generator=pg, device=dev) * 0.02
+                ).to(torch.bfloat16)
+
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    linears = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, cfg.d_ff),
+               (d, cfg.d_ff), (cfg.d_ff, d)]
+    kn = sorted(set(linears))
+    Sx = P + VLM_S
+    M_pre, M_dec = VLM_B * Sx, VLM_B
+    M_row, M_tick, M_ver = P + CB_PREFILL, VLM_SLOTS, VLM_SLOTS * (
+        SPEC_K_MAX + 1)
+    for K, N in kn:
+        for M, nps in ((M_pre, fams), (M_dec, fams), (M_row, (8,)),
+                       (M_tick, fams), (M_ver, fams)):
+            for n in nps:
+                b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
+    fl_shape = (VLM_B * cfg.n_heads, Sx, cfg.head_dim)
+    f_err = hold_flash(b, fl_shape[0], Sx, Sx, cfg.head_dim, True, 0)
+    print(f"kernel == plain: bit-plane at {len(kn)} InternVL2 (K, N) shapes "
+          f"at M = {M_pre}, {M_dec} (generate), {M_row} (a prefill row, 8 "
+          f"planes), {M_tick} and {M_ver} (tick, verify chunk) x n_planes "
+          f"{fams}; flash at {fl_shape} (hd 64, GQA {cfg.n_heads // cfg.n_kv_heads}"
+          f" expanded) causal within FLASH_TOL: max |err| {f_err:.6g}")
+
+    ctrl = default_controller(lm.n_bit_slots(cfg))
+    tokens = torch.randint(0, V, (VLM_B, VLM_S), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    batch = {"tokens": tokens, "prefix": prefixes(VLM_B)}
+    per_call = L * len(linears) * len(fams) * VLM_STEPS
+    # the timed generate calls' launches (the JSON line's), and the
+    # continuous and speculative runs'
+    out = {"launches": 0, "flash": 0, "paths": {p: 0 for p in bpm.PATHS},
+           "cb": 0}
+
+    def generate(c):
+        """(b)1 / (c)1: one warm-up, one counted and timed call."""
+        eng = ServeEngine(c, qparams, max_len=Sx + VLM_STEPS,
+                          controller=ctrl, device=dev)
+        check(eng.families == fams, f"bit families {eng.families}")
+        eng.set_budget(LM_BUDGETS)
+        first = eng.generate(batch, VLM_STEPS).cpu()
+        walls, timers = forward_timer(lm)
+        bpm.reset_launches()
+        fa.reset_launches()
+        with timers[0], timers[1]:
+            t0 = time.perf_counter()
+            toks = eng.generate(batch, VLM_STEPS).cpu()
+            wall = time.perf_counter() - t0
+        bp, fl = sum(bpm.launches.values()), fa.launches
+        check(fl == L and bp == per_call, f"kv bits {c.kv_cache_bits}: "
+              f"flash {fl} (want {L}), bit-plane {bp} (want {per_call}) "
+              f"launches per generate")
+        check(bpm.path_launches == {"small_m": per_call - per_call
+                                    // VLM_STEPS, "large_m": per_call
+                                    // VLM_STEPS, "large_m_copy_x": 0},
+              f"launches by path {bpm.path_launches}")
+        check(torch.equal(toks, first) and bool(((toks >= 0)
+                                                 & (toks < V)).all()),
+              f"kv bits {c.kv_cache_bits}: repeated generate calls differ")
+        out["launches"] += bp
+        out["flash"] += fl
+        for p_ in bpm.PATHS:
+            out["paths"][p_] += bpm.path_launches[p_]
+        return eng, toks, walls, wall
+
+    eng_g, toks_g, walls_g, wall_g = generate(cfg)
+    # flash on every layer's own q/k/v against the f32 oracle
+    wv, av = eng_g._bits()
+    layer_err = []
+    kernel_flash = fa.flash_attention
+
+    def held_flash(q, k, v, *, causal, window, scale=0.0, k_len=0):
+        o = kernel_flash(q, k, v, causal=causal, window=window, scale=scale)
+        layer_err.append(float((o.float() - oracle_f32(q, k, v, causal,
+                                                       window)).abs().max()))
+        return o
+
+    cache = lm.empty_cache(cfg, VLM_B, Sx + VLM_STEPS, device=dev)
+    with mock.patch.object(fa, "flash_attention", held_flash), \
+            eng_g.compute_ctx():
+        lm.prefill(eng_g.qparams, batch, cfg, wv, av, cache)
+    del cache
+    check(len(layer_err) == L and max(layer_err) <= FLASH_TOL,
+          f"flash on the path's q/k/v vs the oracle per layer: {layer_err}")
+    print(f"(b)1 generate (B={VLM_B}, {P} prefix + {VLM_S} prompt tokens, "
+          f"{VLM_STEPS} new, budgets {LM_BUDGETS}): per call flash {L} at "
+          f"{fl_shape}, bit-plane {per_call} at n_planes {fams}; identical "
+          f"across calls; flash on every layer's own q/k/v vs the oracle: "
+          f"max |err| {max(layer_err):.6g}; first row {toks_g[0].tolist()}")
+
+    def continuous(c, reqs, pfx, **kw):
+        eng = ServeEngine(c, qparams, controller=ctrl, device=dev,
+                          max_len=P + CB_PREFILL + VLM_NEW + SPEC_K_MAX,
+                          n_slots=VLM_SLOTS, prefill_len=CB_PREFILL,
+                          decode_block=CB_BLOCK,
+                          prefix_cache=PrefixCache(chunk=PC_CHUNK,
+                                                   capacity=PC_CAPACITY),
+                          **kw)
+        bpm.reset_launches()
+        res = cb_serve(eng, reqs, VLM_SLOTS + 2, 1, prefixes=pfx)
+        out["cb"] += sum(bpm.launches.values())
+        rids, wall, first_at, ticks = res[:4]
+        recs = [eng.requests[r] for r in rids]
+        check(all(r.done for r in recs) and eng.stats.unserved == 0,
+              "requests left unserved")
+        check(eng.pool.free_slots == VLM_SLOTS and bool(
+            (eng.pool.cache["kpos"] == EMPTY_POS).all()),
+              "after run(): a slot is held or a kpos is not EMPTY_POS")
+        led = eng.prefix_cache.ledger
+        check(led.lookups == 0 and len(eng.prefix_cache) == 0,
+              f"requests with a prefix reached the prefix cache: {led}")
+        for r, (_, m, budget) in zip(recs, reqs):
+            w_, a_ = eng.host_bits(budget)
+            want = apm.price_bit_vector(lm.layer_gemm_dims(c), w_.tolist(),
+                                        a_.tolist(),
+                                        head=lm.head_gemm_dims(c))
+            check(r.ap_cost == eng.price_bits(w_, a_) == want,
+                  f"request {r.rid}: ap_cost differs from the AP model")
+        ttft = sorted(first_at[r] - eng.requests[r].submitted_s
+                      for r in rids)
+        ntok = sum(len(r.tokens) for r in recs)
+        return eng, [r.tokens for r in recs], {
+            "wall": wall, "ttft_median_ms": statistics.median(ttft) * 1e3,
+            "tokens_per_s": ntok / wall, "ticks": len(ticks)}
+
+    reqs = cb_requests(V, VLM_REQUESTS, CB_PROMPT, (VLM_NEW, VLM_NEW),
+                       seed=9)
+    pfx = list(prefixes(VLM_REQUESTS))
+
+    def alone_gate(label, eng, toks):
+        for i, (prompt, m, budget) in enumerate(reqs):
+            want, _ = cb_standalone(eng, prompt, m, budget, CB_PREFILL,
+                                    pfx[i])
+            check(toks[i] == want, f"{label} request {i} != the request "
+                  f"alone: got {toks[i]}, want {want}")
+
+    eng_c, toks_c, e2e_c = continuous(cfg, reqs, pfx)
+    alone_gate("(b)2", eng_c, toks_c)
+    print(f"(b)2 continuous: {VLM_REQUESTS} requests with {P}-token prefixes"
+          f" ({VLM_SLOTS + 2} up front, the rest at tick 1), prompts "
+          f"{[len(p) for p, _, _ in reqs]}, {VLM_NEW} new tokens, "
+          f"{VLM_SLOTS} slots, prefill_len {CB_PREFILL}: every request "
+          f"EQUAL to it alone (batch-1 prefill behind its prefix + "
+          f"decode_step loop); the prefix cache saw no lookups; drained "
+          f"pool all EMPTY_POS; ap_cost == the AP model per request")
+
+    sreqs = [(p, VLM_SPEC_NEW, bud) for p, _, bud in reqs[:VLM_SPEC]]
+    eng_s = ServeEngine(cfg, qparams, controller=ctrl, device=dev,
+                        max_len=P + CB_PREFILL + VLM_NEW + SPEC_K_MAX,
+                        n_slots=VLM_SLOTS, prefill_len=CB_PREFILL,
+                        decode_block=CB_BLOCK, spec_k=CB_SPEC_K,
+                        draft_budget_s=CB_DRAFT_BUDGET)
+    bpm.reset_launches()
+    rids_s = cb_serve(eng_s, sreqs, VLM_SPEC, 1, prefixes=pfx)[0]
+    out["cb"] += sum(bpm.launches.values())
+    for i, r in enumerate(rids_s):
+        got = eng_s.requests[r].tokens
+        check(got == toks_c[i][:VLM_SPEC_NEW], f"(b)3 speculative request "
+              f"{i}: {got} != the first {VLM_SPEC_NEW} of (b)2's "
+              f"{toks_c[i]}")
+    check(eng_s.calls["verify"] > 0, "(b)3 ran no verify chunk")
+    print(f"(b)3 speculative (spec_k={CB_SPEC_K}, int4 drafts): {VLM_SPEC} "
+          f"requests with prefixes, each EQUAL to the first {VLM_SPEC_NEW} "
+          f"tokens of (b)2's; calls {eng_s.calls}")
+
+    # ---- (c) the int8 KV cache on the same weights
+    eng_g8, toks_g8, walls_g8, wall_g8 = generate(cfg8)
+    seen = []
+    real_dot = tf.int8_dot
+
+    def dot(a, b_, spec):
+        r = real_dot(a, b_, spec)
+        if len(seen) < 2:
+            seen.append((a, b_, spec, r))
+        return r
+
+    cache = lm.empty_cache(cfg8, VLM_B, Sx + VLM_STEPS, device=dev)
+    with eng_g8.compute_ctx():
+        logits, cache = lm.prefill(eng_g8.qparams, batch, cfg8, wv, av,
+                                   cache)
+        check(cache["k"].dtype == torch.int8 and cache["v"].dtype
+              == torch.int8 and cache["ks"].dtype == torch.bfloat16
+              and cache["vs"].dtype == torch.bfloat16,
+              f"int8 cache leaves {[(n, t.dtype) for n, t in cache.items()]}")
+        with mock.patch.object(tf, "int8_dot", dot):
+            lm.decode_step(eng_g8.qparams, logits[:, -1].argmax(-1)[:, None],
+                           torch.full((VLM_B,), Sx, device=dev), cache,
+                           cfg8, wv, av)
+    check(len(seen) == 2, f"{len(seen)} int8 dots captured")
+    for a, b_, spec, r in seen:
+        want = int64_dot(a, b_, spec)
+        check(r.dtype == torch.int32 and torch.equal(r.long(), want),
+              f"int8 decode accumulators ({spec}) != int64 recomputation: "
+              f"max |diff| {int((r.long() - want).abs().max())}")
+    qk_max = int(seen[0][3].abs().max())
+    pv_max = int(seen[1][3].abs().max())
+    cache_bytes = {n: t.numel() * t.element_size() for n, t in cache.items()}
+    bf16_bytes = sum(t.numel() * t.element_size() for t in lm.empty_cache(
+        cfg, VLM_B, Sx + VLM_STEPS, device="meta").values())
+    del cache
+    eng_c8, toks_c8, e2e_c8 = continuous(cfg8, reqs, pfx)
+    check(eng_c8.pool.cache["k"].dtype == torch.int8
+          and eng_c8.pool.cache["ks"].dtype == torch.bfloat16,
+          "the int8 engine's pool is not int8")
+    alone_gate("(c)2", eng_c8, toks_c8)
+    print(f"(c) int8 KV cache: generate as (b)1 ({toks_g8[0].tolist()} "
+          f"first row); layer 0's decode-step QK and PV int32 accumulators "
+          f"(max |acc| {qk_max} and {pv_max} over {Sx + 1} keys) EQUAL an "
+          f"int64 recomputation on the card; leaves k/v int8, ks/vs bf16: "
+          f"{sum(cache_bytes.values())} bytes against {bf16_bytes} for the "
+          f"bf16 cache ({VLM_B} rows of {Sx + VLM_STEPS}); continuous as "
+          f"(b)2, every request EQUAL to it alone")
+
+    check(out["cb"] > 0, "the continuous runs launched no bit-plane kernel")
+    print(f"bit-plane launches: {out['launches']} in the two timed generate "
+          f"calls (by path {out['paths']}), {out['cb']} in the continuous "
+          f"and speculative runs")
+
+    vlm_smoke_card_vs_cpu(b)
+
+    # ---- timings
+    e2e = {}
+    for label, walls, wall, e2e_cb in (("bf16", walls_g, wall_g, e2e_c),
+                                       ("int8", walls_g8, wall_g8, e2e_c8)):
+        pre, dec = walls["prefill"][0], statistics.median(walls["decode"])
+        e2e[label] = {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
+                      "generate_ms": wall * 1e3, **e2e_cb}
+        print(f"{tag} {VLM_ARCH} {label} KV cache: generate {wall * 1e3:.3f}"
+              f" ms; prefill (time to first token) {pre * 1e3:.3f} ms "
+              f"({VLM_B * Sx / pre:.1f} prompt tokens/s); decode median "
+              f"{dec * 1e3:.3f} ms per step ({VLM_B / dec:.3f} tokens/s at "
+              f"B={VLM_B}), all {[round(x * 1e3, 3) for x in walls['decode']]}"
+              f"; continuous run() {e2e_cb['wall']:.3f} s, time to first "
+              f"token median {e2e_cb['ttft_median_ms']:.3f} ms, "
+              f"{e2e_cb['tokens_per_s']:.3f} tokens/s over "
+              f"{e2e_cb['ticks']} ticks")
+    gen_shapes = {}
+    for K, N in linears:
+        for M, reps in ((M_pre, 1), (M_dec, VLM_STEPS - 1)):
+            gen_shapes[(M, K, N)] = gen_shapes.get((M, K, N), 0) + reps * L
+    tot = [0.0] * 8
+    for n in fams:
+        tot = [a + c for a, c in zip(tot, shapes_timing(b, gen_shapes, n))]
+    print(f"{tag} bitplane_matmul per {VLM_ARCH} generate call ({per_call} "
+          f"launches): kernel {tot[0]:.4f} ms (device {tot[5]:.4f}), plain "
+          f"{tot[1]:.4f} ms, torch._int_mm {tot[2]:.4f} ms (device "
+          f"{tot[6]:.4f}), bound {tot[7]:.4f} ms")
+    fr = flash_row(b, fl_shape, " (hd 64)")
+    del eng_g, eng_g8, eng_c, eng_c8, eng_s, qparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the timed generate calls (bf16 and int8) carry the kernels' times;
+    # the continuous runs' launches are counted, not timed
+    return {
+        "bitplane": {"launches": out["launches"], "ms": 2 * tot[0],
+                     "plain_ms": 2 * tot[1], "library_ms": 2 * tot[2],
+                     "t_bytes": 2 * tot[3], "t_ops": 2 * tot[4],
+                     "device_ms": 2 * tot[5],
+                     "library_device_ms": 2 * tot[6],
+                     "bound_ms": 2 * tot[7], "paths": out["paths"]},
+        "flash": flash_entry(out["flash"], fr, 2 * L),
+        "e2e": e2e}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -3484,9 +4414,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-9. the six paths (a development run may pick some with
-    # --paths 1,4; only a run of all six prints the result lines)
-    every = {1, 2, 3, 4, 5, 6}
+    # ---- 4.-10. the seven paths (a development run may pick some with
+    # --paths 1,4; only a run of all seven prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -3502,9 +4432,14 @@ def main() -> None:
                 lm_path(b, cfg, qparams)
             cbr = cb_path(b, cfg, qparams) if 4 in picked else None
             if 5 in picked:
-                pc_path(b, cfg, qparams)
+                pc_path(b, *lm_cut(cfg, qparams, PC_LAYERS))
             if 6 in picked:
                 so_path(b, cfg, qparams, cb_ref=cbr)
+            del qparams
+            torch.cuda.empty_cache()
+        if 7 in picked:
+            moe_path(b)
+            vlm_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed; no result line for a "
               f"partial run")
@@ -3522,10 +4457,14 @@ def main() -> None:
     cfg, qparams = lm_weights(b)
     lmr = timed("3", lm_path, b, cfg, qparams)
     cbr = timed("4", cb_path, b, cfg, qparams)
-    pcr = timed("5", pc_path, b, cfg, qparams)
+    pcr = timed("5", pc_path, b, *lm_cut(cfg, qparams, PC_LAYERS))
     sor = timed("6", so_path, b, cfg, qparams, cnn_ref=cnn, cb_ref=cbr)
+    del qparams                 # path 7 needs the card's memory
+    torch.cuda.empty_cache()
+    moer = timed("7 (a)", moe_path, b)
+    vlmr = timed("7 (b, c)", vlm_path, b)
     print(f"{b.tag} walls: " + ", ".join(
-        f"{k if not k.isdigit() else 'path ' + k} {v:.3f} s"
+        f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
         + f"; the script so far {time.perf_counter() - t_start:.3f} s")
     # the spike replays pad every batch to BATCH images: path 1's shapes
@@ -3542,15 +4481,16 @@ def main() -> None:
                 "qwen3_4b_continuous_and_speculative_runs": cbr["bitplane"],
                 "qwen3_4b_prefix_cache_and_closed_loop": pcr["bitplane"],
                 "resnet18_spike_replays": spike,
-                "two_ranks_and_co_decision": sor["bitplane"]}
-    fl = lmr["flash"]
+                "two_ranks_and_co_decision": sor["bitplane"],
+                "moonshot_generate_calls": moer["bitplane"],
+                "internvl2_generate_calls": vlmr["bitplane"]}
+    fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
+                "moonshot_generate_calls": moer["flash"],
+                "internvl2_generate_calls": vlmr["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
-        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-         "replaces": FLASH_REPLACES, "launches": fl["launches"],
-         "max_abs_err": b.fa_err, "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-         "library_ms": fl["library_ms"], "device_ms": fl["device_ms"]},
+        kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
+                   fl_paths),
         kernel_row("int4_matmul", INT4_SOURCE, INT4_REPLACES, b.i4_err,
             {"alexnet_int4_forward": alex["int4"]}),
         kernel_row("quant_matmul", QUANT_SOURCE, QUANT_REPLACES, b.q_err,
@@ -3575,7 +4515,14 @@ def main() -> None:
           f"{sor['e2e']['tick_median_ms']:.3f} ms median with two ranks on "
           f"one card, mean wbits of the spike {sor['e2e']['wbits'][0]:.4f} "
           f"without a plan and {sor['e2e']['wbits'][1]:.4f} with the partial "
-          f"one")
+          f"one; {MOE_ARCH} prefill {moer['e2e']['prefill_ms']:.3f} ms, decode "
+          f"{moer['e2e']['decode_ms']:.3f} ms per step (int8, B={MOE_B}), "
+          f"peak {moer['e2e']['peak_gib']:.3f} GiB; {VLM_ARCH} prefill "
+          f"{vlmr['e2e']['bf16']['prefill_ms']:.3f} ms, decode "
+          f"{vlmr['e2e']['bf16']['decode_ms']:.3f} ms per step with the bf16 "
+          f"cache and {vlmr['e2e']['int8']['decode_ms']:.3f} with the int8 "
+          f"one, continuous time to first token median "
+          f"{vlmr['e2e']['bf16']['ttft_median_ms']:.3f} ms")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

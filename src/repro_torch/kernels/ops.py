@@ -3,7 +3,7 @@
 The counterpart of ``repro.kernels.ops`` for the serve path: every
 quantized GEMM in ``models/`` reaches a kernel only through
 :func:`serve_linear` (or :func:`serve_linear_stacked` for grouped-conv
-stacks, which runs it slice by slice).  An int8 container goes through
+and MoE expert stacks, which launches the kernel slice by slice).  An int8 container goes through
 :func:`int8_accum` to :func:`repro_torch.kernels.bitplane_matmul.
 bitplane_matmul`; a packed-int4 container at a static (Python int) width
 of 4 bits or more goes through :func:`int4_linear` to the packed kernel,
@@ -249,14 +249,49 @@ def serve_linear_stacked(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
     ``stack_bits=False``: ``wbits`` is shared by every slice, a scalar or
     a per-row ``(B,)`` vector when ``x`` is ``(G, B, ..., K)``.
     ``stack_bits=True``: ``wbits`` is a ``(G,)`` vector, one width per
-    slice, each a 0-d tensor (the container path at 8 planes).  Biases are
-    not stacked: callers add a full-width bias after recombining slices.
+    slice (MoE per-expert precision), each a tensor: the container path
+    at 8 planes.  ``abits`` must then be a scalar (MoE batches share one
+    activation width): the branch quantizes, requantizes and rescales all
+    G slices at once (each step is elementwise or a per-slice max, so
+    every slice's numbers are those of its own :func:`serve_linear`) and
+    launches the kernel once per slice.  Biases are not stacked: callers
+    add a full-width bias after recombining slices.
     """
     G = x.shape[0]
-    bits = (list(_bits_on(wbits, x.device).expand(G)) if stack_bits
-            else [wbits] * G)
+    if stack_bits:
+        if getattr(abits, "ndim", 0) != 0:
+            raise NotImplementedError(
+                "serve_linear_stacked(stack_bits=True) takes a scalar abits")
+        return _stacked_container(p, x, _bits_on(wbits, x.device).expand(G),
+                                  abits)
     return torch.stack([serve_linear({k: v[g] for k, v in p.items()}, x[g],
-                                     bits[g], abits) for g in range(G)])
+                                     wbits, abits) for g in range(G)])
+
+
+def _stacked_container(p, x, wb, abits):
+    """The vectorised ``stack_bits`` branch of :func:`serve_linear_stacked`:
+    G int8 or packed-int4 containers, slice g at ``wb[g]`` bits, one
+    activation width ``abits`` for all."""
+    if torch.is_tensor(abits):
+        abits = abits.to(x.device)
+    G, K = x.shape[0], x.shape[-1]
+    if "q4" in p:
+        qw, from_bits = bf.unpack_int4_halves(p["q4"]), 4
+    else:
+        qw, from_bits = p["q"], 8
+    bits = wb.reshape(G, 1, 1)
+    x2 = x.float().reshape(G, -1, K)                        # (G, R, K)
+    # one per-tensor activation scale per slice
+    amax = x2.abs().amax(dim=(1, 2), keepdim=True)
+    x_scale = amax.clamp_min(1e-8).float() / bf.qmax(abits, x.device)
+    x_q = bf.quantize(x2, x_scale, abits)
+    w_q = bf.requant_shift(qw, bits, from_bits=from_bits)   # (G, K, N)
+    w_s = bf.effective_scale(p["s"], bits, from_bits=from_bits)
+    acc = torch.stack([int8_accum(x_q[g], w_q[g]) for g in range(G)])
+    y = acc.float() * x_scale * w_s
+    if "b" in p:
+        y = y + p["b"].float()[:, None]
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
 
 
 def _family_index(wb: torch.Tensor, fams) -> torch.Tensor:

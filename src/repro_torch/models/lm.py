@@ -1,10 +1,12 @@
-"""LM wiring for the dense family: embeddings, the layer stack, logits,
-prefill/decode, the slot-based cache pool, and the train/serve parameter
-forms.
+"""LM wiring for the attention families (dense, moe, vlm): embeddings,
+the layer stack, logits, prefill/decode, the slot-based cache pool, and
+the train/serve parameter forms.
 
 The counterpart of ``repro.models.lm``:
   init_params(cfg, gen, device=)             -> train-form dict (bf16)
   quantize_params(params, cfg, container)    -> serve-form (int8/int4 + scales)
+  init_serve_params(cfg, gen, device=)       -> serve-form, drawn and
+                                                quantized layer by layer
   prefill(params, batch, cfg, wvec, avec, cache, lengths=None)
                                              -> (last_logits, cache)
   decode_step(params, tok, t, cache, cfg, wvec, avec) -> (logits, cache)
@@ -21,8 +23,17 @@ the decode calls is a scalar (lock-step batch) or ``(B,)`` per-row
 positions (continuous batching); ``lengths`` in prefill marks per-row
 valid prompt lengths of a right-padded batch.
 
-Only the dense family is ported; the others (moe, ssm, hybrid, encdec,
-vlm) raise ``NotImplementedError`` naming the family.
+The dense, moe and vlm families are ported; the others (ssm, hybrid,
+encdec) raise ``NotImplementedError`` naming the family.  A vlm batch
+carries ``batch["prefix"]``, precomputed ``(B, n_prefix_tokens,
+d_model)`` patch embeddings that prefill puts in front of the prompt.
+
+MoE expert stacks are ``(L, E, d, f)``; :func:`quantize_params`
+quantizes them per expert (``{"q": int8 (L, E, d, f), "s": (L, E, 1,
+f)}``).  The reference's rule quantizes only ``ndim == 3`` expert
+leaves, so its LM stacks stay bf16 and its serve path runs the
+fake-quant train form; the port departs from it on purpose (ROADMAP
+Queue C).
 """
 from __future__ import annotations
 
@@ -33,13 +44,15 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
-PORTED_FAMILIES = ("dense",)
-# The reference's family lists (only "dense" is ported; the others raise
-# through _require_ported).  Families whose layer stacks accept
-# (B, n_layers) per-request bit matrices:
+PORTED_FAMILIES = ("dense", "moe", "vlm")
+# The reference's family lists (the families outside PORTED_FAMILIES
+# raise through _require_ported).  Families whose layer stacks accept
+# (B, n_layers) per-request bit matrices (MoE resolves a per-expert axis
+# instead):
 PER_ROW_BIT_FAMILIES = ("dense", "vlm", "ssm")
 # Families whose prefill takes ragged per-row prompt lengths (attention
 # masks the padding; a recurrence would consume the pad tokens):
@@ -75,10 +88,18 @@ def layer_gemm_dims(cfg: ModelConfig):
             (d, cfg.n_kv_heads * cfg.head_dim),
             (d, cfg.n_kv_heads * cfg.head_dim),
             (cfg.n_heads * cfg.head_dim, d))
-    f = cfg.d_ff
-    mlp = ((d, f), (d, f), (f, d)) if cfg.mlp_type == "swiglu" \
-        else ((d, f), (f, d))
-    return (attn + mlp,) * cfg.n_layers
+
+    def mlp(f):
+        if cfg.mlp_type == "swiglu":
+            return ((d, f), (d, f), (f, d))
+        return ((d, f), (f, d))
+
+    if cfg.family == "moe":
+        per = attn + cfg.experts_per_token * mlp(cfg.d_ff)
+        if cfg.n_shared_experts:
+            per = per + mlp(cfg.d_ff * cfg.n_shared_experts)
+        return (per,) * cfg.n_layers
+    return (attn + mlp(cfg.d_ff),) * cfg.n_layers
 
 
 def head_gemm_dims(cfg: ModelConfig):
@@ -99,11 +120,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     p = {"emb": (emb * 0.02).to(cm.DTYPE).to(dev),
          "ln_f": cm.norm_init(cfg.d_model, cfg.norm_type, device=dev)}
     del emb
-    p["layers"] = tf.block_init(gen, cfg, lead=(cfg.n_layers,), device=dev)
+    p["layers"] = layer_init(gen, cfg, lead=(cfg.n_layers,), device=dev)
     if not cfg.tie_embeddings:
         p["head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                   scale=cfg.d_model ** -0.5, device=dev)
     return p
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+               device) -> dict:
+    """One block's train-form parameters (``lead`` prepends stack dims):
+    the dense block, with the MoE FFN as its ``mlp`` for moe."""
+    blk = tf.block_init(gen, cfg, lead=lead, device=device)
+    if cfg.family == "moe":
+        blk["mlp"] = moe.moe_init(gen, cfg, lead=lead, device=device)
+    return blk
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +149,9 @@ def quantize_params(params: dict, cfg: ModelConfig,
                     container: str = "int8") -> dict:
     """Train-form -> serve-form.  Every linear {"w": (..., K, N)} becomes
     {"q"/"q4", "s"} with per-out-channel scales, stacked dims preserved;
-    3-D expert stacks quantize per expert; ``emb`` (a gather table) and
-    the norms stay bf16."""
+    expert stacks (``(E, d, f)``, or ``(L, E, d, f)`` in a layer stack)
+    quantize per expert to int8; the router, ``emb`` (a gather table)
+    and the norms stay bf16."""
     from repro_torch.core import bitfluid as bf
 
     def q_expert(w: torch.Tensor) -> dict:
@@ -136,7 +168,7 @@ def quantize_params(params: dict, cfg: ModelConfig,
                 if k in _FP_SUBTREES:
                     out[k] = v
                 elif (k in _EXPERT_KEYS and not isinstance(v, dict)
-                        and getattr(v, "ndim", 0) == 3):
+                        and getattr(v, "ndim", 0) >= 3):
                     out[k] = q_expert(v)
                 else:
                     out[k] = rec(v, path + (k,))
@@ -144,6 +176,54 @@ def quantize_params(params: dict, cfg: ModelConfig,
         return node
 
     return rec(params, ("",))
+
+
+def init_serve_params(cfg: ModelConfig, gen: torch.Generator, *,
+                      device="cuda", container: str = "int8") -> dict:
+    """Serve-form parameters drawn and quantized one layer at a time into
+    preallocated ``(L, ...)`` stacks, so the train form of only one layer
+    is ever resident (a MoE model's bf16 expert stacks may not fit beside
+    its serve form).  The same layout and dtypes as
+    ``quantize_params(init_params(...))``; the draws come in another
+    order, so the values differ."""
+    _require_ported(cfg)
+    dev = cm.resolve_device(device)
+    L = cfg.n_layers
+    stacks = None
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    for i in range(L):
+        layer = quantize_params(layer_init(gen, cfg, device=dev), cfg,
+                                container)
+        if stacks is None:
+            stacks = _map(lambda t: torch.empty((L,) + tuple(t.shape),
+                                                dtype=t.dtype, device=dev),
+                          layer)
+        put(stacks, layer, i)
+        del layer
+    emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                      dtype=torch.float32, device=gen.device)
+    p = {"emb": (emb * 0.02).to(cm.DTYPE).to(dev),
+         "ln_f": cm.norm_init(cfg.d_model, cfg.norm_type, device=dev),
+         "layers": stacks}
+    del emb
+    if not cfg.tie_embeddings:
+        p["head"] = cm.quantize_linear(
+            cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                          scale=cfg.d_model ** -0.5, device=dev), container)
+    return p
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +238,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None):
+def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None,
+                 mlp_fn=None):
+    """The layer loop.  Returns (x, cache, the mean of the layers' aux)."""
+    aux = []
     for i in range(cfg.n_layers):
         cl = _layer(cache, i) if cache is not None else None
-        x, _ = tf.block(_layer(layers, i), x, cfg, wvec[i], avec[i],
-                        positions=positions, cache=cl, t=t)
-    return x, cache
+        x, _, a = tf.block(_layer(layers, i), x, cfg, wvec[i], avec[i],
+                           positions=positions, cache=cl, t=t,
+                           mlp_fn=mlp_fn)
+        aux.append(a)
+    return x, cache, torch.stack(aux).mean()
 
 
 def _layer_major(vec, family: str, device) -> torch.Tensor:
@@ -182,12 +267,15 @@ def _layer_major(vec, family: str, device) -> torch.Tensor:
 
 def forward_hidden(params, x, cfg: ModelConfig, wvec, avec, *, positions,
                    cache=None, t=None):
-    """Embedded inputs -> final hidden states.  Returns (h, cache)."""
+    """Embedded inputs -> final hidden states.  Returns (h, cache, aux),
+    aux the MoE load-balance loss averaged over the layers (0 for the
+    dense stacks)."""
     _require_ported(cfg)
     wvec = _layer_major(wvec, cfg.family, x.device)
     avec = _layer_major(avec, cfg.family, x.device)
     return _dense_stack(params["layers"], x, cfg, wvec, avec, positions,
-                        cache, t)
+                        cache, t, mlp_fn=(moe.apply_moe if cfg.family == "moe"
+                                          else None))
 
 
 # ---------------------------------------------------------------------------
@@ -243,33 +331,44 @@ def prefill(params, batch: dict, cfg: ModelConfig, wvec, avec, cache: dict,
     ``lengths`` (B,) marks per-row valid prompt lengths of a right-padded
     batch (continuous batching): padded positions take EMPTY_POS (never
     visible to real queries nor in the cache) and zeroed embeddings, and
-    each row's logits are gathered at its own last real token."""
+    each row's logits are gathered at its own last real token.  A vlm
+    batch's ``prefix`` (B, P, d) goes in front of the tokens: the cache
+    then holds P + S positions, and each row's valid length is P +
+    ``lengths``."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params, tokens)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        prefix = torch.as_tensor(batch["prefix"]).to(x.device, cm.DTYPE)
+        prefix_len = prefix.shape[1]
+        x = torch.cat([prefix, x], dim=1)
+    Sx = x.shape[1]
     if lengths is None:
-        # (1, S): rows share positions, so attention keeps one (S, S) mask
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+        # (1, Sx): rows share positions, so attention keeps one (Sx, Sx)
+        # mask
+        positions = torch.arange(Sx, dtype=torch.int32,
+                                 device=x.device)[None]
     else:
         if cfg.family not in RAGGED_PREFILL_FAMILIES:
             raise NotImplementedError(
                 f"ragged (per-row lengths) prefill is not supported for "
                 f"family {cfg.family!r}")
-        if S > tf.FLASH_THRESHOLD:
+        if Sx > tf.FLASH_THRESHOLD:
             raise NotImplementedError(
                 f"ragged prefill uses the masked-SDPA path; keep the padded "
                 f"prompt length <= {tf.FLASH_THRESHOLD}")
         lens = torch.as_tensor(lengths, dtype=torch.int32).to(
-            x.device).reshape(B)
-        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-        valid = pos < lens[:, None]                       # (B, S)
+            x.device).reshape(B) + prefix_len
+        pos = torch.arange(Sx, dtype=torch.int32, device=x.device)[None]
+        valid = pos < lens[:, None]                       # (B, Sx)
         positions = torch.where(valid, pos, tf.EMPTY_POS).to(torch.int32)
         # zero pad embeddings so per-row dynamic activation scales see only
         # real tokens
         x = torch.where(valid[..., None], x, 0).to(x.dtype)
-    h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
-                                  positions=positions, cache=cache)
+    h, new_cache, _ = forward_hidden(params, x, cfg, wvec, avec,
+                                     positions=positions, cache=cache)
     if lengths is None:
         h_last = h[:, -1:]
     else:
@@ -287,8 +386,8 @@ def decode_step(params, tok: torch.Tensor, t, cache: dict, cfg: ModelConfig,
     x = embed(params, tok)
     t = torch.as_tensor(t, dtype=torch.int32).to(x.device)
     positions = t.expand(B)[:, None]                      # (B, 1)
-    h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
-                                  positions=positions, cache=cache, t=t)
+    h, new_cache, _ = forward_hidden(params, x, cfg, wvec, avec,
+                                     positions=positions, cache=cache, t=t)
     return (logits_fn(params, h, cfg, _last_layer_bits(wvec),
                       _last_layer_bits(avec)), new_cache)
 
@@ -316,8 +415,9 @@ def decode_chunk(params, toks: torch.Tensor, t, cache: dict,
     positions = (t.expand(B)[:, None]
                  + torch.arange(U, dtype=torch.int32, device=x.device)[None])
     with kops.token_scale_mode():
-        h, new_cache = forward_hidden(params, x, cfg, wvec, avec,
-                                      positions=positions, cache=cache, t=t)
+        h, new_cache, _ = forward_hidden(params, x, cfg, wvec, avec,
+                                         positions=positions, cache=cache,
+                                         t=t)
         logits = logits_fn(params, h, cfg, _last_layer_bits(wvec),
                            _last_layer_bits(avec))
     return logits, new_cache

@@ -1,5 +1,5 @@
 """Dense transformer blocks: GQA attention (RoPE, qk_norm, QKV bias, sliding
-window), SwiGLU/GELU MLPs, bf16 KV-cache prefill/decode.
+window), SwiGLU/GELU MLPs, KV-cache prefill/decode (bf16 or int8).
 
 The counterpart of ``repro.models.transformer`` for the dense family.
 Every GEMM goes through ``common.apply_linear``, so per-layer (wbits,
@@ -24,8 +24,16 @@ speculative verify) writes its U entries into the ring slots that U
 sequential steps would write, in place, and masks each query to its own
 ``kpos <= pos`` prefix.
 
-Not ported yet, and raising ``NotImplementedError``: the int8 KV cache
-(``kv_cache_bits=8``) and cross-attention.
+``kv_cache_bits=8`` stores int8 keys and values with a bf16 scale per
+(token, head) (``ks``/``vs`` leaves).  Its decode attention
+(:func:`_sdpa_int8`) quantizes q per (token, head) and the probabilities
+per (query, head), and takes both dots on integers exactly, as the
+reference's int32 einsums do: the products run in float64, whose sums
+of int8 x int8 terms are exact below 2^53, so every accumulator is the
+same integer in any summation order, on either device, and a row's
+result does not depend on the rows beside it.
+
+Not ported yet, and raising ``NotImplementedError``: cross-attention.
 """
 from __future__ import annotations
 
@@ -85,17 +93,69 @@ def block_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
 
 
 def empty_cache(cfg, batch: int, max_len: int, *, device) -> dict:
-    """Stacked (n_layers, ...) bf16 cache with every slot empty."""
-    if cfg.kv_cache_bits == 8:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_cache_bits=8) is not ported yet")
+    """Stacked (n_layers, ...) cache with every slot empty: bf16 k/v, or
+    with ``kv_cache_bits == 8`` int8 k/v and bf16 per-(token, head)
+    scales ``ks``/``vs``."""
     L = cfg.n_layers
     Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     kv = (L, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
-    return {"kpos": torch.full((L, batch, Sc), EMPTY_POS, dtype=torch.int32,
-                               device=device),
-            "k": torch.zeros(kv, dtype=cm.DTYPE, device=device),
-            "v": torch.zeros(kv, dtype=cm.DTYPE, device=device)}
+    out = {"kpos": torch.full((L, batch, Sc), EMPTY_POS, dtype=torch.int32,
+                              device=device)}
+    if cfg.kv_cache_bits == 8:
+        out.update({"k": torch.zeros(kv, dtype=torch.int8, device=device),
+                    "v": torch.zeros(kv, dtype=torch.int8, device=device),
+                    "ks": torch.zeros(kv[:-1], dtype=cm.DTYPE, device=device),
+                    "vs": torch.zeros(kv[:-1], dtype=cm.DTYPE,
+                                      device=device)})
+    else:
+        out.update({"k": torch.zeros(kv, dtype=cm.DTYPE, device=device),
+                    "v": torch.zeros(kv, dtype=cm.DTYPE, device=device)})
+    return out
+
+
+def _quant_heads(x: torch.Tensor):
+    """(B, S, KV, hd) -> int8 values and a bf16 scale per (token, head)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    s = amax.clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    return q, s[..., 0].to(cm.DTYPE)
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
+    """``torch.einsum(spec, a, b)`` of two int8 tensors, exactly, as int32:
+    the products and sums run in float64, where every partial sum of int8
+    x int8 terms is an integer below 2^53 (any length below 2^38), so
+    the result is the exact integer whatever the summation order."""
+    return torch.einsum(spec, a.to(torch.float64),
+                        b.to(torch.float64)).to(torch.int32)
+
+
+def _sdpa_int8(q, kq, ks, vq, vs, bias):
+    """Attention on the int8 cache: scores = (q_q . k_q) sq ks.
+
+    q: (B, Sq, H, hd) bf16; kq/vq: (B, Sc, KV, hd) int8; ks/vs: (B, Sc,
+    KV); bias (B, Sq, Sc).  The reference's arithmetic: the QK and PV
+    accumulators are exact integers (:func:`int8_dot`), the probabilities
+    fold in the v scales and quantize to int8 per (query, head)."""
+    B, Sq, H, hd = q.shape
+    KV = kq.shape[2]
+    G = H // KV
+    qq, qs = _quant_heads(q)
+    acc = int8_dot(qq.reshape(B, Sq, KV, G, hd), kq,
+                   "bqkgd,bskd->bkgqs")                      # (B,KV,G,Sq,Sc)
+    qs_g = qs.reshape(B, Sq, KV, G).permute(0, 2, 3, 1)[..., None]
+    scores = (acc.float() * qs_g.float()
+              * ks.float().permute(0, 2, 1)[:, :, None, None, :])
+    scores = scores * (hd ** -0.5) + bias[:, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    # fold the v scales into the probabilities, quantize them to int8
+    pv = probs * vs.float().permute(0, 2, 1)[:, :, None, None, :]
+    pmax = pv.amax(dim=-1, keepdim=True) + 1e-9
+    p_q = torch.clamp(torch.round(pv / pmax * 127.0), 0, 127).to(torch.int8)
+    out = int8_dot(p_q, vq, "bkgqs,bskd->bqkgd")            # (B,Sq,KV,G,hd)
+    out = out.float() * (pmax.permute(0, 3, 1, 2, 4) / 127.0)
+    return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
 
 
 def _row_insert(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor
@@ -212,9 +272,7 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         k_new = cm.apply_rope(k_new, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None and "ks" in cache:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_cache_bits=8) is not ported yet")
+    int8_cache = cache is not None and "ks" in cache
     if cache is not None and x.shape[1] == 1:            # decode (S == 1)
         B = x.shape[0]
         Sc = cache["k"].shape[1]
@@ -226,10 +284,21 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         if cfg.sliding_window:
             visible &= kpos > positions[:, -1:] - cfg.sliding_window
         bias = cm.visibility_bias(visible)[:, None, :]   # (B, Sq=1, Sc)
-        k = _row_insert(cache["k"], k_new, slot)
-        v = _row_insert(cache["v"], v_new, slot)
-        new_cache = {"k": k, "v": v, "kpos": kpos}
-        out = _sdpa_rows(q, k, v, bias)
+        if int8_cache:
+            kq_n, ks_n = _quant_heads(k_new)
+            vq_n, vs_n = _quant_heads(v_new)
+            new_cache = {"k": _row_insert(cache["k"], kq_n, slot),
+                         "v": _row_insert(cache["v"], vq_n, slot),
+                         "ks": _row_insert(cache["ks"], ks_n, slot),
+                         "vs": _row_insert(cache["vs"], vs_n, slot),
+                         "kpos": kpos}
+            out = _sdpa_int8(q, new_cache["k"], new_cache["ks"],
+                             new_cache["v"], new_cache["vs"], bias)
+        else:
+            k = _row_insert(cache["k"], k_new, slot)
+            v = _row_insert(cache["v"], v_new, slot)
+            new_cache = {"k": k, "v": v, "kpos": kpos}
+            out = _sdpa_rows(q, k, v, bias)
     elif cache is not None and t is not None:            # chunked decode
         # speculative verify: U consecutive positions per row in one
         # forward.  The writes land in the ring slots sequential decode
@@ -248,11 +317,19 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         if cfg.sliding_window:
             visible &= kpos[:, None, :] > pos[:, :, None] - cfg.sliding_window
         bias = cm.visibility_bias(visible)
-        k, v = cache["k"], cache["v"]
-        k[rows, slots] = k_new.to(k.dtype)
-        v[rows, slots] = v_new.to(v.dtype)
-        new_cache = {"k": k, "v": v, "kpos": kpos}
-        out = _sdpa_rows(q, k, v, bias)
+        new_cache = dict(cache)
+        if int8_cache:
+            for name, (vals, scale) in (("k", _quant_heads(k_new)),
+                                        ("v", _quant_heads(v_new))):
+                cache[name][rows, slots] = vals
+                cache[name + "s"][rows, slots] = scale
+            out = _sdpa_int8(q, cache["k"], cache["ks"], cache["v"],
+                             cache["vs"], bias)
+        else:
+            k, v = cache["k"], cache["v"]
+            k[rows, slots] = k_new.to(k.dtype)
+            v[rows, slots] = v_new.to(v.dtype)
+            out = _sdpa_rows(q, k, v, bias)
     else:                                                # full sequence
         pos1 = positions[0]
         S = x.shape[1]
@@ -302,6 +379,12 @@ def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
         k_keep = torch.gather(k, 1, gidx)
         v_keep = torch.gather(v, 1, gidx)
     cache_layer["kpos"][:, :keep] = kpos_new
+    if "ks" in cache_layer:                              # int8 cache
+        for name, new in (("k", k_keep), ("v", v_keep)):
+            vals, scale = _quant_heads(new)
+            cache_layer[name][:, :keep] = vals
+            cache_layer[name + "s"][:, :keep] = scale
+        return cache_layer
     cache_layer["k"][:, :keep] = k_keep.to(cache_layer["k"].dtype)
     cache_layer["v"][:, :keep] = v_keep.to(cache_layer["v"].dtype)
     return cache_layer
@@ -323,14 +406,20 @@ def mlp(p, x, cfg, wbits=8, abits=8):
 
 
 def block(p, x, cfg, wbits=8, abits=8, *, positions, causal=True,
-          cache=None, t=None):
-    """Pre-norm residual block.  Returns (x, new_cache)."""
+          cache=None, t=None, mlp_fn=None):
+    """Pre-norm residual block; ``mlp_fn`` replaces :func:`mlp` (the MoE
+    FFN, which returns ``(y, aux)``).  Returns (x, new_cache, aux)."""
     h, new_cache = attention(p["attn"],
                              cm.apply_norm(p["ln1"], x, cfg.norm_type,
                                            cfg.norm_eps),
                              cfg, wbits, abits, positions=positions,
                              causal=causal, cache=cache, t=t)
     x = x + h
-    y = mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps),
-            cfg, wbits, abits)
-    return x + y, new_cache
+    fn = mlp_fn if mlp_fn is not None else mlp
+    out = fn(p["mlp"], cm.apply_norm(p["ln2"], x, cfg.norm_type,
+                                     cfg.norm_eps), cfg, wbits, abits)
+    if isinstance(out, tuple):                    # MoE returns (y, aux)
+        y, aux = out
+    else:
+        y, aux = out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, new_cache, aux

@@ -35,7 +35,15 @@ this module owns what is LM-shaped.
   * whole-batch: ``set_budget(scalar | (B,) vector)`` + ``generate(batch,
     steps)``; a prompt longer than ``transformer.FLASH_THRESHOLD`` sends
     every layer's self-attention through the flash kernel.  It is open
-    loop, so it refuses a FluidController.
+    loop, so it refuses a FluidController.  It is the only API of the
+    moe family (whole-batch budgets: a MoE batch shares its experts'
+    capacity and activation scales, so its rows are not independent).
+
+A vlm request carries its image as a stub: precomputed patch embeddings,
+``(n_prefix_tokens, d_model)`` (``submit(prefix=)``, or ``batch["prefix"]``
+of shape (B, n_prefix_tokens, d_model) for ``generate``), prefilled in
+front of the prompt.  Such a request bypasses the prefix cache: its
+embeddings are not content-keyed.
 
 The reference jit-compiles each program (a scan-fused decode block, one
 draft and one verify program for every depth); here each runs eagerly as
@@ -84,8 +92,7 @@ same noise for different rows).
 Not ported yet, and raising ``NotImplementedError``: a mesh without a
 fully replicated plan or with a tensor-parallel axis (sharded weights);
 ``generate``, speculation and the prefix cache on a mesh (they would
-move rows across ranks); vlm prefixes; the families outside
-``lm.PORTED_FAMILIES``.
+move rows across ranks); the families outside ``lm.PORTED_FAMILIES``.
 """
 from __future__ import annotations
 
@@ -121,6 +128,7 @@ class Request:
     budget_s: Optional[float]
     temperature: float = 0.0
     top_k: int = 0
+    prefix: Optional[np.ndarray] = None  # vlm: (n_prefix_tokens, d) stub
     rep_key: Optional[int] = None       # traffic repetition key (the
                                         # prefix-cache count signal)
     draft_k: Optional[int] = None       # speculative draft depth override
@@ -371,13 +379,17 @@ class ServeEngine(ServeRuntime):
     # The engine's programs, run eagerly
     # ------------------------------------------------------------------
 
-    def _prefill_row(self, tokens, length, wv, av):
+    def _prefill_row(self, tokens, length, wv, av, prefix=None):
         """One request's right-padded (1, prefill_len) prefill into a
-        fresh single-row cache; returns (logits (1, 1, V), row cache)."""
+        fresh single-row cache, behind its vlm ``prefix`` (1, P, d) if it
+        has one; returns (logits (1, 1, V), row cache)."""
         self.calls["prefill"] += 1
         cache = lm.empty_cache(self.cfg, 1, self.max_len, device=self.device)
-        return lm.prefill(self.qparams, {"tokens": tokens}, self.cfg, wv, av,
-                          cache, lengths=length)
+        batch = {"tokens": tokens}
+        if prefix is not None:
+            batch["prefix"] = prefix
+        return lm.prefill(self.qparams, batch, self.cfg, wv, av, cache,
+                          lengths=length)
 
     def _decode_block(self, tok, t, cache, wv, av, temp, topk, steps):
         """``steps`` decode steps with per-row sampling; returns the last
@@ -496,7 +508,8 @@ class ServeEngine(ServeRuntime):
                  ) -> torch.Tensor:
         """Generate ``steps`` tokens for one synchronous batch; returns
         (B, steps) int32 ids on the engine's device.  Greedy unless
-        per-row temperature/top_k are given."""
+        per-row temperature/top_k are given.  A vlm batch carries
+        ``batch["prefix"]`` (B, n_prefix_tokens, d_model)."""
         if self.mesh is not None:
             raise NotImplementedError(
                 "generate() on a mesh is not ported: its batch is not "
@@ -517,6 +530,13 @@ class ServeEngine(ServeRuntime):
         dev = self.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         B, S = tokens.shape
+        inputs = {"tokens": tokens}
+        prefix = 0
+        if self.cfg.family == "vlm":
+            prefix = self.cfg.n_prefix_tokens
+            self._check_prefix(batch.get("prefix"), (B, prefix,
+                                                     self.cfg.d_model))
+            inputs["prefix"] = torch.as_tensor(batch["prefix"]).to(dev)
         temp = torch.zeros((B,), dtype=torch.float32, device=dev) \
             if temperature is None else torch.as_tensor(
                 temperature, dtype=torch.float32).to(dev).expand(B)
@@ -527,10 +547,10 @@ class ServeEngine(ServeRuntime):
                 top_k, dtype=torch.int32).to(dev).expand(B)
         wv, av = self._bits()
         cache = lm.empty_cache(self.cfg, B, self.max_len, device=dev)
-        logits, cache = lm.prefill(self.qparams, {"tokens": tokens},
-                                   self.cfg, wv, av, cache)
+        logits, cache = lm.prefill(self.qparams, inputs, self.cfg, wv, av,
+                                   cache)
         tok = self._sample_first(logits, temp, topk)[:, None]
-        t = torch.full((B,), S, dtype=torch.int32, device=dev)
+        t = torch.full((B,), S + prefix, dtype=torch.int32, device=dev)
         out = [tok]
         for _ in range(steps - 1):
             logits, cache = lm.decode_step(self.qparams, tok, t, cache,
@@ -541,6 +561,15 @@ class ServeEngine(ServeRuntime):
             out.append(tok)
         self.stats.tokens += B * steps
         return torch.cat(out, dim=1)
+
+    @staticmethod
+    def _check_prefix(prefix, shape) -> None:
+        if prefix is None:
+            raise ValueError(f"vlm requests need a prefix {shape[1:]} "
+                             f"(n_prefix_tokens, d_model)")
+        if tuple(prefix.shape) != tuple(shape):
+            raise ValueError(f"prefix shape {tuple(prefix.shape)} != "
+                             f"{tuple(shape)}")
 
     # ------------------------------------------------------------------
     # Continuous-batching API
@@ -554,6 +583,7 @@ class ServeEngine(ServeRuntime):
         """Enqueue a request; returns its id.  ``budget_s`` caps this
         request's precision configuration (None = loosest, most accurate;
         under a FluidController the closed loop may tighten it further).
+        vlm models require ``prefix`` (n_prefix_tokens, d_model).
         ``rep_key`` threads a traffic repetition key to the prefix cache
         (hits are content-keyed either way; the key feeds the
         repetition-aware eviction value).  ``draft_k`` overrides the
@@ -568,18 +598,18 @@ class ServeEngine(ServeRuntime):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} ({self.cfg.name}) is not "
                 f"ported yet; the port runs {lm.PORTED_FAMILIES}")
-        if prefix is not None:
-            raise NotImplementedError("vlm prefixes are not ported yet")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 1 <= prompt.shape[0] <= self.prefill_len:
             raise ValueError(f"prompt length {prompt.shape[0]} not in "
                              f"[1, {self.prefill_len}]")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens={max_new_tokens} must be >= 1")
-        if (self.prefill_len + max_new_tokens > self.max_len
+        prefix_len = (self.cfg.n_prefix_tokens
+                      if self.cfg.family == "vlm" else 0)
+        if (prefix_len + self.prefill_len + max_new_tokens > self.max_len
                 and not self.cfg.sliding_window):
-            raise ValueError("prefill_len + max_new_tokens exceeds max_len "
-                             "(KV ring would wrap)")
+            raise ValueError("prefix + prefill_len + max_new_tokens "
+                             "exceeds max_len (KV ring would wrap)")
         if top_k > TOPK_MAX:
             raise ValueError(f"top_k={top_k} exceeds TOPK_MAX={TOPK_MAX}")
         if draft_k is not None and not 0 <= draft_k <= SPEC_K_MAX:
@@ -606,16 +636,23 @@ class ServeEngine(ServeRuntime):
                     f"speculative decoding unsupported for family "
                     f"{self.cfg.family!r} "
                     f"(supported: {lm.SPEC_CHUNK_FAMILIES})")
-            if self.prefill_len + max_new_tokens + SPEC_K_MAX > self.max_len:
+            if (prefix_len + self.prefill_len + max_new_tokens
+                    + SPEC_K_MAX > self.max_len):
                 raise ValueError(
-                    "prefill_len + max_new_tokens + SPEC_K_MAX exceeds "
-                    "max_len (a speculative round could wrap the KV ring); "
-                    "submit draft_k=0 or shrink the request")
+                    "prefix + prefill_len + max_new_tokens + SPEC_K_MAX "
+                    "exceeds max_len (a speculative round could wrap the "
+                    "KV ring); submit draft_k=0 or shrink the request")
+        if self.cfg.family == "vlm":
+            if torch.is_tensor(prefix):
+                prefix = prefix.float().cpu().numpy()
+            elif prefix is not None:
+                prefix = np.asarray(prefix, np.float32)
+            self._check_prefix(prefix, (prefix_len, self.cfg.d_model))
         rid = self.next_rid()
         req = Request(rid, prompt, max_new_tokens,
                       None if budget_s is None else float(budget_s),
-                      float(temperature), int(top_k), rep_key=rep_key,
-                      draft_k=draft_k)
+                      float(temperature), int(top_k), prefix=prefix,
+                      rep_key=rep_key, draft_k=draft_k)
         record = RequestStats(
             rid=rid,
             budget_s=(float(budget_s) if budget_s is not None
@@ -638,7 +675,7 @@ class ServeEngine(ServeRuntime):
         return self.pool
 
     def _cacheable(self, req: Request) -> bool:
-        return (self.prefix_cache is not None
+        return (self.prefix_cache is not None and req.prefix is None
                 and req.prompt.shape[0] <= self._cache_sc)
 
     def _admit(self) -> List[int]:
@@ -661,6 +698,10 @@ class ServeEngine(ServeRuntime):
             record.admitted_s = time.time()
             slot = pool.alloc()
             S = req.prompt.shape[0]
+            # a vlm request's prefix sits in front of its prompt (a request
+            # with a prefix never hits the prefix cache)
+            vlm = self.cfg.family == "vlm"
+            prefix_len = self.cfg.n_prefix_tokens if vlm else 0
             planned = S + req.max_new_tokens
             hit = wv_np = av_np = None
             # the effective budget first: the prefix cache's precision gate
@@ -724,8 +765,9 @@ class ServeEngine(ServeRuntime):
                 if pool.owns(slot):
                     logits, row_cache = self._prefill_row(
                         tokens, torch.tensor([S], dtype=torch.int32).to(dev),
-                        wv, av)
-                pool.write_row(row_cache, slot, S)
+                        wv, av, torch.from_numpy(req.prefix[None]).to(dev)
+                        if vlm else None)
+                pool.write_row(row_cache, slot, S + prefix_len)
                 if wv_np is not None:   # cacheable miss: store or refresh
                     self.prefix_cache.store(
                         req.prompt, row_cache, logits, wv_np, av_np,
@@ -735,7 +777,7 @@ class ServeEngine(ServeRuntime):
             record.slot = slot
             record.tokens.append(first0)
             self.stats.tokens += 1
-            self.slots.occupy(slot, req.rid, tok=first0, t=S,
+            self.slots.occupy(slot, req.rid, tok=first0, t=S + prefix_len,
                               budget=record.budget_s, temp=req.temperature,
                               topk=req.top_k,
                               remaining=req.max_new_tokens - 1, k=k_req)

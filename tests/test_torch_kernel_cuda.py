@@ -369,3 +369,31 @@ def test_int4_and_quant_unaligned_views_in_both_regimes(cuda, M):
     for od in (torch.float32, torch.bfloat16):
         assert torch.equal(i4mm.int4_matmul(x, wp, s4, out_dtype=od),
                            i4mm.int4_matmul_ref(x, wp, s4, od))
+
+
+@pytest.mark.parametrize("M", [1, 40])
+def test_stacked_expert_dispatch_on_card(cuda, M):
+    """``serve_linear_stacked(stack_bits=True)`` on the card (the MoE
+    expert stacks: one launch per slice, per-slice scales and bits): each
+    slice equals ``serve_linear`` on that slice alone, and the whole stack
+    equals the same call on the CPU (plain versions there)."""
+    G, K, N = 6, 256, 96
+    g = torch.Generator().manual_seed(M)
+    w = torch.randn((G, K, N), generator=g) * K ** -0.5
+    s = bf.symmetric_scale(w, 8, axis=-2)
+    p = {"q": bf.quantize(w, s, 8), "s": s}
+    x = torch.randn((G, M, K), generator=g) * torch.linspace(0.1, 4, G)[
+        :, None, None]
+    bits = torch.tensor([8, 4, 6, 2, 3, 8], dtype=torch.int32)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    before = dict(bpm.launches)
+    got = ops.serve_linear_stacked(pc, x.to(cuda), bits.to(cuda), 8,
+                                   stack_bits=True)
+    torch.cuda.synchronize()
+    assert bpm.launches[8] == before[8] + G
+    for k in range(G):
+        solo = ops.serve_linear({n: v[k] for n, v in pc.items()},
+                                x[k].to(cuda), bits[k].to(cuda), 8)
+        assert torch.equal(got[k], solo)
+    cpu = ops.serve_linear_stacked(p, x, bits, 8, stack_bits=True)
+    assert torch.equal(got.cpu(), cpu)

@@ -244,10 +244,11 @@ def test_not_ported_branches_raise(smoke):
     with pytest.raises(NotImplementedError, match="mamba2"):
         tlm.init_params(tconfigs.get_smoke("mamba2_1_3b"),
                         torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        tlm.layer_gemm_dims(tconfigs.get_smoke("kimi_k2_1t_a32b"))
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tlm.empty_cache(tcfg.with_(kv_cache_bits=8), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        tlm.layer_gemm_dims(tconfigs.get_smoke("zamba2_2_7b"))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        tlm.empty_cache(tconfigs.get_smoke("seamless_m4t_medium"), 1, 8,
+                        device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     cache = tlm.empty_cache(tcfg, 1, 8, device="cpu")
     wv = torch.tensor([8, 8])

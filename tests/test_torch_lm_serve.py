@@ -215,11 +215,12 @@ def test_not_ported_options_raise(smoke):
         eng.generate({"tokens": np.zeros((1, 4), np.int32)}, 2)
     with pytest.raises(NotImplementedError, match="speculative"):
         eng.submit(np.zeros(4, np.int32), draft_k=2)
-    # the prefix cache is ported; vlm prefixes are not
+    # the prefix cache and vlm prefixes are ported; continuous batching
+    # needs a family with ragged prefill that the port runs
     eng = _engine(smoke)
-    with pytest.raises(NotImplementedError, match="vlm prefixes"):
-        eng.submit(np.zeros(4, np.int32), prefix=np.zeros((1, 1)))
-    # continuous batching needs a family the port runs
-    eng.cfg = smoke["tcfg"].with_(family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
+    eng.cfg = smoke["tcfg"].with_(family="moe")
+    with pytest.raises(NotImplementedError, match="moe"):
+        eng.submit(np.zeros(4, np.int32))
+    eng.cfg = smoke["tcfg"].with_(family="ssm")
+    with pytest.raises(NotImplementedError, match="ssm"):
         eng.submit(np.zeros(4, np.int32))
