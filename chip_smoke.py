@@ -3,9 +3,9 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --paths 7  # some paths only, no result lines
+    python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Seven paths, each at full width with random weights from a seed:
+Eight paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -27,7 +27,7 @@ Seven paths, each at full width with random weights from a seed:
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
-  tokens, 16 to 32 new tokens, budgets cycling int4, mixed, int8) through
+  tokens, 8 to 16 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
   decoding 8 tokens for all slots at once; (b) 8 of them again, each to
   its first 8 new tokens, with speculative decoding (4 int4 drafts a
@@ -36,7 +36,7 @@ Seven paths, each at full width with random weights from a seed:
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
   through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
-  shape, cut to its first 18 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  shape, cut to its first 9 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
   keys (512-1024-token prompts, int8), plus four late prompts that
   share the first two keys' prefixes, so misses, full hits and partial
   hits (extended token by token through ``decode_step``, the bit-plane
@@ -67,7 +67,23 @@ Seven paths, each at full width with random weights from a seed:
   mixed, int8, int8), 8 requests with prefixes by continuous batching
   (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
   and 4 of them with ``spec_k=4``; (c) the same with the int8 KV cache
-  (``kv_cache_bits=8``).
+  (``kv_cache_bits=8``);
+* the recurrent families, encoder-decoder cross-attention and flash at
+  head dim 160, each through ``ServeEngine.generate`` at full width and
+  depth with 16 new tokens: (a) mamba2-1.3b (48 layers, d_model 2048,
+  state 128, chunk 128; the SSD in f32 PyTorch, the in and out
+  projections through the bit-plane kernel), B=4 prompts of 4096 tokens
+  at per-request budgets int4, mixed, int8, int8; (b) zamba2-2.7b (54
+  Mamba2 layers in 9 super-blocks, each behind the shared attention
+  block, 32 heads of 80, with its per-site LoRA), B=2 x 4096 at one
+  whole-batch budget, flash at hd 80 padded to 128; (c)
+  seamless-m4t-medium (12 + 12 layers, d_model 1024, 16 heads of 64,
+  vocab 256206), B=2 x 8192 decoder tokens behind 2048 seeded frame
+  embeddings: the encoder on SDPA, the decoder's self-attention on flash
+  (causal) and its cross-attention on flash (not causal, 8192 queries
+  over 2048 keys); (d) stablelm-12b (40 layers, d_model 5120, GQA 32/8
+  at hd 160, LayerNorm), B=2 x 4096 at int4 and int8 rows, flash at the
+  kernel's 160-wide instantiation.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -166,7 +182,22 @@ result line:
      cache lookups, drained pools, AP records, SMOKE card-vs-CPU runs;
      (c) the same on the int8 cache, and one layer's decode-step QK and
      PV int32 accumulators EQUAL an int64 recomputation on the card;
-     cache bytes and decode ms against (b).
+     cache bytes and decode ms against (b);
+ 11. the recurrent families, cross-attention and hd 160, for each of (a)
+     to (d): hold the bit-plane kernel at every (M, K, N, planes) of its
+     prefill and decode step and flash at its attention shapes; a 2-token
+     warm-up whose every flash launch is held within FLASH_TOL of the f32
+     oracle on its own q/k/v (and, for (a), layer 0's SSD on the card
+     within SSM_TOL of the float64 stepwise recurrence over SSM_STEPWISE
+     positions); one counted and timed ``generate``: bit-plane launches
+     by (M, K, N, planes) and by path as ``plan()`` gives them, flash
+     launches (9, 24 of them cross-attention's 12, and 40), tokens
+     repeating the warm-up's; prices equal the AP model; prefill and
+     decode ms, peak memory, the bit-plane sum against its bound, flash
+     (at hd 160 and the non-causal cross shape) against its bound and
+     SDPA, traces of a prefill and a decode step; then a SMOKE
+     card-vs-CPU prefill of each family (as ``gate_logits`` says; the
+     encdec one behind 2000 frames, so its cross-attention takes flash).
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -251,7 +282,8 @@ CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
 # 9 requests: 8 fill the slots, 1 arrives late (a depth cut that keeps
 # the whole script inside its time limit; PERF.md §4)
 CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 9, 8, 2
-CB_PROMPT, CB_NEW = (64, 1024), (16, 32)
+# 8 to 16 new tokens (a depth cut made when path 8 was added; PERF.md §4)
+CB_PROMPT, CB_NEW = (64, 1024), (8, 16)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
 CB_SPEC_NEW = 8         # (b) runs each request's first 8 new tokens
@@ -266,9 +298,10 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
-# path 5 runs the first 18 of Qwen3-4B's 36 layers at full width (a depth
-# cut that keeps the whole script inside its time limit; PERF.md §4)
-PC_LAYERS = 18
+# path 5 runs the first 9 of Qwen3-4B's 36 layers at full width (depth
+# cuts that keep the whole script inside its time limit: 18 when path 7
+# was added, 9 when path 8 was; PERF.md §4)
+PC_LAYERS = 9
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -295,6 +328,33 @@ VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
 VLM_B, VLM_S, VLM_STEPS = 4, 4096, 16
 VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 16
 VLM_SPEC, VLM_SPEC_NEW = 4, 8
+# path 8: the recurrent families, encoder-decoder cross-attention and flash
+# at head dim 160, each through ServeEngine.generate at its published
+# widths and depth; every model takes P8_STEPS new tokens after a
+# P8_WARM-token warm-up
+P8_STEPS, P8_WARM = 16, 2
+SSM_ARCH = "mamba2_1_3b"
+# (n_layers, d_model, ssm_state, ssm_head_dim, expand, ssm_chunk, vocab)
+SSM_WIDTHS = (48, 2048, 128, 64, 2, 128, 50280)
+SSM_B, SSM_S = 4, 4096
+SSM_STEPWISE = 384      # positions of layer 0's SSD inputs held stepwise
+# the chunked SSD against the f64 stepwise recurrence, both on the card:
+# f32 sums over up to SSM_STEPWISE decayed terms, in another order
+SSM_TOL = 1e-3          # x max|value|
+HYB_ARCH = "zamba2_2_7b"
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab,
+# attn_every, lora_rank, ssm_state)
+HYB_WIDTHS = (54, 2560, 32, 32, 80, 10240, 32000, 6, 64, 64)
+HYB_B, HYB_S, HYB_BUDGET = 2, 4096, 0.8
+ED_ARCH = "seamless_m4t_medium"
+# (n_enc_layers, n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
+# vocab, frames_ratio)
+ED_WIDTHS = (12, 12, 1024, 16, 16, 64, 4096, 256206, 4)
+ED_B, ED_S, ED_BUDGET = 2, 8192, 0.8     # F = S / frames_ratio = 2048
+D160_ARCH = "stablelm_12b"
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab)
+D160_WIDTHS = (40, 5120, 32, 8, 160, 13824, 100352)
+D160_B, D160_S, D160_BUDGETS = 2, 4096, [0.4, 10.0]   # int4, int8 rows
 
 
 def fail(msg: str) -> None:
@@ -607,14 +667,14 @@ def trace(torch, tag, label, fn, match):
 def flash_cases():
     """(BH, Sq, Sk, hd, causal, window) edge cases: causal and not,
     window 0 and 64, BH = 1 at S in {1, 63, 65, 2100}, hd in {16, 64, 80,
-    128}, and Sq != Sk with Sk not a multiple of 64."""
+    128, 144, 160}, and Sq != Sk with Sk not a multiple of 64."""
     cases = []
     for causal in (True, False):
         for window in (0, 64):
             for S in (1, 63, 65, 2100):
-                for hd in (16, 64, 80, 128):
+                for hd in (16, 64, 80, 128, 144, 160):
                     cases.append((1, S, S, hd, causal, window))
-            for hd in (64, 80, 128):
+            for hd in (64, 80, 128, 144, 160):
                 cases.append((3, 100, 333, hd, causal, window))
                 cases.append((2, 130, 77, hd, causal, window))
     return cases
@@ -1261,31 +1321,38 @@ def lm_linears(cfg):
             (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
 
 
-def flash_row(b: Bench, shape, label: str = "") -> dict:
-    """The flash kernel at ``shape`` (BH, S, hd), causal bf16: its time,
-    device time, the chunked plain version's and one
-    scaled_dot_product_attention call's, and the bound (half of
-    4*BH*S^2*hd flop, causal; q, k, v read and out written once), each in
-    ms per call."""
+def flash_row(b: Bench, shape, label: str = "", Sk: int = 0,
+              causal: bool = True) -> dict:
+    """The flash kernel at ``shape`` (BH, S, hd) bf16, causal (or with
+    ``Sk`` keys, not causal): its time, device time, the chunked plain
+    version's and one scaled_dot_product_attention call's, and the bound
+    (4*BH*Sq*Sk*hd flop, half of it causal; q, k, v read and out written
+    once), each in ms per call."""
     torch = b.torch
     from repro_torch.kernels import flash_attention as fa
     BH, S, hd = shape
+    Sk = Sk or S
     q = torch.randn(shape, generator=b.gen, device=b.dev).bfloat16()
-    k, v = torch.randn_like(q), torch.randn_like(q)
-    flops = 2.0 * BH * S * S * hd
-    nbytes = 4 * BH * S * hd * 2
+    k = torch.randn((BH, Sk, hd), generator=b.gen, device=b.dev).bfloat16()
+    v = torch.randn_like(k)
+    flops = 4.0 * BH * S * Sk * hd / (2 if causal else 1)
+    nbytes = 2 * BH * (S + Sk) * hd * 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = {"ms": b.time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+    row = {"ms": b.time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      causal=causal)),
            "device_ms": b.device_ms(
-               lambda: fa.flash_attention(q, k, v, causal=True)),
+               lambda: fa.flash_attention(q, k, v, causal=causal)),
            "plain_ms": b.time_ms(
-               lambda: fa.flash_attention_chunked_ref(q, k, v, True), reps=3),
+               lambda: fa.flash_attention_chunked_ref(q, k, v, causal),
+               reps=3),
            "library_ms": b.time_ms(lambda: sdpa(q[None], k[None], v[None],
-                                                is_causal=True)),
+                                                is_causal=causal)),
            "t_ops": flops / BF16_FLOPS_PER_S * 1e3,
            "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     row["bound_ms"] = bound = max(row["t_ops"], row["t_bytes"])
-    print(f"{b.tag} flash_attention {tuple(shape)} causal bf16{label}: kernel "
+    shape_s = tuple(shape) if Sk == S else (BH, S, Sk, hd)
+    print(f"{b.tag} flash_attention {shape_s} "
+          f"{'causal' if causal else 'not causal'} bf16{label}: kernel "
           f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), chunked "
           f"plain {row['plain_ms']:.4f} ms, scaled_dot_product_attention "
           f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms "
@@ -1556,47 +1623,6 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
         "e2e": {"prefill_ms": pre * 1e3, "decode_ms": dec * 1e3,
                 "generate_ms": med_gen * 1e3},
         "flash": flash_entry(fa_total, fr, L)}
-
-
-def smoke_card_vs_cpu(b: Bench) -> None:
-    """SMOKE-size prefill with S > FLASH_THRESHOLD: the engine on the card
-    against the port on the CPU (plain versions there)."""
-    torch, dev = b.torch, b.dev
-    from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import ServeEngine, default_controller
-
-    scfg = configs.get_smoke(LM_ARCH)
-    sg = torch.Generator().manual_seed(2)
-    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
-    stoks = torch.randint(0, scfg.vocab_size, (2, LM_SMOKE_S), generator=sg)
-    sctrl = default_controller(lm.n_bit_slots(scfg))
-
-    def smoke_prefill(where):
-        eng = ServeEngine(scfg, sqp, max_len=LM_SMOKE_S + 8,
-                          controller=sctrl, device=where)
-        eng.set_budget([10.0, 0.4])
-        swv, sav = eng._bits()
-        cache = lm.empty_cache(scfg, 2, LM_SMOKE_S + 8, device=where)
-        fa.reset_launches()
-        with eng.compute_ctx():
-            out, _ = lm.prefill(eng.qparams, {"tokens": stoks.to(where)},
-                                scfg, swv, sav, cache)
-        check(fa.launches == (scfg.n_layers if where.type == "cuda" else 0),
-              f"SMOKE prefill on {where}: {fa.launches} flash launches")
-        return out[:, -1, :scfg.vocab_size].float().cpu()
-
-    card = smoke_prefill(dev)
-    cpu = smoke_prefill(torch.device("cpu"))   # chunked plain, tile 2048
-    chunked = fa.flash_attention_chunked_ref
-    with mock.patch.object(fa, "flash_attention_chunked_ref",
-                           lambda q, k, v, causal, window:
-                           chunked(q, k, v, causal, window,
-                                   chunk=flash_tile())):
-        cpu_tiled = smoke_prefill(torch.device("cpu"))
-    gate_logits(f"SMOKE {LM_ARCH} prefill (B=2, S={LM_SMOKE_S}, budgets "
-                f"[10.0, 0.4]), card vs CPU", card, cpu_tiled, cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -4264,6 +4290,411 @@ def vlm_path(b: Bench) -> dict:
         "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# Path 8: the recurrent families, encoder-decoder cross-attention and flash
+# at head dim 160 (mamba2-1.3b, zamba2-2.7b, seamless-m4t-medium,
+# stablelm-12b)
+# ---------------------------------------------------------------------------
+
+def p8_configs():
+    """The four FULL configs, held to their published widths."""
+    from repro_torch import configs
+    ssm, hyb, ed, d160 = (configs.get(a) for a in (SSM_ARCH, HYB_ARCH,
+                                                   ED_ARCH, D160_ARCH))
+    check((ssm.n_layers, ssm.d_model, ssm.ssm_state, ssm.ssm_head_dim,
+           ssm.expand, ssm.ssm_chunk, ssm.vocab_size) == SSM_WIDTHS,
+          f"{SSM_ARCH} FULL is not the published width: {ssm}")
+    check((hyb.n_layers, hyb.d_model, hyb.n_heads, hyb.n_kv_heads,
+           hyb.head_dim, hyb.d_ff, hyb.vocab_size, hyb.attn_every,
+           hyb.lora_rank, hyb.ssm_state) == HYB_WIDTHS,
+          f"{HYB_ARCH} FULL is not the published width: {hyb}")
+    check((ed.n_enc_layers, ed.n_layers, ed.d_model, ed.n_heads,
+           ed.n_kv_heads, ed.head_dim, ed.d_ff, ed.vocab_size,
+           ed.frames_ratio) == ED_WIDTHS,
+          f"{ED_ARCH} FULL is not the published width: {ed}")
+    check((d160.n_layers, d160.d_model, d160.n_heads, d160.n_kv_heads,
+           d160.head_dim, d160.d_ff, d160.vocab_size) == D160_WIDTHS,
+          f"{D160_ARCH} FULL is not the published width: {d160}")
+    return {"ssm": ssm, "hybrid": hyb, "encdec": ed, "dense": d160}
+
+
+def p8_shapes(cfg, B: int, S: int, F: int, fams) -> dict:
+    """Bit-plane launches of one forward over B rows of S tokens (F
+    encoder frames, prefill only), by (M, K, N, n_planes): every linear at
+    each family of ``fams`` (per-row bits) or at 8 planes (whole-batch
+    bits, ``fams`` = (8,))."""
+    from repro_torch.models import hybrid, mamba2
+    d, M = cfg.d_model, B * S
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    out: dict = {}
+
+    def add(M_, K, N, n=1):
+        for f in fams:
+            out[(M_, K, N, f)] = out.get((M_, K, N, f), 0) + n
+
+    def attn(M_, n, kv=True):
+        add(M_, d, hq, n)
+        if kv:
+            add(M_, d, hkv, 2 * n)
+        add(M_, hq, d, n)
+
+    def mlp(M_, n):
+        if cfg.mlp_type == "swiglu":
+            add(M_, d, cfg.d_ff, 2 * n)
+        else:
+            add(M_, d, cfg.d_ff, n)
+        add(M_, cfg.d_ff, d, n)
+
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner, H, N, _ = mamba2.dims(cfg)
+        add(M, d, 2 * d_inner + 2 * N + H, cfg.n_layers)
+        add(M, d_inner, d, cfg.n_layers)
+    if cfg.family == "hybrid":
+        ns = hybrid.n_super(cfg)
+        attn(M, ns)
+        mlp(M, ns)
+    if cfg.family == "dense":
+        attn(M, cfg.n_layers)
+        mlp(M, cfg.n_layers)
+    if cfg.family == "encdec":
+        L = cfg.n_layers
+        if S > 1:                              # the encoder and cross K/V
+            attn(B * F, cfg.n_enc_layers)
+            mlp(B * F, cfg.n_enc_layers)
+            add(B * F, d, hkv, 2 * L)
+        attn(M, L)                             # self
+        attn(M, L, kv=False)                   # cross: q and o only
+        mlp(M, L)
+    if not cfg.tie_embeddings:
+        add(B, d, cfg.padded_vocab)
+    return out
+
+
+def smoke_card_vs_cpu(b: Bench, arch: str = LM_ARCH, budget=(10.0, 0.4),
+                      F: int = 0, seed: int = 2) -> None:
+    """A SMOKE prefill of (B=2, S=LM_SMOKE_S > FLASH_THRESHOLD) on the card
+    against the CPU (plain versions there), logits as ``gate_logits``
+    says; encdec behind F frames (F * S > FLASH_THRESHOLD^2, so its
+    cross-attention takes flash too).  The flash launches on the card are
+    counted.  A tuple ``budget`` is one budget per row."""
+    torch = b.torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import hybrid, lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    scfg = configs.get_smoke(arch)
+    budget = list(budget) if isinstance(budget, tuple) else budget
+    sg = torch.Generator().manual_seed(seed)
+    sqp = lm.quantize_params(lm.init_params(scfg, sg, device="cpu"), scfg)
+    toks = torch.randint(0, scfg.vocab_size, (2, LM_SMOKE_S), generator=sg)
+    batch = {"tokens": toks}
+    if F:
+        batch["frames"] = (torch.randn((2, F, scfg.d_model), generator=sg)
+                           * 0.5).bfloat16()
+    ctrl = default_controller(lm.n_bit_slots(scfg))
+    want_fa = {"ssm": 0, "hybrid": hybrid.n_super(scfg) if
+               scfg.family == "hybrid" else 0, "encdec": 2 * scfg.n_layers,
+               "dense": scfg.n_layers}[scfg.family]
+
+    def prefill(where):
+        eng = ServeEngine(scfg, sqp, max_len=LM_SMOKE_S + 8, controller=ctrl,
+                          device=where)
+        eng.set_budget(budget)
+        swv, sav = eng._bits()
+        cache = lm.empty_cache(scfg, 2, LM_SMOKE_S + 8, device=where)
+        fa.reset_launches()
+        with eng.compute_ctx():
+            out, _ = lm.prefill(eng.qparams, {k: v.to(where) for k, v in
+                                              batch.items()},
+                                scfg, swv, sav, cache)
+        check(fa.launches == (want_fa if where.type == "cuda" else 0),
+              f"SMOKE {arch} prefill on {where}: {fa.launches} flash "
+              f"launches, want {want_fa}")
+        return out[:, -1, :scfg.vocab_size].float().cpu()
+
+    card = prefill(b.dev)
+    cpu = prefill(torch.device("cpu"))
+    chunked = fa.flash_attention_chunked_ref
+    with mock.patch.object(fa, "flash_attention_chunked_ref",
+                           lambda q, k, v, causal, window:
+                           chunked(q, k, v, causal, window,
+                                   chunk=flash_tile())):
+        cpu_tiled = prefill(torch.device("cpu"))
+    gate_logits(f"SMOKE {arch} prefill (B=2, S={LM_SMOKE_S}"
+                + (f", F={F}" if F else "") + f", budget {budget}; "
+                f"{want_fa} flash launches on the card), card vs CPU", card,
+                cpu_tiled, cpu)
+
+
+def ssd_stepwise_gate(b: Bench, args) -> float:
+    """Layer 0's captured SSD inputs, cut to their first SSM_STEPWISE
+    positions: ``mamba2.ssd_chunked`` on the card against the stepwise
+    recurrence in float64 on the card.  Returns the max |err| over max
+    |value| of y and of the final state."""
+    torch = b.torch
+    from repro_torch.models import mamba2
+    xh, Bm, Cm, dt, a, h0, chunk = args
+    T = SSM_STEPWISE
+    xh, Bm, Cm, dt = (t[:, :T] for t in (xh, Bm, Cm, dt))
+    y, h_fin = mamba2.ssd_chunked(xh, Bm, Cm, dt, a, h0, chunk)
+    x64, B64, C64, d64 = (t.double() for t in (xh, Bm, Cm, dt))
+    a64, h = a.double(), h0.double()
+    ys = []
+    for t in range(T):
+        dA = torch.exp(a64[None, :] * d64[:, t])
+        h = h * dA[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", d64[:, t], B64[:, t], x64[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", C64[:, t], h))
+    y_step = torch.stack(ys, dim=1)
+    errs = []
+    for got, want, name in ((y, y_step, "y"), (h_fin, h, "state")):
+        rel = float((got.double() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        check(got.dtype == torch.float32 and rel <= SSM_TOL,
+              f"{SSM_ARCH} layer 0 SSD ({name}) vs the stepwise recurrence "
+              f"over {T} positions: max |err| {rel:.3g} x max|value| > "
+              f"{SSM_TOL}")
+        errs.append(rel)
+    return max(errs)
+
+
+def p8_model(b: Bench, name: str, cfg, batch, budget, fams,
+             n_flash: int) -> dict:
+    """One model of path 8 through ``ServeEngine.generate`` at full width:
+    weights drawn from seed 0 on the card, the bit-plane kernel and flash
+    held at the model's shapes, a P8_WARM-token warm-up whose flash
+    launches are each held against the f32 oracle on their own q/k/v (and,
+    for ssm, layer 0's SSD against the stepwise recurrence), then one
+    counted and timed call of P8_STEPS tokens: launches by planes, regime
+    and shape as ``p8_shapes`` and ``plan()`` give them, flash launches,
+    tokens repeatable and in the vocabulary; prices against the AP model;
+    bit-plane and flash times against their bounds; traces of a prefill
+    and a decode step."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, mamba2
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    B, S = batch["tokens"].shape
+    F = batch["frames"].shape[1] if "frames" in batch else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qparams = lm.init_serve_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    w_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    print(f"{name} FULL ({cfg.family}): {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if F else "")
+          + f", d {cfg.d_model}, vocab {cfg.vocab_size}; the int8 serve form "
+          f"drawn on the card in {time.perf_counter() - t0:.3f} s: "
+          f"{w_gib:.3f} GiB resident, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+    pre = p8_shapes(cfg, B, S, F, fams)
+    dec = p8_shapes(cfg, B, 1, F, fams)
+    for M, K, N, n in sorted(set(pre) | set(dec)):
+        b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n)
+    fl_shapes = []
+    if cfg.family != "ssm":
+        H, hd = cfg.n_heads, cfg.head_dim
+        fl_shapes.append(((B * H, S, S, hd), True))
+        if cfg.family == "encdec":
+            fl_shapes.append(((B * H, S, F, hd), False))
+    f_err = [hold_flash(b, *shp, causal, 0) for shp, causal in fl_shapes]
+    print(f"kernel == plain: bit-plane at the {len(set(pre) | set(dec))} "
+          f"(M, K, N, n_planes) of a prefill and a decode step "
+          f"{sorted(set(pre) | set(dec))}"
+          + "".join(f"; flash at {shp} {'causal' if c else 'not causal'}"
+                    f" within FLASH_TOL: max |err| {e:.6g}"
+                    for (shp, c), e in zip(fl_shapes, f_err)))
+
+    ctrl = default_controller(lm.n_bit_slots(cfg))
+    engine = ServeEngine(cfg, qparams, max_len=S + P8_STEPS,
+                         controller=ctrl, device=dev)
+    check(engine.families == (4, 8), f"bit families {engine.families}")
+    engine.set_budget(budget)
+
+    # ---- the warm-up: flash held per launch, the SSD captured
+    kernel_flash, real_ssd = fa.flash_attention, mamba2.ssd_chunked
+    layer_err, ssd_args = [], []
+
+    def held_flash(q, k, v, *, causal, window, scale=0.0, k_len=0):
+        o = kernel_flash(q, k, v, causal=causal, window=window, scale=scale)
+        layer_err.append((causal, q.shape[1], k.shape[1], float(
+            (o.float() - oracle_f32(q, k, v, causal, window)).abs().max())))
+        return o
+
+    def capture_ssd(*args):
+        if not ssd_args:
+            ssd_args.extend(args)
+        return real_ssd(*args)
+
+    with mock.patch.object(fa, "flash_attention", held_flash), \
+            mock.patch.object(mamba2, "ssd_chunked", capture_ssd):
+        warm = engine.generate(batch, P8_WARM).cpu()
+    check(len(layer_err) == n_flash and all(
+        e <= FLASH_TOL for *_, e in layer_err), f"{name}: flash on the "
+          f"path's own q/k/v vs the oracle per launch: {layer_err}")
+    if layer_err:
+        b.fa_err = max(b.fa_err, max(e for *_, e in layer_err))
+    ssd_err = ssd_stepwise_gate(b, ssd_args) if ssd_args else None
+    del ssd_args[:]
+
+    # ---- one counted and timed call
+    walls, timers = forward_timer(lm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bpm.reset_launches()
+    fa.reset_launches()
+    with timers[0], timers[1]:
+        t0 = time.perf_counter()
+        toks = engine.generate(batch, P8_STEPS).cpu()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got, paths = dict(bpm.shape_launches), dict(bpm.path_launches)
+    want = {k: c for k, c in pre.items()}
+    for k, c in dec.items():
+        want[k] = want.get(k, 0) + c * (P8_STEPS - 1)
+    want_paths = {p: 0 for p in bpm.PATHS}
+    for (M, K, N, _), c in want.items():
+        want_paths[bpm.plan(M, K, N).path] += c
+    check(got == want, f"{name}: bit-plane launches by (M, K, N, planes) "
+          f"{got} != {want}")
+    check(paths == want_paths, f"{name}: launches by path {paths} != "
+          f"plan()'s {want_paths}")
+    check(fa.launches == n_flash, f"{name}: {fa.launches} flash launches "
+          f"per generate, want {n_flash}")
+    check(toks.shape == (B, P8_STEPS) and torch.equal(toks[:, :P8_WARM], warm)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{name}: tokens {toks.tolist()} (warm-up {warm.tolist()})")
+    by_planes = {n: c for n, c in bpm.launches.items() if c}
+    print(f"{name} generate (B={B}, S={S}" + (f", F={F} frames" if F else "")
+          + f", {P8_STEPS} new, budget {budget}): bit-plane launches "
+          f"{sum(got.values())} (by planes {by_planes}, by path {paths}), "
+          f"flash {fa.launches}; the warm-up's "
+          f"{P8_WARM} tokens repeat; flash on every launch's own q/k/v vs the"
+          f" oracle: max |err| "
+          f"{max((e for *_, e in layer_err), default=0.0):.6g} over "
+          f"{len(layer_err)} launches "
+          f"{sorted({(c, sq, sk) for c, sq, sk, _ in layer_err})}"
+          + (f"; layer 0's SSD vs the stepwise recurrence over "
+             f"{SSM_STEPWISE} positions: {ssd_err:.3g} x max|value| "
+             f"(tolerance {SSM_TOL})" if ssd_err is not None else "")
+          + f"; first row {toks[0].tolist()}")
+
+    for bud in (budget if isinstance(budget, list) else [budget]):
+        w, a = ctrl.resolve(torch.tensor(bud))
+        price = apm.price_bit_vector(lm.layer_gemm_dims(cfg), w.tolist(),
+                                     a.tolist(), head=lm.head_gemm_dims(cfg))
+        check(engine.price_budget(bud) == price, f"{name}: price_budget"
+              f"({bud}) differs from the AP model's price of its bits")
+
+    # ---- timings
+    pre_ms = walls["prefill"][0] * 1e3
+    dec_ms = statistics.median(walls["decode"]) * 1e3
+    print(f"{tag} {name}: generate {wall * 1e3:.3f} ms; prefill {pre_ms:.3f} "
+          f"ms ({B * S / pre_ms * 1e3:.1f} prompt tokens/s); decode median "
+          f"{dec_ms:.3f} ms per step ({B / dec_ms * 1e3:.3f} tokens/s), all "
+          f"{[round(x * 1e3, 3) for x in walls['decode']]}; peak memory "
+          f"{peak:.3f} GiB (weights {w_gib:.3f})")
+    tot = [0.0] * 8
+    for (M, K, N, n), c in sorted(want.items()):
+        row = b.gemm_row(M, K, N, n)
+        tot = [x + c * r for x, r in zip(tot, list(row)
+                                         + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    print(f"{tag} bitplane_matmul per {name} generate call "
+          f"({sum(want.values())} launches): kernel {kms:.4f} ms (device "
+          f"{dms:.4f}), plain {pms:.4f} ms, torch._int_mm {lms:.4f} ms "
+          f"(device {ldms:.4f}), bound {bms:.4f} ms")
+    flash = None
+    for (BH, Sq, Sk, hd), causal in fl_shapes:
+        n = sum(1 for c, *_ in layer_err if c == causal)
+        row = flash_row(b, (BH, Sq, hd), f" ({name}, hd {hd})", Sk=Sk,
+                        causal=causal)
+        e = flash_entry(n, row, n)
+        flash = e if flash is None else {k: flash[k] + e[k] for k in e}
+
+    wv, av = engine._bits()
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+
+    def run_prefill():
+        cache = lm.empty_cache(cfg, B, S + P8_STEPS, device=dev)
+        with engine.compute_ctx():
+            return lm.prefill(engine.qparams, dbatch, cfg, wv, av, cache)
+
+    tr_pre = trace(torch, tag, f"one {name} prefill", run_prefill,
+                   ("bitplane_matmul", "flash_attention"))
+    logits, cache = run_prefill()
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    t = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def one_step():
+        with engine.compute_ctx():
+            lm.decode_step(engine.qparams, tok, t, cache, cfg, wv, av)
+
+    tr_dec = trace(torch, tag, f"one {name} decode step", one_step,
+                   ("bitplane_matmul",))
+    del cache, logits, engine, qparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"bitplane": {"launches": sum(got.values()), "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
+                         "t_ops": to, "device_ms": dms,
+                         "library_device_ms": ldms, "bound_ms": bms,
+                         "paths": paths},
+            "flash": flash,
+            "e2e": {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                    "generate_ms": wall * 1e3, "peak_gib": peak,
+                    "weights_gib": w_gib,
+                    "idle": (tr_pre["idle_share"], tr_dec["idle_share"])}}
+
+
+def p8_path(b: Bench) -> dict:
+    """Path 8: mamba2-1.3b (per-request budgets), zamba2-2.7b and
+    seamless-m4t-medium (whole-batch), stablelm-12b (per-request, flash
+    at hd 160), each at full width and depth, then each family's SMOKE
+    card-vs-CPU prefill."""
+    torch, dev = b.torch, b.dev
+    cfgs = p8_configs()
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def tokens(cfg, B, S):
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                             device=dev)
+
+    out = {}
+    c = cfgs["ssm"]
+    out["ssm"] = p8_model(b, SSM_ARCH, c, {"tokens": tokens(c, SSM_B, SSM_S)},
+                          LM_BUDGETS, (4, 8), 0)
+    c = cfgs["hybrid"]
+    out["hybrid"] = p8_model(b, HYB_ARCH, c,
+                             {"tokens": tokens(c, HYB_B, HYB_S)}, HYB_BUDGET,
+                             (8,), c.n_layers // c.attn_every)
+    c = cfgs["encdec"]
+    F = ED_S // c.frames_ratio
+    frames = (torch.randn((ED_B, F, c.d_model), generator=g, device=dev)
+              * 0.5).bfloat16()
+    out["encdec"] = p8_model(b, ED_ARCH, c, {"tokens": tokens(c, ED_B, ED_S),
+                                             "frames": frames},
+                             ED_BUDGET, (8,), 2 * c.n_layers)
+    c = cfgs["dense"]
+    out["dense"] = p8_model(b, D160_ARCH, c,
+                            {"tokens": tokens(c, D160_B, D160_S)},
+                            D160_BUDGETS, (4, 8), c.n_layers)
+    for arch, budget, F in ((SSM_ARCH, (10.0, 0.4), 0), (HYB_ARCH, 10.0, 0),
+                            (ED_ARCH, 10.0, 2000),
+                            (D160_ARCH, (10.0, 0.4), 0)):
+        smoke_card_vs_cpu(b, arch, budget, F, seed=7)
+    return out
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -4414,9 +4845,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-10. the seven paths (a development run may pick some with
-    # --paths 1,4; only a run of all seven prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7}
+    # ---- 4.-11. the eight paths (a development run may pick some with
+    # --paths 1,4; only a run of all eight prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -4440,6 +4871,8 @@ def main() -> None:
         if 7 in picked:
             moe_path(b)
             vlm_path(b)
+        if 8 in picked:
+            p8_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed; no result line for a "
               f"partial run")
@@ -4463,6 +4896,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     moer = timed("7 (a)", moe_path, b)
     vlmr = timed("7 (b, c)", vlm_path, b)
+    p8r = timed("8", p8_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -4483,10 +4917,17 @@ def main() -> None:
                 "resnet18_spike_replays": spike,
                 "two_ranks_and_co_decision": sor["bitplane"],
                 "moonshot_generate_calls": moer["bitplane"],
-                "internvl2_generate_calls": vlmr["bitplane"]}
+                "internvl2_generate_calls": vlmr["bitplane"],
+                "mamba2_generate_call": p8r["ssm"]["bitplane"],
+                "zamba2_generate_call": p8r["hybrid"]["bitplane"],
+                "seamless_generate_call": p8r["encdec"]["bitplane"],
+                "stablelm_generate_call": p8r["dense"]["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
-                "internvl2_generate_calls": vlmr["flash"]}
+                "internvl2_generate_calls": vlmr["flash"],
+                "zamba2_generate_call": p8r["hybrid"]["flash"],
+                "seamless_generate_call": p8r["encdec"]["flash"],
+                "stablelm_generate_call": p8r["dense"]["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -4522,7 +4963,13 @@ def main() -> None:
           f"{vlmr['e2e']['bf16']['decode_ms']:.3f} ms per step with the bf16 "
           f"cache and {vlmr['e2e']['int8']['decode_ms']:.3f} with the int8 "
           f"one, continuous time to first token median "
-          f"{vlmr['e2e']['bf16']['ttft_median_ms']:.3f} ms")
+          f"{vlmr['e2e']['bf16']['ttft_median_ms']:.3f} ms; "
+          + "; ".join(f"{n} prefill {p8r[k]['e2e']['prefill_ms']:.3f} ms, "
+                      f"decode {p8r[k]['e2e']['decode_ms']:.3f} ms per step,"
+                      f" peak {p8r[k]['e2e']['peak_gib']:.3f} GiB"
+                      for k, n in (("ssm", SSM_ARCH), ("hybrid", HYB_ARCH),
+                                   ("encdec", ED_ARCH),
+                                   ("dense", D160_ARCH))))
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

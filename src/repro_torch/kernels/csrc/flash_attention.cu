@@ -18,8 +18,9 @@
 //
 // Layout: q (BH, Sq, HD), k and v (BH, Sk, HD), bf16, contiguous; out is
 // (BH, Sq, HD) bf16.  Sq != Sk is allowed.  HD is a template parameter in
-// {64, 128}; the Python wrapper zero-pads other head dims up to one of
-// these (zero columns change no score) and passes the real hd^-0.5 scale.
+// {64, 128, 160}; the Python wrapper zero-pads other head dims up to one
+// of these (zero columns change no score) and passes the real hd^-0.5
+// scale.
 //
 // What bounds it on this card: at the serve path's prefill shape
 // (BH = 128 flat heads, S = 4096, HD = 128, causal) the two products do
@@ -39,9 +40,13 @@
 //     ahead of the math.  The tensor maps are 3-D
 //     (hd, S, BH): rows past S load as zero and a tile never reads the
 //     next head's rows.  With the 128-byte swizzle a 128-wide head is two
-//     64-column boxes.
+//     64-column boxes.  160 is not a multiple of 64, and padding it to 192
+//     would not fit Q and two K and V slots in a block's 227 KB, so HD =
+//     160 is five 32-column boxes under the 64-byte swizzle, with a ring
+//     of 2 slots (40 KB of Q and 4 x 40 KB of K and V).
 //   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
-//     memory.  O += P V is wgmma m64n64k16 per 64 columns of the head,
+//     memory.  O += P V is wgmma m64n64k16 per 64 columns of the head
+//     (m64n32k16 per 32 at HD = 160),
 //     with P from registers (the f32 scores re-packed as bf16 A
 //     fragments, whose per-warp layout is mma.sync's) and V read
 //     MN-major from shared memory through the transpose bit.  m, l and O
@@ -74,12 +79,17 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // shared-memory layout (bytes from a 1024-byte-aligned base): Q, then a
-// ring of K tiles and a ring of V tiles (as many slots as fit: 3 at
-// HD = 128, 4 at HD = 64), then the mbarriers
+// ring of K tiles and a ring of V tiles (as many slots as fit: 4 at
+// HD = 64, 3 at HD = 128, 2 at HD = 160), then the mbarriers.  Every
+// tile is stored as boxes of BOXW columns, each a column block of ROWB-
+// byte swizzled rows
 template <int HD>
 struct Layout {
-  static constexpr int STAGES = HD == 128 ? 3 : 4;
-  static constexpr int BOXES = HD / 64;        // 64-column, 128-byte boxes
+  static constexpr int STAGES = HD == 64 ? 4 : HD == 128 ? 3 : 2;
+  static constexpr int BOXW = HD % 64 == 0 ? 64 : 32;  // columns per box
+  static constexpr int ROWB = BOXW * 2;        // 128- or 64-byte swizzle
+  static constexpr int BOXES = HD / BOXW;
+  static constexpr int KS_PER_BOX = BOXW / 16; // k16 steps along a row
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BKV * HD * 2;        // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -134,6 +144,31 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the wgmma descriptor of a tile in the layout's swizzle
+template <int ROWB>
+__device__ __forceinline__ uint64_t desc_tile(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return ROWB == 128 ? desc_sw128(p, lbo, sbo) : desc_sw64(p, lbo, sbo);
+}
+
+__device__ __forceinline__ void wgmma_pv32(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_pv(float (&d)[32],
@@ -213,7 +248,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive_expect_tx(q_bar, L::Q_BYTES);
 #pragma unroll
       for (int b = 0; b < L::BOXES; ++b)
-        tma_load_3d(sQ + b * BQ * 128, &map_q, q_bar, b * 64, q0, bh);
+        tma_load_3d(sQ + b * BQ * L::ROWB, &map_q, q_bar, b * L::BOXW, q0,
+                    bh);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const int k0 = (kt_begin + i) * BKV;
@@ -221,13 +257,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_arrive_expect_tx(&full_k[s], L::KV_BYTES);
 #pragma unroll
         for (int b = 0; b < L::BOXES; ++b)
-          tma_load_3d(sK + s * L::KV_BYTES + b * BKV * 128, &map_k,
-                      &full_k[s], b * 64, k0, bh);
+          tma_load_3d(sK + s * L::KV_BYTES + b * BKV * L::ROWB, &map_k,
+                      &full_k[s], b * L::BOXW, k0, bh);
         mbar_arrive_expect_tx(&full_v[s], L::KV_BYTES);
 #pragma unroll
         for (int b = 0; b < L::BOXES; ++b)
-          tma_load_3d(sV + s * L::KV_BYTES + b * BKV * 128, &map_v,
-                      &full_v[s], b * 64, k0, bh);
+          tma_load_3d(sV + s * L::KV_BYTES + b * BKV * L::ROWB, &map_v,
+                      &full_v[s], b * L::BOXW, k0, bh);
       }
     }
   } else {
@@ -244,7 +280,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row_lo = q0 + wg * 64;  // the warpgroup's first row
     const int qpos0 = row_lo + warp * 16 + g;   // rows qpos0, qpos0 + 8
     const float scale2 = scale * LOG2E;
-    const uint8_t* sQw = sQ + wg * 64 * 128;
+    constexpr int ROWB = L::ROWB;
+    const uint8_t* sQw = sQ + wg * 64 * ROWB;
 
     float m[2] = {NEG_INF, NEG_INF};  // running max, base-2 scaled domain
     float l[2] = {0.f, 0.f};
@@ -259,32 +296,39 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // descriptors of the Q rows, slot 0's K and slot 0's V; the others
     // are fixed offsets from these
-    const uint64_t dq = desc_sw128(sQw, 16, 1024);
-    const uint64_t dk = desc_sw128(sK, 16, 1024);
-    const uint64_t dv = desc_sw128(sV, BKV * 128, 1024);
+    const uint64_t dq = desc_tile<ROWB>(sQw, 16, 8 * ROWB);
+    const uint64_t dk = desc_tile<ROWB>(sK, 16, 8 * ROWB);
+    const uint64_t dv = desc_tile<ROWB>(sV, BKV * ROWB, 8 * ROWB);
 
     // S = Q K^T for ring slot s: 64 rows x 128 keys, K-major operands
     auto issue_qk = [&](int s) {
       const uint64_t dks = desc_add(dk, s * L::KV_BYTES);
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks) {
-        const int box = ks >> 2, off = (ks & 3) * 32;
-        wgmma_qk(sacc, desc_add(dq, box * BQ * 128 + off),
-                 desc_add(dks, box * BKV * 128 + off), ks > 0);
+        const int box = ks / L::KS_PER_BOX;
+        const int off = (ks % L::KS_PER_BOX) * 32;
+        wgmma_qk(sacc, desc_add(dq, box * BQ * ROWB + off),
+                 desc_add(dks, box * BKV * ROWB + off), ks > 0);
       }
       wgmma_commit();
     };
 
     // O += bf16(P) V for ring slot s, P's A fragments from registers; V
-    // is MN-major, one m64n64k16 per 64-column box
+    // is MN-major, one m64n64k16 (m64n32k16) per 64- (32-) column box
     auto issue_pv = [&](int s, const uint32_t (&pa)[BKV / 16][4]) {
       const uint64_t dvs = desc_add(dv, s * L::KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-        for (int b = 0; b < L::BOXES; ++b)
-          wgmma_pv(*reinterpret_cast<float(*)[32]>(o + 32 * b), pa[kk],
-                   desc_add(dvs, b * BKV * 128 + kk * 16 * 128), 1);
+        for (int b = 0; b < L::BOXES; ++b) {
+          const uint64_t db = desc_add(dvs, b * BKV * ROWB + kk * 16 * ROWB);
+          if constexpr (L::BOXW == 64)
+            wgmma_pv(*reinterpret_cast<float(*)[32]>(o + 32 * b), pa[kk], db,
+                     1);
+          else
+            wgmma_pv32(*reinterpret_cast<float(*)[16]>(o + 16 * b), pa[kk],
+                       db, 1);
+        }
       wgmma_commit();
     };
 
@@ -438,12 +482,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
                                 static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides_q[2] = {HD * 2, static_cast<cuuint64_t>(Sq) * HD * 2};
   const cuuint64_t strides_k[2] = {HD * 2, static_cast<cuuint64_t>(Sk) * HD * 2};
-  const cuuint32_t box_q[3] = {64, BQ, 1};
-  const cuuint32_t box_k[3] = {64, BKV, 1};
+  const cuuint32_t box_q[3] = {L::BOXW, BQ, 1};
+  const cuuint32_t box_k[3] = {L::BOXW, BKV, 1};
   const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!make_map(&map_q, bf16, 3, q, dims_q, strides_q, box_q) ||
-      !make_map(&map_k, bf16, 3, k, dims_k, strides_k, box_k) ||
-      !make_map(&map_v, bf16, 3, v, dims_k, strides_k, box_k))
+  const auto swz = L::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!make_map(&map_q, bf16, 3, q, dims_q, strides_q, box_q, swz) ||
+      !make_map(&map_k, bf16, 3, k, dims_k, strides_k, box_k, swz) ||
+      !make_map(&map_v, bf16, 3, v, dims_k, strides_k, box_k, swz))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;       // once per instantiation
   if (!attr_set) {
@@ -470,16 +516,20 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int BH, int Sq,
                                     int Sk, int hd, int k_len, int causal,
                                     int window, float scale, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Sk <= 0 || BH > 65535 || (hd != 64 && hd != 128))
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || BH > 65535 ||
+      (hd != 64 && hd != 128 && hd != 160))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
     return static_cast<int>(cudaErrorInvalidValue);    // TMA needs 16 B
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 64
-             ? launch<64>(q, k, v, out, BH, Sq, Sk, k_len, causal, window,
-                          scale, s)
-             : launch<128>(q, k, v, out, BH, Sq, Sk, k_len, causal, window,
-                           scale, s);
+  if (hd == 64)
+    return launch<64>(q, k, v, out, BH, Sq, Sk, k_len, causal, window, scale,
+                      s);
+  if (hd == 128)
+    return launch<128>(q, k, v, out, BH, Sq, Sk, k_len, causal, window, scale,
+                       s);
+  return launch<160>(q, k, v, out, BH, Sq, Sk, k_len, causal, window, scale,
+                     s);
 }

@@ -101,6 +101,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// the same for a tile in the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B):
+// rows of 64 bytes, 8-row atoms of 512 bytes, base 512-byte aligned; for
+// an MN-major operand lbo is then the stride between 32-element column
+// blocks
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
 // the same descriptor `bytes` further on (a multiple of 16): the start
 // address is the low field, and shared addresses stay below 2^18, so the
 // sum never carries into the strides
@@ -181,17 +192,19 @@ inline EncodeTiledFn encode_tiled() {
 
 // A row-major tensor of `rank` dims (dims[0] innermost, in elements;
 // strides[i] in bytes between consecutive indices of dims[i + 1]) read in
-// boxes of box[] elements with the 128-byte swizzle; out-of-range elements
-// load as zero.  Returns false if the map cannot be encoded.
+// boxes of box[] elements with the 128-byte swizzle (or `swizzle`);
+// out-of-range elements load as zero.  Returns false if the map cannot be
+// encoded.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                      const void* base, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

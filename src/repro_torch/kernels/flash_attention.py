@@ -7,13 +7,14 @@ It is the port of the Pallas TPU kernel
 and accumulator, masked scores at ``NEG_INF`` with their probabilities
 zeroed, P rounded to v's dtype before P.V, the denominator floored at
 1e-30 and the output in q's dtype.  The CUDA kernel
-(``csrc/flash_attention.cu``) takes bf16 inputs with hd in {64, 128}; the
-wrapper zero-pads any other hd <= 128 up to the next of these and slices
-the output back (zero columns change no score; the scale stays the real
-``hd ** -0.5``).  Each block owns :data:`QUERY_TILE` query rows (two
-``wgmma`` warpgroups of 64) and walks the keys in tiles of
-:data:`KEY_TILE`, which TMA copies into a ring of 3 slots (4 at hd 64);
-the tensor maps need 16-byte-aligned bases, which the wrapper checks.
+(``csrc/flash_attention.cu``) takes bf16 inputs with hd in
+:data:`HEAD_DIMS`; the wrapper zero-pads any other hd <= 160 up to the
+next of these and slices the output back (zero columns change no score;
+the scale stays the real ``hd ** -0.5``).  Each block owns
+:data:`QUERY_TILE` query rows (two ``wgmma`` warpgroups of 64) and walks
+the keys in tiles of :data:`KEY_TILE`, which TMA copies into a ring of 4
+slots at hd 64, 3 at hd 128 and 2 at hd 160; the tensor maps need
+16-byte-aligned bases, which the wrapper checks.
 
 Two plain versions sit beside it, as in the reference's ``kernels/ref.py``:
 
@@ -38,7 +39,7 @@ from repro_torch.kernels import cuda_build
 
 NEG_INF = -1e30
 FLASH_CHUNK = 2048
-HEAD_DIMS = (64, 128)          # the kernel's template instantiations
+HEAD_DIMS = (64, 128, 160)     # the kernel's template instantiations
 QUERY_TILE = 128               # BQ in flash_attention.cu
 KEY_TILE = 128                 # BKV in flash_attention.cu
 

@@ -5,7 +5,9 @@ The counterpart of ``repro.models.common``.  Every
 linear is a dict ``{"w": (K, N) [, "b": (N,)]}`` in training form, or
 ``{"q": int8 (K, N), "s": f32 (1, N) [, "b"]}`` (int8 container) /
 ``{"q4": uint8 (K, N/2), "s": ...}`` (packed int4 container) in serving
-form; :func:`apply_linear` dispatches on the keys.
+form; :func:`apply_linear` dispatches on the keys.  A serve-form linear
+may also carry ``lora_delta`` (K, N) bf16, a hybrid's per-site LoRA,
+added as an f32 side branch.
 """
 from __future__ import annotations
 
@@ -96,7 +98,14 @@ def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
             return torch.cat([_train_linear(p, x[i:i + 1], wb[i], ab[i])
                               for i in range(B)])
         return _train_linear(p, x, wbits, abits)
-    return kops.serve_linear(p, x, wbits, abits).to(DTYPE)
+    y = kops.serve_linear(p, x, wbits, abits)
+    if "lora_delta" in p:
+        # a hybrid's per-site LoRA around the shared quantized base: the
+        # bf16 (K, N) delta A @ B as an f32 side branch, added before the
+        # bf16 cast (the reference attaches it and never reads it:
+        # ROADMAP Queue C)
+        y = y + x.float() @ p["lora_delta"].float()
+    return y.to(DTYPE)
 
 
 def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
@@ -107,6 +116,14 @@ def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].float()
     return y.to(DTYPE)
+
+
+def stack_slice(tree, i: int):
+    """Index ``i`` of every leaf of a stacked ``(L, ...)`` parameter or
+    cache dict (views: an in-place cache insert updates the stack)."""
+    if isinstance(tree, dict):
+        return {k: stack_slice(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,96 @@
+"""Encoder-decoder (the seamless-m4t backbone): a bidirectional encoder
+over precomputed audio-frame embeddings (the modality frontend is a
+stub), and a causal decoder with per-layer cross-attention.
+
+The counterpart of ``repro.models.encdec``.  Decode caches: the
+self-attention KV ring caches (``transformer.empty_cache``) plus per-layer
+cross K/V, projected once from the encoder output at prefill.  Layer
+stacks keep the reference's ``(L, ...)`` layout; a Python loop runs them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf
+
+
+def dec_block_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
+    p = tf.block_init(gen, cfg, lead=lead, device=device)
+    p["lnx"] = cm.norm_init(cfg.d_model, cfg.norm_type, lead=lead,
+                            device=device)
+    p["xattn"] = tf.attn_init(gen, cfg, lead=lead, device=device)
+    return p
+
+
+def encdec_init(gen: torch.Generator, cfg, *, device) -> dict:
+    return {"enc": tf.block_init(gen, cfg, lead=(cfg.n_enc_layers,),
+                                 device=device),
+            "enc_ln_f": cm.norm_init(cfg.d_model, cfg.norm_type,
+                                     device=device),
+            "dec": dec_block_init(gen, cfg, lead=(cfg.n_layers,),
+                                  device=device)}
+
+
+def encode(p, frames: torch.Tensor, cfg, wvec, avec) -> torch.Tensor:
+    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d).
+    The encoder runs at the first ``n_enc_layers`` bit slots."""
+    B, F, _ = frames.shape
+    positions = torch.arange(F, dtype=torch.int32,
+                             device=frames.device)[None].expand(B, F)
+    x = frames
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = tf.block(cm.stack_slice(p["enc"], i), x, cfg, wvec[i],
+                           avec[i], positions=positions, causal=False)
+    return cm.apply_norm(p["enc_ln_f"], x, cfg.norm_type, cfg.norm_eps)
+
+
+def cross_kv(p_dec, enc_out: torch.Tensor, cfg, wvec, avec) -> dict:
+    """Project the encoder output to per-decoder-layer cross K/V (prefill):
+    ``{"k", "v"}`` of shape (L, B, F, KV, hd); ``wvec``/``avec`` are the
+    decoder's slots."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        xp = cm.stack_slice(p_dec["xattn"], i)
+        ks.append(cm.apply_linear(xp["wk"], enc_out, wvec[i], avec[i])
+                  .reshape(B, F, KV, hd))
+        vs.append(cm.apply_linear(xp["wv"], enc_out, wvec[i], avec[i])
+                  .reshape(B, F, KV, hd))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decoder_block(p, x, cfg, wb, ab, *, positions, enc_kv,
+                  cache: Optional[dict] = None, t=None):
+    """Self-attn + cross-attn + MLP.  enc_kv: (k, v) for this layer."""
+    h, new_cache = tf.attention(
+        p["attn"], cm.apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps),
+        cfg, wb, ab, positions=positions, causal=True, cache=cache, t=t)
+    x = x + h
+    hx, _ = tf.attention(
+        p["xattn"], cm.apply_norm(p["lnx"], x, cfg.norm_type, cfg.norm_eps),
+        cfg, wb, ab, positions=positions, kv=enc_kv)
+    x = x + hx
+    y = tf.mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg.norm_type,
+                                       cfg.norm_eps), cfg, wb, ab)
+    return x + y, new_cache
+
+
+def decoder_forward(p, x, cfg, wvec, avec, *, positions, enc_kv: dict,
+                    cache: Optional[dict] = None, t=None
+                    ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: (B, S, d) decoder-side embeddings; enc_kv stacked (L, ...); the
+    decoder runs at the last ``n_layers`` bit slots.  The self-attention
+    cache is updated in place and returned."""
+    n_dec = cfg.n_layers
+    wd, ad = wvec[-n_dec:], avec[-n_dec:]
+    for i in range(n_dec):
+        cl = cm.stack_slice(cache, i) if cache is not None else None
+        x, _ = decoder_block(cm.stack_slice(p["dec"], i), x, cfg, wd[i],
+                             ad[i], positions=positions,
+                             enc_kv=(enc_kv["k"][i], enc_kv["v"][i]),
+                             cache=cl, t=t)
+    return x, cache

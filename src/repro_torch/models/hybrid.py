@@ -1,0 +1,115 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one *shared* attention block.
+
+The counterpart of ``repro.models.hybrid`` (arXiv:2411.15242, adapted):
+the layer stack is grouped into ``n_layers / attn_every`` super-blocks;
+each super-block first runs the globally shared attention+MLP block (one
+weight set reused at every site, specialised per site by a LoRA pair on
+its four attention projections), then ``attn_every`` Mamba2 layers.
+Mamba params are stacked ``(n_super * attn_every, ...)`` as
+``(n_super, attn_every, ...)``, LoRA params ``(n_super, ...)``.
+
+Because the shared block's base weights are one tensor reused
+everywhere, its precision is global: the shared block runs at
+``wbits[0]`` / ``abits[0]``, the Mamba layers at their super-block's bits.
+
+In the serve form each site's delta ``A @ B`` (f32, rounded to bf16) is
+attached to the quantized base as ``lora_delta``, and
+``common.apply_linear`` adds ``x @ lora_delta`` in f32 to the base's
+output.  The reference attaches the same delta and never reads it, so
+its serve form runs every site on the bare base (ROADMAP Queue C); with
+``b = 0``, as ``lora_init`` draws it, the two agree bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models import common as cm
+from repro_torch.models import mamba2
+from repro_torch.models import transformer as tf
+
+
+def n_super(cfg) -> int:
+    assert cfg.n_layers % cfg.attn_every == 0
+    return cfg.n_layers // cfg.attn_every
+
+
+def lora_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
+    """Per-site LoRA on the shared block's four attention projections:
+    ``a`` Normal(0, d_in^-1/2), ``b`` zeros, bf16."""
+    d, H, hd, r = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.lora_rank
+    lead = tuple(lead)
+
+    def pair(d_in, d_out):
+        a = torch.randn(lead + (d_in, r), generator=gen, dtype=torch.float32,
+                        device=gen.device) * d_in ** -0.5
+        return {"a": a.to(cm.DTYPE).to(device),
+                "b": torch.zeros(lead + (r, d_out), dtype=cm.DTYPE,
+                                 device=device)}
+
+    return {"wq": pair(d, H * hd), "wk": pair(d, cfg.n_kv_heads * hd),
+            "wv": pair(d, cfg.n_kv_heads * hd), "wo": pair(H * hd, d)}
+
+
+def hybrid_init(gen: torch.Generator, cfg, *, device) -> dict:
+    ns = n_super(cfg)
+    return {"shared": tf.block_init(gen, cfg, device=device),
+            "mamba": mamba2.mamba_init(gen, cfg, lead=(ns, cfg.attn_every),
+                                       device=device),
+            "lora": lora_init(gen, cfg, lead=(ns,), device=device)}
+
+
+def _lora_attn_params(shared_attn: dict, lora: dict) -> dict:
+    """Site-specific attention weights: W + A @ B (train form), or the
+    quantized base with the delta attached as ``lora_delta`` (serve
+    form, applied by ``common.apply_linear``)."""
+    out = dict(shared_attn)
+    for name in ("wq", "wk", "wv", "wo"):
+        base = shared_attn[name]
+        delta = lora[name]["a"].float() @ lora[name]["b"].float()
+        if "w" in base:
+            out[name] = dict(base, w=(base["w"].float() + delta
+                                      ).to(base["w"].dtype))
+        else:
+            out[name] = dict(base, lora_delta=delta.to(cm.DTYPE))
+    return out
+
+
+def hybrid_forward(p, x, cfg, wbits, abits, *, positions,
+                   cache: Optional[dict] = None, t=None
+                   ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x: (B, S, d).  wbits/abits: (n_super,) vectors (or scalars).
+    cache: {"kv": transformer cache stacked (n_super, ...), "conv"/"ssm":
+    mamba states stacked (n_layers, ...)}, updated in place and
+    returned."""
+    ns, every = n_super(cfg), cfg.attn_every
+    wb = torch.as_tensor(wbits).expand(ns)
+    ab = torch.as_tensor(abits).expand(ns)
+    shared = p["shared"]
+    for i in range(ns):
+        attn_p = {"ln1": shared["ln1"], "ln2": shared["ln2"],
+                  "mlp": shared["mlp"],
+                  "attn": _lora_attn_params(shared["attn"],
+                                            cm.stack_slice(p["lora"], i))}
+        kv_c = cm.stack_slice(cache["kv"], i) if cache is not None else None
+        x, _, _ = tf.block(attn_p, x, cfg, wb[0], ab[0], positions=positions,
+                           cache=kv_c, t=t)
+        for j in range(every):
+            mp = cm.stack_slice(cm.stack_slice(p["mamba"], i), j)
+            li = i * every + j
+            st = ({"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
+                  if cache is not None else None)
+            x, new_st = mamba2.mamba_block(mp, x, cfg, wb[i], ab[i],
+                                           state=st)
+            if cache is not None:
+                cache["conv"][li] = new_st["conv"]
+                cache["ssm"][li] = new_st["ssm"]
+    return x, cache
+
+
+def empty_hybrid_cache(cfg, batch: int, max_len: int, *, device) -> dict:
+    kv = tf.empty_cache(cfg, batch, max_len, device=device,
+                        n_layers=n_super(cfg))
+    ms = mamba2.empty_state(cfg, batch, cfg.n_layers, device=device)
+    return {"kv": kv, "conv": ms["conv"], "ssm": ms["ssm"]}

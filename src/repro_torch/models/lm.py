@@ -1,6 +1,6 @@
-"""LM wiring for the attention families (dense, moe, vlm): embeddings,
-the layer stack, logits, prefill/decode, the slot-based cache pool, and
-the train/serve parameter forms.
+"""LM wiring for every family (dense, moe, vlm, ssm, hybrid, encdec):
+embeddings, the per-family stacks, logits, prefill/decode, the slot-based
+cache pool, and the train/serve parameter forms.
 
 The counterpart of ``repro.models.lm``:
   init_params(cfg, gen, device=)             -> train-form dict (bf16)
@@ -11,7 +11,7 @@ The counterpart of ``repro.models.lm``:
                                              -> (last_logits, cache)
   decode_step(params, tok, t, cache, cfg, wvec, avec) -> (logits, cache)
   decode_chunk(params, toks, t, cache, cfg, wvec, avec) -> (logits, cache)
-  empty_cache(cfg, batch, max_len, device=)  -> stacked KV cache
+  empty_cache(cfg, batch, max_len, device=)  -> family-specific cache
   CachePool(cfg, n_slots, max_len, device=)  -> slot-based persistent cache
 
 Parameters keep the reference's stacked layout: every layer leaf has a
@@ -23,10 +23,12 @@ the decode calls is a scalar (lock-step batch) or ``(B,)`` per-row
 positions (continuous batching); ``lengths`` in prefill marks per-row
 valid prompt lengths of a right-padded batch.
 
-The dense, moe and vlm families are ported; the others (ssm, hybrid,
-encdec) raise ``NotImplementedError`` naming the family.  A vlm batch
-carries ``batch["prefix"]``, precomputed ``(B, n_prefix_tokens,
-d_model)`` patch embeddings that prefill puts in front of the prompt.
+A vlm batch carries ``batch["prefix"]``, precomputed ``(B,
+n_prefix_tokens, d_model)`` patch embeddings that prefill puts in front
+of the prompt; an encdec batch carries ``batch["frames"]``, ``(B, F,
+d_model)`` audio-frame embeddings that prefill encodes once (the decode
+steps read the cross K/V kept in the cache).  Ragged prefill and chunked
+decode stay with the attention families, as in the reference.
 
 MoE expert stacks are ``(L, E, d, f)``; :func:`quantize_params`
 quantizes them per expert (``{"q": int8 (L, E, d, f), "s": (L, E, 1,
@@ -44,15 +46,15 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
-from repro_torch.models import moe
+from repro_torch.models import encdec, hybrid, mamba2, moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
-PORTED_FAMILIES = ("dense", "moe", "vlm")
-# The reference's family lists (the families outside PORTED_FAMILIES
-# raise through _require_ported).  Families whose layer stacks accept
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+# The reference's family lists.  Families whose layer stacks accept
 # (B, n_layers) per-request bit matrices (MoE resolves a per-expert axis
-# instead):
+# instead; hybrid shares one attention block batch-wide; encdec shares
+# the encoder):
 PER_ROW_BIT_FAMILIES = ("dense", "vlm", "ssm")
 # Families whose prefill takes ragged per-row prompt lengths (attention
 # masks the padding; a recurrence would consume the pad tokens):
@@ -65,8 +67,8 @@ SPEC_CHUNK_FAMILIES = ("dense", "vlm")
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port runs {PORTED_FAMILIES}")
+            f"unknown family {cfg.family!r} ({cfg.name}); the port runs "
+            f"{PORTED_FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -76,12 +78,18 @@ def _require_ported(cfg: ModelConfig) -> None:
 def n_bit_slots(cfg: ModelConfig) -> int:
     """Length of the per-layer bit vectors for this family."""
     _require_ported(cfg)
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers
+    if cfg.family == "hybrid":
+        return hybrid.n_super(cfg)
     return cfg.n_layers
 
 
 def layer_gemm_dims(cfg: ModelConfig):
     """Per-bit-slot serve GEMV dims: one tuple of (K, N) pairs per slot
-    (the AP pricer's input)."""
+    (the AP pricer's input).  Hybrid and encdec entries are first-order,
+    as in the reference: the shared attention block and the
+    cross-attention projections are charged at their slot's bits."""
     _require_ported(cfg)
     d = cfg.d_model
     attn = ((d, cfg.n_heads * cfg.head_dim),
@@ -94,12 +102,23 @@ def layer_gemm_dims(cfg: ModelConfig):
             return ((d, f), (d, f), (f, d))
         return ((d, f), (f, d))
 
+    if cfg.family in ("dense", "vlm"):
+        return (attn + mlp(cfg.d_ff),) * cfg.n_layers
     if cfg.family == "moe":
         per = attn + cfg.experts_per_token * mlp(cfg.d_ff)
         if cfg.n_shared_experts:
             per = per + mlp(cfg.d_ff * cfg.n_shared_experts)
         return (per,) * cfg.n_layers
-    return (attn + mlp(cfg.d_ff),) * cfg.n_layers
+    d_inner, H, N, _ = mamba2.dims(cfg)
+    mam = ((d, 2 * d_inner + 2 * N + H), (d_inner, d))    # in/out proj
+    if cfg.family == "ssm":
+        return (mam,) * cfg.n_layers
+    if cfg.family == "hybrid":
+        per = attn + mlp(cfg.d_ff) + mam * cfg.attn_every
+        return (per,) * hybrid.n_super(cfg)
+    enc = attn + mlp(cfg.d_ff)                             # encdec
+    dec = attn + attn + mlp(cfg.d_ff)                     # self + cross
+    return (enc,) * cfg.n_enc_layers + (dec,) * cfg.n_layers
 
 
 def head_gemm_dims(cfg: ModelConfig):
@@ -120,7 +139,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     p = {"emb": (emb * 0.02).to(cm.DTYPE).to(dev),
          "ln_f": cm.norm_init(cfg.d_model, cfg.norm_type, device=dev)}
     del emb
-    p["layers"] = layer_init(gen, cfg, lead=(cfg.n_layers,), device=dev)
+    if cfg.family == "ssm":
+        p["layers"] = mamba2.mamba_init(gen, cfg, lead=(cfg.n_layers,),
+                                        device=dev)
+    elif cfg.family == "hybrid":
+        p["layers"] = hybrid.hybrid_init(gen, cfg, device=dev)
+    elif cfg.family == "encdec":
+        p["layers"] = encdec.encdec_init(gen, cfg, device=dev)
+    else:
+        p["layers"] = layer_init(gen, cfg, lead=(cfg.n_layers,), device=dev)
     if not cfg.tie_embeddings:
         p["head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                   scale=cfg.d_model ** -0.5, device=dev)
@@ -150,8 +177,9 @@ def quantize_params(params: dict, cfg: ModelConfig,
     """Train-form -> serve-form.  Every linear {"w": (..., K, N)} becomes
     {"q"/"q4", "s"} with per-out-channel scales, stacked dims preserved;
     expert stacks (``(E, d, f)``, or ``(L, E, d, f)`` in a layer stack)
-    quantize per expert to int8; the router, ``emb`` (a gather table)
-    and the norms stay bf16."""
+    quantize per expert to int8; the router, a hybrid's LoRA pairs,
+    ``emb`` (a gather table), the norms and the Mamba conv and SSM
+    parameters stay as they are."""
     from repro_torch.core import bitfluid as bf
 
     def q_expert(w: torch.Tensor) -> dict:
@@ -185,8 +213,13 @@ def init_serve_params(cfg: ModelConfig, gen: torch.Generator, *,
     is ever resident (a MoE model's bf16 expert stacks may not fit beside
     its serve form).  The same layout and dtypes as
     ``quantize_params(init_params(...))``; the draws come in another
-    order, so the values differ."""
+    order, so the values differ.  The recurrent and encoder-decoder
+    families (whose train forms fit beside their serve forms) take
+    ``quantize_params(init_params(...))``."""
     _require_ported(cfg)
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        return quantize_params(init_params(cfg, gen, device=device), cfg,
+                               container)
     dev = cm.resolve_device(device)
     L = cfg.n_layers
     stacks = None
@@ -230,12 +263,7 @@ def _map(fn, tree):
 # Stack
 # ---------------------------------------------------------------------------
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked (L, ...) parameter or cache dict
-    (views: an in-place cache insert updates the stack)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+_layer = cm.stack_slice
 
 
 def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None,
@@ -249,6 +277,20 @@ def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None,
                            mlp_fn=mlp_fn)
         aux.append(a)
     return x, cache, torch.stack(aux).mean()
+
+
+def _ssm_stack(layers, x, cfg, wvec, avec, cache=None):
+    """The Mamba2 layer loop; the cache's conv and ssm states are updated
+    in place.  Returns (x, cache, 0)."""
+    for i in range(cfg.n_layers):
+        st = ({"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+              if cache is not None else None)
+        x, new_st = mamba2.mamba_block(_layer(layers, i), x, cfg, wvec[i],
+                                       avec[i], state=st)
+        if cache is not None:
+            cache["conv"][i] = new_st["conv"]
+            cache["ssm"][i] = new_st["ssm"]
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_major(vec, family: str, device) -> torch.Tensor:
@@ -266,15 +308,39 @@ def _layer_major(vec, family: str, device) -> torch.Tensor:
 
 
 def forward_hidden(params, x, cfg: ModelConfig, wvec, avec, *, positions,
-                   cache=None, t=None):
+                   cache=None, t=None, enc_out=None):
     """Embedded inputs -> final hidden states.  Returns (h, cache, aux),
     aux the MoE load-balance loss averaged over the layers (0 for the
-    dense stacks)."""
+    other stacks).  encdec: the cross K/V come from ``cache["cross"]``
+    when the cache holds them, else from ``enc_out``; the returned cache
+    then holds them."""
     _require_ported(cfg)
-    wvec = _layer_major(wvec, cfg.family, x.device)
-    avec = _layer_major(avec, cfg.family, x.device)
+    fam = cfg.family
+    wvec = _layer_major(wvec, fam, x.device)
+    avec = _layer_major(avec, fam, x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if fam == "ssm":
+        return _ssm_stack(params["layers"], x, cfg, wvec, avec, cache)
+    if fam == "hybrid":
+        h, new_cache = hybrid.hybrid_forward(
+            params["layers"], x, cfg, wvec, avec, positions=positions,
+            cache=cache, t=t)
+        return h, new_cache, zero
+    if fam == "encdec":
+        kv_cache = cache["self"] if cache is not None else None
+        if cache is not None and "cross" in cache:
+            xkv = cache["cross"]
+        else:
+            xkv = encdec.cross_kv(params["layers"]["dec"], enc_out, cfg,
+                                  wvec[-cfg.n_layers:], avec[-cfg.n_layers:])
+        h, new_self = encdec.decoder_forward(
+            params["layers"], x, cfg, wvec, avec, positions=positions,
+            enc_kv=xkv, cache=kv_cache, t=t)
+        new_cache = ({"self": new_self, "cross": xkv}
+                     if cache is not None else None)
+        return h, new_cache, zero
     return _dense_stack(params["layers"], x, cfg, wvec, avec, positions,
-                        cache, t, mlp_fn=(moe.apply_moe if cfg.family == "moe"
+                        cache, t, mlp_fn=(moe.apply_moe if fam == "moe"
                                           else None))
 
 
@@ -313,9 +379,25 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8
 
 def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda") -> dict:
+    """The family's empty cache: the stacked KV ring (attention
+    families), the Mamba states (ssm), both (hybrid), or the decoder's KV
+    ring and the cross K/V at ``max_len // frames_ratio`` frames
+    (encdec; prefill replaces the cross K/V with the encoder's)."""
     _require_ported(cfg)
-    return tf.empty_cache(cfg, batch, max_len,
-                          device=cm.resolve_device(device))
+    dev = cm.resolve_device(device)
+    if cfg.family == "ssm":
+        return mamba2.empty_state(cfg, batch, cfg.n_layers, device=dev)
+    if cfg.family == "hybrid":
+        return hybrid.empty_hybrid_cache(cfg, batch, max_len, device=dev)
+    if cfg.family == "encdec":
+        frames = max(max_len // cfg.frames_ratio, 1)
+        shape = (cfg.n_layers, batch, frames, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": tf.empty_cache(cfg, batch, max_len, device=dev),
+                "cross": {"k": torch.zeros(shape, dtype=cm.DTYPE,
+                                           device=dev),
+                          "v": torch.zeros(shape, dtype=cm.DTYPE,
+                                           device=dev)}}
+    return tf.empty_cache(cfg, batch, max_len, device=dev)
 
 
 def _last_layer_bits(vec):
@@ -334,16 +416,25 @@ def prefill(params, batch: dict, cfg: ModelConfig, wvec, avec, cache: dict,
     each row's logits are gathered at its own last real token.  A vlm
     batch's ``prefix`` (B, P, d) goes in front of the tokens: the cache
     then holds P + S positions, and each row's valid length is P +
-    ``lengths``."""
+    ``lengths``.  An encdec batch's ``frames`` (B, F, d) run through the
+    encoder, and the cache's cross K/V are rebuilt from its output."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params, tokens)
     prefix_len = 0
+    enc_out = None
     if cfg.family == "vlm":
         prefix = torch.as_tensor(batch["prefix"]).to(x.device, cm.DTYPE)
         prefix_len = prefix.shape[1]
         x = torch.cat([prefix, x], dim=1)
+    elif cfg.family == "encdec":
+        frames = torch.as_tensor(batch["frames"]).to(x.device, cm.DTYPE)
+        enc_out = encdec.encode(
+            params["layers"], frames, cfg,
+            _layer_major(wvec, cfg.family, x.device),
+            _layer_major(avec, cfg.family, x.device))
+        cache = {"self": cache["self"]}        # cross is rebuilt from enc_out
     Sx = x.shape[1]
     if lengths is None:
         # (1, Sx): rows share positions, so attention keeps one (Sx, Sx)
@@ -368,7 +459,8 @@ def prefill(params, batch: dict, cfg: ModelConfig, wvec, avec, cache: dict,
         # real tokens
         x = torch.where(valid[..., None], x, 0).to(x.dtype)
     h, new_cache, _ = forward_hidden(params, x, cfg, wvec, avec,
-                                     positions=positions, cache=cache)
+                                     positions=positions, cache=cache,
+                                     enc_out=enc_out)
     if lengths is None:
         h_last = h[:, -1:]
     else:

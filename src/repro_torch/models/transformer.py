@@ -33,7 +33,11 @@ of int8 x int8 terms are exact below 2^53, so every accumulator is the
 same integer in any summation order, on either device, and a row's
 result does not depend on the rows beside it.
 
-Not ported yet, and raising ``NotImplementedError``: cross-attention.
+Cross-attention (``attention(kv=(k, v))``, the encoder-decoder's) takes
+precomputed keys and values and skips RoPE, as the reference does.  The
+reference also projects ``x`` through ``wk`` and ``wv`` there and
+discards both results; the port skips those two GEMMs (no output
+changes).
 """
 from __future__ import annotations
 
@@ -92,11 +96,13 @@ def block_init(gen: torch.Generator, cfg, *, lead=(), device) -> dict:
     }
 
 
-def empty_cache(cfg, batch: int, max_len: int, *, device) -> dict:
+def empty_cache(cfg, batch: int, max_len: int, *, device,
+                n_layers: Optional[int] = None) -> dict:
     """Stacked (n_layers, ...) cache with every slot empty: bf16 k/v, or
     with ``kv_cache_bits == 8`` int8 k/v and bf16 per-(token, head)
-    scales ``ks``/``vs``."""
-    L = cfg.n_layers
+    scales ``ks``/``vs``.  ``n_layers`` defaults to ``cfg.n_layers`` (a
+    hybrid's shared block caches one layer per super-block)."""
+    L = n_layers or cfg.n_layers
     Sc = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     kv = (L, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
     out = {"kpos": torch.full((L, batch, Sc), EMPTY_POS, dtype=torch.int32,
@@ -171,14 +177,22 @@ def _row_insert(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor
 # Attention
 # ---------------------------------------------------------------------------
 
+def _q(p, x, cfg, wbits, abits):
+    B, S = x.shape[:2]
+    q = cm.apply_linear(p["wq"], x, wbits, abits).reshape(
+        B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+    return q
+
+
 def _qkv(p, x, cfg, wbits, abits):
     B, S = x.shape[:2]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = cm.apply_linear(p["wq"], x, wbits, abits).reshape(B, S, H, hd)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    q = _q(p, x, cfg, wbits, abits)
     k = cm.apply_linear(p["wk"], x, wbits, abits).reshape(B, S, KV, hd)
     v = cm.apply_linear(p["wv"], x, wbits, abits).reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = cm.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = cm.rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
     return q, k, v
 
@@ -257,15 +271,24 @@ def _flash(q, k, v, cfg, causal: bool):
 def attention(p, x, cfg, wbits=8, abits=8, *, positions,
               causal: bool = True, kv=None, cache: Optional[dict] = None,
               t=None):
-    """Self-attention with optional cache update.
+    """Self- or cross-attention with optional cache update.
 
     positions: (B, S) or (1, S) absolute positions of x's tokens (RoPE +
-    mask).  cache/t: the decode path inserts this step's k/v at slot
-    t % Sc; a full-sequence call with a cache (prefill) fills it.
+    mask).  kv: precomputed (k, v) (B, Sk, KV, hd) for cross-attention
+    (no RoPE, no mask, no cache; flash when Sq * Sk > FLASH_THRESHOLD^2).
+    cache/t: the decode path inserts this step's k/v at slot t % Sc; a
+    full-sequence call with a cache (prefill) fills it.
     Returns (out, new_cache)."""
-    if kv is not None:
-        raise NotImplementedError(
-            "cross-attention (kv=) is not ported yet")
+    if kv is not None:                                   # cross-attention
+        q = _q(p, x, cfg, wbits, abits)
+        k, v = kv
+        if q.shape[1] * k.shape[1] > FLASH_THRESHOLD ** 2:
+            out = _flash(q, k, v, cfg, causal=False)
+        else:
+            bias = torch.zeros((q.shape[1], k.shape[1]), dtype=torch.float32,
+                               device=x.device)
+            out = _sdpa(q, k, v, bias, cfg)
+        return cm.apply_linear(p["wo"], out, wbits, abits), None
     q, k_new, v_new = _qkv(p, x, cfg, wbits, abits)
     if cfg.rope_theta > 0:
         q = cm.apply_rope(q, positions, cfg.rope_theta)

@@ -37,13 +37,18 @@ this module owns what is LM-shaped.
     every layer's self-attention through the flash kernel.  It is open
     loop, so it refuses a FluidController.  It is the only API of the
     moe family (whole-batch budgets: a MoE batch shares its experts'
-    capacity and activation scales, so its rows are not independent).
+    capacity and activation scales, so its rows are not independent) and
+    of the recurrent and encoder-decoder families (ssm takes per-request
+    budgets; hybrid and encdec share one attention block or the encoder
+    batch-wide and take whole-batch budgets).
 
 A vlm request carries its image as a stub: precomputed patch embeddings,
 ``(n_prefix_tokens, d_model)`` (``submit(prefix=)``, or ``batch["prefix"]``
 of shape (B, n_prefix_tokens, d_model) for ``generate``), prefilled in
 front of the prompt.  Such a request bypasses the prefix cache: its
 embeddings are not content-keyed.
+An encdec batch carries its audio as a stub too: ``batch["frames"]`` of
+shape (B, F, d_model), which the prefill encodes once.
 
 The reference jit-compiles each program (a scan-fused decode block, one
 draft and one verify program for every depth); here each runs eagerly as
@@ -92,7 +97,7 @@ same noise for different rows).
 Not ported yet, and raising ``NotImplementedError``: a mesh without a
 fully replicated plan or with a tensor-parallel axis (sharded weights);
 ``generate``, speculation and the prefix cache on a mesh (they would
-move rows across ranks); the families outside ``lm.PORTED_FAMILIES``.
+move rows across ranks).
 """
 from __future__ import annotations
 
@@ -509,7 +514,8 @@ class ServeEngine(ServeRuntime):
         """Generate ``steps`` tokens for one synchronous batch; returns
         (B, steps) int32 ids on the engine's device.  Greedy unless
         per-row temperature/top_k are given.  A vlm batch carries
-        ``batch["prefix"]`` (B, n_prefix_tokens, d_model)."""
+        ``batch["prefix"]`` (B, n_prefix_tokens, d_model), an encdec batch
+        ``batch["frames"]`` (B, F, d_model)."""
         if self.mesh is not None:
             raise NotImplementedError(
                 "generate() on a mesh is not ported: its batch is not "
@@ -537,6 +543,15 @@ class ServeEngine(ServeRuntime):
             self._check_prefix(batch.get("prefix"), (B, prefix,
                                                      self.cfg.d_model))
             inputs["prefix"] = torch.as_tensor(batch["prefix"]).to(dev)
+        elif self.cfg.family == "encdec":
+            frames = batch.get("frames")
+            shape = None if frames is None else tuple(frames.shape)
+            if shape is None or len(shape) != 3 or shape[0] != B \
+                    or shape[1] < 1 or shape[2] != self.cfg.d_model:
+                raise ValueError(f"encdec batches need frames of shape "
+                                 f"(B={B}, F, d_model={self.cfg.d_model}), "
+                                 f"got {shape}")
+            inputs["frames"] = torch.as_tensor(frames).to(dev)
         temp = torch.zeros((B,), dtype=torch.float32, device=dev) \
             if temperature is None else torch.as_tensor(
                 temperature, dtype=torch.float32).to(dev).expand(B)
@@ -594,10 +609,6 @@ class ServeEngine(ServeRuntime):
                 f"the continuous-batching API needs ragged prefill; family "
                 f"{self.cfg.family!r} serves via generate() only "
                 f"(supported: {lm.RAGGED_PREFILL_FAMILIES})")
-        if self.cfg.family not in lm.PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} ({self.cfg.name}) is not "
-                f"ported yet; the port runs {lm.PORTED_FAMILIES}")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 1 <= prompt.shape[0] <= self.prefill_len:
             raise ValueError(f"prompt length {prompt.shape[0]} not in "

@@ -116,7 +116,7 @@ def test_bf16_chunked_matches_reference_chunked():
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():
     """The CUDA wrapper takes CUDA tensors only (no fallback), and head
-    dims up to its largest instantiation, 128."""
+    dims up to its largest instantiation, 160 (stablelm-12b's)."""
     q = torch.zeros((1, 8, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="cuda"):
         fa.flash_attention(q, q, q)
@@ -125,6 +125,35 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     assert [fa.kernel_head_dim(h) for h in (16, 48, 64, 80, 128)] == \
         [64, 64, 64, 128, 128]
     with pytest.raises(ValueError, match="160"):
-        fa.kernel_head_dim(160)                 # stablelm-12b's head dim
+        fa.kernel_head_dim(161)
     assert fa.FLASH_CHUNK == jref.FLASH_CHUNK
     assert fa.NEG_INF == jref.NEG_INF
+
+
+def test_kernel_head_dim_pads_up_to_160():
+    """hd 129..160 run at the 160-wide instantiation: 144 pads to 160,
+    160 (stablelm-12b's head dim) runs as it is."""
+    assert fa.HEAD_DIMS == (64, 128, 160)
+    assert [fa.kernel_head_dim(h) for h in (129, 144, 159, 160)] == [160] * 4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 96, 96, 160), (2, 130, 77, 144),
+                                   (1, 40, 200, 160)])
+def test_wide_heads_match_reference(causal, shape):
+    """hd 160 and 144, Sq = Sk and Sq != Sk: the port's dispatch and both
+    plain versions (the blockwise one cut into 32-row chunks) against the
+    reference's oracle and its interpret-mode Pallas kernel, in f32."""
+    BH, Sq, Sk, hd = shape
+    q, k, v = _inputs(hd + Sq, BH, Sq, Sk, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jref.flash_attention_ref(jq, jk, jv, causal)
+    interp = jops.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (BH, Sq, hd)
+    _close(got, want)
+    _close(got, interp)
+    _close(fa.flash_attention_ref(tq, tk, tv, causal), want)
+    _close(fa.flash_attention_chunked_ref(tq, tk, tv, causal, chunk=32),
+           want)

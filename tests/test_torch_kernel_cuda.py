@@ -155,9 +155,14 @@ def test_flash_kernel_matches_oracle(cuda, causal, window):
 
 
 # (BH, Sq, Sk, hd, causal, window, k_len): Sq != Sk, k_len < Sk, the
-# window with and without causal, hd 64 / 80 / 96 / 128, S off the 128-row
-# query and key tiles, BH = 1
+# window with and without causal, hd 64 / 80 / 96 / 128 / 144 / 160, S off
+# the 128-row query and key tiles, BH = 1
 FLASH_EDGE = [(1, 129, 129, 128, True, 0, 0), (2, 200, 300, 64, True, 0, 0),
+              (2, 300, 300, 160, True, 0, 0), (2, 300, 300, 160, False, 0, 0),
+              (2, 200, 333, 160, False, 0, 0), (2, 333, 200, 160, True, 0, 0),
+              (1, 257, 257, 144, True, 0, 0), (1, 130, 390, 144, False, 0, 0),
+              (1, 1000, 1000, 160, True, 257, 0),
+              (3, 100, 333, 160, False, 0, 250),
               (2, 300, 200, 128, False, 0, 0), (1, 257, 257, 96, True, 100, 0),
               (1, 257, 257, 80, False, 100, 0), (3, 100, 333, 64, False, 0, 250),
               (2, 256, 256, 128, True, 0, 130), (1, 1000, 1000, 128, True, 257, 0),
@@ -196,7 +201,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            q, q)
     with pytest.raises(ValueError, match="160"):
-        big = _bf16((1, 8, 160), cuda, 3)
+        big = _bf16((1, 8, 192), cuda, 3)
         fa.flash_attention(big, big, big)
 
 
