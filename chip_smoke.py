@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Eight paths, each at full width with random weights from a seed:
+Nine paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -36,7 +36,7 @@ Eight paths, each at full width with random weights from a seed:
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
   through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
-  shape, cut to its first 9 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  shape, cut to its first 6 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
   keys (512-1024-token prompts, int8), plus four late prompts that
   share the first two keys' prefixes, so misses, full hits and partial
   hits (extended token by token through ``decode_step``, the bit-plane
@@ -83,7 +83,17 @@ Eight paths, each at full width with random weights from a seed:
   (causal) and its cross-attention on flash (not causal, 8192 queries
   over 2048 keys); (d) stablelm-12b (40 layers, d_model 5120, GQA 32/8
   at hd 160, LayerNorm), B=2 x 4096 at int4 and int8 rows, flash at the
-  kernel's 160-wide instantiation.
+  kernel's 160-wide instantiation;
+* training: (a) Qwen3-4B at full width and depth (``remat="full"``)
+  through ``make_train_step``: AdamW with int8 first moments and
+  factored second moments, wbits (8, 4) and abits (8,), 6 steps on one
+  batch of 4 x 2049 tokens in two microbatches (every sequence at most
+  FLASH_THRESHOLD, since the flash kernel has no backward); (b) one
+  SMOKE train step of each of the six families on the card against the
+  CPU, and a checkpoint round trip; (c) the flash refusal; (d) the
+  trained weights quantized and served through ``generate`` (2 prompts
+  of 256 tokens at int4 and int8, 4 new), the bit-plane kernel on
+  weights that training produced.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -197,7 +207,19 @@ result line:
      (at hd 160 and the non-causal cross shape) against its bound and
      SDPA, traces of a prefill and a decode step; then a SMOKE
      card-vs-CPU prefill of each family (as ``gate_logits`` says; the
-     encdec one behind 2000 frames, so its cross-attention takes flash).
+     encdec one behind 2000 frames, so its cross-attention takes flash);
+ 12. training: (a) every loss and grad norm finite, the last loss
+     TRAIN_MARGIN below the first, no kernel launched while training;
+     the step's median ms, tokens/s, peak memory, the loss curve and a
+     trace of one step (GEMMs, elementwise and reduction kernels, idle
+     share); (b) each family's SMOKE step card vs CPU within the TRAIN_*
+     tolerances, the card's int8 / factored state through a checkpoint
+     EQUAL; (c) operands that require grad at (64, 4096, 128) raise in
+     the flash wrapper, and ``train_loss`` past FLASH_THRESHOLD raises,
+     while the same call under no_grad launches once within FLASH_TOL of
+     the oracle; (d) bit-plane launches by path as ``plan()`` gives them,
+     each shape held EQUAL to the plain version and timed against its
+     bound.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -213,9 +235,11 @@ kernels' JSON summary; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -232,7 +256,11 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 # the device-side kernel names of each wrapper (for the traces' shares)
 DEVICE_NAMES = {"bitplane_matmul": ("bitplane_",), "int4_matmul": ("int4_",),
-                "quant_matmul": ("quant_",)}
+                "quant_matmul": ("quant_",),
+                # the library's kernels in a train step's trace: cuBLAS
+                # GEMMs and ATen's elementwise and reduction kernels
+                "gemm": ("gemm", "nvjet", "cutlass", "xmma"),
+                "elementwise": ("elementwise",), "reduce": ("reduce_",)}
 KERNELS = ("bitplane_matmul", "flash_attention", "int4_matmul",
            "quant_matmul")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/bitplane_matmul.cu"
@@ -298,10 +326,10 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
-# path 5 runs the first 9 of Qwen3-4B's 36 layers at full width (depth
+# path 5 runs the first 6 of Qwen3-4B's 36 layers at full width (depth
 # cuts that keep the whole script inside its time limit: 18 when path 7
-# was added, 9 when path 8 was; PERF.md §4)
-PC_LAYERS = 9
+# was added, 9 when path 8 was, 6 when path 9 was; PERF.md §4)
+PC_LAYERS = 6
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -355,6 +383,33 @@ D160_ARCH = "stablelm_12b"
 # (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab)
 D160_WIDTHS = (40, 5120, 32, 8, 160, 13824, 100352)
 D160_B, D160_S, D160_BUDGETS = 2, 4096, [0.4, 10.0]   # int4, int8 rows
+# path 9: training.  (a) Qwen3-4B at its published widths and depth
+# (LM_WIDTHS, remat="full"): AdamW with int8 first moments and factored
+# second moments, wbits (8, 4) / abits (8,), TRAIN_STEPS steps on one
+# fixed batch of TRAIN_B rows of TRAIN_S + 1 tokens in TRAIN_ACCUM
+# microbatches (every sequence at most FLASH_THRESHOLD: the flash kernel
+# has no backward), the last loss at least TRAIN_MARGIN nats below the
+# first
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 4, 2048, 2
+TRAIN_STEPS, TRAIN_LR, TRAIN_MARGIN = 6, 1e-5, 1.0
+TRAIN_WBITS, TRAIN_ABITS = (8, 4), (8,)
+# (b) one SMOKE step of each family on the card against the CPU, from
+# the same weights and batch (AdamW f32/full at TRAIN_SMOKE_LR): the
+# loss within TRAIN_LOSS_TOL and grad_norm within TRAIN_NORM_TOL
+# (relative); each new parameter within 2 x TRAIN_SMOKE_LR plus one bf16
+# step (at the larger of the two values) of the CPU's (Adam's first
+# update is about g / |g| an element, so a gradient the two devices'
+# float libraries put on either side of 0 moves 2 lr the other way), and
+# at most TRAIN_STEP_SHARE of the elements differ at all
+TRAIN_SMOKE_LR, TRAIN_SMOKE_B, TRAIN_SMOKE_S = 1e-3, 4, 65
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_STEP_SHARE = 1e-2, 5e-2, 0.05
+TRAIN_FAMILIES = {"dense": LM_ARCH, "moe": MOE_ARCH, "vlm": VLM_ARCH,
+                  "ssm": SSM_ARCH, "hybrid": HYB_ARCH, "encdec": ED_ARCH}
+# (c) the flash refusal: operands that require grad at (B*H, REFUSE_S, hd)
+REFUSE_S = 4096
+# (d) the trained weights served: prompts of SERVE_S tokens, budgets
+# int4 and int8, SERVE_NEW new tokens
+SERVE_S, SERVE_NEW, SERVE_BUDGETS = 256, 4, [0.4, 10.0]
 
 
 def fail(msg: str) -> None:
@@ -4695,6 +4750,307 @@ def p8_path(b: Bench) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path 9: training
+# ---------------------------------------------------------------------------
+
+def kernel_launches() -> int:
+    """Every kernel's launches since the last ``reset_all_launches``."""
+    from repro_torch.kernels import bitplane_matmul as bpm
+    return sum(bpm.launches.values()) + sum(off_path_launches())
+
+
+def train_smoke_card_vs_cpu(b: Bench, ckpt_dir: str) -> dict:
+    """(b): one SMOKE ``make_train_step`` step (n_accum 2) of every
+    family on the card and on the CPU from the same weights (the CPU's
+    draws copied over) and batch, gated as TRAIN_* say; then the card's
+    int8 / factored optimizer state after a step, through a checkpoint
+    and back, bit for bit."""
+    torch, dev = b.torch, b.dev
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    out = {}
+    for fam, arch in TRAIN_FAMILIES.items():
+        cfg = configs.get_smoke(arch)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(11),
+                                device="cpu")
+        batch = make_batch(1, 0, TRAIN_SMOKE_B, TRAIN_SMOKE_S, cfg.vocab_size,
+                           cfg)
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_SMOKE_LR),
+                           n_accum=2, wbits=TRAIN_WBITS, abits=TRAIN_ABITS)
+        res = []
+        for where in (dev, torch.device("cpu")):
+            p = tree_to(params, where)
+            step, _ = make_train_step(tcfg, cfg, device=where)
+            new, opt, m = step(p, adamw_init(p, tcfg.optimizer),
+                               tree_to(batch, where))
+            res.append(([t.cpu() for t in tree_leaves(new)],
+                        {k: float(v) for k, v in m.items()},
+                        int(opt["step"])))
+        (card, cm_, cs), (cpu, pm, ps) = res
+        loss_err = abs(cm_["loss"] - pm["loss"]) / pm["loss"]
+        norm_err = abs(cm_["grad_norm"] - pm["grad_norm"]) / pm["grad_norm"]
+        n_diff = n_all = 0
+        worst = 0.0
+        for a, w in zip(card, cpu):
+            bf16 = w.dtype == torch.bfloat16
+            a, w = a.float(), w.float()
+            d = (a - w).abs()
+            # one step of the dtype at the larger of |a| and |w| (the f32
+            # spacing x 2^16 in bf16): each side rounds by half a step of
+            # its own binade
+            top = torch.maximum(a.abs(), w.abs())
+            one = (torch.nextafter(top, torch.tensor(float("inf"))) - top) \
+                * (2.0 ** 16 if bf16 else 1.0)
+            worst = max(worst, float((d / (2 * TRAIN_SMOKE_LR + one)).max()))
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+        check(math.isfinite(cm_["loss"]) and loss_err <= TRAIN_LOSS_TOL
+              and norm_err <= TRAIN_NORM_TOL and worst <= 1.0
+              and n_diff <= TRAIN_STEP_SHARE * n_all and cs == ps == 1,
+              f"SMOKE {arch} train step, card vs CPU: loss "
+              f"{cm_['loss']!r} vs {pm['loss']!r}, grad_norm "
+              f"{cm_['grad_norm']!r} vs {pm['grad_norm']!r}, worst parameter"
+              f" {worst:.3g} of its bound, {n_diff} of {n_all} differ")
+        out[fam] = {"loss_err": loss_err, "norm_err": norm_err,
+                    "share": n_diff / n_all}
+        print(f"SMOKE {arch} ({fam}) train step (B={TRAIN_SMOKE_B}, "
+              f"S={TRAIN_SMOKE_S - 1}, n_accum 2), card vs CPU: loss "
+              f"{cm_['loss']:.6f} vs {pm['loss']:.6f} (rel {loss_err:.3g}), "
+              f"grad_norm rel {norm_err:.3g}, {n_diff} of {n_all} new "
+              f"parameter elements differ (worst {worst:.3g} of "
+              f"2 lr + one bf16 step)")
+
+    # the checkpoint round trip of a card state (int8 codecs, factored v,
+    # bf16 parameters, the int32 step)
+    cfg = configs.get_smoke(LM_ARCH)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(12),
+                            device=dev)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr=TRAIN_SMOKE_LR, m_dtype="int8", v_mode="factored"))
+    step, _ = make_train_step(tcfg, cfg, device=dev)
+    batch = tree_to(make_batch(1, 1, 2, 33, cfg.vocab_size), dev)
+    new, opt, _ = step(params, adamw_init(params, tcfg.optimizer), batch)
+    tree = {"params": new, "opt": opt}
+    save_checkpoint(ckpt_dir, 1, tree)
+    target = {"params": params, "opt": adamw_init(params, tcfg.optimizer)}
+    back, s_no = restore_checkpoint(ckpt_dir, target, device=dev)
+    leaves_a, leaves_b = tree_leaves(tree), tree_leaves(back)
+    dtypes = sorted({str(t.dtype) for t in leaves_a})
+    check(s_no == 1 and len(leaves_a) == len(leaves_b) and all(
+        a.dtype == c.dtype and a.device == c.device and torch.equal(a, c)
+        for a, c in zip(leaves_a, leaves_b)),
+          "SMOKE checkpoint round trip on the card is not bit for bit")
+    print(f"SMOKE {LM_ARCH} checkpoint round trip on the card: "
+          f"{len(leaves_a)} leaves ({', '.join(dtypes)}) EQUAL")
+    return out
+
+
+def flash_refusal(b: Bench) -> float:
+    """(c): flash operands that require grad at (B*H, REFUSE_S, hd)
+    raise under grad mode, and through ``lm.train_loss`` past
+    FLASH_THRESHOLD; the same call under no_grad launches and is within
+    FLASH_TOL of the plain version."""
+    torch, dev = b.torch, b.dev
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    shape = (TRAIN_B // TRAIN_ACCUM * LM_WIDTHS[2], REFUSE_S, LM_WIDTHS[6])
+    q, k, v = (torch.randn(shape, generator=b.gen, device=dev).bfloat16()
+               for _ in range(3))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    fa.reset_launches()
+    try:
+        ops.flash_attention(q, k, v, causal=True)
+        fail("flash_attention took operands that require grad")
+    except NotImplementedError as e:
+        check("no backward" in str(e), f"flash refusal says {e}")
+    cfg = configs.get_smoke(LM_ARCH)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(13),
+                            device=dev)
+    for t in params["layers"]["attn"]["wq"].values():
+        t.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (1, REFUSE_S + 1),
+                         generator=b.gen, device=dev)
+    n = lm.n_bit_slots(cfg)
+    try:
+        lm.train_loss(params, {"tokens": toks}, cfg, [8] * n, [8] * n)
+        fail(f"train_loss at S={REFUSE_S} ran through flash with grad")
+    except NotImplementedError as e:
+        check("no backward" in str(e), f"flash refusal says {e}")
+    check(fa.launches == 0, f"{fa.launches} flash launches while refusing")
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - oracle_f32(q.detach(), k.detach(), v.detach(),
+                                          True, 0)).abs().max())
+    check(fa.launches == 1 and not got.requires_grad and err <= FLASH_TOL,
+          f"flash under no_grad: {fa.launches} launches, max |err| {err}")
+    b.fa_err = max(b.fa_err, err)
+    print(f"flash refusal: operands that require grad at {shape} and "
+          f"train_loss at S={REFUSE_S} raise; under no_grad the kernel "
+          f"launches once, max |err| {err:.6g} vs the f32 oracle "
+          f"(tolerance {FLASH_TOL})")
+    return err
+
+
+def train_path(b: Bench, ckpt_dir: str) -> dict:
+    """Path 9: (a) Qwen3-4B trained at full width, (b) SMOKE steps card
+    vs CPU and a checkpoint round trip, (c) the flash refusal, (d) the
+    trained weights quantized and served through the bit-plane kernel."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    # ---- (a) Qwen3-4B at full width
+    cfg = configs.get(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS
+          and cfg.remat == "full", f"{LM_ARCH} FULL: {cfg}")
+    check(TRAIN_S <= tf.FLASH_THRESHOLD and TRAIN_B % TRAIN_ACCUM == 0,
+          "path 9's sequences must stay at or below FLASH_THRESHOLD")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, m_dtype="int8",
+                                             v_mode="factored"),
+                       n_accum=TRAIN_ACCUM, wbits=TRAIN_WBITS,
+                       abits=TRAIN_ABITS)
+    opt = adamw_init(params, tcfg.optimizer)
+    step, _ = make_train_step(tcfg, cfg, device=dev)
+    batch = tree_to(make_batch(0, 0, TRAIN_B, TRAIN_S + 1, cfg.vocab_size,
+                               cfg), dev)
+    torch.cuda.synchronize()
+
+    def gib(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(tree)) / 2 ** 30
+
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{LM_ARCH} FULL train form: {n_params} parameters, "
+          f"{gib(params):.3f} GiB bf16; optimizer state (int8 m, factored v) "
+          f"{gib(opt):.3f} GiB; drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s; batch {TRAIN_B} x "
+          f"{TRAIN_S + 1} tokens in {TRAIN_ACCUM} microbatches")
+    losses, norms, walls = [], [], []
+    state = {}
+
+    def one_step():
+        state["out"] = step(params, opt, batch)
+
+    reset_all_launches()
+    for i in range(TRAIN_STEPS):
+        if i < TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        else:                                  # the last step, traced
+            tr = trace(torch, tag, f"one {LM_ARCH} train step", one_step,
+                       ("gemm", "elementwise", "reduce"))
+        params, opt, m = state.pop("out")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launched = kernel_launches()
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{LM_ARCH} training: losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0] - TRAIN_MARGIN,
+          f"{LM_ARCH} training: the loss fell from {losses[0]!r} to "
+          f"{losses[-1]!r}, not by {TRAIN_MARGIN} nats")
+    check(launched == 0 and int(opt["step"]) == TRAIN_STEPS,
+          f"{launched} kernel launches while training (the train form "
+          f"reaches none); optimizer step {int(opt['step'])}")
+    step_ms = statistics.median(walls[1:]) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    print(f"{tag} {LM_ARCH} training (lr {TRAIN_LR}, wbits {TRAIN_WBITS}, "
+          f"abits {TRAIN_ABITS}): loss {[round(x, 4) for x in losses]}, "
+          f"grad_norm {[round(x, 4) for x in norms]}; step median "
+          f"{step_ms:.3f} ms over steps 2-{TRAIN_STEPS - 1} (all untraced "
+          f"{[round(w * 1e3, 3) for w in walls]}; the last step traced), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; peak "
+          f"{peak:.3f} GiB above the {base / 2 ** 30:.3f} GiB resident "
+          f"before; no kernel launched")
+    del opt, batch, step, m
+
+    # ---- (b) SMOKE steps card vs CPU, (c) the flash refusal
+    smoke = train_smoke_card_vs_cpu(b, ckpt_dir)
+    flash_refusal(b)
+
+    # ---- (d) serve the trained weights
+    qparams = lm.quantize_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = lm.n_bit_slots(cfg)
+    engine = ServeEngine(cfg, qparams, max_len=SERVE_S + SERVE_NEW,
+                         controller=default_controller(n), device=dev)
+    engine.set_budget(SERVE_BUDGETS)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size,
+                                       (len(SERVE_BUDGETS), SERVE_S),
+                                       generator=b.gen, device=dev)}
+    reset_all_launches()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, SERVE_NEW).cpu()
+    wall = time.perf_counter() - t0
+    got, paths = dict(bpm.shape_launches), dict(bpm.path_launches)
+    want_paths = {p: 0 for p in bpm.PATHS}
+    for (M, K, N, _), c in got.items():
+        want_paths[bpm.plan(M, K, N).path] += c
+    check(sum(got.values()) > 0 and paths == want_paths
+          and fa.launches == 0
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"serving the trained weights: bit-plane launches {got}, by path "
+          f"{paths} (plan() gives {want_paths}), flash {fa.launches}, "
+          f"tokens {toks.tolist()}")
+    for M, K, N, n_pl in sorted(got):
+        b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
+    print(f"{LM_ARCH} trained weights served (B={len(SERVE_BUDGETS)}, "
+          f"S={SERVE_S}, {SERVE_NEW} new, budgets {SERVE_BUDGETS}): generate "
+          f"{wall * 1e3:.3f} ms, bit-plane launches {sum(got.values())} "
+          f"(by path {paths}) at {len(got)} (M, K, N, planes) each held "
+          f"EQUAL to the plain version; tokens {toks.tolist()}")
+    tot = [0.0] * 8
+    for (M, K, N, n_pl), c in sorted(got.items()):
+        row = b.gemm_row(M, K, N, n_pl)
+        tot = [x + c * r for x, r in zip(tot, list(row)
+                                         + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    del engine, qparams
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"bitplane": {"launches": sum(got.values()), "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
+                         "t_ops": to, "device_ms": dms,
+                         "library_device_ms": ldms, "bound_ms": bms,
+                         "paths": paths},
+            "smoke": smoke,
+            "e2e": {"step_ms": step_ms, "tokens_per_s": tokens / step_ms
+                    * 1e3, "peak_gib": peak, "losses": losses,
+                    "idle": tr["idle_share"], "serve_ms": wall * 1e3}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -4845,9 +5201,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-11. the eight paths (a development run may pick some with
-    # --paths 1,4; only a run of all eight prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8}
+    # ---- 4.-12. the nine paths (a development run may pick some with
+    # --paths 1,4; only a run of all nine prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -4873,6 +5229,10 @@ def main() -> None:
             vlm_path(b)
         if 8 in picked:
             p8_path(b)
+        if 9 in picked:
+            with tempfile.TemporaryDirectory(prefix="train_ckpt_") \
+                    as ckpt_dir:
+                train_path(b, ckpt_dir)
         print(card)
         print(f"paths {sorted(picked)} passed; no result line for a "
               f"partial run")
@@ -4897,6 +5257,8 @@ def main() -> None:
     moer = timed("7 (a)", moe_path, b)
     vlmr = timed("7 (b, c)", vlm_path, b)
     p8r = timed("8", p8_path, b)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
+        p9r = timed("9", train_path, b, ckpt_dir)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -4921,7 +5283,8 @@ def main() -> None:
                 "mamba2_generate_call": p8r["ssm"]["bitplane"],
                 "zamba2_generate_call": p8r["hybrid"]["bitplane"],
                 "seamless_generate_call": p8r["encdec"]["bitplane"],
-                "stablelm_generate_call": p8r["dense"]["bitplane"]}
+                "stablelm_generate_call": p8r["dense"]["bitplane"],
+                "qwen3_4b_trained_generate_call": p9r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -4969,7 +5332,11 @@ def main() -> None:
                       f" peak {p8r[k]['e2e']['peak_gib']:.3f} GiB"
                       for k, n in (("ssm", SSM_ARCH), ("hybrid", HYB_ARCH),
                                    ("encdec", ED_ARCH),
-                                   ("dense", D160_ARCH))))
+                                   ("dense", D160_ARCH)))
+          + f"; {LM_ARCH} training {p9r['e2e']['step_ms']:.3f} ms a step "
+          f"({p9r['e2e']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{p9r['e2e']['peak_gib']:.3f} GiB, loss "
+          f"{p9r['e2e']['losses'][0]:.4f} -> {p9r['e2e']['losses'][-1]:.4f})")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

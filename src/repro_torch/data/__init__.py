@@ -1,0 +1,2 @@
+"""repro_torch.data — the deterministic synthetic data pipeline."""
+from repro_torch.data.pipeline import SyntheticLM, make_batch  # noqa: F401

@@ -169,8 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``k_len`` (default Sk) hides keys at or past it; ``scale`` defaults to
     ``hd ** -0.5`` of the unpadded hd.  CUDA tensors only: the plain
-    versions above serve the CPU."""
+    versions above serve the CPU.  Operands that require grad raise
+    under grad mode: nothing here records a graph."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward: the kernel is forward-only, "
+            "as the reference's is, and its output would carry no gradient "
+            "to q, k or v (the backward kernel is ROADMAP Queue B 3 (a)); "
+            "train at sequences of at most transformer.FLASH_THRESHOLD, or "
+            "call it under torch.no_grad()")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention's kernel runs on cuda tensors, "
                          f"not {q.device} (the plain versions serve the "

@@ -51,16 +51,22 @@ def reset_launches() -> None:
         path_launches[p] = 0
 
 
+def gate(y: torch.Tensor, act: str) -> torch.Tensor:
+    """The gate c of silu and gelu, ``act(y) = y * c(y)``: the sigmoid, or
+    the tanh form's ``0.5 * (1 + tanh(...))``, in the reference's
+    operation order."""
+    if act == "silu":
+        return torch.sigmoid(y)
+    return 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
+                                   * (y + 0.044715 * (y * y * y))))
+
+
 def activate(y: torch.Tensor, act: str) -> torch.Tensor:
     """The epilogue's activation, in the reference's operation order."""
     if act == "relu":
         return torch.clamp_min(y, 0.0)
-    if act == "silu":
-        return y * torch.sigmoid(y)
-    if act == "gelu":
-        cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
-                                      * (y + 0.044715 * (y * y * y))))
-        return y * cdf
+    if act in ("silu", "gelu"):
+        return y * gate(y, act)
     return y
 
 

@@ -1,0 +1,2 @@
+"""repro_torch.launch — command-line entry points (``python -m
+repro_torch.launch.train``)."""

@@ -118,6 +118,34 @@ def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
     return y.to(DTYPE)
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked ``(n, ...)`` parameter dict, as a
+    list of per-layer dicts of views (``torch.unbind`` of every leaf).
+    Gradients of the layers reach the stack through one ``unbind``
+    backward, which stacks them once, where indexing layer by layer
+    would add one zero-filled stack per layer."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    out = torch.unbind(tree)
+    if len(out) != n:
+        raise ValueError(f"stack of {len(out)} layers, expected {n}")
+    return list(out)
+
+
+def remat(cfg, fn, *args, cache=None):
+    """``fn(*args)``, recomputed in the backward pass (one
+    ``torch.utils.checkpoint`` region) when ``cfg.remat == "full"``,
+    there is no cache and grad mode is on: the reference's
+    ``jax.checkpoint`` around a layer.  Nothing inside draws random
+    numbers, so no RNG state is kept."""
+    if cfg.remat == "full" and cache is None and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def stack_slice(tree, i: int):
     """Index ``i`` of every leaf of a stacked ``(L, ...)`` parameter or
     cache dict (views: an in-place cache insert updates the stack)."""

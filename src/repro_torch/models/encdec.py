@@ -6,6 +6,9 @@ The counterpart of ``repro.models.encdec``.  Decode caches: the
 self-attention KV ring caches (``transformer.empty_cache``) plus per-layer
 cross K/V, projected once from the encoder output at prefill.  Layer
 stacks keep the reference's ``(L, ...)`` layout; a Python loop runs them.
+Without a cache, each encoder and decoder layer is one remat region under
+``remat="full"`` (``common.remat``), as the reference checkpoints its
+scans.
 """
 from __future__ import annotations
 
@@ -41,9 +44,10 @@ def encode(p, frames: torch.Tensor, cfg, wvec, avec) -> torch.Tensor:
     positions = torch.arange(F, dtype=torch.int32,
                              device=frames.device)[None].expand(B, F)
     x = frames
-    for i in range(cfg.n_enc_layers):
-        x, _, _ = tf.block(cm.stack_slice(p["enc"], i), x, cfg, wvec[i],
-                           avec[i], positions=positions, causal=False)
+    for i, lp in enumerate(cm.unstack(p["enc"], cfg.n_enc_layers)):
+        x = cm.remat(cfg, lambda x, lp=lp, wb=wvec[i], ab=avec[i]:
+                     tf.block(lp, x, cfg, wb, ab, positions=positions,
+                              causal=False)[0], x)
     return cm.apply_norm(p["enc_ln_f"], x, cfg.norm_type, cfg.norm_eps)
 
 
@@ -54,8 +58,7 @@ def cross_kv(p_dec, enc_out: torch.Tensor, cfg, wvec, avec) -> dict:
     B, F, _ = enc_out.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        xp = cm.stack_slice(p_dec["xattn"], i)
+    for i, xp in enumerate(cm.unstack(p_dec["xattn"], cfg.n_layers)):
         ks.append(cm.apply_linear(xp["wk"], enc_out, wvec[i], avec[i])
                   .reshape(B, F, KV, hd))
         vs.append(cm.apply_linear(xp["wv"], enc_out, wvec[i], avec[i])
@@ -87,10 +90,13 @@ def decoder_forward(p, x, cfg, wvec, avec, *, positions, enc_kv: dict,
     cache is updated in place and returned."""
     n_dec = cfg.n_layers
     wd, ad = wvec[-n_dec:], avec[-n_dec:]
-    for i in range(n_dec):
+    for i, lp in enumerate(cm.unstack(p["dec"], n_dec)):
         cl = cm.stack_slice(cache, i) if cache is not None else None
-        x, _ = decoder_block(cm.stack_slice(p["dec"], i), x, cfg, wd[i],
-                             ad[i], positions=positions,
-                             enc_kv=(enc_kv["k"][i], enc_kv["v"][i]),
-                             cache=cl, t=t)
+
+        def body(x, lp=lp, wb=wd[i], ab=ad[i], ek=enc_kv["k"][i],
+                 ev=enc_kv["v"][i], cl=cl):
+            return decoder_block(lp, x, cfg, wb, ab, positions=positions,
+                                 enc_kv=(ek, ev), cache=cl, t=t)[0]
+
+        x = cm.remat(cfg, body, x, cache=cache)
     return x, cache

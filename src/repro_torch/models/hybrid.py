@@ -82,21 +82,23 @@ def hybrid_forward(p, x, cfg, wbits, abits, *, positions,
     """x: (B, S, d).  wbits/abits: (n_super,) vectors (or scalars).
     cache: {"kv": transformer cache stacked (n_super, ...), "conv"/"ssm":
     mamba states stacked (n_layers, ...)}, updated in place and
-    returned."""
+    returned.  Without a cache each super-block is one remat region
+    under ``remat="full"``."""
     ns, every = n_super(cfg), cfg.attn_every
     wb = torch.as_tensor(wbits).expand(ns)
     ab = torch.as_tensor(abits).expand(ns)
     shared = p["shared"]
-    for i in range(ns):
+    loras = cm.unstack(p["lora"], ns)
+    mambas = [cm.unstack(m, every) for m in cm.unstack(p["mamba"], ns)]
+
+    def super_block(x, i):
         attn_p = {"ln1": shared["ln1"], "ln2": shared["ln2"],
                   "mlp": shared["mlp"],
-                  "attn": _lora_attn_params(shared["attn"],
-                                            cm.stack_slice(p["lora"], i))}
+                  "attn": _lora_attn_params(shared["attn"], loras[i])}
         kv_c = cm.stack_slice(cache["kv"], i) if cache is not None else None
         x, _, _ = tf.block(attn_p, x, cfg, wb[0], ab[0], positions=positions,
                            cache=kv_c, t=t)
-        for j in range(every):
-            mp = cm.stack_slice(cm.stack_slice(p["mamba"], i), j)
+        for j, mp in enumerate(mambas[i]):
             li = i * every + j
             st = ({"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
                   if cache is not None else None)
@@ -105,6 +107,10 @@ def hybrid_forward(p, x, cfg, wbits, abits, *, positions,
             if cache is not None:
                 cache["conv"][li] = new_st["conv"]
                 cache["ssm"][li] = new_st["ssm"]
+        return x
+
+    for i in range(ns):
+        x = cm.remat(cfg, super_block, x, i, cache=cache)
     return x, cache
 
 

@@ -13,6 +13,7 @@ The counterpart of ``repro.models.lm``:
   decode_chunk(params, toks, t, cache, cfg, wvec, avec) -> (logits, cache)
   empty_cache(cfg, batch, max_len, device=)  -> family-specific cache
   CachePool(cfg, n_slots, max_len, device=)  -> slot-based persistent cache
+  train_loss(params, batch, cfg, wvec, avec) -> (loss, metrics)
 
 Parameters keep the reference's stacked layout: every layer leaf has a
 leading ``(L, ...)`` axis.  The reference scans the stack with
@@ -51,6 +52,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+MOE_AUX_COEF = 0.01
 # The reference's family lists.  Families whose layer stacks accept
 # (B, n_layers) per-request bit matrices (MoE resolves a per-expert axis
 # instead; hybrid shares one attention block batch-wide; encdec shares
@@ -172,6 +174,7 @@ _EXPERT_KEYS = ("wg", "wu", "wd")
 _FP_SUBTREES = ("router", "lora")        # precision-sensitive: keep bf16
 
 
+@torch.no_grad()
 def quantize_params(params: dict, cfg: ModelConfig,
                     container: str = "int8") -> dict:
     """Train-form -> serve-form.  Every linear {"w": (..., K, N)} becomes
@@ -179,7 +182,9 @@ def quantize_params(params: dict, cfg: ModelConfig,
     expert stacks (``(E, d, f)``, or ``(L, E, d, f)`` in a layer stack)
     quantize per expert to int8; the router, a hybrid's LoRA pairs,
     ``emb`` (a gather table), the norms and the Mamba conv and SSM
-    parameters stay as they are."""
+    parameters stay as they are.  It runs under ``torch.no_grad()``, as
+    the engines' entry points do, so trained leaves that require grad
+    record no graph."""
     from repro_torch.core import bitfluid as bf
 
     def q_expert(w: torch.Tensor) -> dict:
@@ -268,28 +273,37 @@ _layer = cm.stack_slice
 
 def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None,
                  mlp_fn=None):
-    """The layer loop.  Returns (x, cache, the mean of the layers' aux)."""
+    """The layer loop, each layer one remat region when there is no cache
+    (``common.remat``).  Returns (x, cache, the mean of the layers'
+    aux)."""
     aux = []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(cm.unstack(layers, cfg.n_layers)):
         cl = _layer(cache, i) if cache is not None else None
-        x, _, a = tf.block(_layer(layers, i), x, cfg, wvec[i], avec[i],
-                           positions=positions, cache=cl, t=t,
-                           mlp_fn=mlp_fn)
+
+        def body(x, lp=lp, wb=wvec[i], ab=avec[i], cl=cl):
+            y, _, a = tf.block(lp, x, cfg, wb, ab, positions=positions,
+                               cache=cl, t=t, mlp_fn=mlp_fn)
+            return y, a
+
+        x, a = cm.remat(cfg, body, x, cache=cache)
         aux.append(a)
     return x, cache, torch.stack(aux).mean()
 
 
 def _ssm_stack(layers, x, cfg, wvec, avec, cache=None):
-    """The Mamba2 layer loop; the cache's conv and ssm states are updated
-    in place.  Returns (x, cache, 0)."""
-    for i in range(cfg.n_layers):
-        st = ({"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-              if cache is not None else None)
-        x, new_st = mamba2.mamba_block(_layer(layers, i), x, cfg, wvec[i],
-                                       avec[i], state=st)
-        if cache is not None:
-            cache["conv"][i] = new_st["conv"]
-            cache["ssm"][i] = new_st["ssm"]
+    """The Mamba2 layer loop (each layer one remat region when there is
+    no cache); the cache's conv and ssm states are updated in place.
+    Returns (x, cache, 0)."""
+    for i, lp in enumerate(cm.unstack(layers, cfg.n_layers)):
+        if cache is None:
+            x = cm.remat(cfg, lambda x, lp=lp, wb=wvec[i], ab=avec[i]:
+                         mamba2.mamba_block(lp, x, cfg, wb, ab)[0], x)
+            continue
+        st = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+        x, new_st = mamba2.mamba_block(lp, x, cfg, wvec[i], avec[i],
+                                       state=st)
+        cache["conv"][i] = new_st["conv"]
+        cache["ssm"][i] = new_st["ssm"]
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -352,10 +366,15 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["emb"][tokens]
 
 
-def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8
-              ) -> torch.Tensor:
+def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
+              rows_alone: bool = True) -> torch.Tensor:
+    """Final norm and head -> f32 logits, padding ids masked.  A tied head
+    takes one token row at a time unless ``rows_alone`` is False (the
+    train loss: one matmul, whose gradient reaches ``emb`` once)."""
     h = cm.apply_norm(params["ln_f"], h, cfg.norm_type, cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not rows_alone:
+        logits = h.float() @ params["emb"].float().T
+    elif cfg.tie_embeddings:
         # one token row at a time: a float matmul sums in an order that
         # may depend on its row count, and a request's logits must not
         # depend on its batch (decode tick, verify chunk, alone)
@@ -371,6 +390,66 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8
             >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
     return logits
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          mask: torch.Tensor):
+    """Masked mean token cross-entropy and the z-loss (the mean squared
+    log-partition), both over ``max(sum(mask), 1)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    zloss = ((logz * mask) ** 2).sum() / denom
+    return nll.sum() / denom, zloss
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
+               ) -> Tuple[torch.Tensor, dict]:
+    """Next-token loss of the train form: ``(total, {"loss", "zloss",
+    "moe_aux"})`` with ``total = loss + 1e-4 zloss + MOE_AUX_COEF aux``.
+
+    ``batch["tokens"]`` (B, S+1) gives S inputs and S targets;
+    ``batch["loss_mask"]`` (B, S) optionally weights the targets.  A vlm
+    batch's ``prefix`` (B, P, d) goes in front of the inputs with zero
+    mask and zero targets; an encdec batch's ``frames`` (B, F, d) run
+    through the encoder.  Every tensor moves to the parameters' device.
+    Sequences longer than ``transformer.FLASH_THRESHOLD`` (with the
+    prefix) reach the flash kernel on the card, which has no backward and
+    raises under grad mode."""
+    _require_ported(cfg)
+    dev = params["emb"].device
+    tokens = torch.as_tensor(batch["tokens"]).to(dev)
+    B = tokens.shape[0]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(tgt.shape, dtype=torch.float32, device=dev)
+            if mask is None else torch.as_tensor(mask).to(dev, torch.float32))
+    x = embed(params, inp)
+    enc_out = None
+    if cfg.family == "vlm":
+        prefix = torch.as_tensor(batch["prefix"]).to(dev, cm.DTYPE)
+        P = prefix.shape[1]
+        x = torch.cat([prefix, x], dim=1)
+        mask = torch.cat([torch.zeros((B, P), dtype=torch.float32,
+                                      device=dev), mask], dim=1)
+        tgt = torch.cat([torch.zeros((B, P), dtype=tgt.dtype, device=dev),
+                         tgt], dim=1)
+    elif cfg.family == "encdec":
+        frames = torch.as_tensor(batch["frames"]).to(dev, cm.DTYPE)
+        enc_out = encdec.encode(params["layers"], frames, cfg,
+                                _layer_major(wvec, cfg.family, dev),
+                                _layer_major(avec, cfg.family, dev))
+    Sx = x.shape[1]
+    positions = torch.arange(Sx, dtype=torch.int32,
+                             device=dev)[None].expand(B, Sx)
+    h, _, aux = forward_hidden(params, x, cfg, wvec, avec,
+                               positions=positions, enc_out=enc_out)
+    logits = logits_fn(params, h, cfg, _last_layer_bits(wvec),
+                       _last_layer_bits(avec), rows_alone=False)
+    loss, zloss = _xent(logits, tgt, mask)
+    total = loss + 1e-4 * zloss + MOE_AUX_COEF * aux
+    return total, {"loss": loss, "zloss": zloss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

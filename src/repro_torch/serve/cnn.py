@@ -64,6 +64,7 @@ class CNNServeEngine(ServeRuntime):
     ``plan`` place the engine (module docstring).
     """
 
+    @torch.no_grad()
     def __init__(self, params: dict, layers: Sequence[Layer], *,
                  controller: Optional[BudgetController] = None,
                  policy: Optional[PrecisionPolicy] = None,
@@ -113,6 +114,7 @@ class CNNServeEngine(ServeRuntime):
                                                container=container,
                                                int4_names=int4_names)
 
+    @torch.no_grad()
     def serve(self, images, budgets=None
               ) -> Tuple[np.ndarray, List[ImageStats]]:
         """One batched inference; see class docstring."""

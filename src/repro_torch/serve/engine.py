@@ -213,6 +213,7 @@ class ServeEngine(ServeRuntime):
     docstring).
     """
 
+    @torch.no_grad()
     def __init__(self, cfg, qparams, *, max_len: int = 256,
                  controller: Optional[BudgetController] = None,
                  policy: Optional[PrecisionPolicy] = None,
@@ -508,6 +509,7 @@ class ServeEngine(ServeRuntime):
     # Whole-batch API
     # ------------------------------------------------------------------
 
+    @torch.no_grad()
     def generate(self, batch: Dict[str, torch.Tensor], steps: int, *,
                  temperature=None, top_k=None, fused: bool = True
                  ) -> torch.Tensor:
@@ -590,6 +592,7 @@ class ServeEngine(ServeRuntime):
     # Continuous-batching API
     # ------------------------------------------------------------------
 
+    @torch.no_grad()
     def submit(self, prompt, *, max_new_tokens: int = 16,
                budget_s: Optional[float] = None, temperature: float = 0.0,
                top_k: int = 0, prefix=None,
@@ -833,6 +836,7 @@ class ServeEngine(ServeRuntime):
     def _can_admit(self) -> bool:
         return self.n_slots >= 1
 
+    @torch.no_grad()
     def step(self) -> List[int]:
         """One scheduler tick: admit into free slots, decode one block (or
         run one speculative round), harvest tokens, retire finished

@@ -169,6 +169,32 @@ def _xla_gate_error(act, y, grid=np.linspace(-12, 12, 1_000_001,
     return err
 
 
+# ATen's f32 gate, as the port's plain epilogue computes it
+# (``qmm.gate``: torch.sigmoid for silu, torch.tanh for gelu), against the
+# float64 formula, absolute: the same stated bound as XLA's.  ATen picks
+# its exp and tanh kernels by the host's vector ISA, so the port's side
+# is held like the reference's: its gate's error is measured on the host
+# that runs the test, over the test's own y and a dense grid, asserted
+# within ATEN_GATE_ERR, and the bound adds |y| x ATEN_GATE_ERR.
+ATEN_GATE_ERR = 8 * 2.0 ** -24
+
+
+def _aten_gate_error(act, y, grid=np.linspace(-12, 12, 1_000_001,
+                                                dtype=np.float32)):
+    """Max |c_ATen(y) - c(y)| over the test's f32 ``y`` and the grid, with
+    c(y) in float64; asserted within ATEN_GATE_ERR.  On failure the
+    message names the worst y, the thread count and the ATen ISA."""
+    ys = np.concatenate([y.ravel(), grid])
+    err = np.abs(qmm.gate(torch.from_numpy(ys), act).numpy()
+                 .astype(np.float64) - _gate(act, ys.astype(np.float64)))
+    i = int(np.argmax(err))
+    assert err[i] <= ATEN_GATE_ERR, (
+        f"ATen's {act} gate is {err[i]!r} from float64 at y {ys[i]!r}, past "
+        f"the stated {ATEN_GATE_ERR!r} ({torch.get_num_threads()} threads, "
+        f"{torch.backends.cpu.get_cpu_capability()})")
+    return float(err[i])
+
+
 def _assert_act_close(got, y, tol, label, *, gate_err=0.0, acc_s=None,
                       act="gelu"):
     """silu / gelu outputs against float64 within their own library's error.
@@ -183,9 +209,11 @@ def _assert_act_close(got, y, tol, label, *, gate_err=0.0, acc_s=None,
     fixed distance apart.  An error delta in c becomes ``|y| * delta`` in
     the output, and for a negative y of a few units the gate cancels
     (``1 + tanh(u)`` near 0), so the output is tiny while that error is
-    not; the bound follows that conditioning, ``tol * (1 + |y|)``, plus,
-    for the reference, ``|y| * gate_err`` (its gate's stated error,
-    GATE_ERR, checked on this host by ``_xla_gate_error``) and
+    not; the bound follows that conditioning, ``tol * (1 + |y|)``, plus
+    ``|y| * gate_err`` (the library's stated gate error, checked on this
+    host: GATE_ERR by ``_xla_gate_error`` for the reference,
+    ATEN_GATE_ERR by ``_aten_gate_error`` for the port) and, for the
+    reference,
     ``1.13 * ulp(|acc * s|)`` when XLA contracts ``acc * s + b`` into an
     FMA (``acc_s``; gelu's slope is at most 1.13, silu's 1.1).  On failure
     the worst element is named."""
@@ -225,7 +253,9 @@ def test_quant_plain_against_reference(rng, act, out_dtype):
         acc = (x.astype(np.int64) @ w.astype(np.int64)).astype(np.float32)
         y = acc * s + b                     # f32, rounded as the port does
         tol = TOL[out_dtype]
-        _assert_act_close(got, y, tol, "port", act=act)
+        _aten_gate_error(act, y)
+        _assert_act_close(got, y, tol, "port", act=act,
+                          gate_err=ATEN_GATE_ERR)
         _xla_gate_error(act, y)
         for label, want in (("eager", eager), ("interpret", interp)):
             _assert_act_close(want, y, tol, f"reference {label}", act=act,

@@ -205,6 +205,30 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(big, big, big)
 
 
+def test_flash_refuses_operands_that_require_grad(cuda):
+    """The kernel has no backward: under grad mode, operands that require
+    grad raise (no fallback to SDPA or a plain version); the same call
+    under no_grad launches and matches the plain version."""
+    q = _bf16((8, 4096, 128), cuda, 4)
+    k, v = _bf16((8, 4096, 128), cuda, 5), _bf16((8, 4096, 128), cuda, 6)
+    before = fa.launches
+    for leaf in (q, k, v):
+        leaf.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            ops.flash_attention(q, k, v, causal=True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fa.flash_attention(q, k, v, causal=True)
+        leaf.requires_grad_(False)
+    assert fa.launches == before
+    q.requires_grad_(True)
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and not got.requires_grad
+    want = fa.flash_attention_chunked_ref(q.detach(), k, v, True)
+    assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL
+
+
 # ---------------------------------------------------------------------------
 # Packed-int4 and fused-epilogue GEMMs
 # ---------------------------------------------------------------------------
