@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Nine paths, each at full width with random weights from a seed:
+Ten paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -23,7 +23,7 @@ Nine paths, each at full width with random weights from a seed:
   d_model 2560, GQA 32/8, d_ff 9728, vocab 151936): four 4096-token
   prompts whose latency budgets resolve to int4, mixed, int8 and int8;
   prefill runs every layer's self-attention through the flash kernel and
-  every linear through the bit-plane kernel, then 15 tokens decode on
+  every linear through the bit-plane kernel, then 7 tokens decode on
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
@@ -63,8 +63,9 @@ Nine paths, each at full width with random weights from a seed:
   expert (9553 a forward), flash at hd 128; (b) InternVL2-1B (24 layers,
   d_model 896, GQA 14/2 of hd 64, qkv bias, tied embeddings, 256 prefix
   tokens as seeded patch embeddings): ``generate`` on B=4 prompts of
-  4096 tokens behind their prefixes (flash at hd 64, budgets int4,
-  mixed, int8, int8), 8 requests with prefixes by continuous batching
+  4096 tokens behind their prefixes, 8 new (flash at hd 64, budgets
+  int4, mixed, int8, int8), 8 requests of 8 new tokens with prefixes by
+  continuous batching
   (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
   and 4 of them with ``spec_k=4``; (c) the same with the int8 KV cache
   (``kv_cache_bits=8``);
@@ -93,7 +94,19 @@ Nine paths, each at full width with random weights from a seed:
   CPU, and a checkpoint round trip; (c) the flash refusal; (d) the
   trained weights quantized and served through ``generate`` (2 prompts
   of 256 tokens at int4 and int8, 4 new), the bit-plane kernel on
-  weights that training produced.
+  weights that training produced;
+* the serving entry points and the rest of the bit-fluid core: (a)
+  ``python -m repro_torch.launch.serve`` on Qwen3-4B FULL, called in
+  process through ``main(argv)``: 6 continuous requests (256-token
+  prompts, 8 new, 4 slots) and ``--batch`` (2 x 2304-token prompts, so
+  the lock-step prefill takes flash, 4 new); (b) its ``--slo-edp``,
+  ``--kv-bits 8``, ``--batch`` and continuous modes at SMOKE size on a
+  checkpoint ``repro_torch.launch.train`` writes, card vs CPU; (c)
+  ``launch/serve_torch.py`` (a spike trace; a Poisson trace through the
+  prefix cache), card vs CPU; (d) the AP emulator at 4096 rows, and its
+  ``ap_matmul`` against the bit-plane kernel; (e) ``ops.fluid_linear`` at
+  wbits 1..8 and the vmap row dispatch against the grouped one; (f) the
+  three examples, card vs CPU.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -219,7 +232,23 @@ result line:
      while the same call under no_grad launches once within FLASH_TOL of
      the oracle; (d) bit-plane launches by path as ``plan()`` gives them,
      each shape held EQUAL to the plain version and timed against its
-     bound.
+     bound;
+ 13. serving entry points: (a) both CLI runs, gated: every request served
+     with its new tokens, mean wbits as ``default_controller`` resolves
+     its budget, AP latency, energy and EDP (or the batch's cycles and
+     energy per token) EQUAL the AP model's price of its bits, the
+     continuous streams EQUAL a ServeEngine built directly on the CLI's
+     weights, bit-plane launches by path as ``plan()`` gives them, flash
+     36 a ``--batch`` call and none in the continuous run; (b) restored
+     step, mean wbits, AP prices and spend against the SLO EQUAL card vs
+     CPU, greedy tokens as ``tokens_agree`` says against the CPU's
+     standalone (or whole-batch) replay; (c) the reports EQUAL; (d)
+     values and pass counts EQUAL the CPU's and integer arithmetic, and
+     ``ap_matmul`` EQUALS the kernel at n_planes = M; (e) one launch at
+     exactly wbits planes, int32 and f32 EQUAL the plain version's, vmap
+     rows EQUAL grouped (one launch a row against one a family); (f) host
+     numbers EQUAL card vs CPU.  Then (a)'s bit-plane shapes held and
+     timed, and flash at the ``--batch`` prefill's shape.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -300,7 +329,8 @@ FLASH_PATH = (128, 4096, 128)   # (B*H, S, hd) of a Qwen3-4B prefill
 LM_ARCH = "qwen3_4b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim) published
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
-LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 16, 4112
+# 8 new tokens (cut from 16 when path 10 was added; PERF.md §4)
+LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 8, 4104
 LM_BUDGETS = [0.4, 0.8, 10.0, 1e30]      # -> int4, mixed, int8, int8
 LM_CALLS = 1          # timed generate calls after one warm-up
 LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
@@ -353,8 +383,10 @@ VLM_ARCH = "internvl2_1b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, prefix
 # tokens) published
 VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
-VLM_B, VLM_S, VLM_STEPS = 4, 4096, 16
-VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 16
+# 8 new tokens in generate and in the continuous run (cut from 16 when
+# path 10 was added; PERF.md §4)
+VLM_B, VLM_S, VLM_STEPS = 4, 4096, 8
+VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 8
 VLM_SPEC, VLM_SPEC_NEW = 4, 8
 # path 8: the recurrent families, encoder-decoder cross-attention and flash
 # at head dim 160, each through ServeEngine.generate at its published
@@ -410,6 +442,35 @@ REFUSE_S = 4096
 # (d) the trained weights served: prompts of SERVE_S tokens, budgets
 # int4 and int8, SERVE_NEW new tokens
 SERVE_S, SERVE_NEW, SERVE_BUDGETS = 256, 4, [0.4, 10.0]
+# path 10: the serving entry points and the rest of the bit-fluid core.
+# (a) ``python -m repro_torch.launch.serve`` on Qwen3-4B FULL, in process
+# through main(argv): continuous, and --batch at prompts past
+# FLASH_THRESHOLD (lock-step prefill through flash, 36 launches a call)
+P10_CONT = ["--requests", "6", "--prompt-len", "256", "--steps", "8",
+            "--n-slots", "4", "--decode-block", "4", "--max-len", "512",
+            "--budgets", "2.0", "0.75", "0.5"]
+P10_BATCH = ["--batch", "--requests", "2", "--prompt-len", "2304",
+             "--steps", "4", "--max-len", "2312", "--budgets", "2.0", "0.5"]
+# (b) the other CLI modes at SMOKE size, card vs CPU, on a SMOKE
+# checkpoint that repro_torch.launch.train writes; the closed loop's SLO
+# is P10_SLO_FRACTION of the stream's priced int8 cost
+P10_SMOKE = ["--smoke", "--requests", "3", "--prompt-len", "8", "--steps",
+             "4", "--max-len", "32", "--n-slots", "2", "--decode-block", "2"]
+P10_SLO_FRACTION = 0.3
+# (c) launch/serve_torch.py, card vs CPU
+P10_TRACES = (["--trace", "spike"],
+              ["--trace", "poisson", "--prefix-cache", "--repetition", "0.6"])
+# (d) the AP emulator: EMU_L rows at M in EMU_MS; ap_matmul at EMU_X @
+# EMU_W against the bit-plane kernel at n_planes = M
+EMU_L, EMU_MS, EMU_X, EMU_W = 4096, (4, 8), (4, 64), (64, 4)
+# (e) ops.fluid_linear at wbits 1..8 on a Qwen3-4B up-projection at 16
+# rows and ResNet18's s4b1_c2 conv GEMM at B=16, 224 px; vmap against
+# grouped rows at VMAP_BITS
+FL_QWEN = (16, 2560, 9728)
+FL_RESNET = "s4b1_c2"
+VMAP_BITS = [3, 4, 6, 8]
+# (f) the three examples, card vs CPU
+P10_EXAMPLES = ("quickstart", "bitfluid_serving", "mixed_precision_resnet18")
 
 
 def fail(msg: str) -> None:
@@ -5051,6 +5112,549 @@ def train_path(b: Bench, ckpt_dir: str) -> dict:
                     "idle": tr["idle_share"], "serve_ms": wall * 1e3}}
 
 
+def p10_drive(torch, cli, argv):
+    """``cli.main(argv)`` with the engine it builds recorded; every
+    kernel count is set to 0 just before and read just after.  Returns
+    (what main returned, the engine, the counts, wall s)."""
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.serve import engine as eng_mod
+
+    built = []
+
+    class Recorded(eng_mod.ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    cuda = torch.cuda.is_available()
+    with mock.patch.object(cli, "ServeEngine", Recorded):
+        if cuda:
+            torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fl, i4, qm = off_path_launches()
+    counts = {"shapes": dict(bpm.shape_launches),
+              "paths": dict(bpm.path_launches), "flash": fl, "int4": i4,
+              "quant": qm}
+    check(len(built) == 1, f"{argv}: built {len(built)} engines")
+    return out, built[0], counts, wall
+
+
+def load_script(rel: str):
+    """A script of the checkout (examples/, launch/) as a module."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(
+        "p10_" + path.stem, str(path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p10_want_paths(shapes) -> dict:
+    from repro_torch.kernels import bitplane_matmul as bpm
+    want = {p: 0 for p in bpm.PATHS}
+    for (M, K, N, _), c in shapes.items():
+        want[bpm.plan(M, K, N).path] += c
+    return want
+
+
+def p10_record_prices(label, cfg, reqs, units, bits_of) -> None:
+    """Each request's AP latency, energy and EDP EQUAL the AP model's
+    price of its bits over its units (prompt + new tokens)."""
+    import numpy as np
+    from repro_torch.apsim import metrics as apm
+    from repro_torch.models import lm
+    gemms, head = lm.layer_gemm_dims(cfg), lm.head_gemm_dims(cfg)
+    for r in reqs:
+        wv, av = bits_of(r)
+        c = apm.price_bit_vector(gemms, wv.tolist(), av.tolist(), head=head)
+        lat, en = units * c.latency_s, units * c.energy_j
+        check(r["mean_wbits"] == float(np.mean(np.asarray(wv, np.float64)))
+              and (r["ap_latency_s"], r["ap_energy_j"], r["edp"])
+              == (lat, en, en * lat),
+              f"{label} request {r['rid']}: mean wbits {r['mean_wbits']}, "
+              f"AP ({r['ap_latency_s']}, {r['ap_energy_j']}, {r['edp']}) "
+              f"!= the AP model's ({lat}, {en}, {en * lat}) for bits "
+              f"{wv.tolist()}")
+
+
+def p10_full(b: Bench) -> dict:
+    """(a): the serving CLI at Qwen3-4B's full width, continuous then
+    --batch, gated against the controller, the AP model and a ServeEngine
+    built directly on the CLI's weights; returns the launches of both
+    runs."""
+    import numpy as np
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    cfg = configs.get(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
+          f"{LM_ARCH} FULL is not the published width: {cfg}")
+    n = lm.n_bit_slots(cfg)
+    ctrl = default_controller(n)
+    V = cfg.vocab_size
+
+    def arg(argv, flag, conv=int):
+        return conv(argv[argv.index(flag) + 1])
+
+    def budgets(argv):
+        i = argv.index("--budgets") + 1
+        return [float(x) for x in argv[i:] if not x.startswith("--")]
+
+    # ---- continuous
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, eng, cnt, wall = p10_drive(torch, serve_cli, ["--arch", LM_ARCH]
+                                    + P10_CONT)
+    peak_c = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    n_req, S = arg(P10_CONT, "--requests"), arg(P10_CONT, "--prompt-len")
+    new, bud = arg(P10_CONT, "--steps"), budgets(P10_CONT)
+    reqs = out["requests"]
+    check(out["mode"] == "continuous" and len(reqs) == n_req
+          and all(r["n_tokens"] == new and r["budget_s"] == bud[i % len(bud)]
+                  and all(0 <= t < V for t in r["tokens"])
+                  for i, r in enumerate(reqs))
+          and eng.stats.unserved == 0 and out["stats"]["admitted"] == n_req,
+          f"(a) continuous: (budget, tokens) "
+          f"{[(r['budget_s'], r['n_tokens']) for r in reqs]}")
+    p10_record_prices("(a) continuous", cfg, reqs, S + new,
+                      lambda r: ctrl.resolve(torch.tensor(r["budget_s"])))
+    check(sum(cnt["shapes"].values()) > 0
+          and cnt["paths"] == p10_want_paths(cnt["shapes"])
+          and (cnt["flash"], cnt["int4"], cnt["quant"]) == (0, 0, 0),
+          f"(a) continuous launches: bit-plane {cnt['paths']}, flash "
+          f"{cnt['flash']}, int4 {cnt['int4']}, quant {cnt['quant']}")
+    # the same weights and stream through a ServeEngine built directly
+    direct = ServeEngine(cfg, eng.qparams, max_len=arg(P10_CONT, "--max-len"),
+                         controller=default_controller(n),
+                         n_slots=arg(P10_CONT, "--n-slots"), prefill_len=S,
+                         decode_block=arg(P10_CONT, "--decode-block"),
+                         device=dev)
+    t0 = time.perf_counter()
+    rids = [direct.submit(np.asarray(make_batch(7, i, 1, S, V)["tokens"][0]),
+                          max_new_tokens=new, budget_s=bud[i % len(bud)])
+            for i in range(n_req)]
+    res = direct.run()
+    direct_s = time.perf_counter() - t0
+    check([res[r].tokens for r in rids] == [r["tokens"] for r in reqs],
+          "(a) the CLI's token streams differ from a ServeEngine built "
+          "directly on its weights and stream")
+    print(f"(a) repro_torch.launch.serve {' '.join(P10_CONT)} on {LM_ARCH} "
+          f"FULL: {n_req} requests served, {new} tokens each, mean wbits "
+          f"{[round(r['mean_wbits'], 4) for r in reqs]} as default_controller"
+          f" resolves their budgets, AP latency/energy/EDP equal to the AP "
+          f"model's price of their bits; forwards {out['calls']}; bit-plane"
+          f" launches {sum(cnt['shapes'].values())} (by path "
+          f"{cnt['paths']}); token streams EQUAL a ServeEngine built "
+          f"directly on the CLI's weights")
+    del direct, eng, res
+    torch.cuda.empty_cache()
+
+    # ---- --batch: lock-step prefill past FLASH_THRESHOLD through flash
+    Sb = arg(P10_BATCH, "--prompt-len")
+    check(Sb > tf.FLASH_THRESHOLD, "(a) --batch prompts must reach flash")
+    torch.cuda.reset_peak_memory_stats()
+    out_b, eng_b, cnt_b, wall_b = p10_drive(
+        torch, serve_cli, ["--arch", LM_ARCH] + P10_BATCH)
+    peak_b = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bud_b, Bb = budgets(P10_BATCH), arg(P10_BATCH, "--requests")
+    steps_b = arg(P10_BATCH, "--steps")
+    check(out_b["mode"] == "batch" and len(out_b["batches"]) == len(bud_b)
+          and all(len(x["tokens"]) == Bb and all(
+              len(t) == steps_b and all(0 <= v < V for v in t)
+              for t in x["tokens"]) for x in out_b["batches"]),
+          "(a) --batch: wrong number or range of tokens")
+    from repro_torch.apsim import metrics as apm
+    for x, budget in zip(out_b["batches"], bud_b):
+        wv, av = ctrl.resolve(torch.tensor(budget))
+        c = apm.price_bit_vector(lm.layer_gemm_dims(cfg), wv.tolist(),
+                                 av.tolist(), head=lm.head_gemm_dims(cfg))
+        check(x["mean_wbits"] == float(np.mean(wv.numpy()))
+              and (x["ap_cycles"], x["ap_energy_j"]) == (c.cycles,
+                                                         c.energy_j),
+              f"(a) --batch at budget {budget}: mean wbits "
+              f"{x['mean_wbits']}, AP ({x['ap_cycles']}, "
+              f"{x['ap_energy_j']}) != ({c.cycles}, {c.energy_j})")
+    check(cnt_b["flash"] == cfg.n_layers * len(bud_b)
+          and sum(cnt_b["shapes"].values()) > 0
+          and cnt_b["paths"] == p10_want_paths(cnt_b["shapes"])
+          and (cnt_b["int4"], cnt_b["quant"]) == (0, 0),
+          f"(a) --batch launches: flash {cnt_b['flash']} (want "
+          f"{cfg.n_layers} a call), bit-plane {cnt_b['paths']}")
+    print(f"(a) repro_torch.launch.serve {' '.join(P10_BATCH)}: "
+          f"{len(bud_b)} generate calls, mean wbits "
+          f"{[x['mean_wbits'] for x in out_b['batches']]}, AP cycles and "
+          f"energy per token equal to the AP model's; flash launches "
+          f"{cnt_b['flash']} ({cfg.n_layers} a call), bit-plane "
+          f"{sum(cnt_b['shapes'].values())} (by path {cnt_b['paths']})")
+    del eng_b
+    torch.cuda.empty_cache()
+    print(f"{tag} (a) walls (weights drawn and quantized on the card "
+          f"included): continuous {wall:.3f} s (its run() {out['wall_s']:.3f}"
+          f" s; the direct engine's {direct_s:.3f} s), --batch "
+          f"{wall_b:.3f} s (generate "
+          f"{[round(x['wall_s'], 3) for x in out_b['batches']]} s); peak {peak_c:.3f} / {peak_b:.3f} GiB above the "
+          f"{base / 2 ** 30:.3f} GiB resident before")
+    return {"cont": cnt, "batch": cnt_b, "flash_shape": (
+        Bb * cfg.n_heads, Sb, cfg.head_dim),
+            "e2e": {"cont_s": wall, "run_s": out["wall_s"],
+                    "batch_s": wall_b, "peak_gib": max(peak_c, peak_b)}}
+
+
+def p10_batch_gaps(eng, tokens, steps, budget):
+    """The whole-batch greedy run ``generate`` makes, with each row's
+    top-2 logit gap per step over max|logit|: (tokens, gaps) per row."""
+    import torch
+    from repro_torch.models import lm
+    dev, cfg, V = eng.device, eng.cfg, eng.cfg.vocab_size
+    wv, av = eng.controller.resolve(torch.tensor(budget, dtype=torch.float32))
+    wv, av = wv.to(dev), av.to(dev)
+    toks = torch.as_tensor(tokens).to(dev)
+    B, S = toks.shape
+    cache = lm.empty_cache(cfg, B, eng.max_len, device=dev)
+    out, gaps = [], []
+
+    def take(logits):
+        lg = logits[:, -1, :V].float()
+        top2 = lg.topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]) / lg.abs().amax(-1))
+        out.append(lg.argmax(-1).to(torch.int32))
+        return out[-1][:, None]
+
+    with eng.compute_ctx():
+        logits, cache = lm.prefill(eng.qparams, {"tokens": toks}, cfg, wv,
+                                   av, cache)
+        tok = take(logits)
+        t = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for _ in range(steps - 1):
+            logits, cache = lm.decode_step(eng.qparams, tok, t, cache, cfg,
+                                           wv, av)
+            tok = take(logits)
+            t = t + 1
+    o, g = torch.stack(out, 1).cpu(), torch.stack(gaps, 1).cpu()
+    return [(o[i].tolist(), g[i].tolist()) for i in range(B)]
+
+
+def p10_smoke_modes(b: Bench, ckpt_dir: str) -> None:
+    """(b): continuous, --slo-edp, --kv-bits 8 and --batch at SMOKE size on
+    a SMOKE checkpoint, card vs CPU: host results EQUAL, greedy tokens as
+    ``tokens_agree`` says against the CPU's own gaps."""
+    torch, dev = b.torch, b.dev
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.serve.accounting import predict_table
+    from repro_torch.serve.engine import default_controller
+
+    train_cli.main(["--arch", LM_ARCH, "--smoke", "--device", "cpu",
+                    "--steps", "2", "--batch", "2", "--seq", "16",
+                    "--ckpt-dir", ckpt_dir, "--log-every", "1"])
+    scfg = configs.get_smoke(LM_ARCH)
+    n_req = int(P10_SMOKE[P10_SMOKE.index("--requests") + 1])
+    S = int(P10_SMOKE[P10_SMOKE.index("--prompt-len") + 1])
+    new = int(P10_SMOKE[P10_SMOKE.index("--steps") + 1])
+    preds = predict_table(lm.layer_gemm_dims(scfg),
+                          default_controller(lm.n_bit_slots(scfg)).configs,
+                          axis="edp", units=S + new,
+                          head=lm.head_gemm_dims(scfg))
+    slo = P10_SLO_FRACTION * n_req * preds["int8"]
+    modes = {"continuous": ["--budgets", "2.0", "0.5", "0.75"],
+             "--slo-edp": ["--slo-edp", repr(slo)],
+             "--kv-bits 8": ["--kv-bits", "8"],
+             "--batch": ["--batch", "--requests", "2", "--budgets", "2.0",
+                         "0.5"]}
+    host = ("budget_s", "mean_wbits", "n_tokens", "slot", "ap_latency_s",
+            "ap_energy_j", "edp")
+    compared = exact = streams = 0
+    for mode, extra in modes.items():
+        runs = {}
+        for where in ("cuda", "cpu"):
+            argv = (["--arch", LM_ARCH] + P10_SMOKE + extra
+                    + ["--ckpt-dir", ckpt_dir, "--device", where])
+            runs[where] = p10_drive(torch, serve_cli, argv)[:2]
+        (card, _), (cpu, cpu_eng) = runs["cuda"], runs["cpu"]
+        check(card["restored_step"] == cpu["restored_step"] == 2,
+              f"(b) {mode}: restored steps {card['restored_step']} / "
+              f"{cpu['restored_step']}")
+        if mode == "--batch":
+            bud = [float(x) for x in extra[-2:]]
+            for i, (xc, xh) in enumerate(zip(card["batches"],
+                                             cpu["batches"])):
+                check({k: xc[k] for k in ("budget_s", "mean_wbits",
+                                          "ap_cycles", "ap_energy_j")}
+                      == {k: xh[k] for k in ("budget_s", "mean_wbits",
+                                             "ap_cycles", "ap_energy_j")},
+                      f"(b) --batch {i}: host results differ card vs CPU")
+                toks = make_batch(7, i, 2, S, scfg.vocab_size)["tokens"]
+                rows = p10_batch_gaps(cpu_eng, toks, new, bud[i])
+                for r, (want, gaps) in enumerate(rows):
+                    check(xh["tokens"][r] == want,
+                          f"(b) --batch {i} row {r} on the CPU: "
+                          f"{xh['tokens'][r]} != its replay {want}")
+                    c, e = tokens_agree(f"(b) --batch {i} row {r} card vs "
+                                        f"CPU", xc["tokens"][r], want, gaps)
+                    compared, exact, streams = (compared + c, exact + e,
+                                                streams + 1)
+            continue
+        check([{k: r[k] for k in host} for r in card["requests"]]
+              == [{k: r[k] for k in host} for r in cpu["requests"]]
+              and card["closed_loop"] == cpu["closed_loop"],
+              f"(b) {mode}: host results differ card vs CPU: "
+              f"{card['requests']} / {cpu['requests']}, closed loop "
+              f"{card['closed_loop']} / {cpu['closed_loop']}")
+        if mode == "--slo-edp":
+            loop = cpu["closed_loop"]
+            check(loop["spent_edp"] <= loop["slo_edp"]
+                  and len({r["mean_wbits"] for r in cpu["requests"]}) > 1,
+                  f"(b) --slo-edp: spent {loop}, bits "
+                  f"{[r['mean_wbits'] for r in cpu['requests']]}")
+        for i, (rc, rh) in enumerate(zip(card["requests"], cpu["requests"])):
+            prompt = make_batch(7, i, 1, S, scfg.vocab_size)["tokens"][0]
+            want, gaps = cb_standalone(cpu_eng, prompt.numpy(), new,
+                                       rh["budget_s"], S)
+            check(rh["tokens"] == want, f"(b) {mode} request {i} on the "
+                  f"CPU: {rh['tokens']} != standalone {want}")
+            c, e = tokens_agree(f"(b) {mode} request {i} card vs CPU",
+                                rc["tokens"], want, gaps)
+            compared, exact, streams = compared + c, exact + e, streams + 1
+    print(f"(b) SMOKE {LM_ARCH} through repro_torch.launch.serve on a "
+          f"checkpoint of repro_torch.launch.train (step 2), card vs CPU, "
+          f"in {', '.join(modes)}: restored step, mean wbits, AP prices, "
+          f"spend against the SLO ({P10_SLO_FRACTION} x the int8 price) "
+          f"EQUAL; greedy tokens exact in {exact} of {streams} streams, "
+          f"{compared} tokens compared; on the CPU each stream equals its "
+          f"standalone (or whole-batch) replay")
+
+
+def p10_traces() -> None:
+    """(c): launch/serve_torch.py on the card and with --device cpu: the
+    reports EQUAL (no field of the report is a wall time)."""
+    cli = load_script("launch/serve_torch.py")
+    for argv in P10_TRACES:
+        reps = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            reps[where] = (cli.main(argv + ["--device", where]),
+                           time.perf_counter() - t0)
+        (card, s_card), (cpu, s_cpu) = reps["cuda"], reps["cpu"]
+        check(card == cpu and card["unserved"] == 0
+              and card["completed"] == card["requests"]
+              and ("prefix_cache" in card) == ("--prefix-cache" in argv),
+              f"(c) {' '.join(argv)}: reports differ card vs CPU:\n{card}\n"
+              f"{cpu}")
+        extra = (f", prefix cache {card['prefix_cache']['hits']} full hits "
+                 f"of {card['prefix_cache']['lookups']} lookups"
+                 if "prefix_cache" in card else "")
+        print(f"(c) launch/serve_torch.py {' '.join(argv)}: "
+              f"{card['completed']}/{card['requests']} served, mean wbits "
+              f"{card['mean_wbits']}, total EDP {card['total_edp_js']:.6e}"
+              f"{extra}; reports EQUAL card vs CPU ({s_card:.3f} s / "
+              f"{s_cpu:.3f} s)")
+
+
+def p10_emulator(b: Bench) -> None:
+    """(d): the AP emulator's word ops at EMU_L rows on the card EQUAL the
+    CPU run and torch integer arithmetic, values and pass counts; its
+    ap_matmul EQUALS the bit-plane kernel at n_planes = M."""
+    import numpy as np
+    torch, dev = b.torch, b.dev
+    from repro_torch.core import emulator as em
+    from repro_torch.kernels import bitplane_matmul as bpm
+    g = np.random.default_rng(10)
+    t0 = time.perf_counter()
+    lines = []
+    for M in EMU_MS:
+        a = g.integers(0, 1 << M, EMU_L)
+        c_ = g.integers(0, 1 << M, EMU_L)
+        v = g.integers(-(1 << (M - 1)), 1 << (M - 1), EMU_L)
+        for name, args, exact in (("ap_add", (a, c_), a + c_),
+                                  ("ap_multiply", (a, c_), a * c_),
+                                  ("ap_relu", (v,), np.maximum(v, 0)),
+                                  ("ap_max", (a, c_), np.maximum(a, c_))):
+            got, cc = getattr(em, name)(*args, M, device=dev)
+            want, ch = getattr(em, name)(*args, M, device="cpu")
+            check(got.device == dev and torch.equal(got.cpu(), want)
+                  and np.array_equal(want.numpy(), exact) and cc == ch,
+                  f"(d) {name} at M={M}, L={EMU_L}: card vs CPU vs integers "
+                  f"differ, or counts {cc} / {ch}")
+            lines.append(f"{name}@{M} {cc.compares}/{cc.writes}/{cc.reads}")
+        got, cc = em.ap_reduce(a, M, device=dev)
+        want, ch = em.ap_reduce(a, M, device="cpu")
+        check(got == want == int(a.sum()) and cc == ch,
+              f"(d) ap_reduce at M={M}: {got} / {want} / {int(a.sum())}, "
+              f"counts {cc} / {ch}")
+        lines.append(f"ap_reduce@{M} {cc.compares}/{cc.writes}/{cc.reads}")
+        X = g.integers(0, 1 << (M - 1), EMU_X)
+        W = g.integers(0, 1 << (M - 1), EMU_W)
+        got, cc = em.ap_matmul(X, W, M, device=dev)
+        want, ch = em.ap_matmul(X, W, M, device="cpu")
+        kern = bpm.bitplane_matmul(
+            torch.from_numpy(X.astype(np.int8)).to(dev),
+            torch.from_numpy(W.astype(np.int8)).to(dev), n_planes=M)
+        check(torch.equal(got.to(torch.int32), kern)
+              and torch.equal(got.cpu(), want) and cc == ch
+              and np.array_equal(want.numpy(), X @ W),
+              f"(d) ap_matmul at M={M}: emulator, CPU, kernel and X @ W "
+              f"differ, or counts {cc} / {ch}")
+        lines.append(f"ap_matmul@{M} {cc.compares}/{cc.writes}/{cc.reads}")
+    print(f"(d) AP emulator on the card at L={EMU_L} rows, M in {EMU_MS}: "
+          f"values and pass counts EQUAL the CPU run's and torch integer "
+          f"arithmetic (compares/writes/reads: {', '.join(lines)}); "
+          f"ap_matmul {EMU_X} @ {EMU_W} EQUALS the bit-plane kernel at "
+          f"n_planes = M ({time.perf_counter() - t0:.3f} s)")
+
+
+def p10_fluid_linear(b: Bench) -> None:
+    """(e): ops.fluid_linear at wbits 1..8 on a Qwen3-4B and a ResNet18
+    GEMM, one launch at exactly wbits planes, the kernel's int32 EQUAL to
+    the plain version's and the f32 outputs EQUAL; then vmap against
+    grouped rows."""
+    torch, dev = b.torch, b.dev
+    from repro_torch.apsim.workloads import resnet18
+    from repro_torch.core import bitfluid as bf
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import ops
+    res = next((M, K, N) for name, M, K, N, _ in path_gemms(
+        resnet18(), BATCH, IMAGE) if name == FL_RESNET)
+    for (M, K, N), label in ((FL_QWEN, f"{LM_ARCH} up-projection"),
+                             (res, f"resnet18 {FL_RESNET}")):
+        x = torch.randn((M, K), generator=b.gen, device=dev)
+        w, ws = b.rand_i8((K, N)), b.rand_scale(N)
+        xs = bf.symmetric_scale(x, 8)
+        x_q = bf.quantize(x, xs, 8)
+        for n in range(1, 9):
+            bpm.reset_launches()
+            y = ops.fluid_linear(x, w, ws, wbits=n)
+            acc = ops.int8_accum(x_q, w, planes=n)
+            plain = bpm.bitplane_matmul_ref(x_q, w, n)
+            torch.cuda.synchronize()
+            check(bpm.launches[n] == 2 and sum(bpm.launches.values()) == 2
+                  and torch.equal(acc, plain)
+                  and torch.equal(y, plain.float() * xs * ws),
+                  f"(e) fluid_linear {label} ({M},{K},{N}) at wbits {n}: "
+                  f"launches {bpm.launches}, int32 or f32 differs from the "
+                  f"plain version")
+        print(f"(e) ops.fluid_linear on {label} ({M},{K},{N}) at wbits "
+              f"1..8: one launch at exactly wbits planes each, int32 EQUAL "
+              f"to the plain version, f32 outputs EQUAL")
+    d, f = LM_WIDTHS[1], LM_WIDTHS[4]
+    p = {"q": b.rand_i8((d, f)), "s": b.rand_scale(f)}
+    x = torch.randn((len(VMAP_BITS), 1, d), generator=b.gen, device=dev)
+    wb = torch.tensor(VMAP_BITS, device=dev)
+    bpm.reset_launches()
+    grouped = ops.serve_linear(p, x, wb, 8)
+    n_g, by_g = sum(bpm.launches.values()), dict(bpm.launches)
+    bpm.reset_launches()
+    with ops.row_dispatch("vmap"):
+        vm = ops.serve_linear(p, x, wb, 8)
+    torch.cuda.synchronize()
+    n_v, by_v = sum(bpm.launches.values()), dict(bpm.launches)
+    check(torch.equal(vm, grouped) and n_v == len(VMAP_BITS)
+          and n_g == len(ops.get_bit_families()),
+          f"(e) vmap vs grouped: EQUAL {torch.equal(vm, grouped)}, "
+          f"launches {n_v} / {n_g}")
+    print(f"(e) rows at wbits {VMAP_BITS} ({len(VMAP_BITS)} x 1 x {d} @ "
+          f"({d}, {f})): vmap EQUALS grouped; launches by planes vmap "
+          f"{ {k: v for k, v in by_v.items() if v} } (one a row, at the "
+          f"container width), grouped { {k: v for k, v in by_g.items() if v} }"
+          f" (one a family of {ops.get_bit_families()})")
+
+
+def p10_examples(b: Bench) -> None:
+    """(f): the three examples in process on the card and with --device
+    cpu; their host numbers EQUAL."""
+    host = {
+        "quickstart": lambda o: {k: v["mean_wbits"]
+                                 for k, v in o["served"].items()},
+        "bitfluid_serving": lambda o: (
+            [{k: r[k] for k in ("budget_s", "mean_wbits", "slot", "edp")}
+             for r in o["open_loop"]], o["closed_loop"], o["slo"],
+            o["spent"]),
+        "mixed_precision_resnet18": lambda o: (
+            {k: (v["avg_bits"], v["edp"], v["norm_energy"])
+             for k, v in o["hawq"].items()}, o["mixed"], o["closed_loop"],
+            o["slo"], o["spent"])}
+    for name in P10_EXAMPLES:
+        mod = load_script(f"examples/{name}_torch.py")
+        t0 = time.perf_counter()
+        card = mod.main([])
+        s_card = time.perf_counter() - t0
+        cpu = mod.main(["--device", "cpu"])
+        check(host[name](card) == host[name](cpu),
+              f"(f) {name}: host numbers differ card vs CPU:\n"
+              f"{host[name](card)}\n{host[name](cpu)}")
+        if name == "quickstart":
+            check(all(math.isfinite(x) for x in card["losses"])
+                  and card["losses"][-1] < card["losses"][0],
+                  f"(f) quickstart losses {card['losses']}")
+        if name == "mixed_precision_resnet18":
+            check(card["logits_finite"] and card["launches"] != {},
+                  f"(f) {name}: launches {card['launches']}")
+        print(f"(f) examples/{name}_torch.py on the card ({s_card:.3f} s) "
+              f"and on the CPU: host numbers EQUAL {host[name](card)}")
+
+
+def p10_path(b: Bench) -> dict:
+    """Path 10: (a) the serving CLI at full width, (b) its other modes at
+    SMOKE size card vs CPU, (c) the trace-replay CLI, (d) the emulator,
+    (e) fluid_linear and row dispatch, (f) the three examples; then the
+    kernel rows of (a)'s launches."""
+    torch, tag = b.torch, b.tag
+    full = p10_full(b)
+    with tempfile.TemporaryDirectory(prefix="serve_ckpt_") as ckpt_dir:
+        p10_smoke_modes(b, ckpt_dir)
+    p10_traces()
+    p10_emulator(b)
+    p10_fluid_linear(b)
+    p10_examples(b)
+
+    # the kernel rows: (a)'s bit-plane launches at each (M, K, N, planes),
+    # each shape held EQUAL to the plain version and timed; flash at the
+    # --batch prefill's shape
+    shapes: dict = {}
+    paths = {p: 0 for p in full["cont"]["paths"]}
+    for cnt in (full["cont"], full["batch"]):
+        for k, c in cnt["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + c
+        for k, c in cnt["paths"].items():
+            paths[k] += c
+    tot = [0.0] * 8
+    for (M, K, N, n_pl), c in sorted(shapes.items()):
+        b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
+        row = b.gemm_row(M, K, N, n_pl)
+        tot = [x + c * r for x, r in zip(tot, list(row)
+                                         + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    fl = flash_row(b, full["flash_shape"], " (path 10 --batch prefill)")
+    n_fl = full["batch"]["flash"]
+    print(f"{tag} path 10 kernels: bit-plane {sum(shapes.values())} "
+          f"launches at {len(shapes)} (M, K, N, planes) (by path {paths}), "
+          f"kernel {kms:.3f} ms (device {dms:.3f}), bound {bms:.3f} ms, "
+          f"plain {pms:.3f} ms, torch._int_mm {lms:.3f} ms; flash {n_fl} "
+          f"launches at {full['flash_shape']}, {n_fl * fl['ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"bitplane": {"launches": sum(shapes.values()), "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
+                         "t_ops": to, "device_ms": dms,
+                         "library_device_ms": ldms, "bound_ms": bms,
+                         "paths": paths},
+            "flash": flash_entry(n_fl, fl, n_fl), "e2e": full["e2e"]}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -5201,14 +5805,15 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-12. the nine paths (a development run may pick some with
-    # --paths 1,4; only a run of all nine prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+    # ---- 4.-13. the ten paths (a development run may pick some with
+    # --paths 1,4; only a run of all ten prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
                   sys.argv[sys.argv.index("--paths") + 1].split(",")}
     if picked != every:
+        t_paths = time.perf_counter()
         if 1 in picked:
             cnn_path(b)
         if 2 in picked:
@@ -5233,9 +5838,14 @@ def main() -> None:
             with tempfile.TemporaryDirectory(prefix="train_ckpt_") \
                     as ckpt_dir:
                 train_path(b, ckpt_dir)
+        if 10 in picked:
+            t0 = time.perf_counter()
+            p10_path(b)
+            print(f"{b.tag} path 10 wall {time.perf_counter() - t0:.3f} s")
         print(card)
-        print(f"paths {sorted(picked)} passed; no result line for a "
-              f"partial run")
+        print(f"paths {sorted(picked)} passed in "
+              f"{time.perf_counter() - t_paths:.3f} s; no result line for "
+              f"a partial run")
         return
     walls = {"before the paths": time.perf_counter() - t_start}
 
@@ -5259,6 +5869,7 @@ def main() -> None:
     p8r = timed("8", p8_path, b)
     with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
         p9r = timed("9", train_path, b, ckpt_dir)
+    p10r = timed("10", p10_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -5284,13 +5895,15 @@ def main() -> None:
                 "zamba2_generate_call": p8r["hybrid"]["bitplane"],
                 "seamless_generate_call": p8r["encdec"]["bitplane"],
                 "stablelm_generate_call": p8r["dense"]["bitplane"],
-                "qwen3_4b_trained_generate_call": p9r["bitplane"]}
+                "qwen3_4b_trained_generate_call": p9r["bitplane"],
+                "qwen3_4b_serve_cli_runs": p10r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
                 "zamba2_generate_call": p8r["hybrid"]["flash"],
                 "seamless_generate_call": p8r["encdec"]["flash"],
-                "stablelm_generate_call": p8r["dense"]["flash"]}
+                "stablelm_generate_call": p8r["dense"]["flash"],
+                "qwen3_4b_serve_cli_batch_run": p10r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -5336,7 +5949,11 @@ def main() -> None:
           + f"; {LM_ARCH} training {p9r['e2e']['step_ms']:.3f} ms a step "
           f"({p9r['e2e']['tokens_per_s']:.1f} tokens/s, peak "
           f"{p9r['e2e']['peak_gib']:.3f} GiB, loss "
-          f"{p9r['e2e']['losses'][0]:.4f} -> {p9r['e2e']['losses'][-1]:.4f})")
+          f"{p9r['e2e']['losses'][0]:.4f} -> {p9r['e2e']['losses'][-1]:.4f});"
+          f" {LM_ARCH} through repro_torch.launch.serve: continuous "
+          f"{p10r['e2e']['cont_s']:.3f} s (run() {p10r['e2e']['run_s']:.3f} "
+          f"s), --batch {p10r['e2e']['batch_s']:.3f} s, peak "
+          f"{p10r['e2e']['peak_gib']:.3f} GiB")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

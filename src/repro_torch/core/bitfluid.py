@@ -7,6 +7,9 @@ layer's runtime precision is a dyadic re-expression of the stored value
 
 Every function is bit-exact against the reference for bits 1..8, whether
 ``bits`` arrives as a Python int or as a tensor (bit fluidity as data).
+The AP's native layout is here too: two's-complement bit planes
+(:func:`bitplanes`, :func:`from_bitplanes`), the interleaved int4 nibble
+packing, and the plane-walk oracle :func:`bitplane_matmul_ref`.
 Rounding follows the reference: ``torch.round`` rounds half to even, as
 ``jnp.round`` does, and ``requant_shift`` rounds half away from zero with
 integer shifts only.
@@ -51,6 +54,10 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits) -> torch.Tensor:
     return torch.maximum(torch.minimum(q, lim), -lim).to(INT_DTYPE)
 
 
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
 # ---------------------------------------------------------------------------
 # Runtime-fluid dyadic requantization (the bit-fluid switch)
 # ---------------------------------------------------------------------------
@@ -82,8 +89,53 @@ def effective_scale(scale: torch.Tensor, to_bits, from_bits: int = 8
 
 
 # ---------------------------------------------------------------------------
-# int4 packing (half-split nibble layout, the packed-int4 container)
+# Bit planes (two's complement) — the AP's native data layout
 # ---------------------------------------------------------------------------
+
+def bitplanes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Decompose int8 ``q`` into ``bits`` {0,1} int8 planes, LSB first.
+
+    Plane weights are 2^j for j < bits-1 and -2^(bits-1) for the sign
+    plane, so the low ``bits`` field of ``q`` is sum_j w_j * plane_j."""
+    js = torch.arange(bits, dtype=torch.int32, device=q.device)
+    u = q.to(torch.int32) & ((1 << bits) - 1)           # low `bits` field
+    return ((u[None] >> js.reshape((bits,) + (1,) * q.ndim)) & 1).to(
+        INT_DTYPE)
+
+
+def plane_weights(bits: int, device=None) -> torch.Tensor:
+    w = torch.pow(2.0, torch.arange(bits, dtype=torch.float32,
+                                    device=device))
+    w[bits - 1] = -(2.0 ** (bits - 1))
+    return w
+
+
+def from_bitplanes(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    w = plane_weights(bits, planes.device).reshape(
+        (bits,) + (1,) * (planes.ndim - 1))
+    return (planes.float() * w).sum(dim=0).to(INT_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# int4 packing: interleaved (low nibble first) and half-split layouts
+# ---------------------------------------------------------------------------
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (last axis even) into uint8 nibbles: column 2i in
+    the low nibble, column 2i+1 in the high nibble."""
+    if q.shape[-1] % 2:
+        raise ValueError("last axis must be even to pack nibbles")
+    u = q.to(torch.int32) & 0xF
+    return (u[..., 0::2] | (u[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Unpack interleaved uint8 nibbles back to signed int8 in [-8, 7]."""
+    p = packed.to(torch.int32)
+    both = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(
+        packed.shape[:-1] + (-1,))
+    return torch.where(both >= 8, both - 16, both).to(INT_DTYPE)
+
 
 def pack_int4_halves(q: torch.Tensor) -> torch.Tensor:
     """Columns [0, N/2) in the low nibble, columns [N/2, N) in the high
@@ -119,3 +171,48 @@ def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
     q = torch.where(_bits_tensor(bits, torch.int32, x.device) >= 16, x,
                     (q * scale).to(x.dtype))
     return (x32 + (q.float() - x32).detach()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fluid integer matmul and the plane-walk oracle
+# ---------------------------------------------------------------------------
+
+def fluid_int8_matmul(x: torch.Tensor, qw: torch.Tensor,
+                      w_scale: torch.Tensor, wbits=8, abits=8
+                      ) -> torch.Tensor:
+    """y = x @ dequant(qw) at runtime precisions (wbits, abits).
+
+    x        (..., K) float; quantized per tensor to ``abits``.
+    qw       (K, N) int8 container (8-bit grid), per-channel ``w_scale``.
+    wbits    Python int or tensor: the dyadic shift to the b-bit grid.
+
+    The int8 dot goes through ``ops.int8_accum`` at the container width
+    (8 planes): the bit-plane kernel for a CUDA tensor, its exact plain
+    product for a CPU one.  The epilogue is the reference's
+    ``f32(acc) * x_scale * w_s``."""
+    from repro_torch.kernels import ops     # ops imports this module
+
+    w_q = requant_shift(qw, wbits)
+    w_s = effective_scale(w_scale, wbits)
+    x32 = x.float()
+    x_scale = symmetric_scale(x32, abits)
+    x_q = quantize(x32, x_scale, abits)
+    acc = ops.int8_accum(x_q.reshape(-1, x.shape[-1]), w_q)
+    y = acc.float() * x_scale * w_s
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def bitplane_matmul_ref(x_q: torch.Tensor, qw: torch.Tensor,
+                        wbits: int) -> torch.Tensor:
+    """Plane-walk oracle: sum_j w_j * (x_q @ plane_j) over the low
+    ``wbits`` field of ``qw``, accumulated in float32 as the reference
+    does (each plane's product is exact: float64 holds it)."""
+    planes = bitplanes(qw, wbits)                       # (wbits, K, N)
+    w = plane_weights(wbits, qw.device)
+    acc = torch.zeros(x_q.shape[:-1] + (qw.shape[-1],), dtype=torch.float32,
+                      device=x_q.device)
+    x64 = x_q.to(torch.float64)
+    for j in range(wbits):
+        d = (x64 @ planes[j].to(torch.float64)).to(torch.int32)
+        acc = acc + w[j] * d.float()
+    return acc

@@ -24,6 +24,17 @@ above the largest family clamp DOWN to it, so a family set must hold its
 policy's widest bit-width (engines derive it from their controller).
 Per-row activations quantize with one scale per request, or one per
 token position under :func:`token_scale_mode` (the speculative verify).
+``set_row_dispatch("vmap")`` (or the :func:`row_dispatch` context)
+swaps the grouped path for the reference's per-row baseline: one
+:func:`serve_linear` per row at that row's bits (a 0-d tensor, so the
+container path at 8 planes), each paying its own weight requant and
+launch; the two give EQUAL outputs whenever every row's bits lie in the
+family set.
+
+:func:`fluid_linear` is the public bit-fluid matmul: a static ``wbits``
+runs the bit-plane kernel at exactly that many planes on the container's
+low ``wbits`` field (truncation, not :func:`serve_linear`'s dyadic
+requant).
 
 Attention over flat heads reaches the flash kernel only through
 :func:`flash_attention`, which launches it for CUDA tensors and takes a
@@ -46,6 +57,7 @@ from repro_torch.kernels.bitplane_matmul import bitplane_matmul
 # Distinct weight bit-widths the grouped per-row path specializes for.
 BIT_FAMILIES = (2, 3, 4, 6, 8)
 _families: Sequence[int] = BIT_FAMILIES
+_row_dispatch = "grouped"
 
 
 def set_bit_families(fams: Sequence[int]) -> None:
@@ -97,6 +109,31 @@ def token_scale_mode():
         yield
     finally:
         _token_scales = prev
+
+
+def set_row_dispatch(mode: str) -> None:
+    """'grouped' (default) or 'vmap' (the per-row baseline, kept for
+    benchmarks and parity tests)."""
+    global _row_dispatch
+    if mode not in ("grouped", "vmap"):
+        raise ValueError(f"row dispatch must be 'grouped' or 'vmap', "
+                         f"got {mode!r}")
+    _row_dispatch = mode
+
+
+def get_row_dispatch() -> str:
+    return _row_dispatch
+
+
+@contextlib.contextmanager
+def row_dispatch(mode: str):
+    global _row_dispatch
+    prev = _row_dispatch
+    set_row_dispatch(mode)
+    try:
+        yield
+    finally:
+        _row_dispatch = prev
 
 
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale,
@@ -303,10 +340,14 @@ def _family_index(wb: torch.Tensor, fams) -> torch.Tensor:
 
 
 def _serve_linear_rows(p, x, wbits, abits):
-    """Per-row precision: one requant and one GEMM per static bit family."""
+    """Per-row precision: grouped (one requant and one GEMM per static bit
+    family) or the vmap baseline (one :func:`serve_linear` per row)."""
     B = x.shape[0]
     wb = _bits_on(wbits, x.device).expand(B)
     ab = _bits_on(abits, x.device).expand(B)
+    if _row_dispatch == "vmap":
+        return torch.stack([serve_linear(p, x[r], wb[r], ab[r])
+                            for r in range(B)])
     if "q4" in p:
         qw, from_bits = bf.unpack_int4_halves(p["q4"]), 4
     else:
@@ -355,6 +396,26 @@ def _serve_linear_rows(p, x, wbits, abits):
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(lead + (y.shape[-1],))
+
+
+def fluid_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale, *,
+                 wbits: int = 8, abits: int = 8) -> torch.Tensor:
+    """float (..., K) @ int8-container (K, N): the bit-fluid serving matmul.
+
+    ``x`` quantizes per tensor at ``abits``; the bit-plane kernel runs at
+    exactly ``wbits`` planes on the container's low ``wbits`` field (its
+    high bits are masked, not requantized: truncation semantics), then
+    the result dequantizes by ``x_scale * w_scale``.  ``wbits`` is static
+    (a Python int); :func:`repro_torch.core.bitfluid.fluid_int8_matmul`
+    takes tensor bits."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    x_scale = bf.symmetric_scale(x2, abits)
+    x_q = bf.quantize(x2, x_scale, abits)
+    acc = int8_accum(x_q, w_q, planes=int(wbits))
+    y = acc.float() * x_scale * torch.as_tensor(
+        w_scale, dtype=torch.float32, device=x.device)
+    return y.reshape(*lead, -1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

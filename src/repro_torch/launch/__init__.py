@@ -1,2 +1,2 @@
 """repro_torch.launch — command-line entry points (``python -m
-repro_torch.launch.train``)."""
+repro_torch.launch.train``, ``python -m repro_torch.launch.serve``)."""

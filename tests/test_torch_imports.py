@@ -40,7 +40,7 @@ def test_import_loads_no_jax_and_no_reference_module():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad, names = (res.stdout.splitlines() + ["", ""])[:3]
-    assert int(n) >= 61                      # every submodule was imported
+    assert int(n) >= 63                      # every submodule was imported
     assert {"repro_torch.dist", "repro_torch.dist.api",
             "repro_torch.dist.placement",
             "repro_torch.optim", "repro_torch.optim.adamw",
@@ -48,7 +48,9 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.train", "repro_torch.train.loop",
             "repro_torch.train.checkpoint", "repro_torch.train.watchdog",
             "repro_torch.data", "repro_torch.data.pipeline",
-            "repro_torch.launch", "repro_torch.launch.train"} \
+            "repro_torch.launch", "repro_torch.launch.train",
+            "repro_torch.launch.serve",
+            "repro_torch.core", "repro_torch.core.emulator"} \
         <= set(names.split(","))
     assert bad == "", f"importing repro_torch loaded {bad}"
 
@@ -59,7 +61,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_sources_never_import_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py"))
+             + [ROOT / "launch" / "serve_torch.py"])
     assert len(files) >= 16
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]

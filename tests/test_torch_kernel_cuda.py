@@ -426,3 +426,41 @@ def test_stacked_expert_dispatch_on_card(cuda, M):
         assert torch.equal(got[k], solo)
     cpu = ops.serve_linear_stacked(p, x, bits, 8, stack_bits=True)
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("n_planes", range(1, 9))
+def test_fluid_linear_launches_at_its_planes(cuda, n_planes):
+    """``ops.fluid_linear`` launches the bit-plane kernel once, at exactly
+    ``wbits`` planes; its f32 output EQUALS the same epilogue on the
+    plain version's int32 accumulator."""
+    g = torch.Generator(device=cuda).manual_seed(n_planes)
+    x = torch.randn((16, 2560), generator=g, device=cuda)
+    w = _rand((2560, 512), cuda, n_planes)
+    ws = torch.rand((1, 512), generator=g, device=cuda) * 0.01
+    bpm.reset_launches()
+    got = ops.fluid_linear(x, w, ws, wbits=n_planes)
+    torch.cuda.synchronize()
+    assert bpm.launches[n_planes] == 1 and sum(bpm.launches.values()) == 1
+    xs = bf.symmetric_scale(x, 8)
+    acc = bpm.bitplane_matmul_ref(bf.quantize(x, xs, 8), w, n_planes)
+    assert torch.equal(got, acc.float() * xs * ws)
+
+
+def test_vmap_rows_equal_grouped_on_card(cuda):
+    """Rows at distinct bits {3, 4, 6, 8}: the vmap baseline launches once
+    per row (at the container width), the grouped path once per family;
+    the outputs are EQUAL."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = {"q": _rand((256, 384), cuda, 1),
+         "s": torch.rand((1, 384), generator=g, device=cuda) * 0.01}
+    x = torch.randn((4, 3, 256), generator=g, device=cuda)
+    wb = torch.tensor([3, 4, 6, 8], device=cuda)
+    bpm.reset_launches()
+    grouped = ops.serve_linear(p, x, wb, 8)
+    n_grouped = sum(bpm.launches.values())
+    with ops.row_dispatch("vmap"):
+        vmap = ops.serve_linear(p, x, wb, 8)
+    torch.cuda.synchronize()
+    assert n_grouped == len(ops.get_bit_families())
+    assert sum(bpm.launches.values()) - n_grouped == 4
+    assert torch.equal(vmap, grouped)
