@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Ten paths, each at full width with random weights from a seed:
+Eleven paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -23,11 +23,11 @@ Ten paths, each at full width with random weights from a seed:
   d_model 2560, GQA 32/8, d_ff 9728, vocab 151936): four 4096-token
   prompts whose latency budgets resolve to int4, mixed, int8 and int8;
   prefill runs every layer's self-attention through the flash kernel and
-  every linear through the bit-plane kernel, then 7 tokens decode on
+  every linear through the bit-plane kernel, then 3 tokens decode on
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
-  tokens, 8 to 16 new tokens, budgets cycling int4, mixed, int8) through
+  tokens, 8 to 12 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
   decoding 8 tokens for all slots at once; (b) 8 of them again, each to
   its first 8 new tokens, with speculative decoding (4 int4 drafts a
@@ -57,21 +57,21 @@ Ten paths, each at full width with random weights from a seed:
   Moonshot-v1-16B-A3B (48 layers, d_model 2048, 16 heads of 128, 64
   experts top-6 plus 2 shared, d_ff 1408, vocab 163840), its int8 serve
   form drawn and quantized layer by layer (``lm.init_serve_params``),
-  through ``ServeEngine.generate``: B=2 prompts of 4096 tokens, 8 new,
+  through ``ServeEngine.generate``: B=2 prompts of 4096 tokens, 4 new,
   at the tightest (int4) and the loosest (int8) whole-batch budget;
   every expert stack through the bit-plane kernel, one launch per
   expert (9553 a forward), flash at hd 128; (b) InternVL2-1B (24 layers,
   d_model 896, GQA 14/2 of hd 64, qkv bias, tied embeddings, 256 prefix
   tokens as seeded patch embeddings): ``generate`` on B=4 prompts of
-  4096 tokens behind their prefixes, 8 new (flash at hd 64, budgets
-  int4, mixed, int8, int8), 8 requests of 8 new tokens with prefixes by
+  4096 tokens behind their prefixes, 4 new (flash at hd 64, budgets
+  int4, mixed, int8, int8), 8 requests of 4 new tokens with prefixes by
   continuous batching
   (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
   and 4 of them with ``spec_k=4``; (c) the same with the int8 KV cache
   (``kv_cache_bits=8``);
 * the recurrent families, encoder-decoder cross-attention and flash at
   head dim 160, each through ``ServeEngine.generate`` at full width and
-  depth with 16 new tokens: (a) mamba2-1.3b (48 layers, d_model 2048,
+  depth with 4 new tokens: (a) mamba2-1.3b (48 layers, d_model 2048,
   state 128, chunk 128; the SSD in f32 PyTorch, the in and out
   projections through the bit-plane kernel), B=4 prompts of 4096 tokens
   at per-request budgets int4, mixed, int8, int8; (b) zamba2-2.7b (54
@@ -87,7 +87,7 @@ Ten paths, each at full width with random weights from a seed:
   kernel's 160-wide instantiation;
 * training: (a) Qwen3-4B at full width and depth (``remat="full"``)
   through ``make_train_step``: AdamW with int8 first moments and
-  factored second moments, wbits (8, 4) and abits (8,), 6 steps on one
+  factored second moments, wbits (8, 4) and abits (8,), 4 steps on one
   batch of 4 x 2049 tokens in two microbatches (every sequence at most
   FLASH_THRESHOLD, since the flash kernel has no backward); (b) one
   SMOKE train step of each of the six families on the card against the
@@ -98,7 +98,7 @@ Ten paths, each at full width with random weights from a seed:
 * the serving entry points and the rest of the bit-fluid core: (a)
   ``python -m repro_torch.launch.serve`` on Qwen3-4B FULL, called in
   process through ``main(argv)``: 6 continuous requests (256-token
-  prompts, 8 new, 4 slots) and ``--batch`` (2 x 2304-token prompts, so
+  prompts, 4 new, 4 slots) and ``--batch`` (2 x 2304-token prompts, so
   the lock-step prefill takes flash, 4 new); (b) its ``--slo-edp``,
   ``--kv-bits 8``, ``--batch`` and continuous modes at SMOKE size on a
   checkpoint ``repro_torch.launch.train`` writes, card vs CPU; (c)
@@ -107,6 +107,18 @@ Ten paths, each at full width with random weights from a seed:
   ``ap_matmul`` against the bit-plane kernel; (e) ``ops.fluid_linear`` at
   wbits 1..8 and the vmap row dispatch against the grouped one; (f) the
   three examples, card vs CPU.
+* sharded serving: two ranks on ``cuda:0`` in one gloo group, the same
+  world as a ("data", "model") = (1, 2) and a (2, 1) mesh
+  (``repro_torch.launch.mesh.make_host_mesh``): (a) Qwen3-4B FULL with
+  no plan (tensor parallelism: Megatron linears, attention and flash on
+  each rank's heads, the vocab-sharded embedding and tied head),
+  ``generate`` at 2 x 2304 tokens and budgets 2.0 and 0.5, and 4
+  continuous requests of 256-token prompts; (b) the same requests on
+  (2, 1) with FSDP weights and with a partial plan; (c)
+  Moonshot-v1-16B-A3B at full width, its first 4 layers, expert-parallel
+  on (1, 2) (32 experts a rank), ``generate`` at 2 x 512 tokens; (d)
+  ResNet18@224 on both meshes; (e) SMOKE speculation and prefix hits
+  whose rows cross ranks on (2, 1), and n_kv_heads=1 on (1, 2).
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -249,6 +261,17 @@ result line:
      rows EQUAL grouped (one launch a row against one a family); (f) host
      numbers EQUAL card vs CPU.  Then (a)'s bit-plane shapes held and
      timed, and flash at the ``--batch`` prefill's shape.
+ 14. sharded serving: the single-device streams first (the parent's
+     weights freed before the ranks); (a) logits and tokens EQUAL, flash
+     36 a ``generate`` call on a rank, the int32 partial sums reduced
+     and no weight gathered; (b) tokens EQUAL, weights sharded, records
+     carrying the plan's replicas; (c) every MoE layer's output EQUAL to
+     ``moe.ep_reference`` on its input, the ranks' dispatch buffers
+     EQUAL to one device's (C_shard = C), tokens EQUAL a one-card run of
+     the statement; (d) logits EQUAL path 1's; (e) tokens, hits and
+     speculative rounds EQUAL one device's; then (a)'s and (c)'s
+     bit-plane shapes held EQUAL and timed, flash at a rank's heads, each
+     rank's wall, peak memory and collectives by kind and bytes.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -280,9 +303,9 @@ BATCH = 16            # images per served batch (the engine's max_batch)
 IMAGE = 224
 SERVED = 5            # batches on the main path; the first one warms up
 REPS = 20             # timed launches per kernel shape
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# the H100 SXM datasheet's rates (repro_torch.launch.mesh), set by
+# hardware() once the checkout's src is on the path
+HBM_BYTES_PER_S = INT8_OPS_PER_S = BF16_FLOPS_PER_S = None
 # the device-side kernel names of each wrapper (for the traces' shares)
 DEVICE_NAMES = {"bitplane_matmul": ("bitplane_",), "int4_matmul": ("int4_",),
                 "quant_matmul": ("quant_",),
@@ -329,8 +352,9 @@ FLASH_PATH = (128, 4096, 128)   # (B*H, S, hd) of a Qwen3-4B prefill
 LM_ARCH = "qwen3_4b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim) published
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
-# 8 new tokens (cut from 16 when path 10 was added; PERF.md §4)
-LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 8, 4104
+# 4 new tokens (cut from 16 to 8 when path 10 was added, to 4 when path
+# 11 was; PERF.md §4)
+LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 4, 4100
 LM_BUDGETS = [0.4, 0.8, 10.0, 1e30]      # -> int4, mixed, int8, int8
 LM_CALLS = 1          # timed generate calls after one warm-up
 LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
@@ -340,8 +364,9 @@ CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
 # 9 requests: 8 fill the slots, 1 arrives late (a depth cut that keeps
 # the whole script inside its time limit; PERF.md §4)
 CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 9, 8, 2
-# 8 to 16 new tokens (a depth cut made when path 8 was added; PERF.md §4)
-CB_PROMPT, CB_NEW = (64, 1024), (8, 16)
+# 8 to 12 new tokens (depth cuts: 16-32 to 8-16 when path 8 was added,
+# to 8-12 when path 11 was; PERF.md §4)
+CB_PROMPT, CB_NEW = (64, 1024), (8, 12)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
 CB_SPEC_NEW = 8         # (b) runs each request's first 8 new tokens
@@ -356,10 +381,11 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
-# path 5 runs the first 6 of Qwen3-4B's 36 layers at full width (depth
+# path 5 runs the first 3 of Qwen3-4B's 36 layers at full width (depth
 # cuts that keep the whole script inside its time limit: 18 when path 7
-# was added, 9 when path 8 was, 6 when path 9 was; PERF.md §4)
-PC_LAYERS = 6
+# was added, 9 when path 8 was, 6 when path 9 was, 3 when path 11 was;
+# PERF.md §4)
+PC_LAYERS = 3
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -373,7 +399,8 @@ MOE_ARCH = "moonshot_v1_16b_a3b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, experts,
 # top-k, shared experts) published
 MOE_WIDTHS = (48, 2048, 16, 16, 1408, 163840, 128, 64, 6, 2)
-MOE_B, MOE_S, MOE_STEPS = 2, 4096, 8
+# 4 new tokens (cut from 8 when path 11 was added; PERF.md §4)
+MOE_B, MOE_S, MOE_STEPS = 2, 4096, 4
 MOE_BUDGETS = (0.4, 10.0)  # default_controller's tightest and loosest
 # router margin under which the card and the CPU may route apart: two
 # neighbours among a token's k + 1 largest router probabilities within
@@ -383,16 +410,16 @@ VLM_ARCH = "internvl2_1b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, prefix
 # tokens) published
 VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
-# 8 new tokens in generate and in the continuous run (cut from 16 when
-# path 10 was added; PERF.md §4)
-VLM_B, VLM_S, VLM_STEPS = 4, 4096, 8
-VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 8
-VLM_SPEC, VLM_SPEC_NEW = 4, 8
+# 4 new tokens in generate and in the continuous run (cut from 16 to 8
+# when path 10 was added, to 4 when path 11 was; PERF.md §4)
+VLM_B, VLM_S, VLM_STEPS = 4, 4096, 4
+VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 4
+VLM_SPEC, VLM_SPEC_NEW = 4, 4
 # path 8: the recurrent families, encoder-decoder cross-attention and flash
 # at head dim 160, each through ServeEngine.generate at its published
 # widths and depth; every model takes P8_STEPS new tokens after a
 # P8_WARM-token warm-up
-P8_STEPS, P8_WARM = 16, 2
+P8_STEPS, P8_WARM = 4, 2      # 4 new: cut from 16 when path 11 was added
 SSM_ARCH = "mamba2_1_3b"
 # (n_layers, d_model, ssm_state, ssm_head_dim, expand, ssm_chunk, vocab)
 SSM_WIDTHS = (48, 2048, 128, 64, 2, 128, 50280)
@@ -423,7 +450,8 @@ D160_B, D160_S, D160_BUDGETS = 2, 4096, [0.4, 10.0]   # int4, int8 rows
 # has no backward), the last loss at least TRAIN_MARGIN nats below the
 # first
 TRAIN_B, TRAIN_S, TRAIN_ACCUM = 4, 2048, 2
-TRAIN_STEPS, TRAIN_LR, TRAIN_MARGIN = 6, 1e-5, 1.0
+# 4 steps (cut from 6 when path 11 was added; PERF.md §4)
+TRAIN_STEPS, TRAIN_LR, TRAIN_MARGIN = 4, 1e-5, 1.0
 TRAIN_WBITS, TRAIN_ABITS = (8, 4), (8,)
 # (b) one SMOKE step of each family on the card against the CPU, from
 # the same weights and batch (AdamW f32/full at TRAIN_SMOKE_LR): the
@@ -445,8 +473,9 @@ SERVE_S, SERVE_NEW, SERVE_BUDGETS = 256, 4, [0.4, 10.0]
 # path 10: the serving entry points and the rest of the bit-fluid core.
 # (a) ``python -m repro_torch.launch.serve`` on Qwen3-4B FULL, in process
 # through main(argv): continuous, and --batch at prompts past
-# FLASH_THRESHOLD (lock-step prefill through flash, 36 launches a call)
-P10_CONT = ["--requests", "6", "--prompt-len", "256", "--steps", "8",
+# FLASH_THRESHOLD (lock-step prefill through flash, 36 launches a call);
+# the continuous run's 4 new tokens were cut from 8 when path 11 was added
+P10_CONT = ["--requests", "6", "--prompt-len", "256", "--steps", "4",
             "--n-slots", "4", "--decode-block", "4", "--max-len", "512",
             "--budgets", "2.0", "0.75", "0.5"]
 P10_BATCH = ["--batch", "--requests", "2", "--prompt-len", "2304",
@@ -471,6 +500,26 @@ FL_RESNET = "s4b1_c2"
 VMAP_BITS = [3, 4, 6, 8]
 # (f) the three examples, card vs CPU
 P10_EXAMPLES = ("quickstart", "bitfluid_serving", "mixed_precision_resnet18")
+# path 11: sharded serving on two gloo ranks sharing cuda:0
+P11_RANKS = 2
+P11_GEN = (2, 2304, 4)             # (a) generate: B, prompt tokens, new
+P11_BUDGETS = (2.0, 0.5)
+P11_CONT = (4, 256, 8)             # (a) continuous: requests, prompt, new
+P11_SLOTS, P11_BLOCK = 4, 8
+P11_CONT_BUDGETS = (2.0, 0.75, 0.5)
+P11_MOE_LAYERS = 4                 # (c) Moonshot's first 4 of 48 layers
+P11_MOE_GEN = (2, 512, 4)          # (c) generate: B, prompt tokens, new
+P11_MOE_BUDGET = 10.0              # default_controller: int8
+P11_PC_CHUNK = 4
+
+
+def hardware() -> None:
+    """The roofline denominators from ``repro_torch.launch.mesh``."""
+    global HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_FLOPS_PER_S
+    from repro_torch.launch import mesh
+    HBM_BYTES_PER_S = mesh.HBM_BW
+    INT8_OPS_PER_S = mesh.PEAK_OPS_INT8
+    BF16_FLOPS_PER_S = mesh.PEAK_FLOPS_BF16
 
 
 def fail(msg: str) -> None:
@@ -832,15 +881,15 @@ def hold_flash(b: Bench, BH, Sq, Sk, hd, causal, window) -> float:
 # Path 1: ResNet18 serving
 # ---------------------------------------------------------------------------
 
-def cnn_inputs(torch, dev, ctrl):
+def cnn_inputs(torch, dev, ctrl, batch: int = BATCH, image: int = IMAGE):
     """Path 1's batch: BATCH images drawn on the card from seed 1, and
     budgets cycling the tightest, each configuration's prediction x 1.01,
     and unconstrained."""
     preds = [ctrl.predicted_latency_s[k] for k in ctrl.order()]
     cycle = [0.0] + [p * 1.01 for p in preds] + [1e30]
-    budgets = [cycle[i % len(cycle)] for i in range(BATCH)]
+    budgets = [cycle[i % len(cycle)] for i in range(batch)]
     img_gen = torch.Generator(device=dev).manual_seed(1)
-    images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=img_gen,
+    images = torch.randn((batch, image, image, 3), generator=img_gen,
                          device=dev)
     return images, budgets
 
@@ -5655,6 +5704,602 @@ def p10_path(b: Bench) -> dict:
             "flash": flash_entry(n_fl, fl, n_fl), "e2e": full["e2e"]}
 
 
+def p11_qwen(torch, dev, smoke: bool):
+    """(cfg, serve params) of path 11's dense model: Qwen3-4B FULL (SMOKE
+    for a CPU rehearsal), drawn and quantized layer by layer from seed 0
+    (``lm.init_serve_params``: one layer's train form resident at a time,
+    so two ranks drawing at once stay small)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_smoke(LM_ARCH) if smoke else configs.get(LM_ARCH)
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS,
+          f"{LM_ARCH} FULL is not the published width: {cfg}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.init_serve_params(cfg, gen, device=dev)
+
+
+def p11_moe(torch, dev, smoke: bool):
+    """(cfg, serve params) of path 11 (c): Moonshot-v1-16B-A3B at full
+    width cut to its first P11_MOE_LAYERS layers (SMOKE for a CPU
+    rehearsal), drawn and quantized layer by layer from seed 0."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = (configs.get_smoke(MOE_ARCH) if smoke else
+           configs.get(MOE_ARCH).with_(n_layers=P11_MOE_LAYERS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.init_serve_params(cfg, gen, device=dev)
+
+
+def p11_sizes(smoke: bool) -> dict:
+    """Path 11's request shapes (a CPU rehearsal shrinks them)."""
+    if smoke:
+        return {"gen": (2, 40, 3), "cont": (4, 16, 4), "moe": (2, 24, 3),
+                "image": 32, "init_image": 32, "batch": 4}
+    return {"gen": P11_GEN, "cont": P11_CONT, "moe": P11_MOE_GEN,
+            "image": IMAGE, "init_image": 0, "batch": BATCH}
+
+
+def p11_inputs(cfg, sizes: dict):
+    """The seeded prompts: (a)'s generate batch and continuous requests."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    B, S, _ = sizes["gen"]
+    n, Sc, _ = sizes["cont"]
+    gen = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    reqs = [rng.integers(0, cfg.vocab_size, (Sc,)).astype(np.int32)
+            for _ in range(n)]
+    return gen, reqs
+
+
+def p11_serve_qwen(torch, dev, cfg, qparams, sizes, gen, reqs, mesh,
+                   plan=None, batch=True) -> dict:
+    """(a)'s traffic on one engine placement: ``generate`` at each of
+    P11_BUDGETS (the prefill's last-position logits kept) and the
+    continuous requests; tokens, logits and records."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    n = lm.n_bit_slots(cfg)
+    out = {}
+    if batch:
+        B, S, new = sizes["gen"]
+        eng = ServeEngine(cfg, qparams, controller=default_controller(n),
+                          max_len=S + new, device=dev, mesh=mesh)
+        firsts = []
+        orig = eng._sample_first
+
+        def keep(logits, temp, topk, rows=None):
+            firsts.append(logits[:, -1].float().cpu())
+            return orig(logits, temp, topk, rows)
+
+        eng._sample_first = keep
+        out["gen"] = []
+        for budget in P11_BUDGETS:
+            eng.set_budget(budget)
+            out["gen"].append(eng.generate({"tokens": gen},
+                                           new).cpu().numpy())
+        out["logits"] = [f.numpy() for f in firsts]
+        del eng
+    nreq, Sc, new = sizes["cont"]
+    eng = ServeEngine(cfg, qparams, controller=default_controller(n),
+                      max_len=Sc + new, n_slots=P11_SLOTS, prefill_len=Sc,
+                      decode_block=P11_BLOCK, device=dev, mesh=mesh, plan=plan)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new,
+                       budget_s=P11_CONT_BUDGETS[i % len(P11_CONT_BUDGETS)])
+            for i, p in enumerate(reqs)]
+    eng.run()
+    out["cont_s"] = time.perf_counter() - t0
+    recs = [eng.requests[r] for r in rids]
+    out["cont"] = [list(r.tokens) for r in recs]
+    out["replicas"] = [r.plan_replicas for r in recs]
+    out["plan"] = None if eng.plan is None else eng.plan.summary()
+    out["mean_replicas"] = None if eng.plan is None else eng.plan.mean_replicas
+    out["sharded"] = mesh is not None and shd.is_sharded(eng.qparams)
+    out["calls"] = dict(eng.calls)
+    del eng
+    return out
+
+
+def p11_phase(torch, dev, mesh, fn, *args):
+    """Run one phase of a rank: its result, wall, peak memory above what
+    was resident, collectives by kind and bytes, and kernel launches."""
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    for m in mesh:
+        m.reset_counts()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = fn(*args)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["wall_s"] = wall
+    res["peak_gib"] = ((torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+                       if cuda else 0.0)
+    res["collectives"] = {}
+    for m in mesh:
+        for k, (c, nb) in m.counts.items():
+            got = res["collectives"].setdefault(k, [0, 0])
+            got[0] += c
+            got[1] += nb
+    res["shapes"] = dict(bpm.shape_launches)
+    res["paths"] = dict(bpm.path_launches)
+    res["flash"] = fa.launches
+    res["off_path"] = off_path_launches()[1:]
+    return res
+
+
+def p11_rank_moe(torch, dev, mesh, smoke: bool) -> dict:
+    """(c) on one rank: Moonshot cut to P11_MOE_LAYERS layers on the
+    (1, 2) mesh, ``generate`` at int8; each MoE layer's prefill input and
+    output kept for the parent's statement of the EP semantics."""
+    import numpy as np
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    cfg, q = p11_moe(torch, dev, smoke)
+    B, S, new = p11_sizes(smoke)["moe"]
+    tokens = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    eng = ServeEngine(cfg, q, controller=default_controller(
+        lm.n_bit_slots(cfg)), max_len=S + new, device=dev, mesh=mesh)
+    del q
+    eng.set_budget(P11_MOE_BUDGET)
+    layers = []
+    orig = moe.apply_moe
+
+    def kept(p, x, cfg_, wb, ab):
+        y, aux = orig(p, x, cfg_, wb, ab)
+        if x.shape[1] == S:                     # the prefill's layers
+            layers.append((x.cpu(), y.cpu()))
+        return y, aux
+
+    moe.apply_moe = kept
+    moe.ep_dropped[0] = 0
+    try:
+        toks = eng.generate({"tokens": tokens}, new).cpu().numpy()
+    finally:
+        moe.apply_moe = orig
+    out = {"tokens": toks, "prompt": tokens, "layers": layers,
+           "dropped": moe.ep_dropped[0], "local_experts": {
+               k: tuple(v["q"].shape) for k, v in
+               eng.qparams["layers"]["mlp"]["experts"].items()}}
+    del eng
+    return out
+
+
+def p11_rank_cnn(torch, dev, mesh, smoke: bool) -> dict:
+    """(d) on one rank: path 1's ResNet18 batch, no plan."""
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+    sz = p11_sizes(smoke)
+    params, layers = cnn.init_cnn("resnet18", torch.Generator().manual_seed(0),
+                                  image=sz["init_image"], device=dev)
+    ctrl = cnn_budget_controller("resnet18", layers=layers)
+    images, budgets = cnn_inputs(torch, dev, ctrl, sz["batch"], sz["image"])
+    eng = CNNServeEngine(params, layers, controller=ctrl,
+                         max_batch=sz["batch"], device=dev, mesh=mesh)
+    logits = eng.serve(images, budgets)[0]
+    out = {"logits": logits, "rows": eng._rows,
+           "sharded": shd.is_sharded(eng.qparams)}
+    del eng, params
+    return out
+
+
+def p11_smoke(torch, dev, mesh21, mesh12) -> dict:
+    """(e): qwen3_4b SMOKE with spec_k=4 and a prefix cache whose hits
+    land on other ranks' slots (a fully replicated plan on (2, 1), and
+    FSDP weights with no plan), and a config whose KV heads the model
+    axis does not divide on (1, 2).  Meshes None: one device."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    from repro_torch.serve.prefix_cache import PrefixCache
+    out = {}
+    for label, kv, mesh, plan, kw in (
+            ("spec_auto", None, mesh21, "auto", {"spec_k": 4}),
+            ("spec_fsdp", None, mesh21, None, {"spec_k": 4}),
+            ("pc_auto", None, mesh21, "auto",
+             {"prefix_cache": PrefixCache(chunk=P11_PC_CHUNK, capacity=8)}),
+            ("kv1", 1, mesh12, None, {})):
+        cfg = configs.get_smoke(LM_ARCH)
+        if kv is not None:
+            cfg = cfg.with_(n_kv_heads=kv)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q = lm.quantize_params(lm.init_params(cfg, gen, device=dev), cfg)
+        eng = ServeEngine(cfg, q, controller=default_controller(
+            lm.n_bit_slots(cfg)), max_len=48, n_slots=4, prefill_len=16,
+            decode_block=4, device=dev, draft_budget_s=0.5,
+            mesh=mesh, plan=plan if mesh is not None else None, **kw)
+        rng = np.random.default_rng(5)
+        base = [rng.integers(0, cfg.vocab_size, (12,)).astype(np.int32)
+                for _ in range(2)]
+        prompts = [base[0], base[1], base[0], np.concatenate([base[1][:8],
+                   base[0][:6]]), base[0][:10], base[1]]
+        rids = [eng.submit(p, max_new_tokens=6,
+                           budget_s=(2.0, 0.5)[i % 2])
+                for i, p in enumerate(prompts)]
+        eng.run()
+        recs = [eng.requests[r] for r in rids]
+        out[label] = {"tokens": [list(r.tokens) for r in recs],
+                      "hits": [r.cache_hit for r in recs],
+                      "slots": [r.slot for r in recs],
+                      "spec": [r.spec_rounds for r in recs],
+                      "moved": (mesh.counts.get("move_row", [0])[0]
+                                if mesh is not None else 0)}
+        del eng
+    return out
+
+
+def p11_rank(rank: int, init_method: str, out_dir: str, device: str,
+             smoke: bool) -> None:
+    """One rank of path 11, in its own process on ``device``: the same
+    world as a (1, 2) and a (2, 1) mesh; (a) and (b) Qwen3-4B, (c)
+    Moonshot, (d) ResNet18 and (e) SMOKE; saves what the parent gates.
+    Rank 0 then runs (e)'s single-device engines."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import default_controller
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=P11_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    out = {}
+    try:
+        m12, m21 = make_host_mesh(model=2), make_host_mesh(model=1)
+        both = (m12, m21)
+        t0 = time.perf_counter()
+        cfg, qparams = p11_qwen(torch, dev, smoke)
+        out["weights_s"] = time.perf_counter() - t0
+        sizes = p11_sizes(smoke)
+        gen, reqs = p11_inputs(cfg, sizes)
+        out["a"] = p11_phase(torch, dev, both, p11_serve_qwen, torch, dev,
+                             cfg, qparams, sizes, gen, reqs, m12)
+        out["b_fsdp"] = p11_phase(torch, dev, both, p11_serve_qwen, torch,
+                                  dev, cfg, qparams, sizes, gen, reqs, m21,
+                                  None, False)
+        partial = dist.plan_for_controller(
+            default_controller(lm.n_bit_slots(cfg)), lm.layer_gemm_dims(cfg),
+            head=lm.head_gemm_dims(cfg), **SO_PARTIAL)
+        out["b_partial"] = p11_phase(torch, dev, both, p11_serve_qwen, torch,
+                                     dev, cfg, qparams, sizes, gen, reqs,
+                                     m21, partial, False)
+        del qparams
+        out["c"] = p11_phase(torch, dev, both, p11_rank_moe, torch, dev, m12,
+                             smoke)
+        out["d21"] = p11_phase(torch, dev, both, p11_rank_cnn, torch, dev,
+                               m21, smoke)
+        out["d12"] = p11_phase(torch, dev, both, p11_rank_cnn, torch, dev,
+                               m12, smoke)
+        out["e"] = p11_phase(torch, dev, both, p11_smoke, torch, dev, m21,
+                             m12)
+        out["coords"] = (m12.tp_index, m21.dp_index)
+    finally:
+        tdist.destroy_process_group()
+    if rank == 0:
+        out["e_single"] = p11_smoke(torch, dev, None, None)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def p11_moe_gate(b: Bench, ranks, smoke: bool) -> dict:
+    """(c)'s gates, on one card after the ranks: every MoE layer's output
+    EQUALS ``moe.ep_reference`` (the reference's EP semantics in one
+    process, tp = 2) on the layer's input; the dispatch buffers of that
+    statement, concatenated over the ranks, EQUAL the single-device
+    path's at C_shard = C; the mesh's tokens EQUAL a one-card generate
+    whose MoE layers run the statement.  The single-device path's layer
+    outputs and tokens are reported beside them."""
+    torch, dev = b.torch, b.dev
+    from repro_torch.models import common as cm
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    cfg, q = p11_moe(torch, dev, smoke)
+    c0 = ranks[0]["c"]
+    B, S, new = p11_sizes(smoke)["moe"]
+    ctrl = default_controller(lm.n_bit_slots(cfg))
+    wv, av = (t.to(dev, torch.int32)
+              for t in ctrl.resolve(torch.tensor(P11_MOE_BUDGET)))
+    T = B * S
+    check(moe.shard_capacity(T, cfg) == moe.capacity(T, cfg) or smoke,
+          f"(c) C_shard {moe.shard_capacity(T, cfg)} != C "
+          f"{moe.capacity(T, cfg)} at T = {T}")
+    check(len(c0["layers"]) == cfg.n_layers,
+          f"(c) {len(c0['layers'])} MoE layer inputs kept, want "
+          f"{cfg.n_layers}")
+    single_diff, dropped = [], 0
+    with torch.no_grad():
+        for i, (x, y) in enumerate(c0["layers"]):
+            p = cm.stack_slice(q["layers"], i)["mlp"]
+            x = x.to(dev)
+            bufs: list = []
+            before = moe.ep_dropped[0]
+            want, _ = moe.ep_reference(p, x, cfg, wv[i], av[i], tp=P11_RANKS,
+                                       buffers=bufs)
+            dropped += moe.ep_dropped[0] - before
+            got = y.to(dev)
+            check(torch.equal(got, want),
+                  f"(c) MoE layer {i}: the mesh's output != the EP "
+                  f"statement's, max |diff| "
+                  f"{(got.float() - want.float()).abs().max()}")
+            for r, out in enumerate(ranks[1:], 1):
+                check(torch.equal(out["c"]["layers"][i][1], y),
+                      f"(c) MoE layer {i}: rank {r}'s output != rank 0's")
+            # the single-device path on the same input; its buffer at C
+            kept = []
+            orig = moe._expert_ffn
+
+            def grab(pe, xin, wb, ab):
+                kept.append(xin)
+                return orig(pe, xin, wb, ab)
+
+            moe._expert_ffn = grab
+            try:
+                one, _ = moe.apply_moe(p, x, cfg, wv[i], av[i])
+            finally:
+                moe._expert_ffn = orig
+            if moe.shard_capacity(T, cfg) == moe.capacity(T, cfg):
+                check(torch.equal(torch.cat(bufs), kept[0]),
+                      f"(c) MoE layer {i}: the ranks' dispatch buffers "
+                      f"!= the single-device buffer at C_shard = C (the "
+                      f"local-slot re-indexing)")
+            single_diff.append(float((one.float() - want.float()).abs().max()))
+    check(dropped == sum(out["c"]["dropped"] for out in ranks),
+          f"(c) dropped choices: the statement's {dropped} != the ranks' "
+          f"{[out['c']['dropped'] for out in ranks]}")
+    # tokens: a one-card generate with the statement in every MoE layer
+    eng = ServeEngine(cfg, q, controller=default_controller(
+        lm.n_bit_slots(cfg)), max_len=S + new, device=dev)
+    eng.set_budget(P11_MOE_BUDGET)
+    orig = moe.apply_moe
+    moe.apply_moe = lambda p, x, cfg_, wb, ab: moe.ep_reference(
+        p, x, cfg_, wb, ab, tp=P11_RANKS)
+    try:
+        ep_toks = eng.generate({"tokens": c0["prompt"]}, new).cpu().numpy()
+    finally:
+        moe.apply_moe = orig
+    one_toks = eng.generate({"tokens": c0["prompt"]}, new).cpu().numpy()
+    import numpy as np
+    for r, out in enumerate(ranks):
+        check(np.array_equal(out["c"]["tokens"], ep_toks),
+              f"(c) rank {r}: tokens {out['c']['tokens'].tolist()} != the "
+              f"one-card EP statement's {ep_toks.tolist()}")
+    del eng, q
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return {"dropped": dropped, "single_diff": single_diff,
+            "single_tokens_equal": bool(np.array_equal(one_toks, ep_toks))}
+
+
+def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
+    """Path 11: sharded serving on P11_RANKS gloo ranks sharing the card
+    (module docstring); returns the kernel rows of (a) and (c)."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as tmp
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+
+    t_path = time.perf_counter()
+    sizes = p11_sizes(smoke)
+    # ---- what the ranks must equal, on one device: (a)'s streams, and
+    # path 1's logits
+    cfg, qparams = p11_qwen(torch, dev, smoke)
+    gen, reqs = p11_inputs(cfg, sizes)
+    t0 = time.perf_counter()
+    want = p11_serve_qwen(torch, dev, cfg, qparams, sizes, gen, reqs, None)
+    single_s = time.perf_counter() - t0
+    del qparams
+    if cnn_ref is not None and not smoke:
+        want_logits = cnn_ref["logits"]
+    else:
+        params, layers = cnn.init_cnn(
+            "resnet18", torch.Generator().manual_seed(0),
+            image=sizes["init_image"], device=dev)
+        ctrl = cnn_budget_controller("resnet18", layers=layers)
+        images, budgets = cnn_inputs(torch, dev, ctrl, sizes["batch"],
+                                     sizes["image"])
+        want_logits = CNNServeEngine(params, layers, controller=ctrl,
+                                     max_batch=sizes["batch"],
+                                     device=dev).serve(images, budgets)[0]
+        del params
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"path 11 single-device streams: {cfg.name} generate "
+          f"{sizes['gen']} at budgets {P11_BUDGETS} and {len(reqs)} "
+          f"continuous requests in {single_s:.3f} s; the parent's weights "
+          f"freed before the ranks")
+
+    # ---- the ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp.start_processes(p11_rank, args=(
+            f"tcp://127.0.0.1:{free_port()}", d, str(dev), smoke),
+            nprocs=P11_RANKS, join=True, start_method="spawn")
+        ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                 for r in range(P11_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+
+    # ---- (a) tensor parallelism, no plan
+    for r, out in enumerate(ranks):
+        a = out["a"]
+        check(out["coords"] == (r, r), f"rank {r}: mesh coords "
+              f"{out['coords']}")
+        for i, budget in enumerate(P11_BUDGETS):
+            check(np.array_equal(a["gen"][i], want["gen"][i]),
+                  f"(a) rank {r}, generate at {budget}: tokens "
+                  f"{a['gen'][i].tolist()} != one device's "
+                  f"{want['gen'][i].tolist()}")
+            check(np.array_equal(a["logits"][i], want["logits"][i]),
+                  f"(a) rank {r}, generate at {budget}: last-position "
+                  f"logits != one device's, max |diff| "
+                  f"{np.abs(a['logits'][i] - want['logits'][i]).max()}")
+        check(a["cont"] == want["cont"], f"(a) rank {r}: continuous tokens "
+              f"{a['cont']} != one device's {want['cont']}")
+        check(not cuda or (a["flash"] == cfg.n_layers * len(P11_BUDGETS)
+                           and sum(a["shapes"].values()) > 0
+                           and a["off_path"] == (0, 0)),
+              f"(a) rank {r}: flash {a['flash']} launches (want "
+              f"{cfg.n_layers} a generate call on the local heads), "
+              f"bit-plane {sum(a['shapes'].values())}, int4/quant "
+              f"{a['off_path']}")
+        check(a["collectives"].get("acc_tp", [0])[0] > 0
+              and "gather_weight" not in a["collectives"],
+              f"(a) rank {r}: collectives {a['collectives']}")
+    B, S, new = sizes["gen"]
+    print(f"(a) {cfg.name} on (data, model) = (1, {P11_RANKS}), no plan: "
+          f"generate B = {B} x {S} tokens (flash on "
+          f"{cfg.n_heads // P11_RANKS} local q heads and "
+          f"{cfg.n_kv_heads // P11_RANKS} KV heads a rank) at budgets "
+          f"{P11_BUDGETS}, {new} new: tokens and last-position logits EQUAL "
+          f"one device's; {len(reqs)} continuous requests "
+          f"({sizes['cont'][1]}-token prompts, {sizes['cont'][2]} new, "
+          f"{P11_SLOTS} slots, budgets {P11_CONT_BUDGETS}): tokens EQUAL; "
+          f"launches a rank: flash {ranks[0]['a']['flash']}, bit-plane "
+          f"{sum(ranks[0]['a']['shapes'].values())} (by path "
+          f"{ranks[0]['a']['paths']})")
+
+    # ---- (b) data parallelism: FSDP weights, and a partial plan
+    for key, label in (("b_fsdp", "no plan (FSDP)"),
+                       ("b_partial", f"partial plan {SO_PARTIAL}")):
+        for r, out in enumerate(ranks):
+            x = out[key]
+            check(x["cont"] == want["cont"], f"(b) {label}, rank {r}: tokens "
+                  f"{x['cont']} != one device's {want['cont']}")
+            check(x["sharded"], f"(b) {label}, rank {r}: no weight sharded")
+            rep = 0.0 if x["mean_replicas"] is None else x["mean_replicas"]
+            check(x["replicas"] == [rep] * len(reqs),
+                  f"(b) {label}, rank {r}: records' replicas "
+                  f"{x['replicas']} != the plan's {rep}")
+        print(f"(b) {cfg.name} on (data, model) = ({P11_RANKS}, 1), {label}: "
+              f"plan {ranks[0][key]['plan']}; {len(reqs)} continuous "
+              f"requests, tokens EQUAL one device's; records carry "
+              f"replicas {ranks[0][key]['replicas'][0]}; collectives a rank "
+              f"{ranks[0][key]['collectives']}")
+
+    # ---- (c) expert parallelism
+    moe_gate = p11_moe_gate(b, ranks, smoke)
+    c0 = ranks[0]["c"]
+    print(f"(c) {MOE_ARCH} ({len(c0['layers'])} layers at full width) on "
+          f"(1, {P11_RANKS}): local expert stacks {c0['local_experts']}; "
+          f"generate {sizes['moe']} at int8: every MoE layer's output EQUALS "
+          f"the one-process EP statement's on its input, the ranks' "
+          f"dispatch buffers EQUAL the single-device buffer (C_shard = C), "
+          f"tokens EQUAL a one-card run of the statement; dropped choices "
+          f"{moe_gate['dropped']}; the single-device path's layer outputs "
+          f"apart from EP by max |diff| {moe_gate['single_diff']} (the "
+          f"ranks' f32 sums add in another order), its tokens equal "
+          f"{moe_gate['single_tokens_equal']}")
+
+    # ---- (d) ResNet18 on both meshes
+    for key, mesh_s in (("d21", f"({P11_RANKS}, 1) no plan"),
+                        ("d12", f"(1, {P11_RANKS})")):
+        for r, out in enumerate(ranks):
+            check(np.array_equal(out[key]["logits"], want_logits),
+                  f"(d) ResNet18 on {mesh_s}, rank {r}: logits != path 1's, "
+                  f"max |diff| {np.abs(out[key]['logits'] - want_logits).max()}")
+            check(out[key]["sharded"], f"(d) {mesh_s}: no weight sharded")
+        print(f"(d) ResNet18@{sizes['image']} B = {sizes['batch']} on "
+              f"{mesh_s}: logits EQUAL path 1's; rows "
+              f"{[out[key]['rows'] for out in ranks]}; collectives a rank "
+              f"{ranks[0][key]['collectives']}")
+
+    # ---- (e) SMOKE: speculation, the prefix cache, KV heads not dividing
+    single = ranks[0]["e_single"]
+    for r, out in enumerate(ranks):
+        e = out["e"]
+        for label in single:
+            check(e[label]["tokens"] == single[label]["tokens"]
+                  and e[label]["hits"] == single[label]["hits"]
+                  and e[label]["spec"] == single[label]["spec"],
+                  f"(e) {label}, rank {r}: tokens {e[label]['tokens']} != "
+                  f"one device's {single[label]['tokens']}")
+    e0 = ranks[0]["e"]
+    check(max(e0["spec_auto"]["spec"]) > 0 and max(e0["spec_fsdp"]["spec"]) > 0
+          and {"full", "partial"} <= set(e0["pc_auto"]["hits"])
+          and e0["pc_auto"]["moved"] > 0,
+          f"(e) speculation rounds {e0['spec_auto']['spec']}, prefix hits "
+          f"{e0['pc_auto']['hits']}, rows moved {e0['pc_auto']['moved']}")
+    print(f"(e) {LM_ARCH} SMOKE, card against one device: spec_k=4 on "
+          f"({P11_RANKS}, 1) (a replicated plan and FSDP; rounds "
+          f"{e0['spec_auto']['spec']}), PrefixCache(chunk={P11_PC_CHUNK}) "
+          f"hits {e0['pc_auto']['hits']} on slots {e0['pc_auto']['slots']} "
+          f"({e0['pc_auto']['moved']} row broadcasts across ranks), and "
+          f"n_kv_heads=1 on (1, {P11_RANKS}): tokens EQUAL")
+
+    # ---- (f) the kernel at (a)'s and (c)'s shapes: held EQUAL, timed
+    shapes: dict = {}
+    paths = {p: 0 for p in bpm.PATHS}
+    for key in ("a", "c"):
+        for k, n in ranks[0][key]["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + n
+        for k, n in ranks[0][key]["paths"].items():
+            paths[k] += n
+    check(not cuda or sum(shapes.values()) > 0,
+          "path 11 launched no bit-plane kernel")
+    tot = [0.0] * 8
+    if cuda:
+        for (M, K, N, n_pl), c in sorted(shapes.items()):
+            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
+            row = b.gemm_row(M, K, N, n_pl)
+            tot = [x + c * v for x, v in zip(tot, list(row)
+                                             + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    fl_shape = (B * cfg.n_heads // P11_RANKS, S, cfg.head_dim)
+    n_fl = ranks[0]["a"]["flash"]
+    fl = (flash_row(b, fl_shape, " (path 11 (a), one rank's heads)")
+          if cuda else {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                        "library_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
+                        "bound_ms": 0.0})
+    for key in ("a", "b_fsdp", "b_partial", "c", "d21", "d12", "e"):
+        print(f"{tag} path 11 ({key}) a rank: wall " + ", ".join(
+            f"{out[key]['wall_s']:.3f} s" for out in ranks)
+            + "; peak above resident " + ", ".join(
+                f"{out[key]['peak_gib']:.3f} GiB" for out in ranks)
+            + f"; collectives (calls, bytes) "
+            f"{ {k: tuple(v) for k, v in ranks[0][key]['collectives'].items()} }")
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 11 kernels (rank 0's (a) and (c)): bit-plane "
+          f"{sum(shapes.values())} launches at {len(shapes)} (M, K, N, "
+          f"planes) (by path {paths}), kernel {kms:.3f} ms (device "
+          f"{dms:.3f}), bound {bms:.3f} ms, plain {pms:.3f} ms, "
+          f"torch._int_mm {lms:.3f} ms; flash {n_fl} launches at {fl_shape}, "
+          f"{n_fl * fl['ms']:.3f} ms")
+    print(f"{tag} path 11 wall {wall:.3f} s (the ranks {ranks_s:.3f} s; "
+          f"weights drawn a rank in " + ", ".join(
+              f"{out['weights_s']:.3f} s" for out in ranks) + ")")
+    return {"bitplane": {"launches": sum(shapes.values()), "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
+                         "t_ops": to, "device_ms": dms,
+                         "library_device_ms": ldms, "bound_ms": bms,
+                         "paths": paths},
+            "flash": flash_entry(n_fl, fl, n_fl),
+            "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -5739,6 +6384,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "
              "port on a GPU")
+    hardware()
     from repro_torch.kernels import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5805,9 +6451,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-13. the ten paths (a development run may pick some with
-    # --paths 1,4; only a run of all ten prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+    # ---- 4.-14. the eleven paths (a development run may pick some with
+    # --paths 1,4; only a run of all eleven prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -5842,6 +6488,8 @@ def main() -> None:
             t0 = time.perf_counter()
             p10_path(b)
             print(f"{b.tag} path 10 wall {time.perf_counter() - t0:.3f} s")
+        if 11 in picked:
+            p11_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed in "
               f"{time.perf_counter() - t_paths:.3f} s; no result line for "
@@ -5870,6 +6518,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
         p9r = timed("9", train_path, b, ckpt_dir)
     p10r = timed("10", p10_path, b)
+    p11r = timed("11", p11_path, b, cnn_ref=cnn)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -5896,14 +6545,16 @@ def main() -> None:
                 "seamless_generate_call": p8r["encdec"]["bitplane"],
                 "stablelm_generate_call": p8r["dense"]["bitplane"],
                 "qwen3_4b_trained_generate_call": p9r["bitplane"],
-                "qwen3_4b_serve_cli_runs": p10r["bitplane"]}
+                "qwen3_4b_serve_cli_runs": p10r["bitplane"],
+                "tensor_and_expert_parallel_rank": p11r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
                 "zamba2_generate_call": p8r["hybrid"]["flash"],
                 "seamless_generate_call": p8r["encdec"]["flash"],
                 "stablelm_generate_call": p8r["dense"]["flash"],
-                "qwen3_4b_serve_cli_batch_run": p10r["flash"]}
+                "qwen3_4b_serve_cli_batch_run": p10r["flash"],
+                "qwen3_4b_tensor_parallel_rank": p11r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -5953,7 +6604,10 @@ def main() -> None:
           f" {LM_ARCH} through repro_torch.launch.serve: continuous "
           f"{p10r['e2e']['cont_s']:.3f} s (run() {p10r['e2e']['run_s']:.3f} "
           f"s), --batch {p10r['e2e']['batch_s']:.3f} s, peak "
-          f"{p10r['e2e']['peak_gib']:.3f} GiB")
+          f"{p10r['e2e']['peak_gib']:.3f} GiB; path 11 (sharded serving on "
+          f"{P11_RANKS} gloo ranks sharing the card) "
+          f"{p11r['e2e']['wall_s']:.3f} s, its ranks "
+          f"{p11r['e2e']['ranks_s']:.3f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -158,13 +158,20 @@ def unpack_int4_halves(packed: torch.Tensor) -> torch.Tensor:
 # Fake quantization with straight-through estimator (the train form)
 # ---------------------------------------------------------------------------
 
-def fake_quant(x: torch.Tensor, bits, axis=None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits, axis=None,
+               reduce=None) -> torch.Tensor:
     """Differentiable b-bit quantization: forward quantizes, the gradient
     passes straight through.  bits >= 16 is the identity (fp sentinel).
 
     The straight-through sum is taken in float32 and rounded once to
-    ``x``'s dtype, so the forward value is exactly the quantized ``q``."""
-    scale = symmetric_scale(x.detach(), bits, axis=axis)
+    ``x``'s dtype, so the forward value is exactly the quantized ``q``.
+    ``reduce`` (per-tensor scales only) maps the local amax to the whole
+    tensor's, for a tensor whose rows are split over ranks."""
+    if reduce is not None and axis is None:
+        scale = (reduce(x.detach().abs().amax()).clamp_min(1e-8).float()
+                 / qmax(bits, x.device))
+    else:
+        scale = symmetric_scale(x.detach(), bits, axis=axis)
     lim = qmax(bits, x.device)
     x32 = x.float()     # a 0-d float32 scale would not promote a bf16 x
     q = torch.maximum(torch.minimum(torch.round(x32 / scale), lim), -lim)

@@ -22,9 +22,9 @@ device budget into a :class:`PlacementPlan`:
 
 The plan is consumed three ways:
 
-* **execution**: a fully replicated plan lets the engines split request
-  rows across the data axis (every rank holds every weight, so per-rank
-  compute is exact);
+* **execution**: the engines place their weights by it on a mesh (a
+  fully replicated plan keeps every weight on every rank, so a slot's
+  owner computes its rows alone; a partial one shards the rest);
 * **pricing**: :meth:`PlacementPlan.price` amortizes each entry's
   latency over its replicas (energy is unchanged: the same work runs,
   spread wider), which is what the cost records and ``aggregate()``
@@ -34,8 +34,9 @@ The plan is consumed three ways:
   resolves higher bits.
 
 :meth:`PlacementPlan.replicates` is the reference's parameter-spec rule
-(which leaves replicate under a plan); the port has no sharded weights
-yet, so only the tests read it.
+(which leaves replicate under a plan): ``dist.sharding`` reads it, so on
+a mesh the leaves a plan fully replicates stay whole on every rank and
+the rest keep the Megatron/FSDP rule.
 """
 from __future__ import annotations
 

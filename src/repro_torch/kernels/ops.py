@@ -39,6 +39,20 @@ requant).
 Attention over flat heads reaches the flash kernel only through
 :func:`flash_attention`, which launches it for CUDA tensors and takes a
 plain version for CPU tensors.
+
+On a mesh, :func:`sharded_linear` runs a linear whose leaves are this
+rank's blocks (``dist.sharding.Local``) and keeps every output EQUAL to
+the single-device linear's: FSDP-sharded dims are all-gathered before use;
+a column-parallel weight computes this rank's output columns (its scale
+and bias sliced with them), gathered unless the caller keeps them local;
+a row-parallel weight takes this rank's slice of the reduction dim, the
+activation's amax is MAX-reduced over the model axis before it quantizes
+(a rank-local amax would give another ``x_q``), and the int32 partial
+accumulators are SUM-reduced before the f32 epilogue (int32 sums wrap as
+the kernel's own accumulator does, so they are exact wherever it is).
+Under :func:`split_rows` (an engine's forward on its data rank's block of
+rows) every per-tensor activation amax is MAX-reduced over the data axis
+too, so a whole-batch scale sees the whole batch.
 """
 from __future__ import annotations
 
@@ -49,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitfluid as bf
+from repro_torch.dist import api as dist_api
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int4_matmul as i4mm
 from repro_torch.kernels import quant_matmul as qmm
@@ -109,6 +125,73 @@ def token_scale_mode():
         yield
     finally:
         _token_scales = prev
+
+
+_rows_mesh = None      # the mesh whose data axis splits the rows
+_k_reduce = None       # (mesh, axes) of a row-parallel linear's sums
+
+
+@contextlib.contextmanager
+def split_rows(mesh):
+    """The enclosed forwards run on this data rank's block of rows:
+    per-tensor activation scales take the whole batch's amax (a MAX over
+    the data axis).  No-op for ``mesh=None``."""
+    global _rows_mesh
+    prev = _rows_mesh
+    _rows_mesh = mesh
+    try:
+        yield
+    finally:
+        _rows_mesh = prev
+
+
+def rows_split_mesh():
+    """The mesh of the enclosing :func:`split_rows` block, or None."""
+    return _rows_mesh
+
+
+def tensor_amax_reduce():
+    """The per-tensor amax reduction in force (``bf.fake_quant``'s
+    ``reduce``), or None when nothing splits the tensor."""
+    if _rows_mesh is None and _k_reduce is None:
+        return None
+    return lambda a: _amax(a, True)
+
+
+def _amax(a: torch.Tensor, per_tensor: bool) -> torch.Tensor:
+    """An activation amax reduced over the axes that split its tensor:
+    the model axis of a row-parallel linear's K, and, for a per-tensor
+    scale under :func:`split_rows`, the data axis.  Local inside a
+    ``shard_map`` body (``dist.api.manual_mode``)."""
+    if dist_api.in_manual_mode():
+        return a
+    if _k_reduce is not None:
+        a = _k_reduce[0].all_reduce(a, _k_reduce[1], "max",
+                                    kind="amax_tp")
+    if per_tensor and _rows_mesh is not None:
+        a = _rows_mesh.all_reduce(a, _rows_mesh.dp_axes, "max",
+                                  kind="amax_dp")
+    return a
+
+
+def _sum_acc(acc: torch.Tensor) -> torch.Tensor:
+    """A row-parallel linear's partial accumulators summed over the model
+    axis (int32: exact modulo 2^32, as the kernel's accumulator)."""
+    if _k_reduce is None or dist_api.in_manual_mode():
+        return acc
+    if acc.dtype != torch.int32:            # the packed-int4 kernel's f32
+        return _k_reduce[0].all_reduce(acc.to(torch.int32), _k_reduce[1],
+                                       "sum", kind="acc_tp").to(acc.dtype)
+    return _k_reduce[0].all_reduce(acc, _k_reduce[1], "sum", kind="acc_tp")
+
+
+def _scale_of(x2: torch.Tensor, abits) -> torch.Tensor:
+    """The per-tensor activation scale (``bf.symmetric_scale``), its amax
+    reduced as :func:`_amax` says."""
+    if _k_reduce is None and _rows_mesh is None:
+        return bf.symmetric_scale(x2, abits)
+    return (_amax(x2.abs().amax(), True).clamp_min(1e-8).float()
+            / bf.qmax(abits, x2.device))
 
 
 def set_row_dispatch(mode: str) -> None:
@@ -205,12 +288,12 @@ def _epilogue(acc2, lead, x_scale, w_s, bias):
 
 def _container_linear(x, qw, s, bias, *, from_bits, wbits, abits):
     x2 = x.float()
-    x_scale = bf.symmetric_scale(x2, abits)           # per-tensor scalar
+    x_scale = _scale_of(x2, abits)                    # per-tensor scalar
     x_q = bf.quantize(x2, x_scale, abits)
     w_q = bf.requant_shift(qw, wbits, from_bits=from_bits)
     w_s = bf.effective_scale(s, wbits, from_bits=from_bits)
-    acc = int8_accum(x_q.reshape(-1, x.shape[-1]), w_q,
-                     planes=_static_bits(wbits))
+    acc = _sum_acc(int8_accum(x_q.reshape(-1, x.shape[-1]), w_q,
+                              planes=_static_bits(wbits)))
     return _epilogue(acc, x.shape[:-1], x_scale, w_s, bias)
 
 
@@ -238,12 +321,12 @@ def int4_linear(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     if wb is not None and wb >= 4:
         N = 2 * q4.shape[-1]
         x2 = x.float()
-        x_scale = bf.symmetric_scale(x2, abits)
+        x_scale = _scale_of(x2, abits)
         x_q = bf.quantize(x2, x_scale, abits)
-        acc = int4_matmul(x_q.reshape(-1, x.shape[-1]), q4,
-                          torch.ones((1, N), dtype=torch.float32,
-                                     device=x.device),
-                          out_dtype=torch.float32)
+        acc = _sum_acc(int4_matmul(x_q.reshape(-1, x.shape[-1]), q4,
+                                   torch.ones((1, N), dtype=torch.float32,
+                                              device=x.device),
+                                   out_dtype=torch.float32))
         return _epilogue(acc, x.shape[:-1], x_scale, s.float(), bias)
     return _container_linear(x, bf.unpack_int4_halves(q4), s, bias,
                              from_bits=4, wbits=wbits, abits=abits)
@@ -319,7 +402,7 @@ def _stacked_container(p, x, wb, abits):
     bits = wb.reshape(G, 1, 1)
     x2 = x.float().reshape(G, -1, K)                        # (G, R, K)
     # one per-tensor activation scale per slice
-    amax = x2.abs().amax(dim=(1, 2), keepdim=True)
+    amax = _amax(x2.abs().amax(dim=(1, 2), keepdim=True), True)
     x_scale = amax.clamp_min(1e-8).float() / bf.qmax(abits, x.device)
     x_q = bf.quantize(x2, x_scale, abits)
     w_q = bf.requant_shift(qw, bits, from_bits=from_bits)   # (G, K, N)
@@ -346,8 +429,10 @@ def _serve_linear_rows(p, x, wbits, abits):
     wb = _bits_on(wbits, x.device).expand(B)
     ab = _bits_on(abits, x.device).expand(B)
     if _row_dispatch == "vmap":
-        return torch.stack([serve_linear(p, x[r], wb[r], ab[r])
-                            for r in range(B)])
+        # each row's own per-tensor scale: no data-axis reduction
+        with split_rows(None):
+            return torch.stack([serve_linear(p, x[r], wb[r], ab[r])
+                                for r in range(B)])
     if "q4" in p:
         qw, from_bits = bf.unpack_int4_halves(p["q4"]), 4
     else:
@@ -362,7 +447,7 @@ def _serve_linear_rows(p, x, wbits, abits):
     # chunks)
     axes = ((x2.ndim - 1,) if _token_scales
             else tuple(range(1, x2.ndim)))
-    amax = x2.abs().amax(dim=axes, keepdim=True)
+    amax = _amax(x2.abs().amax(dim=axes, keepdim=True), False)
     lim = bf.qmax(ab.reshape((B,) + (1,) * (x2.ndim - 1)))
     x_scale = amax.clamp_min(1e-8) / lim
     x_q = torch.maximum(torch.minimum(torch.round(x2 / x_scale), lim),
@@ -389,13 +474,65 @@ def _serve_linear_rows(p, x, wbits, abits):
                             device=x.device)
     fam_of_row = remap[_family_index(wb, fams).long()]      # (B,)
     idx_r = torch.repeat_interleave(fam_of_row, R // B)     # (R,)
-    acc = acc_stack[idx_r, torch.arange(R, device=x.device)]   # (R, N)
+    acc = _sum_acc(acc_stack[idx_r, torch.arange(R, device=x.device)])
     w_s = ws_stack[idx_r]                                   # (R, N)
     xs_flat = x_scale.expand(x2.shape[:-1] + (1,)).reshape(R, 1)
     y = acc.float() * xs_flat * w_s
     if "b" in p:
         y = y + p["b"].float()
     return y.reshape(lead + (y.shape[-1],))
+
+
+def sharded_linear(p, x: torch.Tensor, wbits=8, abits=8, *,
+                   local_out: bool = False) -> torch.Tensor:
+    """:func:`serve_linear` of a serve-form linear whose leaves are this
+    rank's blocks (``p`` a ``dist.sharding.Local``); the result EQUALS
+    the whole linear's (module docstring).
+
+    ``x`` carries the whole reduction dim, or, for a weight whose K is
+    sharded over the model axis, this rank's slice of it (the output of
+    a column-parallel linear kept local).  A column-parallel result is
+    all-gathered unless ``local_out``.  A packed-int4 container whose
+    packed columns are sharded is gathered whole (its nibble pairs hold
+    columns j and j + N/2, which a column block does not keep together)."""
+    global _k_reduce
+    mesh = p.mesh
+    kq = "q4" if "q4" in p else "q"
+    (K, _), (ke, ne) = p.spec(kq)
+    q, s, b = p[kq], p["s"], p.get("b")
+    if kq == "q4" and dist_api.is_tp_entry(ne):
+        q = mesh.gather_weight(q, dist_api.entry_axes(ne), -1)
+        s, ne = shd.gather_leaf(p, "s"), None
+    if ke is not None and not dist_api.is_tp_entry(ke):        # FSDP
+        q = mesh.gather_weight(q, dist_api.entry_axes(ke), -2)
+        ke = None
+    if ne is not None and not dist_api.is_tp_entry(ne):
+        q = mesh.gather_weight(q, dist_api.entry_axes(ne), -1)
+        s = shd.gather_leaf(p, "s")
+        ne = None
+    if ne is not None:                          # column-parallel
+        axes = dist_api.entry_axes(ne)
+        if "s" not in p.layout:
+            s = mesh.local_block(s, axes, -1)
+        if b is not None:
+            b = mesh.local_block(b, axes, -1)
+    red = None
+    if ke is not None:                          # row-parallel
+        red = (mesh, dist_api.entry_axes(ke))
+        if x.shape[-1] == K:
+            x = mesh.local_block(x, red[1], -1)
+    lin = {kq: q, "s": s}
+    if b is not None:
+        lin["b"] = b
+    prev, _k_reduce = _k_reduce, red
+    try:
+        y = serve_linear(lin, x, wbits, abits)
+    finally:
+        _k_reduce = prev
+    if ne is not None and not local_out:
+        y = mesh.all_gather(y, dist_api.entry_axes(ne), dim=-1,
+                            kind="gather_cols")
+    return y
 
 
 def fluid_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale, *,

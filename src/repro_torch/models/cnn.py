@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.apsim.workloads import Layer, NETWORKS, gemm_layers
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -69,13 +70,17 @@ def conv_gemm(p: dict, x: torch.Tensor, layer: Layer, wbits=8, abits=8
     Dispatches on the parameter form: ``{"w"}`` fake-quant float,
     ``{"q"/"q4", "s"}`` through the kernel layer.  Grouped convs run the
     (g, fk, cout/g) stack group by group in both forms, and add the
-    full-width bias in f32 after the groups recombine."""
+    full-width bias in f32 after the groups recombine.  On a mesh an
+    ungrouped conv is a column-parallel linear (its output channels
+    gathered); a grouped stack is gathered whole first."""
     g = layer.groups
     cols = im2col(x, layer.hk, layer.wk, layer.stride, layer.pad)
     if g == 1:
         y = cm.apply_linear(p, cols, wbits, abits)
     else:
         N, Ho, Wo, _ = cols.shape
+        if isinstance(p, shd.Local):            # a mesh's blocks: whole
+            p = shd.full(p)
         xg = grouped_cols(cols, g, layer.hk * layer.wk).movedim(3, 0)
         xg = xg.contiguous()                   # (g, N, Ho, Wo, taps*C/g)
         if "w" in p:

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import bitfluid as bf
+from repro_torch.dist import api as dist
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops as kops
 
 DTYPE = torch.bfloat16
@@ -81,15 +83,34 @@ def quantize_linear(p: dict, container: str = "int8") -> dict:
 # The bit-fluid linear
 # ---------------------------------------------------------------------------
 
-def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
+def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
+                 local_out: bool = False) -> torch.Tensor:
     """y = x @ W (+b) at runtime precisions; dispatches train/serve forms.
 
     ``wbits``/``abits`` are scalars (shared precision) or ``(B,)`` vectors
     matching ``x``'s leading axis (per-request precision).  Serve-form
     containers go wholesale through :func:`repro_torch.kernels.ops.
-    serve_linear`; the train form is the bf16 fake-quant STE below."""
+    serve_linear`; the train form is the bf16 fake-quant STE below.
+
+    A linear placed on a mesh (``dist.sharding.Local``) runs
+    :func:`repro_torch.kernels.ops.sharded_linear`: ``local_out`` keeps a
+    column-parallel result as this rank's columns (the first half of a
+    Megatron pair), and ``x`` may be this rank's slice of a row-parallel
+    weight's reduction dim.  A train-form one is gathered whole."""
     per_row = (getattr(wbits, "ndim", 0) >= 1
                or getattr(abits, "ndim", 0) >= 1)
+    if isinstance(p, shd.Local):
+        if "w" in p:
+            p = shd.full(p)
+        else:
+            y = kops.sharded_linear(p, x, wbits, abits, local_out=local_out)
+            return y.to(DTYPE)
+    K = next(p[k] for k in ("w", "q", "q4") if k in p).shape[-2]
+    if x.shape[-1] != K:
+        # this model rank's slice of the reduction dim, before a whole
+        # weight: every rank's slice, gathered
+        lead = (None,) * (x.ndim - 1)
+        x = dist.constrain(x, lead + (None,), have=lead + ("tp",))
     if "w" in p:                                     # train: fake-quant STE
         if per_row:
             B = x.shape[0]
@@ -108,10 +129,20 @@ def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8) -> torch.Tensor:
     return y.to(DTYPE)
 
 
+def local_linear(p: dict, x: torch.Tensor, wbits=8, abits=8
+                 ) -> torch.Tensor:
+    """:func:`apply_linear` keeping a column-parallel result as this
+    model rank's columns (the first half of a Megatron pair); off a model
+    axis, :func:`apply_linear` as it is."""
+    if dist.tp_size() > 1:
+        return apply_linear(p, x, wbits, abits, local_out=True)
+    return apply_linear(p, x, wbits, abits)
+
+
 def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
     """Scalar-bits fake-quant (STE) linear, bf16 around the product."""
     w = bf.fake_quant(p["w"], wbits, axis=0)
-    xq = bf.fake_quant(x.to(DTYPE), abits)
+    xq = bf.fake_quant(x.to(DTYPE), abits, reduce=kops.tensor_amax_reduce())
     y = torch.matmul(xq, w).float()
     if "b" in p:
         y = y + p["b"].float()
@@ -126,7 +157,8 @@ def unstack(tree, n: int) -> list:
     would add one zero-filled stack per layer."""
     if isinstance(tree, dict):
         per = {k: unstack(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+        return [_like(tree, {k: v[i] for k, v in per.items()})
+                for i in range(n)]
     out = torch.unbind(tree)
     if len(out) != n:
         raise ValueError(f"stack of {len(out)} layers, expected {n}")
@@ -150,8 +182,14 @@ def stack_slice(tree, i: int):
     """Index ``i`` of every leaf of a stacked ``(L, ...)`` parameter or
     cache dict (views: an in-place cache insert updates the stack)."""
     if isinstance(tree, dict):
-        return {k: stack_slice(v, i) for k, v in tree.items()}
+        return _like(tree, {k: stack_slice(v, i) for k, v in tree.items()})
     return tree[i]
+
+
+def _like(tree: dict, items: dict) -> dict:
+    """``items`` as a dict of ``tree``'s kind (a mesh-placed dict keeps
+    its layout)."""
+    return tree.like(items) if isinstance(tree, shd.Local) else items
 
 
 # ---------------------------------------------------------------------------

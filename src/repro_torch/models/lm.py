@@ -37,6 +37,15 @@ f)}``).  The reference's rule quantizes only ``ndim == 3`` expert
 leaves, so its LM stacks stay bf16 and its serve path runs the
 fake-quant train form; the port departs from it on purpose (ROADMAP
 Queue C).
+
+On a mesh the parameters are placed by ``dist.sharding.shard_params``:
+the embedding table's vocab over the model axis is a masked local lookup
+whose rows one rank holds (a SUM over the model axis adds zeros to it,
+exactly), and the tied head computes this rank's vocab columns and
+gathers them (each logit is one row's dot product, whatever the column
+count).  ``empty_cache(mesh=)`` allocates one rank's block of the cache
+as ``dist.sharding.cache_shardings`` lays it out, and a
+:class:`CachePool` on a mesh moves a row across data ranks by broadcast.
 """
 from __future__ import annotations
 
@@ -45,6 +54,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import api as dist
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import encdec, hybrid, mamba2, moe
@@ -286,6 +297,7 @@ def _dense_stack(layers, x, cfg, wvec, avec, positions, cache=None, t=None,
             return y, a
 
         x, a = cm.remat(cfg, body, x, cache=cache)
+        x = dist.constrain(x, ("dp", None, None))
         aux.append(a)
     return x, cache, torch.stack(aux).mean()
 
@@ -302,6 +314,7 @@ def _ssm_stack(layers, x, cfg, wvec, avec, cache=None):
         st = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
         x, new_st = mamba2.mamba_block(lp, x, cfg, wvec[i], avec[i],
                                        state=st)
+        x = dist.constrain(x, ("dp", None, None))
         cache["conv"][i] = new_st["conv"]
         cache["ssm"][i] = new_st["ssm"]
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -363,7 +376,38 @@ def forward_hidden(params, x, cfg: ModelConfig, wvec, avec, *, positions,
 # ---------------------------------------------------------------------------
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(params, shd.Local) and "emb" in params.layout:
+        return _embed_sharded(params, tokens)
     return params["emb"][tokens]
+
+
+def _emb_rows(params):
+    """This rank's vocab rows of the table whole in ``d_model`` (an FSDP
+    ``d_model`` shard is gathered), their first id, and the axes the
+    vocab is split over (() when whole)."""
+    _, (ve, de) = params.spec("emb")
+    emb = params["emb"]
+    mesh = params.mesh
+    if de is not None:
+        emb = mesh.gather_weight(emb, dist.entry_axes(de), -1)
+    axes = dist.entry_axes(ve)
+    return emb, mesh.index(axes) * emb.shape[0] if axes else 0, axes
+
+
+def _embed_sharded(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on a vocab-sharded table: each rank fills the tokens its
+    rows hold and zeros elsewhere, and a SUM over the model axis adds the
+    zeros to the one filled value (exact, in f32)."""
+    emb, lo, axes = _emb_rows(params)
+    if not axes:
+        return emb[tokens]
+    idx = tokens.long() - lo
+    mine = (idx >= 0) & (idx < emb.shape[0])
+    x = torch.where(mine[..., None], emb[idx.clamp(0, emb.shape[0] - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    x = x.float()
+    return params.mesh.all_reduce(x, axes, "sum",
+                                  kind="embed").to(emb.dtype)
 
 
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
@@ -372,17 +416,25 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
     takes one token row at a time unless ``rows_alone`` is False (the
     train loss: one matmul, whose gradient reaches ``emb`` once)."""
     h = cm.apply_norm(params["ln_f"], h, cfg.norm_type, cfg.norm_eps)
-    if cfg.tie_embeddings and not rows_alone:
-        logits = h.float() @ params["emb"].float().T
-    elif cfg.tie_embeddings:
-        # one token row at a time: a float matmul sums in an order that
-        # may depend on its row count, and a request's logits must not
-        # depend on its batch (decode tick, verify chunk, alone)
-        emb = params["emb"].float().T
-        rows = h.float().reshape(-1, h.shape[-1])
-        logits = torch.cat([rows[i:i + 1] @ emb
-                            for i in range(rows.shape[0])])
-        logits = logits.reshape(h.shape[:-1] + (emb.shape[1],))
+    if cfg.tie_embeddings:
+        sharded = isinstance(params, shd.Local) and "emb" in params.layout
+        emb, _, axes = (_emb_rows(params) if sharded
+                        else (params["emb"], 0, ()))
+        emb = emb.float().T
+        if not rows_alone:
+            logits = h.float() @ emb
+        else:
+            # one token row at a time: a float matmul sums in an order
+            # that may depend on its row count, and a request's logits
+            # must not depend on its batch (decode tick, verify chunk,
+            # alone)
+            rows = h.float().reshape(-1, h.shape[-1])
+            logits = torch.cat([rows[i:i + 1] @ emb
+                                for i in range(rows.shape[0])])
+            logits = logits.reshape(h.shape[:-1] + (emb.shape[1],))
+        if axes:        # this rank's vocab columns -> every column
+            logits = dist.constrain(logits, ("dp", None, None),
+                                    have=("dp", None, "tp"))
     else:
         logits = cm.apply_linear(params["head"], h, wb, ab).float()
     if cfg.padded_vocab != cfg.vocab_size:       # mask padding ids
@@ -440,6 +492,7 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
         enc_out = encdec.encode(params["layers"], frames, cfg,
                                 _layer_major(wvec, cfg.family, dev),
                                 _layer_major(avec, cfg.family, dev))
+    x = dist.constrain(x, ("dp", None, None))
     Sx = x.shape[1]
     positions = torch.arange(Sx, dtype=torch.int32,
                              device=dev)[None].expand(B, Sx)
@@ -457,13 +510,22 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
 # ---------------------------------------------------------------------------
 
 def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                device="cuda") -> dict:
+                device="cuda", mesh=None, split_rows: bool = True) -> dict:
     """The family's empty cache: the stacked KV ring (attention
     families), the Mamba states (ssm), both (hybrid), or the decoder's KV
     ring and the cross K/V at ``max_len // frames_ratio`` frames
-    (encdec; prefill replaces the cross K/V with the encoder's)."""
+    (encdec; prefill replaces the cross K/V with the encoder's).
+
+    On a ``mesh`` (attention families): this rank's block of the
+    ``batch``-row cache as ``dist.sharding.cache_shardings`` lays it out:
+    rows over the data axis (``split_rows=False`` keeps every row, for a
+    row every rank computes), KV heads or the head dim over the model
+    axis.  A layout that shards the sequence over the data axis (rows
+    that do not split) is not served, and raises."""
     _require_ported(cfg)
     dev = cm.resolve_device(device)
+    if mesh is not None:
+        return _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows)
     if cfg.family == "ssm":
         return mamba2.empty_state(cfg, batch, cfg.n_layers, device=dev)
     if cfg.family == "hybrid":
@@ -477,6 +539,32 @@ def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                           "v": torch.zeros(shape, dtype=cm.DTYPE,
                                            device=dev)}}
     return tf.empty_cache(cfg, batch, max_len, device=dev)
+
+
+def _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows) -> dict:
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"a cache on a mesh is served for the attention families, not "
+            f"{cfg.family!r}")
+    whole = tf.empty_cache(cfg, batch, max_len, device="meta")
+    specs = shd.cache_shardings(whole, mesh)
+    out = {}
+    for name, t in whole.items():
+        spec = list(specs[name])
+        if spec[1] is not None and not split_rows:
+            spec[1] = None
+        if len(spec) > 2 and spec[2] is not None:
+            if split_rows:
+                raise NotImplementedError(
+                    f"{batch} cache rows do not split over the mesh's "
+                    f"{dist.dp_size(mesh)} data ranks; the reference "
+                    f"shards the sequence then, which the port does not "
+                    f"serve")
+            spec[2] = None
+        shape = dist.local_shape(mesh, spec, t.shape)
+        fill = tf.EMPTY_POS if name == "kpos" else 0
+        out[name] = torch.full(shape, fill, dtype=t.dtype, device=dev)
+    return out
 
 
 def _last_layer_bits(vec):
@@ -616,21 +704,38 @@ class CachePool:
     (slot ``s`` at cache row ``s - lo``), while the slot bookkeeping (free
     list, lengths) covers all ``n_slots`` and runs identically on every
     rank.  An install into a slot another rank owns records its length
-    and copies nothing.
+    and copies nothing.  With ``mesh=`` the cache takes
+    ``dist.sharding.cache_shardings``' layout (rows over the data axis,
+    KV heads or the head dim over the model axis; ``rows`` must then be
+    this data rank's block), and :meth:`copy_row` moves a row between
+    slots that different data ranks own by a broadcast along the data
+    axis.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
-                 device="cuda", rows: Optional[Tuple[int, int]] = None):
+                 device="cuda", rows: Optional[Tuple[int, int]] = None,
+                 mesh=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = cm.resolve_device(device)
+        self.mesh = mesh
         lo, hi = (0, n_slots) if rows is None else rows
         if not 0 <= lo < hi <= n_slots:
             raise ValueError(f"rows [{lo}, {hi}) not inside the pool's "
                              f"{n_slots} slots")
         self.rows = (lo, hi)
-        self.cache = empty_cache(cfg, hi - lo, max_len, device=self.device)
+        if mesh is not None:
+            self.cache = empty_cache(cfg, n_slots, max_len,
+                                     device=self.device, mesh=mesh,
+                                     split_rows=rows is not None)
+            if self.cache["kpos"].shape[1] != hi - lo:
+                raise ValueError(
+                    f"rows [{lo}, {hi}) are not the mesh's block of "
+                    f"{self.cache['kpos'].shape[1]} rows")
+        else:
+            self.cache = empty_cache(cfg, hi - lo, max_len,
+                                     device=self.device)
         self.lengths = np.zeros((n_slots,), np.int64)
         self._free = list(range(n_slots - 1, -1, -1))
 
@@ -725,11 +830,37 @@ class CachePool:
         n = int(self.lengths[src] if length is None else length)
         self._check_install(dst, n)
         lo, hi = self.rows
-        if src // (hi - lo) != dst // (hi - lo):
+        self.lengths[dst] = n
+        if src // (hi - lo) == dst // (hi - lo):
+            if src != dst and self.owns(dst):
+                for buf in self.cache.values():
+                    buf[:, dst - lo] = buf[:, src - lo].clone()
+            return
+        if self.mesh is None:
             raise NotImplementedError(
                 f"slots {src} and {dst} live on different ranks' rows: "
-                f"moving a row across ranks is not ported")
-        self.lengths[dst] = n
-        if src != dst and self.owns(dst):
-            for buf in self.cache.values():
-                buf[:, dst - lo] = buf[:, src - lo].clone()
+                f"moving a row across ranks needs the pool's mesh")
+        # every data rank of the line joins the broadcast from src's owner
+        owner = src // (hi - lo)
+        for buf in self.cache.values():
+            row = buf[:, src - lo] if self.owns(src) else \
+                torch.empty_like(buf[:, 0])
+            got = self.mesh.broadcast(row, owner, kind="move_row")
+            if self.owns(dst):
+                buf[:, dst - lo] = got.to(buf.device)
+
+    def move_row(self, row_cache: Optional[dict], holder: int,
+                 slot: int) -> Optional[dict]:
+        """A single-row cache held by data rank ``holder`` (None on the
+        others), broadcast to ``slot``'s owner along the data axis; returns
+        it there and None elsewhere.  Every data rank calls it."""
+        lo, hi = self.rows
+        mine = self.mesh.dp_index == holder
+        owner = slot // (hi - lo)
+        out = {}
+        for name in sorted(self.cache):
+            ref = self.cache[name][:, :1]
+            src = row_cache[name] if mine else torch.empty_like(ref)
+            got = self.mesh.broadcast(src, holder, kind="move_row")
+            out[name] = got.to(self.device)
+        return out if self.mesh.dp_index == owner else None

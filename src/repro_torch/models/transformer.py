@@ -33,6 +33,18 @@ of int8 x int8 terms are exact below 2^53, so every accumulator is the
 same integer in any summation order, on either device, and a row's
 result does not depend on the rows beside it.
 
+On a mesh with a model axis (tensor parallelism), when the KV heads
+divide it, ``wq``/``wk``/``wv`` keep this rank's heads (column-parallel,
+``constrain_heads`` on the head dim), attention runs on the local q and
+KV heads, the cache holds the local KV heads, and ``wo`` reduces over
+the model axis (row-parallel).  When they do not divide it, the
+reference shards the per-head feature dim, which would split the f32
+``q . k`` sums and the softmax across ranks; the port gathers the heads
+and computes attention whole instead (the values stay EQUAL), while the
+cache keeps the reference's layout, ``hd`` over the model axis, gathered
+around each call.  The MLP's ``wg``/``wu``/``wi`` keep their local
+columns and ``wd`` reduces.
+
 Cross-attention (``attention(kv=(k, v))``, the encoder-decoder's) takes
 precomputed keys and values and skips RoPE, as the reference does.  The
 reference also projects ``x`` through ``wk`` and ``wv`` there and
@@ -45,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import api as dist
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 
@@ -177,24 +190,42 @@ def _row_insert(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor
 # Attention
 # ---------------------------------------------------------------------------
 
-def _q(p, x, cfg, wbits, abits):
+def _q(p, x, cfg, wbits, abits, local: bool = False):
+    """q (B, S, heads, hd): every head, or this model rank's heads when
+    ``local`` (column-parallel ``wq``)."""
     B, S = x.shape[:2]
-    q = cm.apply_linear(p["wq"], x, wbits, abits).reshape(
-        B, S, cfg.n_heads, cfg.head_dim)
+    lin = cm.local_linear if local else cm.apply_linear
+    q = lin(p["wq"], x, wbits, abits).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = cm.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
     return q
 
 
-def _qkv(p, x, cfg, wbits, abits):
+def _qkv(p, x, cfg, wbits, abits, local: bool = False):
     B, S = x.shape[:2]
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    q = _q(p, x, cfg, wbits, abits)
-    k = cm.apply_linear(p["wk"], x, wbits, abits).reshape(B, S, KV, hd)
-    v = cm.apply_linear(p["wv"], x, wbits, abits).reshape(B, S, KV, hd)
+    hd = cfg.head_dim
+    q = _q(p, x, cfg, wbits, abits, local)
+    lin = cm.local_linear if local else cm.apply_linear
+    k = lin(p["wk"], x, wbits, abits).reshape(B, S, -1, hd)
+    v = lin(p["wv"], x, wbits, abits).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         k = cm.rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
     return q, k, v
+
+
+def local_heads(cfg) -> bool:
+    """Whether attention runs on each model rank's own heads: a model
+    axis whose size divides the KV heads (``tp_size() == 1`` counts)."""
+    return cfg.n_kv_heads % dist.tp_size() == 0
+
+
+_HEADS = ("dp", None, "tp", None)       # (B, S, heads, hd), heads over tp
+
+
+def _heads_have(t: torch.Tensor, n_heads: int):
+    """The layout of a (B, S, heads, hd) tensor: this rank's heads when
+    it holds fewer than ``n_heads``, else every head."""
+    return _HEADS if t.shape[2] < n_heads else None
 
 
 def _sdpa(q, k, v, bias, cfg):
@@ -253,12 +284,18 @@ def _flash(q, k, v, cfg, causal: bool):
     kernel on the card, a plain version on the CPU), in bf16.  Positions
     are lock-step 0..S-1 on this path; the sliding-window band applies
     only to causal self-attention."""
-    B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    G = q.shape[2] // KV
     if G > 1:                                 # expand GQA to flat heads
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
+    # the model axis shards the flat heads of every operand (whole heads
+    # are sliced to this rank's: each head's attention is its own)
+    have = _heads_have(q, cfg.n_heads)
+    q = dist.constrain(q, _HEADS, have=have)
+    k = dist.constrain(k, _HEADS, have=have)
+    v = dist.constrain(v, _HEADS, have=have)
+    B, Sq, H, hd = q.shape
     qf = q.transpose(1, 2).reshape(B * H, Sq, hd).to(cm.DTYPE).contiguous()
     kf = k.transpose(1, 2).reshape(B * H, Sk, hd).to(cm.DTYPE).contiguous()
     vf = v.transpose(1, 2).reshape(B * H, Sk, hd).to(cm.DTYPE).contiguous()
@@ -278,7 +315,14 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
     (no RoPE, no mask, no cache; flash when Sq * Sk > FLASH_THRESHOLD^2).
     cache/t: the decode path inserts this step's k/v at slot t % Sc; a
     full-sequence call with a cache (prefill) fills it.
-    Returns (out, new_cache)."""
+    Returns (out, new_cache).  Under a model axis that does not divide
+    the KV heads, ``cache`` holds this rank's slice of the head dim; it is
+    gathered whole around the call and written back (module docstring)."""
+    if (cache is not None and kv is None
+            and cache["k"].shape[-1] != cfg.head_dim):
+        return _hd_sharded_cache(p, x, cfg, wbits, abits,
+                                 positions=positions, causal=causal,
+                                 cache=cache, t=t)
     if kv is not None:                                   # cross-attention
         q = _q(p, x, cfg, wbits, abits)
         k, v = kv
@@ -289,13 +333,23 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
                                device=x.device)
             out = _sdpa(q, k, v, bias, cfg)
         return cm.apply_linear(p["wo"], out, wbits, abits), None
-    q, k_new, v_new = _qkv(p, x, cfg, wbits, abits)
+    use_head = local_heads(cfg)
+    q, k_new, v_new = _qkv(p, x, cfg, wbits, abits, local=use_head)
     if cfg.rope_theta > 0:
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k_new = cm.apply_rope(k_new, positions, cfg.rope_theta)
 
     new_cache = None
     int8_cache = cache is not None and "ks" in cache
+    if use_head:
+        # consistent head sharding across q, the k/v inserts and the
+        # cache: the KV head count decides the axis for all of them (heads
+        # a whole wq/wk/wv produced are sliced to this rank's)
+        q = dist.constrain_heads(q, 2, 3, True,
+                                 have=_heads_have(q, cfg.n_heads))
+        have = _heads_have(k_new, cfg.n_kv_heads)
+        k_new = dist.constrain_heads(k_new, 2, 3, True, have=have)
+        v_new = dist.constrain_heads(v_new, 2, 3, True, have=have)
     if cache is not None and x.shape[1] == 1:            # decode (S == 1)
         B = x.shape[0]
         Sc = cache["k"].shape[1]
@@ -377,6 +431,23 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
     return y, new_cache
 
 
+def _hd_sharded_cache(p, x, cfg, wbits, abits, *, positions, causal,
+                      cache, t):
+    """:func:`attention` on a cache whose k/v hold this model rank's slice
+    of the head dim: the slices are gathered whole, the call runs on them
+    (its writes land in place), and this rank's slice is written back."""
+    mesh = dist.active_mesh()
+    whole = dict(cache)
+    for name in ("k", "v"):
+        whole[name] = mesh.all_gather(cache[name], mesh.tp_axes, dim=-1,
+                                      kind="gather_cache")
+    y, _ = attention(p, x, cfg, wbits, abits, positions=positions,
+                     causal=causal, cache=whole, t=t)
+    for name in ("k", "v"):
+        cache[name].copy_(mesh.local_block(whole[name], mesh.tp_axes, -1))
+    return y, cache
+
+
 def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
                          positions: torch.Tensor) -> dict:
     """Write a full prefill's k/v (B,S,KV,hd) into a fresh layer cache,
@@ -418,12 +489,14 @@ def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp(p, x, cfg, wbits=8, abits=8):
+    """The dense MLP; on a model axis a Megatron pair (the hidden
+    columns stay local between the two linears)."""
     if cfg.mlp_type == "swiglu":
-        g = cm.apply_linear(p["wg"], x, wbits, abits)
-        u = cm.apply_linear(p["wu"], x, wbits, abits)
+        g = cm.local_linear(p["wg"], x, wbits, abits)
+        u = cm.local_linear(p["wu"], x, wbits, abits)
         h = torch.nn.functional.silu(g.float()) * u.float()
         return cm.apply_linear(p["wd"], h.to(cm.DTYPE), wbits, abits)
-    h = cm.apply_linear(p["wi"], x, wbits, abits)
+    h = cm.local_linear(p["wi"], x, wbits, abits)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(cm.DTYPE)
     return cm.apply_linear(p["wd"], h, wbits, abits)
 

@@ -20,13 +20,17 @@ touches the controller's bit families.
 
 Placement (``mesh=``, ``plan=``): a plan without a mesh prices every
 image under it (latency amortized over the replicas, energy unchanged).
-A fully replicated plan on a data mesh whose ranks divide ``max_batch``
-splits the padded batch's rows: every rank holds all the weights,
-resolves and prices the whole batch on the host identically, runs its
-block of ``max_batch / dp`` rows through the forward and all-gathers the
-logits.  The caller is SPMD: every rank calls :meth:`CNNServeEngine.serve`
-with the same images and budgets.  Rows are independent, so the logits
-equal the single-device engine's.
+On a mesh the quantized weights are placed once by
+``dist.sharding.param_shardings(qparams, mesh, plan=self.plan)`` (each
+conv and fc column-parallel over the ``model`` axis, its output channels
+gathered after it, and FSDP over the data axis; a plan's fully
+replicated layers stay whole), and a data axis that divides
+``max_batch`` splits the padded batch's rows: every rank resolves and
+prices the whole batch on the host identically, runs its block of
+``max_batch / dp`` rows through the forward and all-gathers the logits.
+The caller is SPMD: every rank calls :meth:`CNNServeEngine.serve` with
+the same images and budgets.  Rows are independent and every sharded
+GEMM is exact, so the logits equal the single-device engine's.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.apsim.workloads import (HAWQV3_RESNET18, Layer, gemm_layers,
                                          per_layer_bits)
 from repro_torch.core.policy import BudgetController, PrecisionPolicy, fixed
 from repro_torch.kernels import bitplane_matmul as bpm
+from repro_torch.kernels import ops as kops
 from repro_torch.models import cnn
 from repro_torch.models import common as cm
 from repro_torch.serve.accounting import ImageStats
@@ -110,9 +115,9 @@ class CNNServeEngine(ServeRuntime):
         self.int4_names = int4_names
         on_dev = {k: {n: t.to(self.device) for n, t in v.items()}
                   for k, v in params.items()}
-        self.qparams = cnn.quantize_cnn_params(on_dev, self.layers,
-                                               container=container,
-                                               int4_names=int4_names)
+        self.qparams = self.place(cnn.quantize_cnn_params(
+            on_dev, self.layers, container=container,
+            int4_names=int4_names))
 
     @torch.no_grad()
     def serve(self, images, budgets=None
@@ -143,7 +148,8 @@ class CNNServeEngine(ServeRuntime):
         wmat, amat = self.controller.resolve(
             torch.as_tensor(bud, dtype=torch.float32))
         rows = slice(*self._rows) if self._rows is not None else slice(None)
-        with self.compute_ctx():
+        with self.compute_ctx(), kops.split_rows(
+                self.mesh if self._rows is not None else None):
             logits = cnn.cnn_forward(self.qparams, images[rows], self.layers,
                                      wmat[rows].to(self.device),
                                      amat[rows].to(self.device))

@@ -80,24 +80,39 @@ engine's device; a CUDA tensor reaches the kernels or raises.
 Placement (``mesh=``, ``plan=``, DESIGN.md §13): a plan without a mesh
 prices every admission under it (latency amortized over the replicas,
 energy unchanged) and, for a FluidController, re-prices its SLO table.
-A fully replicated plan on a data mesh whose ranks divide ``n_slots``
-splits the continuous path's rows: slot ``s`` belongs to rank ``s //
-(n_slots / dp)`` and each rank's :class:`~repro_torch.models.lm.CachePool`
-holds only its own rows.  The host program (``submit``, admission, the
-scheduler, the controller, pricing, the records) runs identically on
-every rank: the caller is SPMD and submits the same requests everywhere.
-The slot's owner prefills an admitted request's row and broadcasts its
-first token; every decode tick runs the local rows (``n_slots / dp`` per
-GEMV) and all-gathers the tick's tokens.  Each sampling step draws its
-noise for the whole batch on every rank and each rank takes its rows, so
-sampled streams equal the single-device engine's too (the reference's
-``shard_map`` hands every shard the same key, so its shards draw the
-same noise for different rows).
+On a mesh (a :class:`repro_torch.dist.Mesh` over a gloo group; the
+caller is SPMD and submits the same requests on every rank) the weights
+are placed once by ``dist.sharding.param_shardings(qparams, mesh,
+plan=self.plan)``: Megatron column- and row-parallel linears over the
+``model`` axis, FSDP over the data axis, and every leaf a plan fully
+replicates whole.  Every sharded configuration serves logits and tokens
+EQUAL to the single-device engine's on the same weights (the moe
+family's expert-parallel dispatch is held to the reference's own EP
+semantics instead).
 
-Not ported yet, and raising ``NotImplementedError``: a mesh without a
-fully replicated plan or with a tensor-parallel axis (sharded weights);
-``generate``, speculation and the prefix cache on a mesh (they would
-move rows across ranks).
+  * rows: the continuous path's slots split over the data axis (slot
+    ``s`` belongs to data rank ``s // (n_slots / dp)``, whose
+    :class:`~repro_torch.models.lm.CachePool` holds only its rows), and
+    ``generate`` splits its batch the same way.  The host program
+    (``submit``, admission, the scheduler, the controller, pricing, the
+    records) runs identically on every rank.  Each sampling step draws
+    its noise for the whole batch and each rank takes its rows, so
+    sampled streams equal the single-device engine's too.
+  * forwards: with every weight whole on every rank (a fully replicated
+    plan on a data mesh) only a slot's owner prefills its row and
+    broadcasts the first token; otherwise every forward is a collective
+    of the mesh and every rank runs it (an admission's prefill too,
+    whose row only the owner keeps).  FSDP weights are gathered once a
+    scheduler tick (``Mesh.reuse_gathers``).
+  * speculation: each rank drafts and verifies its own rows; a round's
+    tokens and rollback watermarks are all-gathered.
+  * the prefix cache: an entry's row lives on the data rank that
+    prefilled it; a hit for a slot another rank owns broadcasts the row
+    (and a full hit's logits) to the owner (``CachePool.move_row``).
+
+The recurrent and encoder-decoder families do not serve on a mesh
+(``NotImplementedError``), nor do rows that do not split evenly over the
+data ranks (the reference shards the cache's sequence then).
 """
 from __future__ import annotations
 
@@ -111,6 +126,7 @@ import torch
 from repro_torch.core import policy as pol
 from repro_torch.core.policy import (BudgetController, FluidController,
                                      PrecisionPolicy)
+from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.models.transformer import EMPTY_POS
@@ -120,6 +136,7 @@ from repro_torch.serve.runtime import (ServeRuntime, SlotTable,
                                        UNCONSTRAINED_BUDGET)
 
 TOPK_MAX = 64          # top-k sort width; per-row k <= TOPK_MAX
+_MESH_FAMILIES = ("dense", "moe", "vlm")     # served on a mesh
 SPEC_K_MAX = 8         # draft depth ceiling: a speculative round verifies
                        # one (SPEC_K_MAX + 1)-wide chunk per row
 
@@ -274,19 +291,20 @@ class ServeEngine(ServeRuntime):
                 f"SLO loop")
         super().__init__(controller, n, gemms=lm.layer_gemm_dims(cfg),
                          head=lm.head_gemm_dims(cfg), mesh=mesh, plan=plan)
-        if self.mesh is not None:
-            for name, val in (("spec_k", spec_k),
-                              ("prefix_cache", prefix_cache)):
-                if val is not None:
-                    raise NotImplementedError(
-                        f"ServeEngine({name}=...) on a mesh is not ported: "
-                        f"it would move cache rows across ranks")
+        if self.mesh is not None and cfg.family not in _MESH_FAMILIES:
+            raise NotImplementedError(
+                f"serving on a mesh runs the families {_MESH_FAMILIES}, not "
+                f"{cfg.family!r}")
         # this rank's block of slots under the row split (None off a mesh)
         self._rows = self._row_split(n_slots, "slots")
         self._sl = slice(*self._rows) if self._rows else slice(None)
         self._noise_rows = (self._rows + (n_slots,) if self._rows
                             else None)
-        self.qparams = _to(qparams, self.device)
+        self.qparams = self.place(_to(qparams, self.device))
+        self._collective = self.collective(self.qparams)
+        # prefix-cache entry key -> the data rank holding its row (None:
+        # every rank holds it)
+        self._holder: Dict[bytes, Optional[int]] = {}
         self.budget_s = torch.tensor(1e9, dtype=torch.float32)
         self.row_bits = cfg.family in lm.PER_ROW_BIT_FAMILIES
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -350,8 +368,8 @@ class ServeEngine(ServeRuntime):
         idx = self._draft_index()
         if self._draft_bits_c is None or idx != self._draft_idx:
             wtab, atab = self.controller.stacked_tables()
-            wv = wtab[idx].expand(self.n_slots, -1).to(self.device)
-            av = atab[idx].expand(self.n_slots, -1).to(self.device)
+            wv = wtab[idx].expand(self.n_slots, -1)[self._sl].to(self.device)
+            av = atab[idx].expand(self.n_slots, -1)[self._sl].to(self.device)
             self._draft_bits_c = (wv, av)
             self._draft_idx = idx
             self._draft_wbits_f = float(np.mean(self.host_tables()[0][idx]))
@@ -390,7 +408,8 @@ class ServeEngine(ServeRuntime):
         fresh single-row cache, behind its vlm ``prefix`` (1, P, d) if it
         has one; returns (logits (1, 1, V), row cache)."""
         self.calls["prefill"] += 1
-        cache = lm.empty_cache(self.cfg, 1, self.max_len, device=self.device)
+        cache = lm.empty_cache(self.cfg, 1, self.max_len, device=self.device,
+                               mesh=self.mesh, split_rows=False)
         batch = {"tokens": tokens}
         if prefix is not None:
             batch["prefix"] = prefix
@@ -422,7 +441,7 @@ class ServeEngine(ServeRuntime):
             logits, cache = lm.decode_step(self.qparams, tok, t, cache,
                                            self.cfg, wv, av)
             flat = logits[:, -1].float()
-            nxt = _sample_tokens(flat, self.gen, temp, topk)
+            nxt = _sample_tokens(flat, self.gen, temp, topk, self._noise_rows)
             probs.append(torch.softmax(_scaled_logits(flat, temp, topk),
                                        dim=-1))
             toks.append(nxt)
@@ -459,7 +478,7 @@ class ServeEngine(ServeRuntime):
         idx = draft_toks.long()[..., None]
         p_g = torch.gather(p[:, :K], 2, idx)[..., 0]             # (B, K)
         q_g = torch.gather(draft_probs, 2, idx)[..., 0]
-        u = torch.rand(draft_toks.shape, generator=self.gen, device=dev)
+        u = _uniform(self.gen, (self.n_slots, K))[self._sl]
         ok = torch.where(temp[:, None] > 0,
                          u * q_g.clamp_min(1e-20) < p_g,         # u < p/q
                          draft_toks == ver[:, :K])
@@ -475,7 +494,8 @@ class ServeEngine(ServeRuntime):
         tot = resid.sum(dim=-1, keepdim=True)
         rdist = torch.where(tot > 0, resid / tot.clamp_min(1e-30), p_a)
         extra = torch.where(temp > 0,
-                            _categorical(torch.log(rdist + 1e-30), self.gen),
+                            _categorical(torch.log(rdist + 1e-30), self.gen,
+                                         self._noise_rows),
                             ver[rows, a])
         emitted = torch.where(
             torch.arange(U, device=dev)[None] < a[:, None],
@@ -485,8 +505,8 @@ class ServeEngine(ServeRuntime):
         # input; t + a is the rollback watermark
         return extra, t + a + 1, emitted, a + 1, t + a
 
-    def _sample_first(self, logits, temp, topk):
-        return _sample_tokens(logits[:, -1], self.gen, temp, topk)
+    def _sample_first(self, logits, temp, topk, rows=None):
+        return _sample_tokens(logits[:, -1], self.gen, temp, topk, rows)
 
     def _extend_row(self, tokens, row, start: int, r: int, wv, av):
         """Partial prefix-cache hit: ``row`` (an entry's single-row cache)
@@ -518,10 +538,6 @@ class ServeEngine(ServeRuntime):
         per-row temperature/top_k are given.  A vlm batch carries
         ``batch["prefix"]`` (B, n_prefix_tokens, d_model), an encdec batch
         ``batch["frames"]`` (B, F, d_model)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "generate() on a mesh is not ported: its batch is not "
-                "split across ranks; use submit()/run()")
         if isinstance(self.controller, FluidController):
             # the whole-batch path has no admissions to charge: it would
             # silently run the fluid controller open-loop
@@ -538,13 +554,17 @@ class ServeEngine(ServeRuntime):
         dev = self.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         B, S = tokens.shape
-        inputs = {"tokens": tokens}
+        # this data rank's block of the batch's rows (None: every row)
+        split = self._row_split(B, "rows")
+        sl = slice(*split) if split else slice(None)
+        noise = split + (B,) if split else None
+        inputs = {"tokens": tokens[sl]}
         prefix = 0
         if self.cfg.family == "vlm":
             prefix = self.cfg.n_prefix_tokens
             self._check_prefix(batch.get("prefix"), (B, prefix,
                                                      self.cfg.d_model))
-            inputs["prefix"] = torch.as_tensor(batch["prefix"]).to(dev)
+            inputs["prefix"] = torch.as_tensor(batch["prefix"]).to(dev)[sl]
         elif self.cfg.family == "encdec":
             frames = batch.get("frames")
             shape = None if frames is None else tuple(frames.shape)
@@ -562,22 +582,29 @@ class ServeEngine(ServeRuntime):
         topk = torch.zeros((B,), dtype=torch.int32, device=dev) \
             if top_k is None else torch.as_tensor(
                 top_k, dtype=torch.int32).to(dev).expand(B)
+        temp, topk = temp[sl], topk[sl]
         wv, av = self._bits()
-        cache = lm.empty_cache(self.cfg, B, self.max_len, device=dev)
-        logits, cache = lm.prefill(self.qparams, inputs, self.cfg, wv, av,
-                                   cache)
-        tok = self._sample_first(logits, temp, topk)[:, None]
-        t = torch.full((B,), S + prefix, dtype=torch.int32, device=dev)
-        out = [tok]
-        for _ in range(steps - 1):
-            logits, cache = lm.decode_step(self.qparams, tok, t, cache,
-                                           self.cfg, wv, av)
-            tok = _sample_tokens(logits[:, -1], self.gen, temp,
-                                 topk)[:, None]
-            t = t + 1
-            out.append(tok)
+        if wv.ndim == 2:                        # shard_bits: (B, L) rows
+            wv, av = wv[sl], av[sl]
+        cache = lm.empty_cache(self.cfg, B, self.max_len, device=dev,
+                               mesh=self.mesh)
+        with kops.split_rows(self.mesh if split else None):
+            logits, cache = lm.prefill(self.qparams, inputs, self.cfg, wv,
+                                       av, cache)
+            tok = self._sample_first(logits, temp, topk, noise)[:, None]
+            t = torch.full((tok.shape[0],), S + prefix, dtype=torch.int32,
+                           device=dev)
+            out = [tok]
+            for _ in range(steps - 1):
+                logits, cache = lm.decode_step(self.qparams, tok, t, cache,
+                                               self.cfg, wv, av)
+                tok = _sample_tokens(logits[:, -1], self.gen, temp,
+                                     topk, noise)[:, None]
+                t = t + 1
+                out.append(tok)
         self.stats.tokens += B * steps
-        return torch.cat(out, dim=1)
+        out = torch.cat(out, dim=1)
+        return self.mesh.gather_rows(out).to(dev) if split else out
 
     @staticmethod
     def _check_prefix(prefix, shape) -> None:
@@ -628,10 +655,6 @@ class ServeEngine(ServeRuntime):
             raise ValueError(f"top_k={top_k} exceeds TOPK_MAX={TOPK_MAX}")
         if draft_k is not None and not 0 <= draft_k <= SPEC_K_MAX:
             raise ValueError(f"draft_k={draft_k} not in [0, {SPEC_K_MAX}]")
-        if self.mesh is not None and (draft_k or 0) > 0:
-            raise NotImplementedError(
-                "speculative decoding on a mesh is not ported: it would "
-                "move cache rows across ranks")
         # speculative rounds write up to SPEC_K_MAX positions past the
         # accepted point before rollback: the KV ring must never wrap
         # under them (wrapped slots would expose stale-lap entries to the
@@ -685,7 +708,8 @@ class ServeEngine(ServeRuntime):
     def _ensure_pool(self) -> lm.CachePool:
         if self.pool is None:
             self.pool = lm.CachePool(self.cfg, self.n_slots, self.max_len,
-                                     device=self.device, rows=self._rows)
+                                     device=self.device, rows=self._rows,
+                                     mesh=self.mesh)
         return self.pool
 
     def _cacheable(self, req: Request) -> bool:
@@ -755,37 +779,41 @@ class ServeEngine(ServeRuntime):
             tokens = np.zeros((1, self.prefill_len), np.int32)
             tokens[0, :S] = req.prompt
             tokens = torch.from_numpy(tokens).to(dev)
+            # a forward runs on the slot's owner, or on every rank when
+            # forwards are collectives of the mesh
+            runs = pool.owns(slot) or self._collective
+            if hit is not None:
+                row, logits = self._entry_row(hit.entry, slot)
             if hit is not None and hit.full:
                 # full hit: the cached row IS the prefill output at the
                 # entry's bits; install it and reuse its stored logits
-                pool.install_prefix(hit.entry.row_cache, slot, S)
-                logits = hit.entry.logits
+                pool.install_prefix(row, slot, S)
             elif hit is not None:
                 # partial hit: extend a clone of the entry's row by the
                 # uncached tail, then install it
-                logits, row_cache = self._extend_row(
-                    tokens, hit.entry.row_cache, cached, S - cached, wv, av)
+                logits = row_cache = None
+                if runs:
+                    logits, row_cache = self._extend_row(
+                        tokens, row, cached, S - cached, wv, av)
                 pool.write_row(row_cache, slot, S)
                 # refresh only when precision-pure: the extended row mixes
                 # the entry's bits (prefix) with the resolved bits (tail)
                 # unless they match
                 if (np.array_equal(hit.entry.wbits, wv_np)
                         and np.array_equal(hit.entry.abits, av_np)):
-                    self.prefix_cache.store(
-                        req.prompt, row_cache, logits, wv_np, av_np,
-                        record.ap_cost, rep_key=req.rep_key)
+                    self._store(req, row_cache, logits, wv_np, av_np,
+                                record, slot)
             else:
                 logits = row_cache = None
-                if pool.owns(slot):
+                if runs:
                     logits, row_cache = self._prefill_row(
                         tokens, torch.tensor([S], dtype=torch.int32).to(dev),
                         wv, av, torch.from_numpy(req.prefix[None]).to(dev)
                         if vlm else None)
                 pool.write_row(row_cache, slot, S + prefix_len)
                 if wv_np is not None:   # cacheable miss: store or refresh
-                    self.prefix_cache.store(
-                        req.prompt, row_cache, logits, wv_np, av_np,
-                        record.ap_cost, rep_key=req.rep_key)
+                    self._store(req, row_cache, logits, wv_np, av_np,
+                                record, slot)
             first0 = self._first_token(logits, slot, req)
             record.first_token_s = time.time()
             record.slot = slot
@@ -801,10 +829,39 @@ class ServeEngine(ServeRuntime):
                 self._finish(slot)
         return admitted
 
+    def _store(self, req: Request, row_cache, logits, wv_np, av_np,
+               record, slot: int) -> None:
+        """Store or refresh a prefix-cache entry, noting which data rank
+        holds its row (None: every rank does)."""
+        self.prefix_cache.store(req.prompt, row_cache, logits, wv_np, av_np,
+                                record.ap_cost, rep_key=req.rep_key)
+        holder = (None if self._rows is None or self._collective
+                  else slot // (self._rows[1] - self._rows[0]))
+        self._holder[self.prefix_cache.content_key(req.prompt)] = holder
+
+    def _entry_row(self, entry, slot: int):
+        """(row cache, logits) of a prefix-cache entry on ``slot``'s owner
+        (None on the other data ranks): a row that another data rank
+        holds is broadcast to the owner, its logits with it."""
+        holder = self._holder.get(entry.key)
+        n = (self._rows[1] - self._rows[0]) if self._rows else 0
+        if holder is None or holder == slot // n:
+            return entry.row_cache, entry.logits
+        pool = self.pool
+        row = pool.move_row(entry.row_cache, holder, slot)
+        mine = self.mesh.dp_index == holder
+        shape = (1, 1, self.cfg.padded_vocab)
+        logits = self.mesh.broadcast(
+            entry.logits if mine else torch.empty(shape), holder,
+            kind="move_row")
+        owner = self.mesh.dp_index == slot // n
+        return row, (logits.to(self.device) if owner else None)
+
     def _first_token(self, logits, slot: int, req: Request) -> int:
         """Sample an admission's first token (the per-admission host
         sync).  Under the row split a rank that does not own ``slot`` has
-        no logits: it draws the same noise, so the generator stays in
+        no logits (unless forwards are collectives, when every rank has
+        them): it draws the same noise, so the generator stays in
         lockstep on every rank, and takes the owner's token."""
         dev = self.device
         if logits is None:
@@ -815,7 +872,7 @@ class ServeEngine(ServeRuntime):
                 logits, torch.tensor([req.temperature],
                                      dtype=torch.float32).to(dev),
                 torch.tensor([req.top_k], dtype=torch.int32).to(dev))
-        if self._rows is not None:
+        if self._rows is not None and not self._collective:
             n = self._rows[1] - self._rows[0]
             first = self.mesh.broadcast(first, src=slot // n)
         return int(first[0])
@@ -936,24 +993,29 @@ class ServeEngine(ServeRuntime):
         wv, av = self._batch_bits()
         dwv, dav = self._draft_bits()
         tok, t, temp, topk = self._slot_inputs()
-        k_eff = torch.as_tensor(k_eff_h, dtype=torch.int64).to(self.device)
+        k_eff = torch.as_tensor(k_eff_h[self._sl],
+                                dtype=torch.int64).to(self.device)
         draft_toks, draft_probs = self._draft_scan(
             tok, t, pool.cache, dwv, dav, temp, topk, int(k_eff_h.max()))
         nxt, t_next, emitted, count, keep = self._spec_verify(
             tok, draft_toks, draft_probs, t, pool.cache, wv, av, k_eff,
             temp, topk)
-        self._mask_idle_rows(active, keep)
-        # one device-to-host copy a round
+        # one device-to-host copy a round (every rank's rows under the
+        # split, so the host state stays identical)
         out = torch.cat([nxt[:, None].long(), t_next[:, None].long(),
-                         count[:, None].long(), emitted.long()],
-                        dim=1).cpu().numpy()
+                         count[:, None].long(), keep[:, None].long(),
+                         emitted.long()], dim=1)
+        out = (self.mesh.gather_rows(out) if self._rows is not None
+               else out.cpu()).numpy()
+        self._mask_idle_rows(active, torch.from_numpy(out[:, 3]).to(
+            self.device))
         slots["tok"][:] = out[:, 0]
         slots["t"][:] = out[:, 1]
         for slot in np.nonzero(active)[0]:
             rid = int(slots.rid[slot])
             st = self.requests[rid]
             take = int(out[slot, 2])            # a + 1 <= remaining
-            new = out[slot, 3:3 + take].tolist()
+            new = out[slot, 4:4 + take].tolist()
             if self.eos_id is not None and self.eos_id in new:
                 new = new[:new.index(self.eos_id) + 1]
             st.tokens.extend(int(x) for x in new)

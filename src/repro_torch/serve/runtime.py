@@ -25,9 +25,13 @@ The counterpart of ``repro.serve.runtime``:
     (``plan=``, or ``"auto"`` to plan one from the mesh's device count).
     Every price goes through :meth:`ServeRuntime._planned`, which
     amortizes latency over the plan's replicas (energy unchanged); a
-    FluidController adopts the plan, so its SLO resolves higher bits;
-    and :meth:`ServeRuntime._row_split` gives each rank its block of
-    request rows when the plan is fully replicated.
+    FluidController adopts the plan, so its SLO resolves higher bits.
+    On a mesh, :meth:`ServeRuntime.place` lays the weights out once by
+    ``dist.sharding.param_shardings(params, mesh, plan=self.plan)``
+    (Megatron + FSDP; a plan's fully replicated leaves stay whole on
+    every rank), :meth:`ServeRuntime._row_split` gives each data rank its
+    block of request rows, and :meth:`ServeRuntime.compute_ctx` runs the
+    forwards under the mesh, gathering each FSDP weight once a tick.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch import dist
 from repro_torch.apsim import metrics as apm
+from repro_torch.dist import sharding as shd
 from repro_torch.core.policy import BudgetController, FluidController
 from repro_torch.kernels import ops as kops
 from repro_torch.serve.accounting import (BitVectorPricer, CostRecord,
@@ -182,40 +187,52 @@ class ServeRuntime:
 
     def _row_split(self, n_rows: int, what: str
                    ) -> Optional[Tuple[int, int]]:
-        """This rank's block ``[lo, hi)`` of ``n_rows`` request rows on
-        the mesh's data axis, or None off a mesh.
-
-        The split needs every weight on every rank: a fully replicated
-        plan, no tensor-parallel axis, and rows that divide evenly.  The
-        reference serves the other combinations with sharded weights
-        (GSPMD), which the port has no sharding rules for, so they
-        raise."""
+        """This data rank's block ``[lo, hi)`` of ``n_rows`` request rows,
+        or None when nothing splits them (no mesh, or a data axis of 1).
+        Rows that do not divide evenly over the data ranks raise (the
+        reference would shard the cache's sequence instead)."""
         if self.mesh is None:
             return None
-        if dist.tp_size(self.mesh) > 1:
-            raise NotImplementedError(
-                f"a mesh with a 'model' axis of {dist.tp_size(self.mesh)} "
-                f"shards weights (tensor parallelism), which the port does "
-                f"not do yet; serve on a data-only mesh")
-        if self.plan is None:
-            raise NotImplementedError(
-                "a mesh without a placement plan serves with sharded "
-                "weights in the reference (GSPMD), which the port does not "
-                "do yet; pass plan='auto' (a fully replicated plan) to "
-                "split request rows across the data axis")
-        if not self.plan.fully_replicated:
-            raise NotImplementedError(
-                f"a partial placement plan (replicas {self.plan.replicas} "
-                f"of {self.plan.n_devices}) on a mesh keeps sharded "
-                f"weights, which the port does not do yet; serve it "
-                f"without a mesh (pricing only) or fully replicated")
         dp = dist.dp_size(self.mesh)
+        if dp <= 1:
+            return None
         if n_rows % dp:
             raise NotImplementedError(
                 f"{n_rows} {what} do not split evenly over the mesh's "
                 f"{dp} data ranks")
         n = n_rows // dp
-        return self.mesh.rank * n, (self.mesh.rank + 1) * n
+        i = getattr(self.mesh, "dp_index", None)
+        i = self.mesh.rank if i is None else i
+        return i * n, (i + 1) * n
+
+    def place(self, params):
+        """``params`` laid out on the mesh by ``dist.sharding.
+        param_shardings(params, mesh, plan=self.plan)``: each rank keeps
+        its block of every sharded leaf (``dist.sharding.shard_params``);
+        a fully replicated plan leaves every weight whole.  Sharded
+        weights need a :class:`repro_torch.dist.Mesh` (collectives over a
+        gloo group); another mesh object raises."""
+        if self.mesh is None:
+            return params
+        specs = shd.param_shardings(params, self.mesh, plan=self.plan)
+        if (not any(e is not None for _, spec in shd.tree_paths(specs)
+                    for e in spec) and dist.tp_size(self.mesh) <= 1):
+            return params
+        if not isinstance(self.mesh, dist.Mesh):
+            raise NotImplementedError(
+                f"serving without a placement plan, with a partial one, or "
+                f"on a 'model' axis (tensor parallelism) shards the weights "
+                f"over the mesh, which needs a repro_torch.dist.Mesh "
+                f"(collectives over a gloo group), not "
+                f"{type(self.mesh).__name__}")
+        return shd.shard_params(params, self.mesh, plan=self.plan)
+
+    def collective(self, params) -> bool:
+        """Whether every forward is a collective of the whole mesh (the
+        weights are sharded, or there is a model axis), so every rank
+        runs every forward, a prefill of a row it does not own too."""
+        return self.mesh is not None and (
+            shd.is_sharded(params) or dist.tp_size(self.mesh) > 1)
 
     def _host_index(self, budget: float) -> int:
         """Host-side mirror of ``controller.select`` for one budget (the
@@ -490,6 +507,12 @@ class ServeRuntime:
 
     @contextlib.contextmanager
     def compute_ctx(self):
-        """The controller's static bit-family set around a forward."""
-        with kops.bit_families(self.families):
+        """The controller's static bit-family set around a forward, under
+        the runtime's mesh, whose FSDP weights each forward of the block
+        gathers once (``Mesh.reuse_gathers``)."""
+        reuse = (self.mesh.reuse_gathers()
+                 if isinstance(self.mesh, dist.Mesh)
+                 else contextlib.nullcontext())
+        with kops.bit_families(self.families), dist.use_mesh(self.mesh), \
+                reuse:
             yield

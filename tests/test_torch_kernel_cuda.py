@@ -464,3 +464,23 @@ def test_vmap_rows_equal_grouped_on_card(cuda):
     assert n_grouped == len(ops.get_bit_families())
     assert sum(bpm.launches.values()) - n_grouped == 4
     assert torch.equal(vmap, grouped)
+
+
+# the shard shapes of tensor-parallel serving over two model ranks:
+# Qwen3-4B column-parallel (wq, wk/wv, gate/up), the vocab-sharded
+# 2560 x 75968 GEMV (N not a multiple of 128), row-parallel (wo, wd), and
+# Moonshot-v1-16B-A3B's (expert 2048 x 1408 and 1408 x 2048, its vocab
+# half 2048 x 81920)
+SHARD_SHAPES = [(1, 2560, 2048), (4, 2560, 512), (8, 2560, 4864),
+                (1, 2560, 75968), (4, 2048, 2560), (8, 4864, 2560),
+                (120, 2048, 1408), (120, 1408, 2048), (2, 2048, 81920)]
+
+
+@pytest.mark.parametrize("n_planes", [4, 8])
+def test_kernel_at_shard_shapes_equals_plain(cuda, n_planes):
+    for i, (M, K, N) in enumerate(SHARD_SHAPES):
+        x, w = _rand((M, K), cuda, 300 + i), _rand((K, N), cuda, 400 + i)
+        got = bpm.bitplane_matmul(x, w, n_planes=n_planes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bpm.bitplane_matmul_ref(x, w, n_planes)), \
+            (M, K, N)

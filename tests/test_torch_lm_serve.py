@@ -184,10 +184,12 @@ class FakeMesh:
 
 
 def test_not_ported_options_raise(smoke):
-    # mesh= and plan= are ported: a plan alone prices, and a fully
-    # replicated plan on a data mesh splits the slots (two ranks run it in
-    # tests/test_torch_scaleout.py); the combinations that would need
-    # sharded weights or rows moved across ranks raise
+    # mesh= and plan= are ported: a plan alone prices, a fully replicated
+    # plan on a data mesh splits the slots, and sharded weights serve on
+    # a repro_torch.dist.Mesh (two gloo ranks run them in
+    # tests/test_torch_scaleout.py and tests/test_torch_tp_serve.py).  A
+    # mesh object without collectives cannot hold sharded weights, and
+    # rows that do not split over the data ranks raise
     from repro_torch.dist import plan_for_controller
     mesh = FakeMesh({"data": 2})
     cfg = smoke["tcfg"]
@@ -200,21 +202,20 @@ def test_not_ported_options_raise(smoke):
                       ({"mesh": mesh, "plan": partial}, "partial"),
                       ({"mesh": FakeMesh({"data": 2, "model": 2}),
                         "plan": "auto"}, "tensor parallelism"),
-                      ({"mesh": mesh, "plan": "auto", "spec_k": 4},
-                       "spec_k"),
-                      ({"mesh": mesh, "plan": "auto",
-                        "prefix_cache": tengine.PrefixCache(chunk=4)},
-                       "prefix_cache"),
                       ({"mesh": mesh, "plan": "auto", "n_slots": 3},
                        "split evenly")):
         with pytest.raises(NotImplementedError, match=match):
             _engine(smoke, **kw)
+    # speculation and the prefix cache serve on a data mesh now
+    for kw in ({"spec_k": 4}, {"prefix_cache": tengine.PrefixCache(chunk=4)}):
+        assert _engine(smoke, mesh=mesh, plan="auto", **kw)._rows == (0, 2)
     eng = _engine(smoke, mesh=mesh, plan="auto")
     assert eng.plan.fully_replicated and eng._rows == (0, 2)
-    with pytest.raises(NotImplementedError, match="generate"):
+    with pytest.raises(NotImplementedError, match="split evenly"):
         eng.generate({"tokens": np.zeros((1, 4), np.int32)}, 2)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        eng.submit(np.zeros(4, np.int32), draft_k=2)
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tengine.ServeEngine(smoke["tcfg"].with_(family="ssm"), smoke["tq"],
+                            device="cpu", mesh=mesh, plan="auto")
     # the prefix cache and vlm prefixes are ported; continuous batching
     # needs a family with ragged prefill that the port runs
     eng = _engine(smoke)
