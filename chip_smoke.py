@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Eleven paths, each at full width with random weights from a seed:
+Twelve paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -27,10 +27,10 @@ Eleven paths, each at full width with random weights from a seed:
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
-  tokens, 8 to 12 new tokens, budgets cycling int4, mixed, int8) through
+  tokens, 4 to 8 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
-  decoding 8 tokens for all slots at once; (b) 8 of them again, each to
-  its first 8 new tokens, with speculative decoding (4 int4 drafts a
+  decoding 8 tokens for all slots at once; (b) 4 of them again, each to
+  its first 4 new tokens, with speculative decoding (4 int4 drafts a
   round, verified in one chunk of
   9 positions per row; one request at draft_k=0).  The bit-plane kernel
   runs at M = 1024, 8 and 72;
@@ -64,7 +64,7 @@ Eleven paths, each at full width with random weights from a seed:
   d_model 896, GQA 14/2 of hd 64, qkv bias, tied embeddings, 256 prefix
   tokens as seeded patch embeddings): ``generate`` on B=4 prompts of
   4096 tokens behind their prefixes, 4 new (flash at hd 64, budgets
-  int4, mixed, int8, int8), 8 requests of 4 new tokens with prefixes by
+  int4, mixed, int8, int8), 6 requests of 4 new tokens with prefixes by
   continuous batching
   (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
   and 4 of them with ``spec_k=4``; (c) the same with the int8 KV cache
@@ -87,7 +87,7 @@ Eleven paths, each at full width with random weights from a seed:
   kernel's 160-wide instantiation;
 * training: (a) Qwen3-4B at full width and depth (``remat="full"``)
   through ``make_train_step``: AdamW with int8 first moments and
-  factored second moments, wbits (8, 4) and abits (8,), 4 steps on one
+  factored second moments, wbits (8, 4) and abits (8,), 3 steps on one
   batch of 4 x 2049 tokens in two microbatches (every sequence at most
   FLASH_THRESHOLD, since the flash kernel has no backward); (b) one
   SMOKE train step of each of the six families on the card against the
@@ -112,13 +112,27 @@ Eleven paths, each at full width with random weights from a seed:
   (``repro_torch.launch.mesh.make_host_mesh``): (a) Qwen3-4B FULL with
   no plan (tensor parallelism: Megatron linears, attention and flash on
   each rank's heads, the vocab-sharded embedding and tied head),
-  ``generate`` at 2 x 2304 tokens and budgets 2.0 and 0.5, and 4
+  ``generate`` at 2 x 2304 tokens at budget 0.5, and 4
   continuous requests of 256-token prompts; (b) the same requests on
   (2, 1) with FSDP weights and with a partial plan; (c)
   Moonshot-v1-16B-A3B at full width, its first 4 layers, expert-parallel
   on (1, 2) (32 experts a rank), ``generate`` at 2 x 512 tokens; (d)
   ResNet18@224 on both meshes; (e) SMOKE speculation and prefix hits
   whose rows cross ranks on (2, 1), and n_kv_heads=1 on (1, 2).
+* sharded training: two ranks on ``cuda:0`` in one gloo group, the same
+  world as a (1, 2) and a (2, 1) mesh, each through ``make_train_step``
+  with parameters and AdamW state placed by ``dist.sharding`` and
+  gradients through the collectives: (a) Qwen3-4B FULL, all 36 layers,
+  tensor-parallel on (1, 2), path 9's optimizer and bits, 2 steps on one
+  batch of 4 x 513 tokens in two microbatches; (b) its first 4 layers,
+  FSDP on (2, 1), the same steps; (c) (a)'s trained state saved from
+  (1, 2) and restored onto one device and onto (2, 1); (d) the restored
+  weights quantized and served on (1, 2), ``generate`` 2 x 256, 4 new;
+  (e) Moonshot-v1-16B-A3B at full width, its first 2 layers,
+  expert-parallel training on (1, 2), 2 steps of 2 x 257 tokens; (f)
+  SMOKE mesh steps card vs CPU (dense, vlm, MoE), and
+  ``python -m repro_torch.launch.train --smoke --tp 2`` killed after a
+  checkpoint and resumed on two ranks.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -157,7 +171,7 @@ result line:
      the same bits among 1, 8 and 72 rows; hold the bit-plane kernel at
      the path's shapes, run (a) and (b), and gate: each request's tokens
      in (a) EQUAL the request run alone (batch-1 prefill + decode_step
-     loop), and (b)'s EQUAL the first 8 of (a)'s; a free pool with every
+     loop), and (b)'s EQUAL the first 4 of (a)'s; a free pool with every
      kpos at EMPTY_POS after run(); AP records equal to the AP model's price of
      each budget's bits; the spec ledger adding up to the tokens
      delivered; the bit-plane launches by M and regime as ``plan()``
@@ -213,7 +227,7 @@ result line:
      per forward (experts and the rest), traces of a prefill and a
      decode step; (b) flash at (56, 4352, 64) and on every layer's own
      q/k/v, launches per generate, continuous streams EQUAL each request
-     alone, speculative streams EQUAL their first 8 tokens, no prefix
+     alone, speculative streams EQUAL their first 4 tokens, no prefix
      cache lookups, drained pools, AP records, SMOKE card-vs-CPU runs;
      (c) the same on the int8 cache, and one layer's decode-step QK and
      PV int32 accumulators EQUAL an int64 recomputation on the card;
@@ -272,6 +286,21 @@ result line:
      speculative rounds EQUAL one device's; then (a)'s and (c)'s
      bit-plane shapes held EQUAL and timed, flash at a rank's heads, each
      rank's wall, peak memory and collectives by kind and bytes.
+ 15. sharded training: (a) and (b) on one device first (the card freed
+     before the ranks); then the ranks, gated: every rank's metrics
+     EQUAL; each step's loss and z-loss within P12_LOSS_TOL and grad norm
+     within P12_NORM_TOL of one device's, the trained parameters (the
+     checkpoint the ranks wrote) within P12_FLIPS x U a step beyond a
+     bf16 step and P12_PARAM_MEAN lr on average; no kernel launched while
+     training; (c) every leaf EQUAL after both restores; (d) tokens and
+     last-position logits EQUAL one device's serve of the same weights,
+     bit-plane launches by path as ``plan()`` gives them; (e) each step
+     against ``moe.ep_reference``'s train form on one device from the
+     same state (loss, z-loss, aux, grad norm, parameters as above,
+     choices dropped EQUAL); (f) the TRAIN_* card-vs-CPU tolerances, and
+     the launcher resuming from its last checkpoint on (2, 1).  Then
+     (d)'s shard shapes held EQUAL and timed, each rank's step walls,
+     peak memory and collectives by kind and bytes a step.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -364,12 +393,14 @@ CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
 # 9 requests: 8 fill the slots, 1 arrives late (a depth cut that keeps
 # the whole script inside its time limit; PERF.md §4)
 CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 9, 8, 2
-# 8 to 12 new tokens (depth cuts: 16-32 to 8-16 when path 8 was added,
-# to 8-12 when path 11 was; PERF.md §4)
-CB_PROMPT, CB_NEW = (64, 1024), (8, 12)
+# 4 to 8 new tokens (depth cuts: 16-32 to 8-16 when path 8 was added,
+# to 8-12 when path 11 was, to 4-8 when path 12 was; PERF.md §4)
+CB_PROMPT, CB_NEW = (64, 1024), (4, 8)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
-CB_SPEC_REQUESTS, CB_DRAFT0 = 8, 3           # (b)'s requests; draft_k=0 one
-CB_SPEC_NEW = 8         # (b) runs each request's first 8 new tokens
+# (b)'s requests (8 until path 12 was added); the one at draft_k=0
+CB_SPEC_REQUESTS, CB_DRAFT0 = 4, 3
+CB_SPEC_NEW = 4         # (b) runs each request's first 4 new tokens (8
+#                         until path 12 was added)
 CB_SMOKE_PREFILL = 24
 # path 5: the prefix cache and the closed loop, on path 4's engine shape
 PC_SEED = 0
@@ -413,7 +444,8 @@ VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
 # 4 new tokens in generate and in the continuous run (cut from 16 to 8
 # when path 10 was added, to 4 when path 11 was; PERF.md §4)
 VLM_B, VLM_S, VLM_STEPS = 4, 4096, 4
-VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 8, 4, 4
+# 6 continuous requests (8 until path 12 was added)
+VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 6, 4, 4
 VLM_SPEC, VLM_SPEC_NEW = 4, 4
 # path 8: the recurrent families, encoder-decoder cross-attention and flash
 # at head dim 160, each through ServeEngine.generate at its published
@@ -450,8 +482,8 @@ D160_B, D160_S, D160_BUDGETS = 2, 4096, [0.4, 10.0]   # int4, int8 rows
 # has no backward), the last loss at least TRAIN_MARGIN nats below the
 # first
 TRAIN_B, TRAIN_S, TRAIN_ACCUM = 4, 2048, 2
-# 4 steps (cut from 6 when path 11 was added; PERF.md §4)
-TRAIN_STEPS, TRAIN_LR, TRAIN_MARGIN = 4, 1e-5, 1.0
+# 3 steps (cut from 6 when path 11 was added, from 4 when path 12 was)
+TRAIN_STEPS, TRAIN_LR, TRAIN_MARGIN = 3, 1e-5, 1.0
 TRAIN_WBITS, TRAIN_ABITS = (8, 4), (8,)
 # (b) one SMOKE step of each family on the card against the CPU, from
 # the same weights and batch (AdamW f32/full at TRAIN_SMOKE_LR): the
@@ -503,14 +535,44 @@ P10_EXAMPLES = ("quickstart", "bitfluid_serving", "mixed_precision_resnet18")
 # path 11: sharded serving on two gloo ranks sharing cuda:0
 P11_RANKS = 2
 P11_GEN = (2, 2304, 4)             # (a) generate: B, prompt tokens, new
-P11_BUDGETS = (2.0, 0.5)
-P11_CONT = (4, 256, 8)             # (a) continuous: requests, prompt, new
+P11_BUDGETS = (0.5,)               # (2.0, 0.5) until path 12 was added
+P11_CONT = (4, 256, 4)             # (a) continuous: requests, prompt, new
+#                                    (8 new until path 12 was added)
 P11_SLOTS, P11_BLOCK = 4, 8
 P11_CONT_BUDGETS = (2.0, 0.75, 0.5)
 P11_MOE_LAYERS = 4                 # (c) Moonshot's first 4 of 48 layers
 P11_MOE_GEN = (2, 512, 4)          # (c) generate: B, prompt tokens, new
 P11_MOE_BUDGET = 10.0              # default_controller: int8
 P11_PC_CHUNK = 4
+# path 12: sharded training on two gloo ranks sharing cuda:0.  (a) Qwen3-4B
+# FULL, all layers, tensor-parallel on (1, 2); (b) its first
+# P12_FSDP_LAYERS layers, FSDP on (2, 1): P12_STEPS steps each on one batch
+# of P12_B rows of P12_S + 1 tokens in P12_ACCUM microbatches, path 9's
+# AdamW (int8 m, factored v, TRAIN_LR), wbits and abits; (d) the restored
+# weights served on (1, 2): P12_SERVE = (B, prompt tokens, new); (e)
+# Moonshot-v1-16B-A3B at full width, its first P12_MOE_LAYERS layers,
+# expert-parallel on (1, 2), P12_STEPS steps of P12_MOE_B x P12_MOE_S + 1
+P12_RANKS = 2
+P12_B, P12_S, P12_ACCUM, P12_STEPS = 4, 512, 2, 2
+P12_FSDP_LAYERS = 4
+P12_SERVE = (2, 256, 4)
+P12_MOE_LAYERS, P12_MOE_B, P12_MOE_S = 2, 2, 256
+# the gates, as tests/test_torch_sharded_train*.py state and measure them
+# on the CPU: a step's loss and z-loss within P12_LOSS_TOL and its grad
+# norm within P12_NORM_TOL of one device's (relative); the mean |gap| of
+# the trained parameters within P12_PARAM_MEAN lr; each element within
+# P12_FLIPS x U a step beyond one bf16 step of one device's, U the
+# largest change one device's step made to any element (a gradient that
+# rounds to the other side of 0 flips that element's Adam update)
+P12_LOSS_TOL, P12_NORM_TOL = 1e-3, 2e-2
+P12_FLIPS, P12_PARAM_MEAN = 2.0, 0.2
+# (e): the choices the capacity drops, ranks against the one-device
+# statement, within P12_DROP_TOL of all choices.  On the CPU they are
+# EQUAL (the forward computes what one process computes); on the card a
+# tensor-parallel product rounds apart from one device's (P12_LOSS_TOL),
+# and a token whose top-k router scores tie within that rounding may
+# choose another expert
+P12_DROP_TOL = 1e-3
 
 
 def hardware() -> None:
@@ -6300,6 +6362,789 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
             "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
 
 
+def p12_cfg(which: str, smoke: bool):
+    """Path 12's configs: (a) Qwen3-4B FULL, all layers; (b) the same
+    widths cut to P12_FSDP_LAYERS layers; (e) Moonshot-v1-16B-A3B at full
+    width cut to P12_MOE_LAYERS.  SMOKE for a CPU rehearsal."""
+    from repro_torch import configs
+    arch = MOE_ARCH if which == "e" else LM_ARCH
+    if smoke:
+        return configs.get_smoke(arch)
+    cfg = configs.get(arch)
+    if which == "a":
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.d_ff, cfg.vocab_size, cfg.head_dim) == LM_WIDTHS
+              and cfg.remat == "full", f"{LM_ARCH} FULL: {cfg}")
+        return cfg
+    return cfg.with_(n_layers=P12_FSDP_LAYERS if which == "b"
+                     else P12_MOE_LAYERS)
+
+
+def p12_tcfg(n_accum: int):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainConfig
+    return TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, m_dtype="int8",
+                                             v_mode="factored"),
+                       n_accum=n_accum, wbits=TRAIN_WBITS, abits=TRAIN_ABITS)
+
+
+def p12_sizes(smoke: bool) -> dict:
+    """(rows, tokens a row) of the train batches and the serve prompts."""
+    if smoke:
+        return {"batch": (4, 32), "moe": (2, 16), "serve": (2, 12, 3)}
+    return {"batch": (P12_B, P12_S), "moe": (P12_MOE_B, P12_MOE_S),
+            "serve": P12_SERVE}
+
+
+def p12_batch(torch, dev, cfg, which: str, smoke: bool):
+    from repro_torch.data.pipeline import make_batch
+    B, S = p12_sizes(smoke)["moe" if which == "e" else "batch"]
+    return tree_to(make_batch(0, 0, B, S + 1, cfg.vocab_size, cfg), dev)
+
+
+def p12_one_device(torch, dev, which: str, smoke: bool) -> dict:
+    """(a) or (b)'s P12_STEPS steps on one device from the ranks' weights
+    (seed 0 on the same device): metrics, walls and the trained
+    parameters on the host (page-locked)."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.train.loop import make_train_step
+    cfg = p12_cfg(which, smoke)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    tcfg = p12_tcfg(P12_ACCUM)
+    opt = adamw_init(params, tcfg.optimizer)
+    step, _ = make_train_step(tcfg, cfg, device=dev)
+    batch = p12_batch(torch, dev, cfg, which, smoke)
+    mets, walls, upd = [], [], 0.0
+    for _ in range(P12_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        new, opt, m = step(params, opt, batch)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+        upd = max(upd, p12_largest_update(new, params))
+        params = new
+    pin = dev.type == "cuda"
+    host = tree_map(lambda t: t.to("cpu").pin_memory() if pin
+                    else t.to("cpu"), params)
+    del params, new, opt
+    return {"metrics": mets, "walls": walls, "params": host,
+            "update": upd}
+
+
+def p12_largest_update(new, old) -> float:
+    """The largest |change| of one element over a step's parameters."""
+    from repro_torch.optim.adamw import tree_leaves
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(new), tree_leaves(old)))
+
+
+def p12_gap(torch, got, want) -> tuple:
+    """(the largest |got - want| beyond one bf16 step of the larger
+    value, the mean |got - want|) over every element of two parameter
+    trees."""
+    from repro_torch.optim.adamw import tree_leaves
+    worst = tot = n = 0.0
+    for a, w in zip(tree_leaves(got), tree_leaves(want)):
+        a, w = a.float(), w.to(a.device).float()
+        err = (a - w).abs()
+        top = torch.maximum(a.abs(), w.abs())
+        one = (torch.nextafter(top, torch.tensor(
+            float("inf"), device=top.device)) - top) * 2.0 ** 16
+        worst = max(worst, float((err - one).clamp_min(0).max()))
+        tot += float(err.sum())
+        n += err.numel()
+    return worst, tot / n
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p12_whole_meta(torch, tree):
+    """Meta tensors of every leaf's whole shape (a placed dict's layout
+    gives it): the target a resharding restore fills."""
+    from repro_torch.dist import sharding as shd
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = p12_whole_meta(torch, v)
+            continue
+        shape = (tree.layout[k][0] if isinstance(tree, shd.Local)
+                 and k in tree.layout else tuple(v.shape))
+        out[k] = torch.empty(shape, dtype=v.dtype, device="meta")
+    return out
+
+
+def p12_equal_blocks(torch, whole, placed, mesh) -> int:
+    """Every leaf of ``placed`` EQUALS this rank's block of the same leaf
+    of ``whole`` (by the placed dict's layout); returns the leaves."""
+    from repro_torch.dist import sharding as shd
+    n = 0
+    for k, v in placed.items():
+        if isinstance(v, dict):
+            n += p12_equal_blocks(torch, whole[k], v, mesh)
+            continue
+        want = whole[k]
+        if isinstance(placed, shd.Local) and k in placed.layout:
+            want = shd.block(mesh, want, placed.layout[k][1])
+        check(want.dtype == v.dtype and torch.equal(want, v),
+              f"(c) leaf {k}: this rank's block != the restored leaf's")
+        n += 1
+    return n
+
+
+def p12_train(torch, dev, mesh, which: str, smoke: bool, holder: dict,
+              out_dir: str) -> dict:
+    """(a), (b) or (e) on one rank: the weights drawn whole from seed 0
+    and placed on ``mesh``, P12_STEPS steps through ``make_train_step``
+    on this rank's rows; metrics, walls and the last step's collectives.
+    (a) keeps its trained state for (c); (b) writes its parameters for
+    the parent's gate; (e) keeps each step's starting state and result
+    gathered whole (rank 0 runs them again on one device)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm, moe
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.loop import make_train_step
+    cfg = p12_cfg(which, smoke)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    p_shd = shd.param_shardings(params, mesh)
+    params = shd.shard_params(params, mesh)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tcfg = p12_tcfg(1 if which == "e" else P12_ACCUM)
+    opt = adamw_init(params, tcfg.optimizer)
+    step, _ = make_train_step(tcfg, cfg, device=dev, param_shardings=p_shd)
+    batch = shd.shard_batch(p12_batch(torch, dev, cfg, which, smoke), mesh)
+    mets, walls, states, dropped = [], [], [], []
+    counts = {}
+    # (e): rank 0 keeps each step's starting state and result whole (the
+    # first step starts from the weights it draws again; a later one
+    # from the last step's result and optimizer state, gathered)
+    keep = which == "e"
+    for i in range(P12_STEPS):
+        if keep:
+            start = None if i == 0 else (
+                states[-1].get("params"), shd.full(opt))
+            states.append({"start": start} if mesh.rank == 0 else {})
+        before = {k: list(v) for k, v in mesh.counts.items()}
+        d0 = moe.ep_dropped[0]
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        dropped.append(moe.ep_dropped[0] - d0)
+        mets.append({k: float(v) for k, v in m.items()})
+        counts = {k: [v[0] - before.get(k, [0, 0])[0],
+                      v[1] - before.get(k, [0, 0])[1]]
+                  for k, v in mesh.counts.items()}
+        if keep:
+            whole = shd.full(params)
+            if mesh.rank == 0:
+                states[-1]["params"] = whole
+            del whole
+    out = {"metrics": mets, "walls": walls, "step_counts": counts,
+           "dropped": dropped}
+    if which == "a":
+        holder["a"] = (params, opt)
+    elif which == "b":
+        save_checkpoint(f"{out_dir}/ckpt_b", P12_STEPS, {"params": params})
+    else:
+        holder["e"] = states
+    return out
+
+
+def p12_ckpt(torch, dev, m12, m21, holder: dict, out_dir: str) -> dict:
+    """(c): save (a)'s trained state from (1, 2); restore it onto one
+    device (each rank's (1, 2) block of every leaf EQUAL to the trained
+    one) and onto (2, 1) (each block EQUAL to the whole leaf's)."""
+    import os
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    state = dict(zip(("params", "opt"), holder.pop("a")))
+    d = f"{out_dir}/ckpt_a"
+    t0 = time.perf_counter()
+    save_checkpoint(d, P12_STEPS, state)
+    save_s = time.perf_counter() - t0
+    target = p12_whole_meta(torch, state)
+    t0 = time.perf_counter()
+    whole, step = restore_checkpoint(d, target, device=dev)
+    one_s = time.perf_counter() - t0
+    check(step == P12_STEPS, f"(c) restored step {step}")
+    n12 = p12_equal_blocks(torch, whole, state, m12)
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    specs = {"params": shd.param_shardings(target["params"], m21),
+             "opt": shd.opt_shardings(target["opt"], m21)}
+    t0 = time.perf_counter()
+    r21, _ = restore_checkpoint(d, target, specs, mesh=m21, device=dev)
+    r21_s = time.perf_counter() - t0
+    n21 = p12_equal_blocks(torch, whole, r21, m21)
+    del r21
+    holder["whole"] = whole["params"]
+    del whole
+    size = os.path.getsize(f"{d}/step_{P12_STEPS:08d}/arrays.npz")
+    return {"leaves": (n12, n21), "save_s": save_s, "one_s": one_s,
+            "r21_s": r21_s, "bytes": size}
+
+
+def p12_serve(torch, dev, mesh, holder: dict, smoke: bool) -> dict:
+    """(d): the restored weights quantized and served on ``mesh`` (one
+    device for ``mesh=None``) through ``generate``; tokens and the
+    prefill's last-position logits."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    cfg = p12_cfg("a", smoke)
+    if "q" not in holder:
+        holder["q"] = lm.quantize_params(holder.pop("whole"), cfg)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    B, S, new = p12_sizes(smoke)["serve"]
+    prompts = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    eng = ServeEngine(cfg, holder["q"], controller=default_controller(
+        lm.n_bit_slots(cfg)), max_len=S + new, device=dev, mesh=mesh)
+    eng.set_budget(SERVE_BUDGETS)
+    firsts = []
+    orig = eng._sample_first
+
+    def keep(logits, temp, topk, rows=None):
+        firsts.append(logits[:, -1].float().cpu())
+        return orig(logits, temp, topk, rows)
+
+    eng._sample_first = keep
+    toks = eng.generate({"tokens": prompts}, new).cpu().numpy()
+    del eng
+    return {"tokens": toks, "logits": firsts[0].numpy()}
+
+
+def p12_moe_one(torch, dev, states: list, smoke: bool) -> dict:
+    """(e)'s gate material on one device (rank 0, after the group): each
+    step again from the mesh's starting state with ``moe.apply_moe``
+    replaced by ``moe.ep_reference(tp=P12_RANKS)``; per step the metrics,
+    the choices dropped, and the new parameters' gap to the mesh's: the
+    largest beyond one bf16 step of the value in units of the step's
+    largest update U, and the mean in units of lr."""
+    from repro_torch.models import lm, moe
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import make_train_step
+    cfg = p12_cfg("e", smoke)
+    step, _ = make_train_step(p12_tcfg(1), cfg, device=dev)
+    batch = p12_batch(torch, dev, cfg, "e", smoke)
+    apply = moe.apply_moe
+    moe.apply_moe = lambda p, x, c, wb=8, ab=8: moe.ep_reference(
+        p, x, c, wb, ab, tp=P12_RANKS)
+    out = []
+    try:
+        for st in states:
+            if st["start"] is None:             # the first step: seed 0
+                p0 = lm.init_params(cfg, torch.Generator(
+                    device=dev).manual_seed(0), device=dev)
+                st["start"] = (p0, adamw_init(p0, p12_tcfg(1).optimizer))
+            d0 = moe.ep_dropped[0]
+            new, _, m = step(*st["start"], batch)
+            upd = p12_largest_update(new, st["start"][0])
+            worst, mean = p12_gap(torch, st["params"], new)
+            out.append({"metrics": {k: float(v) for k, v in m.items()},
+                        "dropped": moe.ep_dropped[0] - d0,
+                        "worst_u": worst / upd, "update": upd,
+                        "mean_lr": mean / TRAIN_LR})
+            del new
+    finally:
+        moe.apply_moe = apply
+    return out
+
+
+def p12_smoke(torch, dev, mesh) -> dict:
+    """(f): one SMOKE mesh step (n_accum 2) of the dense, vlm and MoE
+    families on the card and on the CPU, on the same mesh, from the same
+    weights and rows; each side's metrics and gathered parameters."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    out = {}
+    for fam, arch in (("dense", LM_ARCH), ("vlm", VLM_ARCH),
+                      ("moe", MOE_ARCH)):
+        cfg = configs.get_smoke(arch)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(11),
+                                device="cpu")
+        batch = make_batch(1, 0, TRAIN_SMOKE_B, TRAIN_SMOKE_S,
+                           cfg.vocab_size, cfg)
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_SMOKE_LR),
+                           n_accum=2, wbits=TRAIN_WBITS, abits=TRAIN_ABITS)
+        res = []
+        for where in (dev, torch.device("cpu")):
+            p = shd.shard_params(tree_to(params, where), mesh)
+            step, _ = make_train_step(tcfg, cfg, device=where)
+            new, _, m = step(p, adamw_init(p, tcfg.optimizer),
+                             shd.shard_batch(tree_to(batch, where), mesh))
+            res.append(([t.cpu() for t in tree_leaves(shd.full(new))],
+                        {k: float(v) for k, v in m.items()}))
+        out[fam] = res
+    return out
+
+
+def p12_warm(torch, dev, mesh, smoke: bool) -> float:
+    """One tensor-parallel microbatch (forward and backward) of (a)'s
+    widths cut to one layer, on ``mesh``; its wall."""
+    from repro_torch.dist import api as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    t0 = time.perf_counter()
+    cfg = p12_cfg("a", smoke).with_(n_layers=1)
+    params = shd.shard_params(lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), device=dev), mesh)
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    batch = shd.shard_batch(p12_batch(torch, dev, cfg, "a", smoke), mesh)
+    batch = {k: v[:v.shape[0] // P12_ACCUM] for k, v in batch.items()}
+    bits = torch.tensor([8], dtype=torch.int32, device=dev)
+    with dist.use_mesh(mesh):
+        total, _ = lm.train_loss(tree_unflatten(params, live), batch, cfg,
+                                 bits, bits)
+        torch.autograd.grad(total, live, allow_unused=True)
+    del params, live, total
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def p12_rank(rank: int, init_method: str, out_dir: str, device: str,
+             smoke: bool) -> None:
+    """One rank of path 12, in its own process on ``device``: the same
+    world as a (1, 2) and a (2, 1) mesh; (f) while the parent trains on
+    one device, then (a)-(e) once it has freed the card, then on rank 0
+    (d)'s and (e)'s one-device runs.  Saves what the parent gates."""
+    import datetime
+    import os
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=P12_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    out, holder = {}, {}
+    try:
+        m12, m21 = make_host_mesh(model=2), make_host_mesh(model=1)
+        both = (m12, m21)
+        # beside the parent's one-device steps, in little memory: (f),
+        # then one microbatch of (a)'s widths on one layer, which loads
+        # the train step's kernels and sizes this process's buffers
+        out["f"] = p11_phase(torch, dev, both, p12_smoke, torch, dev, m12)
+        out["warm_s"] = p12_warm(torch, dev, m12, smoke)
+        while not os.path.exists(f"{out_dir}/card_free"):
+            time.sleep(0.1)
+        out["a"] = p11_phase(torch, dev, both, p12_train, torch, dev, m12,
+                             "a", smoke, holder, out_dir)
+        out["b"] = p11_phase(torch, dev, both, p12_train, torch, dev, m21,
+                             "b", smoke, holder, out_dir)
+        out["c"] = p11_phase(torch, dev, both, p12_ckpt, torch, dev, m12,
+                             m21, holder, out_dir)
+        out["d"] = p11_phase(torch, dev, both, p12_serve, torch, dev, m12,
+                             holder, smoke)
+        out["e"] = p11_phase(torch, dev, both, p12_train, torch, dev, m12,
+                             "e", smoke, holder, out_dir)
+    finally:
+        tdist.destroy_process_group()
+    if rank == 0:
+        out["d_single"] = p12_serve(torch, dev, None, holder, smoke)
+        out["e_single"] = p12_moe_one(torch, dev, holder.pop("e"), smoke)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def p12_params_gate(torch, dev, label: str, ckpt_dir: str, one: dict,
+                    steps: int = P12_STEPS) -> tuple:
+    """The parameters a mesh trained (the checkpoint its ranks wrote)
+    against one device's: every element within P12_FLIPS x ``steps`` x U
+    beyond one bf16 step of the value, U the largest change one device's
+    step made to any element (each step's update may round to the other
+    sign where a gradient sits within its rounding of 0), and the mean
+    |gap| within P12_PARAM_MEAN lr.  Returns (worst / U, mean / lr)."""
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.checkpoint import restore_checkpoint
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), one["params"])
+    got, _ = restore_checkpoint(ckpt_dir, {"params": meta}, device=dev)
+    worst, mean = p12_gap(torch, got["params"], one["params"])
+    del got
+    worst, mean = worst / one["update"], mean / TRAIN_LR
+    check(worst <= P12_FLIPS * steps and mean <= P12_PARAM_MEAN,
+          f"{label}: the mesh's parameters after {steps} steps sit "
+          f"{worst:.3g} U beyond a bf16 step from one device's (bound "
+          f"{P12_FLIPS * steps}; U = {one['update']!r}), mean {mean:.3g} lr "
+          f"(bound {P12_PARAM_MEAN})")
+    return worst, mean
+
+
+def p12_metrics_gate(label: str, got: list, want: list) -> list:
+    """Each step's loss and z-loss within P12_LOSS_TOL and grad norm
+    within P12_NORM_TOL (relative) of the reference's; the gaps."""
+    gaps = []
+    for s, (g, w) in enumerate(zip(got, want)):
+        gap = {k: abs(g[k] - w[k]) / abs(w[k])
+               for k in ("loss", "zloss", "grad_norm")}
+        check(all(math.isfinite(g[k]) for k in gap)
+              and gap["loss"] <= P12_LOSS_TOL
+              and gap["zloss"] <= P12_LOSS_TOL
+              and gap["grad_norm"] <= P12_NORM_TOL,
+              f"{label} step {s}: {g} against {w}")
+        gaps.append(gap)
+    return gaps
+
+
+def p12_launcher(dev) -> dict:
+    """(f)'s launcher, run beside the rest of the path (a thread that
+    drives two subprocesses): ``python -m repro_torch.launch.train --smoke
+    --tp 2`` on ``dev`` (two spawned gloo ranks), killed with its process
+    group once it has checkpointed step 4, then resumed from the
+    checkpoint on two ranks of a (2, 1) mesh.  Returns ``(join, stop)``:
+    ``join()`` returns what it saw (a problem is in its "error"),
+    ``stop()`` kills what still runs."""
+    import json
+    import os
+    import signal
+    import threading
+    from repro_torch.train.checkpoint import latest_step
+    res: dict = {}
+    d = tempfile.mkdtemp(prefix="p12_launch_")
+    ckpt = f"{d}/ckpt"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            LM_ARCH, "--smoke", "--device", dev.type, "--batch", "4",
+            "--seq", "32", "--ckpt-dir", ckpt, "--log-every", "1"]
+
+    procs = []
+
+    def start(args):
+        procs.append(subprocess.Popen(
+            base + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=str(ROOT), start_new_session=True))
+        return procs[-1]
+
+    def drive():
+        t0 = time.perf_counter()
+        run = start(["--steps", "100000", "--tp", "2", "--ckpt-every", "2"])
+        try:
+            while (latest_step(ckpt) or 0) < 4:
+                if run.poll() is not None or time.perf_counter() - t0 > 300:
+                    res["error"] = ("the launcher ended or did not "
+                                    "checkpoint within 300 s")
+                    return
+                time.sleep(0.1)
+        finally:
+            os.killpg(run.pid, signal.SIGKILL)
+            first, err = run.communicate()
+        res["killed_at"] = killed_at = latest_step(ckpt)
+        res["killed_s"] = time.perf_counter() - t0
+        again = start(["--steps", "2", "--tp", "1", "--ranks", "2"])
+        out, err = again.communicate(timeout=300)
+        res["wall_s"] = time.perf_counter() - t0
+        lines = out.splitlines()
+        try:
+            last = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            res["error"] = f"resume failed: {err[-2000:]}"
+            return
+        res["resumed"] = last
+        if not ("[train] mesh {'data': 1, 'model': 2}" in first
+                and f"[train] resumed from step {killed_at}" in lines
+                and last["start"] == killed_at
+                and last["mesh"] == {"data": 2, "model": 1}
+                and math.isfinite(last["final_loss"])
+                and latest_step(ckpt) == killed_at + 2):
+            res["error"] = (f"killed at step {killed_at} ({first[-500:]} "
+                            f"{err[-500:]}); resumed {lines[-4:]}")
+
+    thread = threading.Thread(target=drive, daemon=True)
+    thread.start()
+
+    def join() -> dict:
+        thread.join()
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+        return res
+
+    def stop() -> None:
+        """End whatever is still running (the path failed)."""
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+
+    return join, stop
+
+
+def p12_path(b: Bench, smoke: bool = False) -> dict:
+    """Path 12: sharded training on P12_RANKS gloo ranks sharing the card
+    (module docstring); returns the bit-plane row of (d)."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import shutil
+    import numpy as np
+    import torch.multiprocessing as tmp
+    from repro_torch.kernels import bitplane_matmul as bpm
+    cuda = dev.type == "cuda"
+    t_path = time.perf_counter()
+    launcher, stop = p12_launcher(dev)      # (f)'s, beside the rest
+    d = tempfile.mkdtemp(prefix="p12_")
+    # the ranks start now: they import, join the group and run (f) while
+    # this process trains on one device, and wait for the card after it
+    ranks_ctx = tmp.start_processes(p12_rank, args=(
+        f"tcp://127.0.0.1:{free_port()}", d, str(dev), smoke),
+        nprocs=P12_RANKS, join=False, start_method="spawn")
+    try:
+        return p12_gates(b, smoke, t_path, launcher, d, ranks_ctx)
+    finally:        # a failed gate leaves nothing running
+        stop()
+        for p in ranks_ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def p12_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
+              ranks_ctx) -> dict:
+    """The body of :func:`p12_path`: one device's steps, then the ranks'
+    results gated, printed and timed."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import numpy as np
+    from repro_torch.kernels import bitplane_matmul as bpm
+    cuda = dev.type == "cuda"
+
+    # ---- one device first: (a)'s and (b)'s steps, then the card freed
+    one = {}
+    for which in ("a", "b"):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        one[which] = p12_one_device(torch, dev, which, smoke)
+        one[which]["peak_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                  / 2 ** 30 if cuda else 0.0)
+        if cuda:
+            torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t_path
+    print(f"path 12 one device: (a) {p12_cfg('a', smoke).name} "
+          f"{p12_cfg('a', smoke).n_layers} layers and (b) its first "
+          f"{p12_cfg('b', smoke).n_layers}, {P12_STEPS} steps each of "
+          f"{p12_sizes(smoke)['batch']} tokens in {P12_ACCUM} microbatches: "
+          f"losses {[round(m['loss'], 4) for m in one['a']['metrics']]} and "
+          f"{[round(m['loss'], 4) for m in one['b']['metrics']]}, step walls "
+          f"{[round(w, 3) for w in one['a']['walls']]} s and "
+          f"{[round(w, 3) for w in one['b']['walls']]} s, peak "
+          f"{one['a']['peak_gib']:.3f} / {one['b']['peak_gib']:.3f} GiB; "
+          f"{single_s:.3f} s, the card freed before the ranks")
+
+    # ---- the ranks
+    t0 = time.perf_counter()
+    open(f"{d}/card_free", "w").close()
+    while not ranks_ctx.join():
+        pass
+    ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+             for r in range(P12_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    # ---- (a), (b): every rank's metrics against one device's, and the
+    # trained parameters (the checkpoints the ranks wrote)
+    gaps = {}
+    for which, label in (("a", "(a) (1, 2)"), ("b", "(b) (2, 1)")):
+        for r, out in enumerate(ranks):
+            check(out[which]["metrics"] == ranks[0][which]["metrics"],
+                  f"{label}: rank {r}'s metrics != rank 0's")
+        gaps[which] = p12_metrics_gate(label, ranks[0][which]["metrics"],
+                                       one[which]["metrics"])
+        gaps[which + "_params"] = p12_params_gate(
+            torch, dev, label, f"{d}/ckpt_{which}", one[which])
+        del one[which]["params"]
+    for which, key, mesh in (("a", "sum_tp", "(1, 2)"),
+                             ("b", "grad_rs", "(2, 1)")):
+        x = ranks[0][which]
+        check(key in x["step_counts"] and x["off_path"] == (0, 0)
+              and sum(x["shapes"].values()) == 0 and x["flash"] == 0,
+              f"({which}) collectives {x['step_counts']}, kernels "
+              f"{x['shapes']} / flash {x['flash']} / {x['off_path']}")
+        cfg = p12_cfg(which, smoke)
+        print(f"({which}) {cfg.name} {cfg.n_layers} layers on (data, model) "
+              f"= {mesh}: loss per step "
+              f"{[round(m['loss'], 6) for m in x['metrics']]} against one "
+              f"device's {[round(m['loss'], 6) for m in one[which]['metrics']]}"
+              f" (gaps {[{k: float(f'{v:.3g}') for k, v in g.items()} for g in gaps[which]]}"
+              f"), parameters within {gaps[which + '_params'][0]:.3g} U "
+              f"beyond a bf16 step (U = {one[which]['update']!r}, the "
+              f"largest change of a one-device step; mean "
+              f"{gaps[which + '_params'][1]:.3g} lr); step walls a rank "
+              + ", ".join(str([round(w, 3) for w in out[which]["walls"]])
+                          for out in ranks)
+              + f" s against one device's "
+              f"{[round(w, 3) for w in one[which]['walls']]} s; phase wall "
+              + ", ".join(f"{out[which]['wall_s']:.3f} s" for out in ranks)
+              + "; peak above resident " + ", ".join(
+                  f"{out[which]['peak_gib']:.3f} GiB" for out in ranks)
+              + f" (one device {one[which]['peak_gib']:.3f} GiB); "
+              f"collectives a step a rank (calls, bytes) "
+              f"{ {k: tuple(v) for k, v in x['step_counts'].items()} }")
+
+    # ---- (c) the checkpoint across meshes
+    for r, out in enumerate(ranks):
+        c = out["c"]
+        check(c["leaves"][0] > 0 and c["leaves"][0] == c["leaves"][1],
+              f"(c) rank {r}: leaves {c['leaves']}")
+    c = ranks[0]["c"]
+    print(f"(c) (a)'s state ({c['bytes'] / 2 ** 30:.3f} GiB, "
+          f"{c['leaves'][0]} leaves) saved from (1, 2) in "
+          f"{c['save_s']:.3f} s, restored onto one device in "
+          f"{c['one_s']:.3f} s and onto (2, 1) in {c['r21_s']:.3f} s: every "
+          f"leaf EQUAL on both ranks")
+
+    # ---- (d) the restored weights served on (1, 2)
+    want = ranks[0]["d_single"]
+    for r, out in enumerate(ranks):
+        x = out["d"]
+        check(np.array_equal(x["tokens"], want["tokens"])
+              and np.array_equal(x["logits"], want["logits"]),
+              f"(d) rank {r}: tokens {x['tokens'].tolist()} against one "
+              f"device's {want['tokens'].tolist()}, last-position logits "
+              f"max |diff| {np.abs(x['logits'] - want['logits']).max()}")
+    dx = ranks[0]["d"]
+    shapes, paths = dx["shapes"], dx["paths"]
+    want_paths = {p: 0 for p in bpm.PATHS}
+    for (M, K, N, _), n_ in shapes.items():
+        want_paths[bpm.plan(M, K, N).path] += n_
+    check(not cuda or (sum(shapes.values()) > 0 and paths == want_paths
+                       and dx["flash"] == 0 and dx["off_path"] == (0, 0)),
+          f"(d) bit-plane launches {shapes} by path {paths} (plan() gives "
+          f"{want_paths}), flash {dx['flash']}, int4/quant {dx['off_path']}")
+    B, S, new = p12_sizes(smoke)["serve"]
+    print(f"(d) the restored weights quantized and served on (1, 2): "
+          f"generate {B} x {S} tokens, {new} new, budgets {SERVE_BUDGETS}: "
+          f"tokens and last-position logits EQUAL one device's; bit-plane "
+          f"launches a rank {sum(shapes.values())} at {len(shapes)} shard "
+          f"shapes (by path {paths}); collectives (calls, bytes) "
+          f"{ {k: tuple(v) for k, v in dx['collectives'].items()} }")
+
+    # ---- (e) expert-parallel training
+    ecfg = p12_cfg("e", smoke)
+    for s, ref in enumerate(ranks[0]["e_single"]):
+        for r, out in enumerate(ranks):
+            check(out["e"]["metrics"][s] == ranks[0]["e"]["metrics"][s],
+                  f"(e) rank {r}'s step {s} metrics != rank 0's")
+        got = ranks[0]["e"]["metrics"][s]
+        drops = sum(out["e"]["dropped"][s] for out in ranks)
+        B, S = p12_sizes(smoke)["moe"]
+        choices = B * S * ecfg.experts_per_token * ecfg.n_layers
+        check(abs(drops - ref["dropped"]) <= P12_DROP_TOL * choices,
+              f"(e) step {s}: the ranks dropped {drops} choices, the "
+              f"one-device statement {ref['dropped']} (of {choices})")
+        p12_metrics_gate(f"(e) step {s}", [got], [ref["metrics"]])
+        check(abs(got["moe_aux"] - ref["metrics"]["moe_aux"])
+              <= P12_LOSS_TOL * abs(ref["metrics"]["moe_aux"])
+              and ref["worst_u"] <= P12_FLIPS
+              and ref["mean_lr"] <= P12_PARAM_MEAN,
+              f"(e) step {s}: aux {got['moe_aux']} against "
+              f"{ref['metrics']['moe_aux']}, parameters {ref['worst_u']:.3g}"
+              f" U beyond a bf16 step (U = {ref['update']!r}; mean "
+              f"{ref['mean_lr']:.3g} lr)")
+    ex = ranks[0]["e"]
+    check("moe_combine" in ex["step_counts"] and "grad_rs" not in
+          ex["step_counts"], f"(e) collectives {ex['step_counts']}")
+    print(f"(e) {ecfg.name} {ecfg.n_layers} layers expert-parallel on (1, 2) "
+          f"({ecfg.n_experts // P12_RANKS} experts a rank), "
+          f"{p12_sizes(smoke)['moe']} tokens a step: each step against "
+          f"moe.ep_reference's train form on one device from the same "
+          f"state: loss " + ", ".join(
+              f"{m['loss']:.6f} / {r_['metrics']['loss']:.6f}"
+              for m, r_ in zip(ex["metrics"], ranks[0]["e_single"]))
+          + ", parameters within " + ", ".join(
+              f"{r_['worst_u']:.3g} U (mean {r_['mean_lr']:.3g} lr)"
+              for r_ in ranks[0]["e_single"])
+          + f", choices dropped {[r_['dropped'] for r_ in ranks[0]['e_single']]}"
+          f"; step walls {[round(w, 3) for w in ex['walls']]} s, peak "
+          f"{ex['peak_gib']:.3f} GiB; collectives a step (calls, bytes) "
+          f"{ {k: tuple(v) for k, v in ex['step_counts'].items()} }")
+
+    # ---- (f) SMOKE card vs CPU on the mesh, then the launcher
+    for fam in ("dense", "vlm", "moe"):
+        (card, cm_), (cpu, pm) = ranks[0]["f"][fam]
+        loss_err = abs(cm_["loss"] - pm["loss"]) / pm["loss"]
+        norm_err = abs(cm_["grad_norm"] - pm["grad_norm"]) / pm["grad_norm"]
+        worst, n_diff, n_all = 0.0, 0, 0
+        for a, w in zip(card, cpu):
+            a, w = a.float(), w.float()
+            dd = (a - w).abs()
+            top = torch.maximum(a.abs(), w.abs())
+            one_ = (torch.nextafter(top, torch.tensor(float("inf"))) - top) \
+                * 2.0 ** 16
+            worst = max(worst, float((dd / (2 * TRAIN_SMOKE_LR + one_)).max()))
+            n_diff += int((dd > 0).sum())
+            n_all += dd.numel()
+        check(loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_NORM_TOL
+              and worst <= 1.0 and n_diff <= TRAIN_STEP_SHARE * n_all,
+              f"(f) SMOKE {fam} mesh step, card vs CPU: loss {cm_['loss']} "
+              f"vs {pm['loss']}, grad norm {cm_['grad_norm']} vs "
+              f"{pm['grad_norm']}, worst {worst:.3g}, {n_diff} of {n_all}")
+        print(f"(f) SMOKE {fam} step on (1, 2), card vs CPU: loss rel "
+              f"{loss_err:.3g}, grad norm rel {norm_err:.3g}, {n_diff} of "
+              f"{n_all} parameter elements differ (worst {worst:.3g} of 2 lr"
+              f" + one bf16 step)")
+    la = launcher()
+    check("error" not in la, f"(f) repro_torch.launch.train: "
+          f"{la.get('error')}")
+    print(f"(f) repro_torch.launch.train --smoke --tp 2 on the "
+          f"{dev.type}, beside the path: killed {la['killed_s']:.3f} s in, "
+          f"at its step-{la['killed_at']} checkpoint, resumed on two ranks "
+          f"of (2, 1) to loss {la['resumed']['final_loss']:.4f}; "
+          f"{la['wall_s']:.3f} s in all")
+
+    # ---- (d)'s shard shapes held and timed
+    tot = [0.0] * 8
+    for (M, K, N, n_pl), c_ in sorted(shapes.items()):
+        if cuda:
+            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
+        row = b.gemm_row(M, K, N, n_pl)
+        tot = [x + c_ * r_ for x, r_ in zip(tot, list(row)
+                                            + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 12 kernels (rank 0's (d)): bit-plane "
+          f"{sum(shapes.values())} launches at {len(shapes)} (M, K, N, "
+          f"planes), each held EQUAL to the plain version: kernel "
+          f"{kms:.3f} ms (device {dms:.3f}), bound {bms:.3f} ms, plain "
+          f"{pms:.3f} ms, torch._int_mm {lms:.3f} ms; no flash launch "
+          f"(training stays at or below FLASH_THRESHOLD, the prompts at "
+          f"{S} tokens)")
+    print(f"{tag} path 12 wall {wall:.3f} s (one device {single_s:.3f} s, "
+          f"the ranks after it {ranks_s:.3f} s: " + ", ".join(
+              f"({k}) {ranks[0][k]['wall_s']:.3f} s" for k in "abcde")
+          + f"; beside the one-device steps the ranks' (f) "
+          f"{ranks[0]['f']['wall_s']:.3f} s and one-layer warm-up "
+          f"{ranks[0]['warm_s']:.3f} s, and the launcher "
+          f"{la['wall_s']:.3f} s)")
+    return {"bitplane": {"launches": sum(shapes.values()), "ms": kms,
+                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
+                         "t_ops": to, "device_ms": dms,
+                         "library_device_ms": ldms, "bound_ms": bms,
+                         "paths": paths},
+            "e2e": {"wall_s": wall, "ranks_s": ranks_s,
+                    "step_s": ranks[0]["a"]["walls"][-1]}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -6451,9 +7296,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-14. the eleven paths (a development run may pick some with
-    # --paths 1,4; only a run of all eleven prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+    # ---- 4.-15. the twelve paths (a development run may pick some with
+    # --paths 1,4; only a run of all twelve prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -6490,6 +7335,8 @@ def main() -> None:
             print(f"{b.tag} path 10 wall {time.perf_counter() - t0:.3f} s")
         if 11 in picked:
             p11_path(b)
+        if 12 in picked:
+            p12_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed in "
               f"{time.perf_counter() - t_paths:.3f} s; no result line for "
@@ -6519,6 +7366,7 @@ def main() -> None:
         p9r = timed("9", train_path, b, ckpt_dir)
     p10r = timed("10", p10_path, b)
     p11r = timed("11", p11_path, b, cnn_ref=cnn)
+    p12r = timed("12", p12_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -6546,7 +7394,8 @@ def main() -> None:
                 "stablelm_generate_call": p8r["dense"]["bitplane"],
                 "qwen3_4b_trained_generate_call": p9r["bitplane"],
                 "qwen3_4b_serve_cli_runs": p10r["bitplane"],
-                "tensor_and_expert_parallel_rank": p11r["bitplane"]}
+                "tensor_and_expert_parallel_rank": p11r["bitplane"],
+                "trained_tensor_parallel_serve_rank": p12r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -6607,7 +7456,11 @@ def main() -> None:
           f"{p10r['e2e']['peak_gib']:.3f} GiB; path 11 (sharded serving on "
           f"{P11_RANKS} gloo ranks sharing the card) "
           f"{p11r['e2e']['wall_s']:.3f} s, its ranks "
-          f"{p11r['e2e']['ranks_s']:.3f} s")
+          f"{p11r['e2e']['ranks_s']:.3f} s; path 12 (sharded training on "
+          f"{P12_RANKS} gloo ranks sharing the card) "
+          f"{p12r['e2e']['wall_s']:.3f} s, its ranks "
+          f"{p12r['e2e']['ranks_s']:.3f} s, a tensor-parallel {LM_ARCH} "
+          f"step {p12r['e2e']['step_s']:.3f} s a rank")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -165,10 +165,12 @@ def fake_quant(x: torch.Tensor, bits, axis=None,
 
     The straight-through sum is taken in float32 and rounded once to
     ``x``'s dtype, so the forward value is exactly the quantized ``q``.
-    ``reduce`` (per-tensor scales only) maps the local amax to the whole
-    tensor's, for a tensor whose rows are split over ranks."""
-    if reduce is not None and axis is None:
-        scale = (reduce(x.detach().abs().amax()).clamp_min(1e-8).float()
+    ``reduce`` maps the local amax (per tensor, or per channel along
+    ``axis``) to the whole tensor's, for a tensor split over ranks."""
+    if reduce is not None:
+        ax = x.detach().abs()
+        amax = ax.amax() if axis is None else ax.amax(dim=axis, keepdim=True)
+        scale = (reduce(amax).clamp_min(1e-8).float()
                  / qmax(bits, x.device))
     else:
         scale = symmetric_scale(x.detach(), bits, axis=axis)

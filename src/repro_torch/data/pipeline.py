@@ -4,9 +4,10 @@ The counterpart of ``repro.data.pipeline``.  ``batch = f(seed, step)`` is
 a pure function of numpy draws, the reference's own, so both packages
 give the same bytes: restarting after a crash or re-issuing a
 straggler's rows replays identical data with no iterator state to
-checkpoint.  Each rank of a data mesh takes only its rows
-(:func:`host_slice`); a background thread keeps a small prefetch queue
-ahead of the training loop.
+checkpoint.  Each rank of a mesh takes only its data index's rows
+(:func:`host_slice`, ``dist.sharding.shard_batch``), so the model ranks
+of one data index share theirs; a background thread keeps a small
+prefetch queue ahead of the training loop.
 
 The synthetic stream is a mixture of Zipf-distributed tokens and short
 repeated motifs, so models show a real (falling) loss curve without any
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist import api as dist_api
+from repro_torch.dist import sharding as shd
 from repro_torch.models.common import resolve_device
 
 
@@ -52,21 +54,17 @@ def make_batch(seed: int, step: int, batch: int, seq_len: int,
 
 
 def host_slice(global_batch: int, mesh=None) -> slice:
-    """This rank's batch rows: the active (or given) mesh's rank and
-    size, and all rows with no mesh."""
+    """This rank's batch rows on the active (or given) mesh: its data
+    index's block over the data ranks (``dist.sharding.row_block``), and
+    all rows with no mesh."""
     mesh = mesh if mesh is not None else dist_api.active_mesh()
-    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
-    per = global_batch // max(size, 1)
-    return slice(rank * per, (rank + 1) * per)
+    return shd.row_block(mesh, global_batch)
 
 
 def shard_batch(batch: dict, device, mesh=None) -> dict:
-    """The batch on ``device``: this rank's rows on a data mesh, every
-    row off a mesh."""
-    mesh = mesh if mesh is not None else dist_api.active_mesh()
-    rows = (slice(None) if mesh is None
-            else host_slice(next(iter(batch.values())).shape[0], mesh))
-    return {k: v[rows].to(device) for k, v in batch.items()}
+    """The batch on ``device``: this rank's rows on a mesh
+    (``dist.sharding.shard_batch``), every row off a mesh."""
+    return {k: v.to(device) for k, v in shd.shard_batch(batch, mesh).items()}
 
 
 class SyntheticLM:

@@ -35,6 +35,30 @@ build reduces.  Each collective is counted by kind and by
 the bytes this rank contributed (``Mesh.counts``).  :class:`DataMesh` is
 its 1-axis case.
 
+The collectives are differentiable, so a train step's gradients pass
+through them (``torch.autograd.Function``s over the same counted calls,
+taken when the operand requires grad under grad mode).  Activations
+split over the data axis are its rows, and the loss of a data rank is
+its rows' share, so a value summed over data ranks holds the whole
+batch's gradient; over the model axis every rank holds the same loss.
+Hence:
+
+* an all-gather (a weight's FSDP blocks, a column-parallel output's
+  columns) backs a SUM over the gathered data axes, then this rank's
+  block: a reduce-scatter for an FSDP weight, a plain split for columns
+  every model rank consumes alike;
+* a SUM (a row-parallel output, the vocab-split embedding) backs the
+  identity: each rank receives the whole gradient of the sum;
+* :meth:`Mesh.enter` marks a value every model rank holds alike that
+  each rank consumes in part (the input of a column-parallel linear, a
+  replicated scale applied to this rank's heads): the identity forward,
+  a SUM over the model axis backward;
+* a MAX (an activation's amax) has no gradient: scales sit under the
+  straight-through estimator's stop-gradient.
+
+A gradient's SUM rounds once, as one device's sum does
+(:meth:`Mesh.sum_grad`).
+
 The port represents a sharded value as LOCAL tensors: each rank holds
 its block, and the layout is kept beside it (``dist.sharding.Local`` for
 parameters; the model code knows its activations').  The data axis of an
@@ -407,18 +431,20 @@ class Mesh:
         return out
 
     # ---- positions
-    def _live(self, axes) -> Tuple[str, ...]:
+    def live_axes(self, axes) -> Tuple[str, ...]:
+        """The axes of ``axes`` this mesh has with more than one rank, in
+        the mesh's order."""
         axes = tuple(a for a in entry_axes(axes) if a in self.shape)
         return tuple(a for a in self.axis_names
                      if a in axes and self.shape[a] > 1)
 
     def axis_size(self, axes) -> int:
-        return math.prod(self.shape[a] for a in self._live(axes))
+        return math.prod(self.shape[a] for a in self.live_axes(axes))
 
     def index(self, axes) -> int:
         """This rank's row-major position along ``axes``."""
         i = 0
-        for a in self._live(axes):
+        for a in self.live_axes(axes):
             i = i * self.shape[a] + self.coords[a]
         return i
 
@@ -450,8 +476,16 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum", *,
                    kind: Optional[str] = None) -> torch.Tensor:
         """SUM or MAX of ``t`` over ``axes`` (int32 sums wrap modulo 2^32,
-        as an int32 accumulator does), on ``t``'s device."""
-        live = self._live(axes)
+        as an int32 accumulator does), on ``t``'s device.  A SUM of a
+        tensor that requires grad backs the identity (module
+        docstring); a MAX has no gradient."""
+        if op == "sum" and _tracks(t) and self.live_axes(axes):
+            return _Sum.apply(t, self, axes, kind or "all_reduce_sum")
+        return self._all_reduce(t, axes, op, kind=kind)
+
+    def _all_reduce(self, t: torch.Tensor, axes, op: str = "sum", *,
+                    kind: Optional[str] = None) -> torch.Tensor:
+        live = self.live_axes(axes)
         if not live:
             return t
         self._count(kind or f"all_reduce_{op}", t)
@@ -463,8 +497,16 @@ class Mesh:
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0, *,
                    kind: str = "all_gather") -> torch.Tensor:
         """Every rank's block along ``axes`` concatenated on ``dim`` in
-        row-major order, on ``t``'s device."""
-        live = self._live(axes)
+        row-major order, on ``t``'s device.  For a tensor that requires
+        grad it backs a SUM over the gathered data axes and this rank's
+        block (module docstring)."""
+        if _tracks(t) and self.live_axes(axes):
+            return _Gather.apply(t, self, axes, dim, kind)
+        return self._all_gather(t, axes, dim, kind=kind)
+
+    def _all_gather(self, t: torch.Tensor, axes, dim: int = 0, *,
+                    kind: str = "all_gather") -> torch.Tensor:
+        live = self.live_axes(axes)
         if not live:
             return t
         self._count(kind, t)
@@ -480,12 +522,73 @@ class Mesh:
         out = torch.cat(buf.unbind(0), dim=dim % t.ndim) if t.ndim else buf
         return out.to(t.device)
 
+    def gather_whole(self, t: torch.Tensor, spec, *,
+                     kind: str = "gather_whole") -> Optional[torch.Tensor]:
+        """The whole of a value laid out as ``spec`` (one entry per dim;
+        ``t`` this rank's block), as a CPU tensor on the first rank of
+        this rank's line along the spec's axes, None on its other ranks:
+        one gloo gather, in which each block travels once."""
+        live = self.live_axes(tuple(a for e in spec for a in entry_axes(e)))
+        t = t.detach().to("cpu").contiguous()
+        if not live:
+            return t
+        line = next(ln for ln in self._lines(live) if self.rank in ln)
+        self._count(kind, t)
+        root = line[0] == self.rank
+        blocks = [torch.empty_like(t) for _ in line] if root else None
+        tdist.gather(t, gather_list=blocks, dst=line[0],
+                     group=self._groups[live])
+        if not root:
+            return None
+        whole = torch.empty(tuple(d * self.axis_size(e) for d, e in
+                                  zip(t.shape, spec)), dtype=t.dtype)
+        for j, block in enumerate(blocks):    # row-major over ``live``
+            coords, rem = {}, j
+            for a in reversed(live):
+                coords[a] = rem % self.shape[a]
+                rem //= self.shape[a]
+            index = []
+            for d, e in zip(t.shape, spec):
+                i = 0
+                for a in self.live_axes(e):
+                    i = i * self.shape[a] + coords[a]
+                index.append(slice(i * d, (i + 1) * d))
+            whole[tuple(index)] = block
+        return whole
+
+    def enter(self, t: torch.Tensor, axes, *,
+              kind: str = "grad_tp") -> torch.Tensor:
+        """``t`` as it is; its gradient SUMmed over ``axes`` (a value
+        every rank of ``axes`` holds alike and consumes in part).  A
+        tensor this returned is not entered again over the same axes, so
+        the consumers of one value (q, k and v of one input) share one
+        SUM."""
+        live = self.live_axes(axes)
+        if not _tracks(t) or not live or getattr(t, "_entered", None) == live:
+            return t
+        out = _Enter.apply(t, self, axes, kind)
+        out._entered = live
+        return out
+
+    def sum_grad(self, g: torch.Tensor, axes, *, kind: str) -> torch.Tensor:
+        """SUM of a gradient over ``axes``, in its own dtype (no gradient
+        of its own).  Over two ranks a sum of two values rounds once in
+        any dtype, so a bf16 gradient travels as bf16; over more, the
+        ring's partial sums travel in float32 and the sum rounds once."""
+        live = self.live_axes(axes)
+        if not live:
+            return g
+        if self.axis_size(live) == 2 or g.dtype == torch.float32:
+            return self._all_reduce(g.detach(), axes, "sum", kind=kind)
+        out = self._all_reduce(g.detach().float(), axes, "sum", kind=kind)
+        return out.to(g.dtype)
+
     def broadcast(self, t: torch.Tensor, src: int, axes=None, *,
                   kind: str = "broadcast") -> torch.Tensor:
         """The ``t`` of the rank at position ``src`` along ``axes`` (default:
         the data axes) on every rank of this rank's line, as a CPU tensor;
         each passes a tensor of the same shape and dtype."""
-        live = self._live(self.dp_axes if axes is None else axes)
+        live = self.live_axes(self.dp_axes if axes is None else axes)
         if not live:
             return t.detach().to("cpu").clone()
         self._count(kind, t)
@@ -532,8 +635,9 @@ class Mesh:
 
     def gather_weight(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """:meth:`all_gather` of a weight block along ``dim``, once per
-        block inside :meth:`reuse_gathers`."""
-        if self._gathered is None:
+        block inside :meth:`reuse_gathers` (a block that requires grad is
+        gathered at every call: each use backs its own reduce-scatter)."""
+        if self._gathered is None or _tracks(t):
             return self.all_gather(t, axes, dim=dim, kind="gather_weight")
         key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype,
                entry_axes(axes), dim % t.ndim)
@@ -542,6 +646,65 @@ class Mesh:
             hit = self.all_gather(t, axes, dim=dim, kind="gather_weight")
             self._gathered[key] = hit
         return hit
+
+
+def enter_tp(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is, its gradient SUMmed over the active mesh's model
+    axis (:meth:`Mesh.enter`): a replicated value applied to this rank's
+    heads.  The identity off a model axis."""
+    mesh = active_mesh()
+    if not isinstance(mesh, Mesh) or tp_size(mesh) <= 1:
+        return t
+    return mesh.enter(t, mesh.tp_axes)
+
+
+def _tracks(t: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``t`` here."""
+    return t.requires_grad and torch.is_grad_enabled()
+
+
+class _Sum(torch.autograd.Function):
+    """SUM over mesh axes; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, kind):
+        return mesh._all_reduce(t, axes, "sum", kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over mesh axes; the gradient is SUMmed over the
+    gathered data axes and split to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, kind):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh._all_gather(t, axes, dim, kind=kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        data = tuple(a for a in mesh.live_axes(ctx.axes) if a in mesh.dp_axes)
+        g = mesh.sum_grad(g, data, kind="grad_rs")
+        return (mesh.local_block(g, ctx.axes, ctx.dim).contiguous(), None,
+                None, None, None)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; the gradient is SUMmed over mesh axes."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, kind):
+        ctx.mesh, ctx.axes, ctx.kind = mesh, axes, kind
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.sum_grad(g, ctx.axes, kind=ctx.kind), None, None,
+                None)
 
 
 class DataMesh(Mesh):

@@ -178,7 +178,7 @@ def batch_shardings(batch, mesh):
         mesh, batch_pspec(leaf), leaf.shape), batch)
 
 
-def _block(mesh, t: torch.Tensor, spec) -> torch.Tensor:
+def block(mesh, t: torch.Tensor, spec) -> torch.Tensor:
     """This rank's block of ``t`` (held whole) laid out as ``spec``."""
     for dim, e in enumerate(spec):
         if e is not None:
@@ -186,16 +186,29 @@ def _block(mesh, t: torch.Tensor, spec) -> torch.Tensor:
     return t
 
 
+def row_block(mesh, n_rows: int) -> slice:
+    """This rank's rows of ``n_rows`` that every rank holds: block
+    ``mesh.dp_index`` of ``dp_size(mesh)`` equal blocks (:func:`batch_pspec`
+    resolved on ``mesh``), so every model rank of one data index takes
+    the same rows; every row off a mesh or when the data ranks do not
+    divide ``n_rows`` (the divisibility fallback)."""
+    if mesh is None or logical_to_mesh(mesh, ("dp",), (n_rows,))[0] is None:
+        return slice(0, n_rows)
+    per = n_rows // api.dp_size(mesh)
+    return slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
+
+
 def shard_batch(batch, mesh=None):
-    """This rank's block of a host batch every rank holds (identity
-    off-mesh)."""
+    """This rank's rows (:func:`row_block`) of every leaf of a host batch
+    every rank holds (identity off-mesh)."""
     mesh = mesh if mesh is not None else api.active_mesh()
     if mesh is None:
         return batch
-    return _tree_map(lambda _, leaf: _block(mesh, torch.as_tensor(leaf),
-                                            logical_to_mesh(
-                                                mesh, batch_pspec(leaf),
-                                                leaf.shape)), batch)
+
+    def rows(_, leaf):
+        leaf = torch.as_tensor(leaf)
+        return leaf[row_block(mesh, leaf.shape[0])] if leaf.ndim else leaf
+    return _tree_map(rows, batch)
 
 
 def bits_pspec(leaf) -> Tuple[Optional[str], ...]:
@@ -221,7 +234,7 @@ def shard_budgets(budgets, mesh=None):
     mesh = mesh if mesh is not None else api.active_mesh()
     if mesh is None:
         return budgets
-    return _block(mesh, budgets, logical_to_mesh(
+    return block(mesh, budgets, logical_to_mesh(
         mesh, budgets_pspec(budgets), budgets.shape))
 
 
@@ -231,7 +244,7 @@ def shard_bits(bits, mesh=None):
     mesh = mesh if mesh is not None else api.active_mesh()
     if mesh is None:
         return bits
-    return _block(mesh, bits, logical_to_mesh(mesh, bits_pspec(bits),
+    return block(mesh, bits, logical_to_mesh(mesh, bits_pspec(bits),
                                               bits.shape))
 
 
@@ -349,7 +362,7 @@ def shard_params(params, mesh, plan=None):
             if all(e is None for e in spec):
                 items[k] = v
                 continue
-            items[k] = _block(mesh, v, spec).clone(
+            items[k] = block(mesh, v, spec).clone(
                 memory_format=torch.contiguous_format)
             layout[k] = (tuple(v.shape), spec)
         return Local(items, mesh, layout) if layout else items

@@ -11,6 +11,7 @@ added as an f32 side branch.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -93,13 +94,17 @@ def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
     serve_linear`; the train form is the bf16 fake-quant STE below.
 
     A linear placed on a mesh (``dist.sharding.Local``) runs
-    :func:`repro_torch.kernels.ops.sharded_linear`: ``local_out`` keeps a
+    :func:`repro_torch.kernels.ops.sharded_linear` in the serve form and
+    :func:`_train_linear_local` in the train form: ``local_out`` keeps a
     column-parallel result as this rank's columns (the first half of a
     Megatron pair), and ``x`` may be this rank's slice of a row-parallel
-    weight's reduction dim.  A train-form one is gathered whole."""
+    weight's reduction dim.  A train-form one at per-row bits is gathered
+    whole."""
     per_row = (getattr(wbits, "ndim", 0) >= 1
                or getattr(abits, "ndim", 0) >= 1)
     if isinstance(p, shd.Local):
+        if "w" in p and not per_row:
+            return _train_linear_local(p, x, wbits, abits, local_out)
         if "w" in p:
             p = shd.full(p)
         else:
@@ -149,6 +154,77 @@ def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
     return y.to(DTYPE)
 
 
+def column_parallel(p) -> bool:
+    """Whether a placed linear keeps model-axis columns: its consumers of
+    one input may share one gradient SUM (``dist.api.Mesh.enter``)."""
+    if not isinstance(p, shd.Local):
+        return False
+    leaf = next((k for k in ("w", "q", "q4") if k in p), None)
+    return leaf is not None and dist.is_tp_entry(p.spec(leaf)[1][-1])
+
+
+def _train_linear_local(p, x: torch.Tensor, wbits, abits,
+                        local_out: bool) -> torch.Tensor:
+    """The fake-quant linear of a train-form weight placed on a mesh,
+    equal in value to :func:`_train_linear` of the whole weight.
+
+    FSDP (data-axis) blocks are all-gathered, so their gradients
+    reduce-scatter back.  A column-parallel weight keeps its model-axis
+    columns: ``x`` enters the region (its gradient SUMs over the model
+    axis), the bias is sliced to the columns, and the output columns are
+    gathered unless ``local_out``.  A row-parallel weight keeps its rows:
+    ``x`` is (or is sliced to) this rank's part of the reduction dim, the
+    activation amax and each column's weight amax are MAX-reduced over the
+    model axis in one collective, so both quantize on the whole tensor's
+    scales, and the partial products, taken in f32, are SUMmed before the
+    bias."""
+    mesh = p.mesh
+    (K, _), (ke, ne) = p.spec("w")
+    w = p["w"]
+    if ke is not None and not dist.is_tp_entry(ke):
+        w, ke = mesh.gather_weight(w, dist.entry_axes(ke), -2), None
+    if ne is not None and not dist.is_tp_entry(ne):
+        w, ne = mesh.gather_weight(w, dist.entry_axes(ne), -1), None
+    b = shd.gather_leaf(p, "b") if "b" in p else None
+    whole = {"w": w} if b is None else {"w": w, "b": b}
+    if ke is None and x.shape[-1] != K:
+        lead = (None,) * (x.ndim - 1)
+        x = dist.constrain(x, lead + (None,), have=lead + ("tp",))
+    if ne is not None:                              # column-parallel
+        axes = dist.entry_axes(ne)
+        x = mesh.enter(x, axes)
+        if b is not None:
+            whole["b"] = mesh.local_block(mesh.enter(b, axes), axes, -1)
+        y = _train_linear(whole, x, wbits, abits)
+        if local_out:
+            return y
+        return mesh.all_gather(y, axes, dim=-1, kind="gather_cols")
+    if ke is None:                                  # replicated
+        return _train_linear(whole, x, wbits, abits)
+    axes = dist.entry_axes(ke)                      # row-parallel
+    if x.shape[-1] == K:
+        x = mesh.local_block(mesh.enter(x, axes), axes, -1)
+    x = x.to(DTYPE)
+    # the activation's amax and each weight column's, MAX-reduced in one
+    # collective over the model axis (and the data axis when the rows are
+    # split: the weight's columns are alike there)
+    rows = kops.rows_split_mesh()
+    red = axes + (rows.dp_axes if rows is mesh else ())
+    amax = mesh.all_reduce(torch.cat([
+        x.detach().abs().amax().float().reshape(1),
+        w.detach().abs().amax(dim=0).float()]), red, "max", kind="amax_tp")
+    wq = bf.fake_quant(w, wbits, axis=0,
+                       reduce=lambda a: amax[1:].reshape(a.shape))
+    xq = bf.fake_quant(x, abits, reduce=lambda a: amax[0])
+    # f32 partial products (bf16 x bf16 products are exact in f32): the
+    # SUM rounds to bf16 once, as the whole product's accumulator does
+    y = mesh.all_reduce(torch.matmul(xq.float(), wq.float()), axes, "sum",
+                        kind="sum_tp")
+    if b is not None:
+        y = y + b.float()
+    return y.to(DTYPE)
+
+
 def unstack(tree, n: int) -> list:
     """The ``n`` layers of a stacked ``(n, ...)`` parameter dict, as a
     list of per-layer dicts of views (``torch.unbind`` of every leaf).
@@ -170,10 +246,23 @@ def remat(cfg, fn, *args, cache=None):
     ``torch.utils.checkpoint`` region) when ``cfg.remat == "full"``,
     there is no cache and grad mode is on: the reference's
     ``jax.checkpoint`` around a layer.  Nothing inside draws random
-    numbers, so no RNG state is kept."""
+    numbers, so no RNG state is kept.  The recompute runs where the
+    backward runs (for CUDA tensors, autograd's device thread), so it
+    re-enters the forward's active mesh and manual mode, which are
+    thread-local: it issues the forward's collectives on the forward's
+    shapes."""
     if cfg.remat == "full" and cache is None and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
-        return checkpoint(fn, *args, use_reentrant=False,
+        mesh, manual = dist.active_mesh(), dist.in_manual_mode()
+
+        def run(*a):
+            with contextlib.ExitStack() as ctx:
+                if mesh is not None:
+                    ctx.enter_context(dist.use_mesh(mesh))
+                if manual:
+                    ctx.enter_context(dist.manual_mode())
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
 

@@ -75,6 +75,9 @@ RAGGED_PREFILL_FAMILIES = ("dense", "vlm")
 # Families whose decode takes chunked (multi-position) steps, the
 # speculative verify (attention masks future positions exactly):
 SPEC_CHUNK_FAMILIES = ("dense", "vlm")
+# Families whose train form runs on a mesh (the attention families; MoE
+# expert-parallel where the model axis divides the experts)
+MESH_TRAIN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -394,6 +397,22 @@ def _emb_rows(params):
     return emb, mesh.index(axes) * emb.shape[0] if axes else 0, axes
 
 
+def _emb_gathered_once(params):
+    """``params`` with a tied table's FSDP (``d_model``) blocks gathered
+    once, for the lookup and the head both: one gather, one gradient
+    reduce-scatter (the vocab split stays)."""
+    if not isinstance(params, shd.Local) or "emb" not in params.layout:
+        return params
+    shape, (ve, de) = params.layout["emb"]
+    if de is None:
+        return params
+    emb = params.mesh.gather_weight(params["emb"], dist.entry_axes(de), -1)
+    layout = {k: v for k, v in params.layout.items() if k != "emb"}
+    if ve is not None:
+        layout["emb"] = (shape, (ve, None))
+    return shd.Local({**params, "emb": emb}, params.mesh, layout)
+
+
 def _embed_sharded(params, tokens: torch.Tensor) -> torch.Tensor:
     """The lookup on a vocab-sharded table: each rank fills the tokens its
     rows hold and zeros elsewhere, and a SUM over the model axis adds the
@@ -410,16 +429,42 @@ def _embed_sharded(params, tokens: torch.Tensor) -> torch.Tensor:
                                   kind="embed").to(emb.dtype)
 
 
+def vocab_split(params, cfg: ModelConfig):
+    """``(mesh, axes)`` of the model axis the head's vocab columns are
+    split over (the tied table's rows or the head's columns), or ``(None,
+    ())`` when every rank holds every column."""
+    if not isinstance(params, shd.Local):
+        return None, ()
+    if cfg.tie_embeddings:
+        if "emb" not in params.layout:
+            return None, ()
+        _, (ve, _) = params.spec("emb")
+    else:
+        head = params["head"]
+        if not isinstance(head, shd.Local) or "w" not in head.layout:
+            return None, ()
+        _, (_, ve) = head.spec("w")
+    if ve is None or not dist.is_tp_entry(ve):
+        return None, ()
+    return params.mesh, dist.entry_axes(ve)
+
+
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
-              rows_alone: bool = True) -> torch.Tensor:
+              rows_alone: bool = True, vocab_local: bool = False
+              ) -> torch.Tensor:
     """Final norm and head -> f32 logits, padding ids masked.  A tied head
     takes one token row at a time unless ``rows_alone`` is False (the
-    train loss: one matmul, whose gradient reaches ``emb`` once)."""
+    train loss: one matmul, whose gradient reaches ``emb`` once).  With
+    ``vocab_local`` a head whose vocab the model axis splits
+    (:func:`vocab_split`) returns this rank's columns only."""
     h = cm.apply_norm(params["ln_f"], h, cfg.norm_type, cfg.norm_eps)
+    lo = 0
     if cfg.tie_embeddings:
         sharded = isinstance(params, shd.Local) and "emb" in params.layout
-        emb, _, axes = (_emb_rows(params) if sharded
-                        else (params["emb"], 0, ()))
+        emb, lo, axes = (_emb_rows(params) if sharded
+                         else (params["emb"], 0, ()))
+        if axes:        # every model rank's h feeds its own columns
+            h = params.mesh.enter(h, axes)
         emb = emb.float().T
         if not rows_alone:
             logits = h.float() @ emb
@@ -432,28 +477,66 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
             logits = torch.cat([rows[i:i + 1] @ emb
                                 for i in range(rows.shape[0])])
             logits = logits.reshape(h.shape[:-1] + (emb.shape[1],))
-        if axes:        # this rank's vocab columns -> every column
+        if axes and not vocab_local:    # this rank's columns -> every one
             logits = dist.constrain(logits, ("dp", None, None),
                                     have=("dp", None, "tp"))
+            lo = 0
     else:
-        logits = cm.apply_linear(params["head"], h, wb, ab).float()
+        mesh, axes = vocab_split(params, cfg)
+        if axes and vocab_local:
+            logits = cm.apply_linear(params["head"], h, wb, ab,
+                                     local_out=True).float()
+            lo = mesh.index(axes) * logits.shape[-1]
+        else:
+            logits = cm.apply_linear(params["head"], h, wb, ab).float()
     if cfg.padded_vocab != cfg.vocab_size:       # mask padding ids
-        pad = torch.arange(cfg.padded_vocab, device=h.device) \
+        pad = torch.arange(lo, lo + logits.shape[-1], device=h.device) \
             >= cfg.vocab_size
         logits = torch.where(pad, -1e30, logits)
     return logits
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor,
-          mask: torch.Tensor):
+          mask: torch.Tensor, mesh=None, axes=()):
     """Masked mean token cross-entropy and the z-loss (the mean squared
-    log-partition), both over ``max(sum(mask), 1)``."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    log-partition), both over ``max(sum(mask), 1)``.
+
+    ``axes`` of ``mesh`` split the vocab: ``logits`` are this rank's
+    columns, the log-partition is a MAX and a SUM of ``exp`` over them,
+    and the gold logit comes from the rank that holds its column.  Under
+    ``kops.split_rows`` the rows are this data rank's and the mask count
+    is the batch's (a SUM over the data axis), so the returned means are
+    this rank's shares of the batch's."""
+    if axes:
+        V = logits.shape[-1]
+        m = mesh.all_reduce(logits.detach().amax(dim=-1), axes, "max",
+                            kind="xent_max")
+        se = mesh.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1),
+                             axes, "sum", kind="xent_sum")
+        logz = torch.log(se) + m
+        t = targets.long() - mesh.index(axes) * V
+        mine = (t >= 0) & (t < V)
+        g = torch.gather(logits, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+        gold = mesh.all_reduce(torch.where(mine, g, 0.0), axes, "sum",
+                               kind="xent_gold")
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = (logz - gold) * mask
-    denom = mask.sum().clamp_min(1.0)
+    denom = _mask_count(mask).clamp_min(1.0)
     zloss = ((logz * mask) ** 2).sum() / denom
     return nll.sum() / denom, zloss
+
+
+def _mask_count(mask: torch.Tensor) -> torch.Tensor:
+    """The batch's loss-mask count: under ``kops.split_rows`` a SUM of the
+    data ranks' counts."""
+    count = mask.sum()
+    rows = kops.rows_split_mesh()
+    if rows is not None:
+        count = rows.all_reduce(count, rows.dp_axes, "sum",
+                                kind="mask_count")
+    return count
 
 
 def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
@@ -470,7 +553,14 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
     prefix) reach the flash kernel on the card, which has no backward and
     raises under grad mode."""
     _require_ported(cfg)
+    if shd.is_sharded(params) and cfg.family not in MESH_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training on a mesh runs the families {MESH_TRAIN_FAMILIES}, "
+            f"not {cfg.family!r}: the recurrent and encoder-decoder "
+            f"families on a mesh wait for ROADMAP item 22")
     dev = params["emb"].device
+    if cfg.tie_embeddings:
+        params = _emb_gathered_once(params)
     tokens = torch.as_tensor(batch["tokens"]).to(dev)
     B = tokens.shape[0]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
@@ -499,8 +589,9 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
     h, _, aux = forward_hidden(params, x, cfg, wvec, avec,
                                positions=positions, enc_out=enc_out)
     logits = logits_fn(params, h, cfg, _last_layer_bits(wvec),
-                       _last_layer_bits(avec), rows_alone=False)
-    loss, zloss = _xent(logits, tgt, mask)
+                       _last_layer_bits(avec), rows_alone=False,
+                       vocab_local=True)
+    loss, zloss = _xent(logits, tgt, mask, *vocab_split(params, cfg))
     total = loss + 1e-4 * zloss + MOE_AUX_COEF * aux
     return total, {"loss": loss, "zloss": zloss, "moe_aux": aux}
 

@@ -113,6 +113,13 @@ def _route(p, xf, cfg):
     topv = topv / topv.sum(dim=-1, keepdim=True)
     me = probs.mean(dim=0)
     ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    rows = kops.rows_split_mesh()
+    if rows is not None and probs.requires_grad:
+        # the train form on a data rank's rows: the batch's means (equal
+        # row blocks), so every data rank holds the batch's aux
+        dp = dist_api.dp_size(rows)
+        me = rows.all_reduce(me, rows.dp_axes, "sum", kind="moe_aux") / dp
+        ce = rows.all_reduce(ce, rows.dp_axes, "sum", kind="moe_aux") / dp
     aux = E * (me * ce).sum()
     return topi, topv, aux
 
@@ -301,6 +308,10 @@ def _apply_moe_ep(p, xf, topi, topv, cfg, wbits, abits, mesh):
     tp = mesh.shape["model"]
     E_loc = cfg.n_experts // tp
     C_shard = shard_capacity(xf.shape[0], cfg)
+    # every model rank's tokens and gates feed its own experts: their
+    # gradients SUM over the model axis (the combine's passes as it is)
+    xf = mesh.enter(xf, mesh.tp_axes)
+    topv = mesh.enter(topv, mesh.tp_axes)
     # a shard_map body: local activation scales, no data-axis reduction
     with dist_api.manual_mode():
         y, _ = _ep_local(xf, topi, topv, _gather_dp(p["experts"]), cfg,

@@ -197,19 +197,30 @@ def _q(p, x, cfg, wbits, abits, local: bool = False):
     lin = cm.local_linear if local else cm.apply_linear
     q = lin(p["wq"], x, wbits, abits).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = cm.rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        q = cm.rms_norm(q, _head_scale(p["q_norm"]["scale"], q, cfg.n_heads),
+                        cfg.norm_eps)
     return q
+
+
+def _head_scale(scale: torch.Tensor, t: torch.Tensor, n_heads: int):
+    """A replicated qk-norm scale for ``t`` (B, S, heads, hd): applied to
+    this model rank's heads only, its gradient is a partial sum, SUMmed
+    over the model axis."""
+    return dist.enter_tp(scale) if t.shape[2] < n_heads else scale
 
 
 def _qkv(p, x, cfg, wbits, abits, local: bool = False):
     B, S = x.shape[:2]
     hd = cfg.head_dim
+    if all(cm.column_parallel(p[n]) for n in ("wq", "wk", "wv")):
+        x = dist.enter_tp(x)    # one gradient SUM for q, k and v
     q = _q(p, x, cfg, wbits, abits, local)
     lin = cm.local_linear if local else cm.apply_linear
     k = lin(p["wk"], x, wbits, abits).reshape(B, S, -1, hd)
     v = lin(p["wv"], x, wbits, abits).reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        k = cm.rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+        k = cm.rms_norm(k, _head_scale(p["k_norm"]["scale"], k,
+                                       cfg.n_kv_heads), cfg.norm_eps)
     return q, k, v
 
 
@@ -492,6 +503,8 @@ def mlp(p, x, cfg, wbits=8, abits=8):
     """The dense MLP; on a model axis a Megatron pair (the hidden
     columns stay local between the two linears)."""
     if cfg.mlp_type == "swiglu":
+        if cm.column_parallel(p["wg"]) and cm.column_parallel(p["wu"]):
+            x = dist.enter_tp(x)    # one gradient SUM for the pair
         g = cm.local_linear(p["wg"], x, wbits, abits)
         u = cm.local_linear(p["wu"], x, wbits, abits)
         h = torch.nn.functional.silu(g.float()) * u.float()

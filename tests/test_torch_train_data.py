@@ -1,11 +1,13 @@
 """The training substrate around the step, on the CPU: the data pipeline
 against the reference's bytes, the prefetch iterator, ``host_slice``,
 the straggler watchdog, the launcher end to end (a checkpoint, then a
-resumed run), and serving parameters that require grad (the engines'
+resumed run; two gloo ranks killed, then resumed on another mesh), and
+serving parameters that require grad (the engines'
 entry points run under ``torch.no_grad()``: the same tokens and logits,
 no graph)."""
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -74,18 +76,33 @@ def test_make_batch_pure_and_prefetch_iterator():
 
 
 class _Mesh:
-    def __init__(self, rank, size):
-        self.rank, self.size = rank, size
+    """A duck-typed ("data", "model") mesh: its shape, and the data index
+    of global rank ``rank`` (row-major, as ``dist.Mesh`` orders ranks)."""
+
+    def __init__(self, data, model, rank):
+        self.shape = {"data": data, "model": model}
+        self.axis_names = ("data", "model")
+        self.dp_index = rank // model
 
 
 def test_host_slice_and_shard_batch():
+    """Rows go by the data index: the model ranks of one data index take
+    the same rows, every row when the data ranks do not divide them."""
     assert tpipe.host_slice(8) == slice(0, 8)          # no mesh: every row
-    assert tpipe.host_slice(8, _Mesh(1, 2)) == slice(4, 8)
-    assert tpipe.host_slice(9, _Mesh(2, 3)) == slice(6, 9)
+    assert tpipe.host_slice(8, _Mesh(2, 1, 1)) == slice(4, 8)
+    assert tpipe.host_slice(9, _Mesh(3, 1, 2)) == slice(6, 9)
+    for rank in (0, 1):                                 # (1, 2): all rows
+        assert tpipe.host_slice(8, _Mesh(1, 2, rank)) == slice(0, 8)
+    assert [tpipe.host_slice(8, _Mesh(2, 2, r)) for r in range(4)] == [
+        slice(0, 4), slice(0, 4), slice(4, 8), slice(4, 8)]
+    assert tpipe.host_slice(5, _Mesh(2, 1, 1)) == slice(0, 5)
     b = tpipe.make_batch(0, 0, 4, 9, 50)
     assert torch.equal(tpipe.shard_batch(b, "cpu")["tokens"], b["tokens"])
-    half = tpipe.shard_batch(b, "cpu", _Mesh(1, 2))
+    half = tpipe.shard_batch(b, "cpu", _Mesh(2, 1, 1))
     assert torch.equal(half["tokens"], b["tokens"][2:])
+    for rank in (0, 1):
+        both = tpipe.shard_batch(b, "cpu", _Mesh(1, 2, rank))
+        assert torch.equal(both["tokens"], b["tokens"])
 
 
 def test_watchdog_flags_straggler():
@@ -104,14 +121,21 @@ def test_watchdog_flags_straggler():
         wd.stop(12)
 
 
-def _launch(ckpt, steps):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen3_4b", "--smoke", "--device", "cpu", "--steps", str(steps),
-         "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt,
-         "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+def _cmd(ckpt, steps, *extra):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3_4b", "--smoke", "--device", "cpu", "--steps", str(steps),
+            "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt,
+            "--log-every", "1", *extra]
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                OMP_NUM_THREADS="1")
+
+
+def _launch(ckpt, steps, *extra):
+    res = subprocess.run(_cmd(ckpt, steps, *extra), capture_output=True,
+                         text=True, env=_env(), timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     return res.stdout.splitlines()
 
@@ -131,10 +155,58 @@ def test_launcher_checkpoints_and_resumes(tmp_path):
     assert second["start"] == 3 and tckpt.latest_step(ckpt) == 5
 
 
-def test_launcher_refuses_model_parallel():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="20 \\(c\\)"):
-        train.main(["--smoke", "--device", "cpu", "--tp", "2"])
+def test_launcher_trains_on_two_ranks_killed_and_resumed(tmp_path):
+    """``--tp 2`` spawns two gloo ranks on a (1, 2) mesh; the run is killed
+    (the whole process group) once it has checkpointed, and a second run
+    resumes from the latest checkpoint on a (2, 1) mesh (``--ranks 2``),
+    the state resharded onto it."""
+    ckpt = str(tmp_path / "ckpt")
+    run = subprocess.Popen(_cmd(ckpt, 1000, "--tp", "2", "--ckpt-every", "2"),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, env=_env(), cwd=ROOT,
+                           start_new_session=True)
+    try:
+        deadline = time.time() + 240
+        while (tckpt.latest_step(ckpt) or 0) < 4:
+            assert run.poll() is None, run.communicate()[1][-2000:]
+            assert time.time() < deadline, "no checkpoint within 240 s"
+            time.sleep(0.2)
+    finally:
+        os.killpg(run.pid, signal.SIGKILL)
+        out, _ = run.communicate()
+    assert "[train] mesh {'data': 1, 'model': 2}" in out
+    killed_at = tckpt.latest_step(ckpt)
+    assert killed_at >= 4 and killed_at % 2 == 0
+    out = _launch(ckpt, 2, "--tp", "1", "--ranks", "2")
+    assert "[train] mesh {'data': 2, 'model': 1}" in out
+    assert f"[train] resumed from step {killed_at}" in out
+    res = json.loads(out[-1])
+    assert res["start"] == killed_at and res["mesh"] == {"data": 2,
+                                                          "model": 1}
+    assert np.isfinite(res["final_loss"])
+    assert tckpt.latest_step(ckpt) == killed_at + 2
+
+
+def test_launcher_on_a_data_and_model_mesh(tmp_path):
+    """Four ranks as a (2, 2) mesh, FSDP and tensor parallelism at once:
+    each step's loss within 1e-3 of one device's (the mesh tolerance of
+    ``test_torch_sharded_train``), and its checkpoint resumes on one
+    device."""
+    def losses(out):
+        return [float(line.split("loss=")[1].split()[0]) for line in out
+                if line.startswith("[train] step=")]
+
+    extra = ("--batch", "4", "--accum", "2")
+    ckpt = str(tmp_path / "ckpt")
+    mesh = _launch(ckpt, 2, "--tp", "2", "--ranks", "4", *extra)
+    assert "[train] mesh {'data': 2, 'model': 2}" in mesh
+    one = _launch(str(tmp_path / "one"), 2, *extra)
+    assert len(losses(mesh)) == len(losses(one)) == 2
+    for got, want in zip(losses(mesh), losses(one)):
+        assert abs(got - want) <= 1e-3 * abs(want)
+    out = _launch(ckpt, 1, *extra)
+    assert "[train] resumed from step 2" in out
+    assert json.loads(out[-1])["start"] == 2
 
 
 def _grad_tree(tree):
