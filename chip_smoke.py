@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Twelve paths, each at full width with random weights from a seed:
+Thirteen paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -23,7 +23,7 @@ Twelve paths, each at full width with random weights from a seed:
   d_model 2560, GQA 32/8, d_ff 9728, vocab 151936): four 4096-token
   prompts whose latency budgets resolve to int4, mixed, int8 and int8;
   prefill runs every layer's self-attention through the flash kernel and
-  every linear through the bit-plane kernel, then 3 tokens decode on
+  every linear through the bit-plane kernel, then 1 token decodes on
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
@@ -57,7 +57,7 @@ Twelve paths, each at full width with random weights from a seed:
   Moonshot-v1-16B-A3B (48 layers, d_model 2048, 16 heads of 128, 64
   experts top-6 plus 2 shared, d_ff 1408, vocab 163840), its int8 serve
   form drawn and quantized layer by layer (``lm.init_serve_params``),
-  through ``ServeEngine.generate``: B=2 prompts of 4096 tokens, 4 new,
+  through ``ServeEngine.generate``: B=2 prompts of 4096 tokens, 2 new,
   at the tightest (int4) and the loosest (int8) whole-batch budget;
   every expert stack through the bit-plane kernel, one launch per
   expert (9553 a forward), flash at hd 128; (b) InternVL2-1B (24 layers,
@@ -71,7 +71,7 @@ Twelve paths, each at full width with random weights from a seed:
   (``kv_cache_bits=8``);
 * the recurrent families, encoder-decoder cross-attention and flash at
   head dim 160, each through ``ServeEngine.generate`` at full width and
-  depth with 4 new tokens: (a) mamba2-1.3b (48 layers, d_model 2048,
+  depth with 2 new tokens: (a) mamba2-1.3b (48 layers, d_model 2048,
   state 128, chunk 128; the SSD in f32 PyTorch, the in and out
   projections through the bit-plane kernel), B=4 prompts of 4096 tokens
   at per-request budgets int4, mixed, int8, int8; (b) zamba2-2.7b (54
@@ -124,7 +124,7 @@ Twelve paths, each at full width with random weights from a seed:
   with parameters and AdamW state placed by ``dist.sharding`` and
   gradients through the collectives: (a) Qwen3-4B FULL, all 36 layers,
   tensor-parallel on (1, 2), path 9's optimizer and bits, 2 steps on one
-  batch of 4 x 513 tokens in two microbatches; (b) its first 4 layers,
+  batch of 4 x 513 tokens in two microbatches; (b) its first 2 layers,
   FSDP on (2, 1), the same steps; (c) (a)'s trained state saved from
   (1, 2) and restored onto one device and onto (2, 1); (d) the restored
   weights quantized and served on (1, 2), ``generate`` 2 x 256, 4 new;
@@ -133,6 +133,20 @@ Twelve paths, each at full width with random weights from a seed:
   SMOKE mesh steps card vs CPU (dense, vlm, MoE), and
   ``python -m repro_torch.launch.train --smoke --tp 2`` killed after a
   checkpoint and resumed on two ranks.
+* the analysis suite on the card: (a) ``python -m
+  repro_torch.launch.analyze --all --device cuda`` in process (lint,
+  ledger and the sharding checker of all ten FULL configs, fake, on the
+  host; the retrace audit of every SMOKE config and the HAWQ-V3 ResNet18
+  matrix on ``cuda:0``, its signatures holding the kernels'
+  specialisations); (b) Qwen3-4B FULL on path 3's weights: ``generate``
+  of 2 x 2304 tokens and 1 new (flash) at each of path 3's budgets, and
+  a prefill row and a decode block at every budget and budget mix on
+  path 4's slots and prefill length (a block of 1 step), each call's
+  aten op stream and kernel specialisations recorded;
+  (c) ResNet18@224, B=16, at every HAWQ-V3 configuration of Table VII;
+  (d) one continuous ``step()`` and one speculative round of (b)'s
+  engine under ``torch.cuda.set_sync_debug_mode("warn")``, every sync
+  the card reports counted by where it ran.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -301,6 +315,14 @@ result line:
      the launcher resuming from its last checkpoint on (2, 1).  Then
      (d)'s shard shapes held EQUAL and timed, each rank's step walls,
      peak memory and collectives by kind and bytes a step.
+ 16. the analysis suite (run after phase 9, on path 3's weights): (a)
+     the CLI exits 0 with every pass ok; (b) and (c) one signature and
+     one set of kernel specialisations per entrypoint, each holding the
+     bit-plane kernel (and flash for ``generate``), flash launched 36
+     times a ``generate`` call, tokens in range; (d) the first step one
+     vanilla tick, the second one speculative round, and every sync
+     inside a program body one the lint or RT502 reports.  Then (b)'s
+     and (c)'s bit-plane shapes timed, flash at (b)'s prefill shape.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -381,9 +403,9 @@ FLASH_PATH = (128, 4096, 128)   # (B*H, S, hd) of a Qwen3-4B prefill
 LM_ARCH = "qwen3_4b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim) published
 LM_WIDTHS = (36, 2560, 32, 8, 9728, 151936, 128)
-# 4 new tokens (cut from 16 to 8 when path 10 was added, to 4 when path
-# 11 was; PERF.md §4)
-LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 4, 4100
+# 2 new tokens (cut from 16 to 8 when path 10 was added, to 4 when path
+# 11 was, to 2 when path 13 was; PERF.md §4)
+LM_B, LM_S, LM_STEPS, LM_MAX_LEN = 4, 4096, 2, 4100
 LM_BUDGETS = [0.4, 0.8, 10.0, 1e30]      # -> int4, mixed, int8, int8
 LM_CALLS = 1          # timed generate calls after one warm-up
 LM_SMOKE_S = 2100     # > FLASH_THRESHOLD, so the SMOKE prefill runs flash
@@ -430,8 +452,9 @@ MOE_ARCH = "moonshot_v1_16b_a3b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, experts,
 # top-k, shared experts) published
 MOE_WIDTHS = (48, 2048, 16, 16, 1408, 163840, 128, 64, 6, 2)
-# 4 new tokens (cut from 8 when path 11 was added; PERF.md §4)
-MOE_B, MOE_S, MOE_STEPS = 2, 4096, 4
+# 2 new tokens (cut from 8 when path 11 was added, to 2 when path 13
+# was; PERF.md §4)
+MOE_B, MOE_S, MOE_STEPS = 2, 4096, 2
 MOE_BUDGETS = (0.4, 10.0)  # default_controller's tightest and loosest
 # router margin under which the card and the CPU may route apart: two
 # neighbours among a token's k + 1 largest router probabilities within
@@ -451,7 +474,9 @@ VLM_SPEC, VLM_SPEC_NEW = 4, 4
 # at head dim 160, each through ServeEngine.generate at its published
 # widths and depth; every model takes P8_STEPS new tokens after a
 # P8_WARM-token warm-up
-P8_STEPS, P8_WARM = 4, 2      # 4 new: cut from 16 when path 11 was added
+P8_STEPS, P8_WARM = 2, 1      # 2 new (cut from 16 and 4 when paths 11
+#                               and 13 were added), a 1-token warm-up (2
+#                               until path 13)
 SSM_ARCH = "mamba2_1_3b"
 # (n_layers, d_model, ssm_state, ssm_head_dim, expand, ssm_chunk, vocab)
 SSM_WIDTHS = (48, 2048, 128, 64, 2, 128, 50280)
@@ -534,14 +559,17 @@ VMAP_BITS = [3, 4, 6, 8]
 P10_EXAMPLES = ("quickstart", "bitfluid_serving", "mixed_precision_resnet18")
 # path 11: sharded serving on two gloo ranks sharing cuda:0
 P11_RANKS = 2
-P11_GEN = (2, 2304, 4)             # (a) generate: B, prompt tokens, new
+P11_GEN = (2, 2304, 2)             # (a) generate: B, prompt tokens, new
+#                                    (4 new until path 13 was added)
 P11_BUDGETS = (0.5,)               # (2.0, 0.5) until path 12 was added
-P11_CONT = (4, 256, 4)             # (a) continuous: requests, prompt, new
+P11_CONT = (4, 256, 2)             # (a) continuous: requests, prompt, new
+#                                    (4 new until path 13 was added)
 #                                    (8 new until path 12 was added)
 P11_SLOTS, P11_BLOCK = 4, 8
 P11_CONT_BUDGETS = (2.0, 0.75, 0.5)
 P11_MOE_LAYERS = 4                 # (c) Moonshot's first 4 of 48 layers
-P11_MOE_GEN = (2, 512, 4)          # (c) generate: B, prompt tokens, new
+P11_MOE_GEN = (2, 512, 2)          # (c) generate: B, prompt tokens, new
+#                                    (4 new until path 13 was added)
 P11_MOE_BUDGET = 10.0              # default_controller: int8
 P11_PC_CHUNK = 4
 # path 12: sharded training on two gloo ranks sharing cuda:0.  (a) Qwen3-4B
@@ -554,7 +582,7 @@ P11_PC_CHUNK = 4
 # expert-parallel on (1, 2), P12_STEPS steps of P12_MOE_B x P12_MOE_S + 1
 P12_RANKS = 2
 P12_B, P12_S, P12_ACCUM, P12_STEPS = 4, 512, 2, 2
-P12_FSDP_LAYERS = 4
+P12_FSDP_LAYERS = 2          # 4 until path 13 was added (PERF.md §4)
 P12_SERVE = (2, 256, 4)
 P12_MOE_LAYERS, P12_MOE_B, P12_MOE_S = 2, 2, 256
 # the gates, as tests/test_torch_sharded_train*.py state and measure them
@@ -573,6 +601,20 @@ P12_FLIPS, P12_PARAM_MEAN = 2.0, 0.2
 # and a token whose top-k router scores tie within that rounding may
 # choose another expert
 P12_DROP_TOL = 1e-3
+# path 13: the analysis suite on the card
+P13_GEN = (2, 2304, 1)   # (b) generate: B, prompt tokens (> FLASH_THRESHOLD),
+#                          new tokens (the decode step is decode_scan's)
+# (b) budget mixes of path 4's 8 slots (default_controller: int4, mixed,
+# int8, int8)
+P13_MIXES = ((0.4, 0.8, 10.0, 1e30) * 2, (0.4,) * 8, (10.0,) * 8,
+             (0.8, 0.4, 1e30, 0.4, 0.8, 10.0, 0.4, 1e30))
+P13_BLOCK = 1            # (b)/(d) decode block (path 4's slots and
+#                          prefill length, 1 step a block: recording an op
+#                          stream costs about 30 us an op, and a full-width
+#                          decode step runs about 33,000)
+P13_CNN = (224, 16)      # (c) ResNet18: image, batch
+# (d) prompt lengths: two vanilla requests, then one that drafts
+P13_SYNC_PROMPTS, P13_SYNC_NEW = (300, 700, 500), 8
 
 
 def hardware() -> None:
@@ -999,10 +1041,10 @@ def cnn_path(b: Bench) -> dict:
         logits, stats = engine.serve(images, budgets)   # ends in a sync
         batch_s.append(time.perf_counter() - t0)
         outs.append((logits, stats))
-    launches = dict(bpm.launches)
-    paths = dict(bpm.path_launches)
-    check(fa.launches == 0 and i4mm.launches == 0
-          and sum(qmm.launches.values()) == 0,
+    launches = bpm.launches_by_planes()
+    paths = bpm.launches_by_path()
+    check(fa.launch_count() == 0 and i4mm.launches == 0
+          and sum(qmm.spec_launches.values()) == 0,
           "the ResNet18 path launched a kernel off its path")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
 
@@ -1229,10 +1271,10 @@ def alexnet_path(b: Bench) -> dict:
         logits, stats = engine.serve(images, budgets)   # ends in a sync
         batch_s.append(time.perf_counter() - t0)
         outs.append((logits, stats))
-    a_launches = dict(bpm.launches)
-    a_paths = dict(bpm.path_launches)
-    check(i4mm.launches == 0 and sum(qmm.launches.values()) == 0
-          and fa.launches == 0, "(a) launched a kernel off its path")
+    a_launches = bpm.launches_by_planes()
+    a_paths = bpm.launches_by_path()
+    check(i4mm.launches == 0 and sum(qmm.spec_launches.values()) == 0
+          and fa.launch_count() == 0, "(a) launched a kernel off its path")
     peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
     per_batch = slices * len(fams)
     check(sum(a_launches.values()) == per_batch * SERVED
@@ -1287,8 +1329,8 @@ def alexnet_path(b: Bench) -> dict:
         torch.cuda.synchronize()
         fwd_s.append(time.perf_counter() - t0)
         fouts.append(out)
-    b_i4, b_bp = i4mm.launches, dict(bpm.launches)
-    b_paths, b_i4_paths = dict(bpm.path_launches), dict(i4mm.path_launches)
+    b_i4, b_bp = i4mm.launches, bpm.launches_by_planes()
+    b_paths, b_i4_paths = bpm.launches_by_path(), dict(i4mm.path_launches)
     peak_b = torch.cuda.max_memory_allocated() / 2 ** 20
     check(b_i4 == len(ungrouped) * SERVED,
           f"(b) int4_matmul launches {b_i4}, expected {len(ungrouped)} per "
@@ -1296,7 +1338,7 @@ def alexnet_path(b: Bench) -> dict:
     check_paths("(b) int4_matmul", b_i4_paths, INT4_PATHS, SERVED,
                 i4mm.plan, ungrouped)
     check(sum(b_bp.values()) == b_bp[8] == grouped_slices * SERVED
-          and sum(qmm.launches.values()) == 0 and fa.launches == 0,
+          and sum(qmm.spec_launches.values()) == 0 and fa.launch_count() == 0,
           f"(b) bit-plane launches {b_bp}, expected {grouped_slices} per "
           f"forward at 8 planes")
     out4 = fouts[-1]
@@ -1341,9 +1383,9 @@ def alexnet_path(b: Bench) -> dict:
                               out_dtype=torch.bfloat16)
              for x, q, s, bias, act in drive]
     torch.cuda.synchronize()
-    c_launches, c_paths = dict(qmm.launches), dict(qmm.path_launches)
+    c_launches, c_paths = qmm.launches_by_act(), qmm.launches_by_path()
     check(sum(c_launches.values()) == slices
-          and sum(bpm.launches.values()) == 0 and i4mm.launches == 0,
+          and sum(bpm.spec_launches.values()) == 0 and i4mm.launches == 0,
           f"(c) quant_matmul launches {c_launches}, expected {slices}")
     check_paths("(c) quant_matmul", c_paths, QUANT_PATHS, 1, qmm.plan,
                 [(M, K, N) for _, M, K, N, G in gemms for _ in range(G)])
@@ -1647,8 +1689,8 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
         t0 = time.perf_counter()
         toks = engine.generate(batch, LM_STEPS).cpu()      # ends in a sync
         gen_s.append(time.perf_counter() - t0)
-        bp, fl = dict(bpm.launches), fa.launches
-        bp_paths = dict(bpm.path_launches)
+        bp, fl = bpm.launches_by_planes(), fa.launch_count()
+        bp_paths = bpm.launches_by_path()
         peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
         check(fl == L, f"flash launches per generate {fl}, expected {L}")
         check(sum(bp.values()) == per_call_bp,
@@ -1730,12 +1772,12 @@ def lm_path(b: Bench, cfg, qparams) -> dict:
 
     bpm.reset_launches()
     l_chunked = prefill_with(flash=chunked_flash)
-    check(sum(bpm.launches.values()) == L * len(linears) * len(fams),
-          f"bit-plane launches in one prefill: {bpm.launches}")
+    check(sum(bpm.spec_launches.values()) == L * len(linears) * len(fams),
+          f"bit-plane launches in one prefill: {bpm.launches_by_planes()}")
     bpm.reset_launches()
     fa.reset_launches()
     l_plain = prefill_with(gemm=plain_gemm, flash=chunked_flash)
-    check(sum(bpm.launches.values()) == 0 and fa.launches == 0,
+    check(sum(bpm.spec_launches.values()) == 0 and fa.launch_count() == 0,
           "the plain-version prefill launched a kernel")
     check(torch.equal(l_chunked, l_plain), f"(a) prefill with the bit-plane "
           f"kernel != with its plain version: max |diff| "
@@ -2113,9 +2155,9 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
         qmm.reset_launches()
 
     def launches():
-        return (dict(bpm.shape_launches), dict(bpm.path_launches),
-                fa.launches, i4mm.launches,
-                sum(qmm.launches.values()))
+        return (bpm.launches_by_shape(), bpm.launches_by_path(),
+                fa.launch_count(), i4mm.launches,
+                sum(qmm.spec_launches.values()))
 
     # ---- (a) vanilla continuous batching
     eng_a = ServeEngine(cfg, qparams, **common)
@@ -2691,7 +2733,7 @@ def pc_path(b: Bench, cfg, qparams) -> dict:
         torch.cuda.synchronize()
         reset_gemm_launches()
         out = fn()
-        return out, dict(bpm.shape_launches)
+        return out, bpm.launches_by_shape()
 
     def by_m(shapes):
         out: dict = {}
@@ -3064,8 +3106,8 @@ def pc_cnn(b: Bench) -> dict:
                             use_budgets=loop == "open").replay()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(bpm.launches)
-        paths = dict(bpm.path_launches)
+        launches = bpm.launches_by_planes()
+        paths = bpm.launches_by_path()
         check(res.unserved == 0 and all(e["done"] for e in res.entries)
               and len(res.entries) == spike.n_requests,
               f"(c) {loop}: images left unserved")
@@ -3165,7 +3207,7 @@ def off_path_launches() -> tuple:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int4_matmul as i4mm
     from repro_torch.kernels import quant_matmul as qmm
-    return fa.launches, i4mm.launches, sum(qmm.launches.values())
+    return fa.launch_count(), i4mm.launches, sum(qmm.spec_launches.values())
 
 
 def record_view(r) -> dict:
@@ -3202,8 +3244,8 @@ def so_rank_lm(torch, dev, mesh, reqs) -> dict:
     torch.cuda.synchronize()
     recs = [eng.requests[r] for r in rids]
     out = {"plan": eng.plan, "rows": eng._rows, "calls": dict(eng.calls),
-           "shapes": dict(bpm.shape_launches),
-           "paths": dict(bpm.path_launches), "off_path": off_path_launches(),
+           "shapes": bpm.launches_by_shape(),
+           "paths": bpm.launches_by_path(), "off_path": off_path_launches(),
            "records": [record_view(r) for r in recs],
            "ttft": [first_at[r] - eng.requests[r].submitted_s for r in rids],
            "pool_rows": int(eng.pool.cache["kpos"].shape[1]),
@@ -3237,8 +3279,8 @@ def so_rank_cnn(torch, dev, mesh) -> dict:
     logits, stats = eng.serve(images, budgets)          # ends in a gather
     wall = time.perf_counter() - t0
     out = {"plan": eng.plan, "rows": eng._rows, "logits": logits,
-           "shapes": dict(bpm.shape_launches),
-           "paths": dict(bpm.path_launches), "off_path": off_path_launches(),
+           "shapes": bpm.launches_by_shape(),
+           "paths": bpm.launches_by_path(), "off_path": off_path_launches(),
            "wbits": [s.wbits for s in stats], "abits": [s.abits for s in stats],
            "cycles": [s.ap_cost.per_layer_cycles for s in stats],
            "energy": [s.ap_cost.per_layer_energy_j for s in stats],
@@ -3626,15 +3668,15 @@ def so_codecision(b: Bench, cfg) -> dict:
         nb = eng.stats.batches
         check(res.unserved == 0 and len(res.entries) == spike.n_requests,
               f"(c) {label}: images left unserved")
-        check({k: v for k, v in bpm.launches.items() if v}
+        check({k: v for k, v in bpm.launches_by_planes().items() if v}
               == {f: n_gemm * nb for f in eng.families}
               and off_path_launches() == (0, 0, 0),
-              f"(c) {label}: launches by n_planes {bpm.launches}, expected "
+              f"(c) {label}: launches by n_planes {bpm.launches_by_planes()}, expected "
               f"{n_gemm} per family per batch x {nb} batches")
-        for k, v in bpm.shape_launches.items():
+        for k, v in bpm.launches_by_shape().items():
             shapes[k] = shapes.get(k, 0) + v
         for p in bpm.PATHS:
-            paths[p] += bpm.path_launches[p]
+            paths[p] += bpm.launches_by_path()[p]
         recs = [eng.requests[r] for r in sorted(eng.requests)]
         check({w for r in recs for w in r.wbits} <= set(eng.families),
               f"(c) {label}: resolved bits outside the families")
@@ -3960,8 +4002,8 @@ def moe_path(b: Bench) -> dict:
             wall = time.perf_counter() - t0
         drop = torch.stack(rec["drop"]).reshape(-1, L).sum(1).tolist()
         return {"tokens": toks, "topi": rec["topi"], "drop": drop,
-                "launches": dict(bpm.launches),
-                "paths": dict(bpm.path_launches), "flash": fa.launches,
+                "launches": bpm.launches_by_planes(),
+                "paths": bpm.launches_by_path(), "flash": fa.launch_count(),
                 "walls": walls, "wall": wall,
                 "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -4040,7 +4082,7 @@ def moe_path(b: Bench) -> dict:
             check(torch.equal(y_plain, y), f"layer {i}: the MoE block with "
                   f"the bit-plane kernel != with its plain version: max "
                   f"|diff| {float((y_plain.float() - y.float()).abs().max())}")
-    check(sum(bpm.launches.values()) == 0, "the plain MoE blocks launched "
+    check(sum(bpm.spec_launches.values()) == 0, "the plain MoE blocks launched "
           "the kernel")
     del captured
     print(f"each of the {L} MoE blocks of an int8 prefill, on its own "
@@ -4158,8 +4200,8 @@ def vlm_smoke_card_vs_cpu(b: Bench) -> None:
             out, _ = lm.prefill(eng.qparams, {"tokens": toks.to(where),
                                               "prefix": pre.to(where)},
                                 scfg, swv, sav, cache)
-        check(fa.launches == (scfg.n_layers if where.type == "cuda" else 0),
-              f"SMOKE vlm prefill on {where}: {fa.launches} flash launches")
+        check(fa.launch_count() == (scfg.n_layers if where.type == "cuda" else 0),
+              f"SMOKE vlm prefill on {where}: {fa.launch_count()} flash launches")
         return out[:, -1, :scfg.vocab_size].float().cpu()
 
     card = prefill(b.dev)
@@ -4301,21 +4343,21 @@ def vlm_path(b: Bench) -> dict:
             t0 = time.perf_counter()
             toks = eng.generate(batch, VLM_STEPS).cpu()
             wall = time.perf_counter() - t0
-        bp, fl = sum(bpm.launches.values()), fa.launches
+        bp, fl = sum(bpm.spec_launches.values()), fa.launch_count()
         check(fl == L and bp == per_call, f"kv bits {c.kv_cache_bits}: "
               f"flash {fl} (want {L}), bit-plane {bp} (want {per_call}) "
               f"launches per generate")
-        check(bpm.path_launches == {"small_m": per_call - per_call
+        check(bpm.launches_by_path() == {"small_m": per_call - per_call
                                     // VLM_STEPS, "large_m": per_call
                                     // VLM_STEPS, "large_m_copy_x": 0},
-              f"launches by path {bpm.path_launches}")
+              f"launches by path {bpm.launches_by_path()}")
         check(torch.equal(toks, first) and bool(((toks >= 0)
                                                  & (toks < V)).all()),
               f"kv bits {c.kv_cache_bits}: repeated generate calls differ")
         out["launches"] += bp
         out["flash"] += fl
         for p_ in bpm.PATHS:
-            out["paths"][p_] += bpm.path_launches[p_]
+            out["paths"][p_] += bpm.launches_by_path()[p_]
         return eng, toks, walls, wall
 
     eng_g, toks_g, walls_g, wall_g = generate(cfg)
@@ -4353,7 +4395,7 @@ def vlm_path(b: Bench) -> dict:
                           **kw)
         bpm.reset_launches()
         res = cb_serve(eng, reqs, VLM_SLOTS + 2, 1, prefixes=pfx)
-        out["cb"] += sum(bpm.launches.values())
+        out["cb"] += sum(bpm.spec_launches.values())
         rids, wall, first_at, ticks = res[:4]
         recs = [eng.requests[r] for r in rids]
         check(all(r.done for r in recs) and eng.stats.unserved == 0,
@@ -4407,7 +4449,7 @@ def vlm_path(b: Bench) -> dict:
                         draft_budget_s=CB_DRAFT_BUDGET)
     bpm.reset_launches()
     rids_s = cb_serve(eng_s, sreqs, VLM_SPEC, 1, prefixes=pfx)[0]
-    out["cb"] += sum(bpm.launches.values())
+    out["cb"] += sum(bpm.spec_launches.values())
     for i, r in enumerate(rids_s):
         got = eng_s.requests[r].tokens
         check(got == toks_c[i][:VLM_SPEC_NEW], f"(b)3 speculative request "
@@ -4635,8 +4677,8 @@ def smoke_card_vs_cpu(b: Bench, arch: str = LM_ARCH, budget=(10.0, 0.4),
             out, _ = lm.prefill(eng.qparams, {k: v.to(where) for k, v in
                                               batch.items()},
                                 scfg, swv, sav, cache)
-        check(fa.launches == (want_fa if where.type == "cuda" else 0),
-              f"SMOKE {arch} prefill on {where}: {fa.launches} flash "
+        check(fa.launch_count() == (want_fa if where.type == "cuda" else 0),
+              f"SMOKE {arch} prefill on {where}: {fa.launch_count()} flash "
               f"launches, want {want_fa}")
         return out[:, -1, :scfg.vocab_size].float().cpu()
 
@@ -4784,7 +4826,7 @@ def p8_model(b: Bench, name: str, cfg, batch, budget, fams,
         toks = engine.generate(batch, P8_STEPS).cpu()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    got, paths = dict(bpm.shape_launches), dict(bpm.path_launches)
+    got, paths = bpm.launches_by_shape(), bpm.launches_by_path()
     want = {k: c for k, c in pre.items()}
     for k, c in dec.items():
         want[k] = want.get(k, 0) + c * (P8_STEPS - 1)
@@ -4795,16 +4837,16 @@ def p8_model(b: Bench, name: str, cfg, batch, budget, fams,
           f"{got} != {want}")
     check(paths == want_paths, f"{name}: launches by path {paths} != "
           f"plan()'s {want_paths}")
-    check(fa.launches == n_flash, f"{name}: {fa.launches} flash launches "
+    check(fa.launch_count() == n_flash, f"{name}: {fa.launch_count()} flash launches "
           f"per generate, want {n_flash}")
     check(toks.shape == (B, P8_STEPS) and torch.equal(toks[:, :P8_WARM], warm)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{name}: tokens {toks.tolist()} (warm-up {warm.tolist()})")
-    by_planes = {n: c for n, c in bpm.launches.items() if c}
+    by_planes = {n: c for n, c in bpm.launches_by_planes().items() if c}
     print(f"{name} generate (B={B}, S={S}" + (f", F={F} frames" if F else "")
           + f", {P8_STEPS} new, budget {budget}): bit-plane launches "
           f"{sum(got.values())} (by planes {by_planes}, by path {paths}), "
-          f"flash {fa.launches}; the warm-up's "
+          f"flash {fa.launch_count()}; the warm-up's "
           f"{P8_WARM} tokens repeat; flash on every launch's own q/k/v vs the"
           f" oracle: max |err| "
           f"{max((e for *_, e in layer_err), default=0.0):.6g} over "
@@ -4929,7 +4971,7 @@ def p8_path(b: Bench) -> dict:
 def kernel_launches() -> int:
     """Every kernel's launches since the last ``reset_all_launches``."""
     from repro_torch.kernels import bitplane_matmul as bpm
-    return sum(bpm.launches.values()) + sum(off_path_launches())
+    return sum(bpm.spec_launches.values()) + sum(off_path_launches())
 
 
 def train_smoke_card_vs_cpu(b: Bench, ckpt_dir: str) -> dict:
@@ -5059,14 +5101,14 @@ def flash_refusal(b: Bench) -> float:
         fail(f"train_loss at S={REFUSE_S} ran through flash with grad")
     except NotImplementedError as e:
         check("no backward" in str(e), f"flash refusal says {e}")
-    check(fa.launches == 0, f"{fa.launches} flash launches while refusing")
+    check(fa.launch_count() == 0, f"{fa.launch_count()} flash launches while refusing")
     with torch.no_grad():
         got = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     err = float((got.float() - oracle_f32(q.detach(), k.detach(), v.detach(),
                                           True, 0)).abs().max())
-    check(fa.launches == 1 and not got.requires_grad and err <= FLASH_TOL,
-          f"flash under no_grad: {fa.launches} launches, max |err| {err}")
+    check(fa.launch_count() == 1 and not got.requires_grad and err <= FLASH_TOL,
+          f"flash under no_grad: {fa.launch_count()} launches, max |err| {err}")
     b.fa_err = max(b.fa_err, err)
     print(f"flash refusal: operands that require grad at {shape} and "
           f"train_loss at S={REFUSE_S} raise; under no_grad the kernel "
@@ -5186,15 +5228,15 @@ def train_path(b: Bench, ckpt_dir: str) -> dict:
     t0 = time.perf_counter()
     toks = engine.generate(prompts, SERVE_NEW).cpu()
     wall = time.perf_counter() - t0
-    got, paths = dict(bpm.shape_launches), dict(bpm.path_launches)
+    got, paths = bpm.launches_by_shape(), bpm.launches_by_path()
     want_paths = {p: 0 for p in bpm.PATHS}
     for (M, K, N, _), c in got.items():
         want_paths[bpm.plan(M, K, N).path] += c
     check(sum(got.values()) > 0 and paths == want_paths
-          and fa.launches == 0
+          and fa.launch_count() == 0
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"serving the trained weights: bit-plane launches {got}, by path "
-          f"{paths} (plan() gives {want_paths}), flash {fa.launches}, "
+          f"{paths} (plan() gives {want_paths}), flash {fa.launch_count()}, "
           f"tokens {toks.tolist()}")
     for M, K, N, n_pl in sorted(got):
         b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
@@ -5248,8 +5290,8 @@ def p10_drive(torch, cli, argv):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fl, i4, qm = off_path_launches()
-    counts = {"shapes": dict(bpm.shape_launches),
-              "paths": dict(bpm.path_launches), "flash": fl, "int4": i4,
+    counts = {"shapes": bpm.launches_by_shape(),
+              "paths": bpm.launches_by_path(), "flash": fl, "int4": i4,
               "quant": qm}
     check(len(built) == 1, f"{argv}: built {len(built)} engines")
     return out, built[0], counts, wall
@@ -5653,11 +5695,12 @@ def p10_fluid_linear(b: Bench) -> None:
             acc = ops.int8_accum(x_q, w, planes=n)
             plain = bpm.bitplane_matmul_ref(x_q, w, n)
             torch.cuda.synchronize()
-            check(bpm.launches[n] == 2 and sum(bpm.launches.values()) == 2
+            by_planes = bpm.launches_by_planes()
+            check(by_planes[n] == 2 and sum(by_planes.values()) == 2
                   and torch.equal(acc, plain)
                   and torch.equal(y, plain.float() * xs * ws),
                   f"(e) fluid_linear {label} ({M},{K},{N}) at wbits {n}: "
-                  f"launches {bpm.launches}, int32 or f32 differs from the "
+                  f"launches {by_planes}, int32 or f32 differs from the "
                   f"plain version")
         print(f"(e) ops.fluid_linear on {label} ({M},{K},{N}) at wbits "
               f"1..8: one launch at exactly wbits planes each, int32 EQUAL "
@@ -5668,12 +5711,12 @@ def p10_fluid_linear(b: Bench) -> None:
     wb = torch.tensor(VMAP_BITS, device=dev)
     bpm.reset_launches()
     grouped = ops.serve_linear(p, x, wb, 8)
-    n_g, by_g = sum(bpm.launches.values()), dict(bpm.launches)
+    n_g, by_g = sum(bpm.spec_launches.values()), bpm.launches_by_planes()
     bpm.reset_launches()
     with ops.row_dispatch("vmap"):
         vm = ops.serve_linear(p, x, wb, 8)
     torch.cuda.synchronize()
-    n_v, by_v = sum(bpm.launches.values()), dict(bpm.launches)
+    n_v, by_v = sum(bpm.spec_launches.values()), bpm.launches_by_planes()
     check(torch.equal(vm, grouped) and n_v == len(VMAP_BITS)
           and n_g == len(ops.get_bit_families()),
           f"(e) vmap vs grouped: EQUAL {torch.equal(vm, grouped)}, "
@@ -5892,9 +5935,9 @@ def p11_phase(torch, dev, mesh, fn, *args):
             got = res["collectives"].setdefault(k, [0, 0])
             got[0] += c
             got[1] += nb
-    res["shapes"] = dict(bpm.shape_launches)
-    res["paths"] = dict(bpm.path_launches)
-    res["flash"] = fa.launches
+    res["shapes"] = bpm.launches_by_shape()
+    res["paths"] = bpm.launches_by_path()
+    res["flash"] = fa.launch_count()
     res["off_path"] = off_path_launches()[1:]
     return res
 
@@ -7145,6 +7188,248 @@ def p12_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
                     "step_s": ranks[0]["a"]["walls"][-1]}}
 
 
+# ---------------------------------------------------------------------------
+# Path 13: the analysis suite on the card
+# ---------------------------------------------------------------------------
+
+def p13_specs(rep) -> list:
+    """The distinct sets of kernel specialisations a report's calls
+    launched, printable."""
+    return [sorted(map(str, s)) for s in rep.spec_sets()]
+
+
+def p13_gate(label, rep, kernels) -> None:
+    """One signature across every variant, no host sync or error, and
+    each of ``kernels`` among the kernel specialisations it launched (the
+    signature hashes the launch set: one signature is one set)."""
+    check(rep.ok and len(rep.signatures) == 1
+          and all(any(k[0] == name for k in rep.spec_sets()[0])
+                  for name in kernels),
+          f"(b/c) {label}: signatures by group "
+          f"{ {g: len(v) for g, v in rep.groups.items()} }, errors "
+          f"{rep.errors}, syncs {rep.syncs}, specialisation sets "
+          f"{p13_specs(rep)} (want one holding {kernels})")
+
+
+def p13_syncs(torch, fn) -> list:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; each
+    sync the card reports, as (the innermost frame of the port, whether
+    it ran inside one of the engine's program bodies).  Other warnings
+    are shown as usual."""
+    import traceback
+    import warnings
+    from repro_torch.analysis import registry
+
+    events = []
+    show = warnings.showwarning
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            show(message, category, filename, lineno, file, line)
+            return
+        port = [f for f in traceback.extract_stack()
+                if "/src/repro_torch/" in f.filename
+                and "/analysis/" not in f.filename]
+        where = (port[-1].filename.split("/src/", 1)[1] + f":"
+                 f"{port[-1].lineno}") if port else "?"
+        inside = any(f.name in registry.PROGRAM_BODIES
+                     and f.filename.endswith("serve/engine.py")
+                     for f in port)
+        events.append((where, inside))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return events
+
+
+def p13_path(b: Bench, cfg, qparams, known=None) -> dict:
+    """Path 13: (a) the analysis CLI on the card, (b) Qwen3-4B FULL's
+    entrypoints across budgets, (c) ResNet18@224 across the HAWQ-V3
+    configurations, (d) the syncs the card sees in a tick and a
+    speculative round; then (b)'s and (c)'s kernel rows."""
+    import collections
+    import numpy as np
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch.analysis import lint, retrace
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import analyze
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine, default_controller
+
+    t_path = time.perf_counter()
+    # ---- (a) python -m repro_torch.launch.analyze --all --device cuda
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="analysis_") as d:
+        out = str(Path(d) / "analysis.json")
+        rc = analyze.main(["--all", "--device", "cuda", "--json", out])
+        payload = json.loads(Path(out).read_text())
+    a_s = time.perf_counter() - t0
+    check(rc == 0 and payload["ok"] and payload["device"] == "cuda",
+          f"(a) the analysis suite on the card: exit {rc}, fresh "
+          f"{ {n: p['fresh'] for n, p in payload['passes'].items()} }, "
+          f"stale baseline {payload['stale_baseline']}")
+    for name, res in payload["passes"].items():
+        print(f"(a) [{name}] ok, {res['suppressed']} baselined: "
+              + "; ".join(res["notes"]))
+    print(f"{tag} (a) repro_torch.launch.analyze --all --device cuda: "
+          f"PASS in {a_s:.3f} s")
+
+    # ---- (b) Qwen3-4B FULL: generate across budgets, path 4's engine
+    # shape's prefill row and decode block across budgets and mixes
+    n = lm.n_bit_slots(cfg)
+    B, S, new = P13_GEN
+    check(S > tf.FLASH_THRESHOLD, "(b) the prompts must reach flash")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, qparams, max_len=S + new,
+                      controller=default_controller(n), device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(13))
+    outs = {}
+
+    def gen(budget):
+        eng.set_budget(budget)
+        outs[budget] = eng.generate({"tokens": tokens}, new)
+        return outs[budget]
+
+    eng.set_budget(LM_BUDGETS[0])
+    eng._bits()                          # fills the controller's table
+    gen_rep = retrace.audit_entrypoint(
+        LM_ARCH, "generate",
+        [(f"budget={bud}", lambda bud=bud: (bud,)) for bud in LM_BUDGETS],
+        gen)
+    check(all(tuple(o.shape) == (B, new) and bool(((o >= 0)
+              & (o < cfg.vocab_size)).all()) for o in outs.values()),
+          f"(b) generate: shapes {[tuple(o.shape) for o in outs.values()]}")
+    p13_gate("generate", gen_rep, ("bitplane_matmul", "flash_attention"))
+    del eng
+    cb = ServeEngine(cfg, qparams, max_len=CB_PREFILL + 64,
+                     controller=default_controller(n), n_slots=CB_SLOTS,
+                     prefill_len=CB_PREFILL, decode_block=P13_BLOCK,
+                     spec_k=CB_SPEC_K, draft_budget_s=CB_DRAFT_BUDGET,
+                     device=dev)
+    cb_reps = retrace.audit_engine(
+        LM_ARCH, cb, budgets=LM_BUDGETS, mixes=P13_MIXES,
+        only=("prefill_row", "decode_scan"))
+    for rep in cb_reps:
+        p13_gate(rep.entrypoint, rep, ("bitplane_matmul",))
+    b_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    b_shapes = bpm.launches_by_shape()
+    b_paths = bpm.launches_by_path()
+    b_flash = fa.launch_count()
+    b_flash_specs = dict(fa.spec_launches)
+    check(sum(b_shapes.values()) > 0
+          and b_flash == cfg.n_layers * len(LM_BUDGETS),
+          f"(b) launches: bit-plane {sum(b_shapes.values())}, flash "
+          f"{b_flash} (want {cfg.n_layers} a generate call)")
+    for rep in [gen_rep] + cb_reps:
+        (sig, labels), = [(s_, l_) for s_, l_ in rep.signatures.items()]
+        print(f"(b) {LM_ARCH} FULL {rep.entrypoint}: {len(labels)} "
+              f"variants ({', '.join(labels)}), one signature {sig}, "
+              f"{len(rep.spec_sets()[0])} kernel specialisations: "
+              f"{', '.join(p13_specs(rep)[0])}")
+
+    # ---- (c) ResNet18@224 across the HAWQ-V3 configurations
+    reset_all_launches()
+    t0 = time.perf_counter()
+    image, batch = P13_CNN
+    cnn_rep = retrace.audit_cnn(dev, image=image, batch=batch)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    p13_gate("ResNet18 cnn_forward", cnn_rep, ("bitplane_matmul",))
+    c_shapes = bpm.launches_by_shape()
+    c_paths = bpm.launches_by_path()
+    check(sum(c_shapes.values()) > 0 and fa.launch_count() == 0,
+          f"(c) launches: bit-plane {sum(c_shapes.values())}, flash "
+          f"{fa.launch_count()}")
+    (sig, labels), = list(cnn_rep.signatures.items())
+    print(f"(c) ResNet18@{image} B={batch}: {len(labels)} HAWQ-V3 "
+          f"configurations ({', '.join(labels)}), one signature {sig}, "
+          f"{len(cnn_rep.spec_sets()[0])} kernel specialisations, "
+          f"{sum(c_shapes.values())} bit-plane launches")
+
+    # ---- (d) the syncs the card sees: a tick, then a speculative round
+    t0 = time.perf_counter()
+    gen_h = np.random.default_rng(13)
+
+    def prompt(L):
+        return gen_h.integers(1, cfg.vocab_size, size=L).astype(np.int32)
+
+    for L in P13_SYNC_PROMPTS[:2]:
+        cb.submit(prompt(L), max_new_tokens=P13_SYNC_NEW, budget_s=0.8,
+                  draft_k=0)
+    cb.calls = dict.fromkeys(cb.calls, 0)
+    tick = p13_syncs(torch, cb.step)
+    check(cb.calls["decode"] == P13_BLOCK and cb.calls["verify"] == 0,
+          f"(d) the first step is not one vanilla tick: {cb.calls}")
+    cb.submit(prompt(P13_SYNC_PROMPTS[2]), max_new_tokens=P13_SYNC_NEW,
+              budget_s=10.0, draft_k=CB_SPEC_K)
+    spec = p13_syncs(torch, cb.step)
+    check(cb.calls["verify"] == 1,
+          f"(d) the second step is not one speculative round: {cb.calls}")
+    d_s = time.perf_counter() - t0
+    # what the static passes report: the lint's raw findings (fresh or
+    # baselined) and the host syncs (RT502) (b)'s and (c)'s recordings saw
+    reported = {f"{f.file.split('src/', 1)[1]}:{f.line}"
+                for f in lint.run_lint()}
+    for rep in [gen_rep, cnn_rep] + cb_reps:
+        for frames in rep.syncs.values():
+            reported |= {w.split("src/", 1)[-1] for w in frames}
+    missed = []
+    for label, events in (("tick", tick), ("speculative round", spec)):
+        by = collections.Counter(w for w, _ in events)
+        inside = [w for w, i in events if i]
+        print(f"(d) {label}: {len(events)} syncs the card reports, "
+              f"{len(inside)} inside a program body; by place: "
+              + ", ".join(f"{w} x{c}" for w, c in sorted(by.items())))
+        missed += [w for w in inside if w not in reported]
+    check(not missed, f"(d) syncs inside a program body that neither the "
+                      f"lint nor RT502 reports: {sorted(set(missed))}")
+    del cb
+    torch.cuda.empty_cache()
+
+    # ---- kernel rows: (b)'s and (c)'s launches
+    rows = {}
+    for name, shapes, paths in (("b", b_shapes, b_paths),
+                                ("c", c_shapes, c_paths)):
+        per_shape = shape_rows(b, shapes, known or {})
+        tot = [sum(c * per_shape[k][j] for k, c in shapes.items())
+               for j in range(7)]
+        k_ms, p_ms, l_ms, t_bytes, t_ops, d_ms, ld_ms = tot
+        rows[name] = {"launches": sum(shapes.values()), "ms": k_ms,
+                      "plain_ms": p_ms, "library_ms": l_ms,
+                      "t_bytes": t_bytes, "t_ops": t_ops,
+                      "device_ms": d_ms, "library_device_ms": ld_ms,
+                      "bound_ms": sum(c * max(per_shape[k][3],
+                                              per_shape[k][4])
+                                      for k, c in shapes.items()),
+                      "paths": paths}
+    fl = flash_row(b, (B * cfg.n_heads, S, cfg.head_dim),
+                   " (path 13 (b) generate prefill)")
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 13: (a) {a_s:.3f} s, (b) {b_s:.3f} s "
+          f"({len(LM_BUDGETS)} generate calls of {B} x {S}, "
+          f"{sum(len(v) for r in cb_reps for v in r.signatures.values())} "
+          f"prefill rows and decode blocks), (c) {c_s:.3f} s, (d) "
+          f"{d_s:.3f} s; bit-plane launches (b) {rows['b']['launches']} "
+          f"(by path {b_paths}), (c) {rows['c']['launches']} (by path "
+          f"{c_paths}); flash (b) {b_flash} at {sorted(b_flash_specs)}; "
+          f"path 13 wall {wall:.3f} s")
+    return {"bitplane_b": rows["b"], "bitplane_c": rows["c"],
+            "flash": flash_entry(b_flash, fl, b_flash),
+            "e2e": {"wall_s": wall, "analyze_s": a_s,
+                    "syncs": (len(tick), len(spec))}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -7296,9 +7581,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-15. the twelve paths (a development run may pick some with
-    # --paths 1,4; only a run of all twelve prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}
+    # ---- 4.-16. the thirteen paths (a development run may pick some with
+    # --paths 1,4; only a run of all thirteen prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -7309,7 +7594,7 @@ def main() -> None:
             cnn_path(b)
         if 2 in picked:
             alexnet_path(b)
-        if picked & {3, 4, 5, 6}:
+        if picked & {3, 4, 5, 6, 13}:
             cfg, qparams = lm_weights(b)
             if 3 in picked:
                 lm_path(b, cfg, qparams)
@@ -7318,6 +7603,9 @@ def main() -> None:
                 pc_path(b, *lm_cut(cfg, qparams, PC_LAYERS))
             if 6 in picked:
                 so_path(b, cfg, qparams, cb_ref=cbr)
+            if 13 in picked:
+                p13_path(b, cfg, qparams,
+                         known=cbr["per_shape"] if cbr else None)
             del qparams
             torch.cuda.empty_cache()
         if 7 in picked:
@@ -7357,6 +7645,8 @@ def main() -> None:
     cbr = timed("4", cb_path, b, cfg, qparams)
     pcr = timed("5", pc_path, b, *lm_cut(cfg, qparams, PC_LAYERS))
     sor = timed("6", so_path, b, cfg, qparams, cnn_ref=cnn, cb_ref=cbr)
+    p13r = timed("13", p13_path, b, cfg, qparams,
+                 known={**cbr["per_shape"], **cnn["per_shape"]})
     del qparams                 # path 7 needs the card's memory
     torch.cuda.empty_cache()
     moer = timed("7 (a)", moe_path, b)
@@ -7395,7 +7685,9 @@ def main() -> None:
                 "qwen3_4b_trained_generate_call": p9r["bitplane"],
                 "qwen3_4b_serve_cli_runs": p10r["bitplane"],
                 "tensor_and_expert_parallel_rank": p11r["bitplane"],
-                "trained_tensor_parallel_serve_rank": p12r["bitplane"]}
+                "trained_tensor_parallel_serve_rank": p12r["bitplane"],
+                "qwen3_4b_analysis_audit": p13r["bitplane_b"],
+                "resnet18_hawq_analysis_audit": p13r["bitplane_c"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -7403,7 +7695,8 @@ def main() -> None:
                 "seamless_generate_call": p8r["encdec"]["flash"],
                 "stablelm_generate_call": p8r["dense"]["flash"],
                 "qwen3_4b_serve_cli_batch_run": p10r["flash"],
-                "qwen3_4b_tensor_parallel_rank": p11r["flash"]}
+                "qwen3_4b_tensor_parallel_rank": p11r["flash"],
+                "qwen3_4b_analysis_generate": p13r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -7460,7 +7753,11 @@ def main() -> None:
           f"{P12_RANKS} gloo ranks sharing the card) "
           f"{p12r['e2e']['wall_s']:.3f} s, its ranks "
           f"{p12r['e2e']['ranks_s']:.3f} s, a tensor-parallel {LM_ARCH} "
-          f"step {p12r['e2e']['step_s']:.3f} s a rank")
+          f"step {p12r['e2e']['step_s']:.3f} s a rank; path 13 (the "
+          f"analysis suite on the card) {p13r['e2e']['wall_s']:.3f} s, "
+          f"its analyze --all {p13r['e2e']['analyze_s']:.3f} s, syncs the "
+          f"card reported in a tick and a speculative round "
+          f"{p13r['e2e']['syncs']}")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,11 @@ ACC_DTYPE = torch.int32
 
 
 def _bits_tensor(bits, dtype, device) -> torch.Tensor:
+    """``bits`` as a tensor on ``device``.  A Python number is filled on
+    the device: ``torch.as_tensor`` would copy it from the host, a sync
+    per call on the card."""
+    if isinstance(bits, (int, float)):
+        return torch.full((), bits, dtype=dtype, device=device)
     return torch.as_tensor(bits, dtype=dtype, device=device)
 
 

@@ -236,7 +236,13 @@ class BudgetController:
         n_layers)`` for a ``(B,)`` budget vector — a pure gather."""
         wtab, atab = self.stacked_tables()
         idx = self.select(budget_s).long()
-        return wtab[idx], atab[idx]
+        # index_select, not wtab[idx]: a 0-d index tensor would be read
+        # back as a Python int (a host sync, and an op stream that
+        # follows the budget)
+        flat = idx.reshape(-1)
+        shape = tuple(idx.shape) + tuple(wtab.shape[1:])
+        return (wtab.index_select(0, flat).reshape(shape),
+                atab.index_select(0, flat).reshape(shape))
 
 
 @dataclasses.dataclass

@@ -36,14 +36,13 @@ import torch
 
 from repro_torch.kernels import cuda_build
 
-# kernel launches per n_planes (the main path's proof that it ran here)
-launches: Dict[int, int] = {n: 0 for n in range(1, 9)}
-# the same launches by path: the small-M GEMV, or the large-M wgmma GEMM
-# with x read in place or re-pitched first (rows not 16-byte aligned)
+# the kernel's paths: the small-M GEMV, or the large-M wgmma GEMM with x
+# read in place or re-pitched first (rows not 16-byte aligned)
 PATHS = ("small_m", "large_m", "large_m_copy_x")
-path_launches: Dict[str, int] = {p: 0 for p in PATHS}
-# the same launches by shape: (M, K, N, n_planes) -> count
-shape_launches: Dict[Tuple[int, int, int, int], int] = {}
+# kernel launches by specialisation, (path, n_planes, M, K, N) -> count:
+# the main path's proof that it ran here.  The launches_by_* views below
+# are sums over it.
+spec_launches: Dict[Tuple[str, int, int, int, int], int] = {}
 
 SMALL_M = 16          # the GEMV's rows: one m16 tile of mma.sync
 GEMV_COLS = 128       # output columns per GEMV block
@@ -54,11 +53,31 @@ H100_SMS = 132
 
 
 def reset_launches() -> None:
-    for n in launches:
-        launches[n] = 0
-    for p in path_launches:
-        path_launches[p] = 0
-    shape_launches.clear()
+    spec_launches.clear()
+
+
+def launches_by_planes() -> Dict[int, int]:
+    """Launches per n_planes (1..8, zeros included)."""
+    out = {n: 0 for n in range(1, 9)}
+    for (_, n, _, _, _), c in spec_launches.items():
+        out[n] += c
+    return out
+
+
+def launches_by_path() -> Dict[str, int]:
+    """Launches per path (every PATHS entry, zeros included)."""
+    out = {p: 0 for p in PATHS}
+    for (path, _, _, _, _), c in spec_launches.items():
+        out[path] += c
+    return out
+
+
+def launches_by_shape() -> Dict[Tuple[int, int, int, int], int]:
+    """Launches per (M, K, N, n_planes)."""
+    out: Dict[Tuple[int, int, int, int], int] = {}
+    for (_, n, M, K, N), c in spec_launches.items():
+        out[(M, K, N, n)] = out.get((M, K, N, n), 0) + c
+    return out
 
 
 @dataclass(frozen=True)
@@ -195,10 +214,8 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "
                            f"error {err} at ({M}, {K}) @ ({K}, {N}), "
                            f"n_planes={n_planes}, plan {p}")
-    launches[n_planes] += 1
-    path_launches[p.path] += 1
-    key = (M, K, N, n_planes)
-    shape_launches[key] = shape_launches.get(key, 0) + 1
+    spec = (p.path, n_planes, M, K, N)
+    spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -43,13 +44,18 @@ HEAD_DIMS = (64, 128, 160)     # the kernel's template instantiations
 QUERY_TILE = 128               # BQ in flash_attention.cu
 KEY_TILE = 128                 # BKV in flash_attention.cu
 
-# kernel launches (the main path's proof that it ran here)
-launches = 0
+# kernel launches by specialisation, (template head dim, causal, window)
+# -> count: the main path's proof that it ran here
+spec_launches: Dict[Tuple[int, bool, int], int] = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    spec_launches.clear()
+
+
+def launch_count() -> int:
+    """Launches of every specialisation."""
+    return sum(spec_launches.values())
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +220,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} at BH={BH}, Sq={Sq}, Sk={Sk}, "
                            f"hd={hd}")
-    global launches
-    launches += 1
+    spec = (hk, bool(causal), int(window))
+    spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out if hk == hd else out[..., :hd]
 
 

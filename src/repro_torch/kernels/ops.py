@@ -416,10 +416,14 @@ def _stacked_container(p, x, wb, abits):
 
 def _family_index(wb: torch.Tensor, fams) -> torch.Tensor:
     """Index of the smallest family >= wb (clamped into the family range) —
-    exact whenever wb is in the set, snap-up otherwise."""
-    bounds = torch.as_tensor(fams, dtype=torch.int32, device=wb.device)
+    exact whenever wb is in the set, snap-up otherwise: the count of
+    families below it (compared with Python scalars, so no table is
+    copied from the host)."""
     clipped = torch.clamp(wb.to(torch.int32), fams[0], fams[-1])
-    return torch.searchsorted(bounds, clipped, side="left").to(torch.int32)
+    idx = torch.zeros_like(clipped)
+    for f in fams[:-1]:
+        idx += (clipped > f).to(torch.int32)
+    return idx
 
 
 def _serve_linear_rows(p, x, wbits, abits):
@@ -470,9 +474,11 @@ def _serve_linear_rows(p, x, wbits, abits):
     ws_stack = torch.cat(scales, dim=0)                     # (G, N)
 
     # scatter rows back: gather each row's accumulator from its family
-    remap = torch.as_tensor([uniq.index(e) for e in eff], dtype=torch.long,
-                            device=x.device)
-    fam_of_row = remap[_family_index(wb, fams).long()]      # (B,)
+    fam_idx = _family_index(wb, fams).long()
+    fam_of_row = torch.zeros_like(fam_idx)                  # (B,)
+    for j, e in enumerate(eff):
+        if uniq.index(e):
+            fam_of_row += (fam_idx == j).long() * uniq.index(e)
     idx_r = torch.repeat_interleave(fam_of_row, R // B)     # (R,)
     acc = _sum_acc(acc_stack[idx_r, torch.arange(R, device=x.device)])
     w_s = ws_stack[idx_r]                                   # (R, N)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -37,18 +37,30 @@ plan = bpm.plan
 ACTS = ("none", "relu", "silu", "gelu")
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
-# kernel launches per act (the main path's proof it ran here), and the
-# same launches by path (bpm.PATHS: the GEMV, or the large-M tile with x
-# read in place or re-pitched)
-launches: Dict[str, int] = {a: 0 for a in ACTS}
-path_launches: Dict[str, int] = {p: 0 for p in bpm.PATHS}
+# kernel launches by specialisation, (act, path) -> count: the main
+# path's proof it ran here (bpm.PATHS: the GEMV, or the large-M tile with
+# x read in place or re-pitched).  The launches_by_* views sum over it.
+spec_launches: Dict[Tuple[str, str], int] = {}
 
 
 def reset_launches() -> None:
-    for a in launches:
-        launches[a] = 0
-    for p in path_launches:
-        path_launches[p] = 0
+    spec_launches.clear()
+
+
+def launches_by_act() -> Dict[str, int]:
+    """Launches per act (every ACTS entry, zeros included)."""
+    out = {a: 0 for a in ACTS}
+    for (act, _), c in spec_launches.items():
+        out[act] += c
+    return out
+
+
+def launches_by_path() -> Dict[str, int]:
+    """Launches per path (every bpm.PATHS entry, zeros included)."""
+    out = {p: 0 for p in bpm.PATHS}
+    for (_, path), c in spec_launches.items():
+        out[path] += c
+    return out
 
 
 def gate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -135,8 +147,8 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err} at ({M}, {K}) @ ({K}, {N}), act={act}, "
                            f"plan {p}")
-    launches[act] += 1
-    path_launches[p.path] += 1
+    spec = (act, p.path)
+    spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out
 
 

@@ -26,7 +26,10 @@ by ``repro_torch.launch.train`` before quantizing: train -> checkpoint
 -> quantized bit-fluid serving.
 
 The engine runs eagerly, so where the reference prints its compiled
-program counts this prints the model forwards the engine ran.
+program counts this prints the model forwards the engine ran, and the
+kernel specialisations the run launched
+(``repro_torch.kernels.launch_keys``): their count does not grow with
+the number of budget levels.
 :func:`main` returns what it printed as a dict.
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import policy as pol
 from repro_torch.data.pipeline import make_batch
+from repro_torch.kernels import launch_keys, launches_since
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.serve import aggregate, predict_table
@@ -135,6 +139,20 @@ def main(argv=None) -> dict:
     return out
 
 
+def _specialisations(before: dict, levels: int) -> dict:
+    """Print the kernel specialisations a run launched (the counterpart
+    of the reference's compiled-programs line: a budget or bit
+    configuration never adds one); returns the count per kernel."""
+    ran = launches_since(before)
+    counts = {name: sum(1 for k in ran if k[0] == name)
+              for name in ("bitplane_matmul", "flash_attention")}
+    print(f"[serve] kernel specialisations: "
+          f"bitplane={counts['bitplane_matmul']} "
+          f"flash={counts['flash_attention']} (fluid across {levels} "
+          f"budget levels)")
+    return counts
+
+
 def _forwards_line(prefill: int, decode: int, what: str) -> str:
     return (f"[serve] model forwards (eager: nothing is compiled, so "
             f"there is no trace count): prefill={prefill} decode={decode} "
@@ -146,6 +164,7 @@ def _serve_continuous(cfg, qparams, ctrl, args, dev) -> dict:
     eng = ServeEngine(cfg, qparams, max_len=args.max_len, controller=ctrl,
                       n_slots=args.n_slots, prefill_len=args.prompt_len,
                       decode_block=args.decode_block, device=dev)
+    before = launch_keys()
     t0 = time.time()
     rids = []
     for i in range(args.requests):
@@ -185,18 +204,21 @@ def _serve_continuous(cfg, qparams, ctrl, args, dev) -> dict:
               f"over {agg['requests']} admissions")
         closed_loop = {"spent_edp": agg["edp"], "slo_edp": ctrl.slo,
                        "admissions": agg["requests"]}
+    levels = 1 if closed else len(set(args.budgets))
     print(_forwards_line(
         eng.calls["prefill"], eng.calls["decode"],
-        f"fluid across {1 if closed else len(set(args.budgets))} budget "
-        f"levels, {eng.stats.admitted} admissions"))
+        f"fluid across {levels} budget levels, {eng.stats.admitted} "
+        f"admissions"))
     return {"mode": "continuous", "requests": requests,
             "closed_loop": closed_loop, "wall_s": dt,
-            "calls": dict(eng.calls), "stats": _stats(eng.stats)}
+            "calls": dict(eng.calls), "stats": _stats(eng.stats),
+            "specialisations": _specialisations(before, levels)}
 
 
 def _serve_batches(cfg, qparams, ctrl, args, dev) -> dict:
     eng = ServeEngine(cfg, qparams, max_len=args.max_len, controller=ctrl,
                       device=dev)
+    before = launch_keys()
     batches = []
     for bi, budget in enumerate(args.budgets):
         eng.set_budget(budget)
@@ -221,7 +243,8 @@ def _serve_batches(cfg, qparams, ctrl, args, dev) -> dict:
                          f"fluid across {n} budgets"))
     return {"mode": "batch", "batches": batches,
             "calls": {"prefill": n, "decode": n * (args.steps - 1)},
-            "stats": _stats(eng.stats)}
+            "stats": _stats(eng.stats),
+            "specialisations": _specialisations(before, n)}
 
 
 def _stats(stats) -> dict:

@@ -100,6 +100,12 @@ def _expert_ffn(pe, xin, wbits, abits):
     return stacked(pe["wd"], h)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` without its range check, which reads the
+    index's min and max back to the host off CUDA (a sync per call)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _route(p, xf, cfg):
     """Router top-k and the load-balance aux.  xf: (T, d).  Returns
     (topi (T, k) int64, topv (T, k) f32 renormalised, aux f32)."""
@@ -112,7 +118,7 @@ def _route(p, xf, cfg):
     topv, topi = vals[:, :k], idx[:, :k]
     topv = topv / topv.sum(dim=-1, keepdim=True)
     me = probs.mean(dim=0)
-    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    ce = _one_hot(topi[:, 0], E).float().mean(dim=0)
     rows = kops.rows_split_mesh()
     if rows is not None and probs.requires_grad:
         # the train form on a data rank's rows: the batch's means (equal
@@ -131,7 +137,7 @@ def _positions(topi, E: int, C: int):
     counts = torch.zeros((E,), dtype=torch.int32, device=topi.device)
     pos_list, keep_list = [], []
     for j in range(k):
-        oh = F.one_hot(topi[:, j], E).to(torch.int32)           # (T, E)
+        oh = _one_hot(topi[:, j], E).to(torch.int32)            # (T, E)
         pos_j = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1 + counts[None]
         pos_sel = (oh * pos_j).sum(dim=-1, dtype=torch.int32)   # (T,)
         counts = counts + oh.sum(dim=0, dtype=torch.int32)

@@ -15,8 +15,8 @@ pass through the paper's calibrated AP cost model.
 The reference counts compiled programs to show that configuration
 switches never recompile; the port runs eagerly, and its counterpart is
 the bit-plane kernel's launch count per ``n_planes``
-(``repro_torch.kernels.bitplane_matmul.launches``), which only ever
-touches the controller's bit families.
+(``repro_torch.kernels.bitplane_matmul.launches_by_planes``), which only
+ever touches the controller's bit families.
 
 Placement (``mesh=``, ``plan=``): a plan without a mesh prices every
 image under it (latency amortized over the replicas, energy unchanged).
@@ -198,7 +198,7 @@ def hawq_fidelity_sweep(network: str = "resnet18", image: int = 32,
     qp = cnn.quantize_cnn_params(params, layers)
     x = torch.randn((batch, image, image, 3), generator=gen).to(dev)
     ref = torch.softmax(cnn.cnn_forward(params, x, layers), dim=-1)
-    before = dict(bpm.launches)
+    before = bpm.launches_by_planes()
     fid = {}
     for name, vec in HAWQV3_RESNET18.items():
         bits = torch.tensor(per_layer_bits(layers, vec), dtype=torch.int32,
@@ -208,6 +208,6 @@ def hawq_fidelity_sweep(network: str = "resnet18", image: int = 32,
         fid[name] = float(1.0 - 0.5 * (out - ref).abs().sum(-1).mean())
     if not all(np.isfinite(v) for v in fid.values()):
         raise FloatingPointError(f"non-finite fidelity: {fid}")
-    launches = {n: c - before[n] for n, c in bpm.launches.items()
+    launches = {n: c - before[n] for n, c in bpm.launches_by_planes().items()
                 if c != before[n]}
     return fid, launches

@@ -56,8 +56,10 @@ a method, so ``generate(fused=)`` changes nothing.  Two consequences:
 the draft runs only as deep as the deepest row of the round can accept
 (the reference always drafts ``SPEC_K_MAX``; tokens past a row's depth
 are never accepted, so no output changes), and ``stats`` (the copied
-``RuntimeStats``) counts no traces: nothing is compiled, so the
-reference's zero-retrace property has no counterpart.  ``calls`` counts
+``RuntimeStats``) counts no traces: nothing is compiled.  The
+counterpart of the reference's zero-retrace property is
+:mod:`repro_torch.analysis.retrace`: one aten op stream and one set of
+kernel specialisations per program across every budget.  ``calls`` counts
 the model forwards the continuous API runs instead (``"extend"`` counts
 the decode steps of partial-hit extensions, the counterpart of the
 reference's ``extend`` program).  A partial hit extends exactly its ``r``

@@ -51,9 +51,40 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.data", "repro_torch.data.pipeline",
             "repro_torch.launch", "repro_torch.launch.train",
             "repro_torch.launch.serve",
-            "repro_torch.core", "repro_torch.core.emulator"} \
+            "repro_torch.core", "repro_torch.core.emulator",
+            "repro_torch.analysis", "repro_torch.analysis.common",
+            "repro_torch.analysis.lint", "repro_torch.analysis.ledger",
+            "repro_torch.analysis.registry", "repro_torch.analysis.retrace",
+            "repro_torch.analysis.sharding", "repro_torch.launch.analyze",
+            "repro_torch.launch.specs"} \
         <= set(names.split(","))
     assert bad == "", f"importing repro_torch loaded {bad}"
+
+
+_ANALYZE_CHILD = r"""
+import sys
+from repro_torch.launch import analyze
+rc = analyze.main(["--lint", "--ledger", "--sharding", "--configs",
+                   "qwen3_4b"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print("RC", rc)
+print("BAD", ",".join(bad))
+"""
+
+
+def test_analysis_suite_runs_without_jax_or_the_reference():
+    """repro_torch.analysis and repro_torch.launch.analyze, run (their
+    passes import lazily), load no jax and no reference module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _ANALYZE_CHILD],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert "RC 0" in lines, res.stdout
+    assert "BAD " in lines, res.stdout
 
 
 _FORBIDDEN = re.compile(

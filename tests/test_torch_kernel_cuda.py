@@ -40,10 +40,10 @@ def _rand(shape, device, seed):
 def test_kernel_equals_plain_version(cuda, n_planes):
     for i, (M, K, N) in enumerate(EDGE_SHAPES):
         x, w = _rand((M, K), cuda, i), _rand((K, N), cuda, 100 + i)
-        before = bpm.launches[n_planes]
+        before = bpm.launches_by_planes()[n_planes]
         got = bpm.bitplane_matmul(x, w, n_planes=n_planes)
         torch.cuda.synchronize()
-        assert bpm.launches[n_planes] == before + 1
+        assert bpm.launches_by_planes()[n_planes] == before + 1
         assert got.dtype == torch.int32 and got.shape == (M, N)
         assert torch.equal(got, bpm.bitplane_matmul_ref(x, w, n_planes))
 
@@ -78,10 +78,10 @@ REGIME_SHAPES = [
 def test_kernel_regimes_equal_plain_version(cuda, n_planes):
     for i, (M, K, N) in enumerate(REGIME_SHAPES):
         x, w = _rand((M, K), cuda, 40 + i), _rand((K, N), cuda, 140 + i)
-        before = dict(bpm.path_launches)
+        before = bpm.launches_by_path()
         got = bpm.bitplane_matmul(x, w, n_planes=n_planes)
         torch.cuda.synchronize()
-        ran = [p for p in bpm.PATHS if bpm.path_launches[p] != before[p]]
+        ran = [p for p in bpm.PATHS if bpm.launches_by_path()[p] != before[p]]
         want_path = ("small_m" if M <= bpm.SMALL_M else
                      "large_m" if K % 16 == 0 else "large_m_copy_x")
         assert ran == [want_path], (M, K, N)
@@ -144,10 +144,10 @@ def test_flash_kernel_matches_oracle(cuda, causal, window):
         q = _bf16((BH, Sq, hd), cuda, i)
         k, v = _bf16((BH, Sk, hd), cuda, 10 + i), _bf16((BH, Sk, hd), cuda,
                                                         20 + i)
-        before = fa.launches
+        before = fa.launch_count()
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        assert fa.launches == before + 1
+        assert fa.launch_count() == before + 1
         assert got.dtype == torch.bfloat16 and got.shape == (BH, Sq, hd)
         want = fa.flash_attention_ref(q.float(), k.float(), v.float(),
                                       causal, window)
@@ -186,9 +186,9 @@ def test_flash_kernel_edges_match_oracle(cuda, case):
 
 def test_flash_dispatch_on_card_uses_the_kernel(cuda):
     q = _bf16((4, 3000, 128), cuda, 1)
-    before = fa.launches
+    before = fa.launch_count()
     got = ops.flash_attention(q, q, q, causal=True)
-    assert fa.launches == before + 1
+    assert fa.launch_count() == before + 1
     want = fa.flash_attention_chunked_ref(q, q, q, True)
     assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL
 
@@ -211,7 +211,7 @@ def test_flash_refuses_operands_that_require_grad(cuda):
     under no_grad launches and matches the plain version."""
     q = _bf16((8, 4096, 128), cuda, 4)
     k, v = _bf16((8, 4096, 128), cuda, 5), _bf16((8, 4096, 128), cuda, 6)
-    before = fa.launches
+    before = fa.launch_count()
     for leaf in (q, k, v):
         leaf.requires_grad_(True)
         with pytest.raises(NotImplementedError, match="no backward"):
@@ -219,12 +219,12 @@ def test_flash_refuses_operands_that_require_grad(cuda):
         with pytest.raises(NotImplementedError, match="no backward"):
             fa.flash_attention(q, k, v, causal=True)
         leaf.requires_grad_(False)
-    assert fa.launches == before
+    assert fa.launch_count() == before
     q.requires_grad_(True)
     with torch.no_grad():
         got = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1 and not got.requires_grad
+    assert fa.launch_count() == before + 1 and not got.requires_grad
     want = fa.flash_attention_chunked_ref(q.detach(), k, v, True)
     assert float((got.float() - want.float()).abs().max()) <= FLASH_TOL
 
@@ -287,10 +287,10 @@ def test_quant_kernel_matches_plain_version(cuda, act, out_dtype):
         s = _scale(N, cuda, 200 + i)
         b = torch.from_numpy(np.random.default_rng(300 + i).normal(
             size=(1, N)).astype(np.float32)).to(cuda)
-        before = qmm.launches[act]
+        before = qmm.launches_by_act()[act]
         got = qmm.quant_matmul(x, w, s, b, act=act, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        assert qmm.launches[act] == before + 1
+        assert qmm.launches_by_act()[act] == before + 1
         assert got.dtype == out_dtype and got.shape == (M, N)
         want = qmm.quant_matmul_ref(x, w, s, b, act, out_dtype)
         if act in ("none", "relu"):
@@ -324,9 +324,10 @@ def test_packed_and_stacked_dispatch_on_card(cuda):
     with ops.bit_families((4, 8)):
         want = ops.serve_linear_stacked({k: v.cpu() for k, v in p.items()},
                                         xs, wb, 8)
-        before = dict(bpm.launches)
+        before = bpm.launches_by_planes()
         got = ops.serve_linear_stacked(p, xs.to(cuda), wb.to(cuda), 8)
-    assert {n: bpm.launches[n] - before[n] for n in (4, 8)} == {4: 2, 8: 2}
+    after = bpm.launches_by_planes()
+    assert {n: after[n] - before[n] for n in (4, 8)} == {4: 2, 8: 2}
     assert torch.equal(got.cpu(), want)
 
 
@@ -365,10 +366,10 @@ def test_quant_kernel_regimes_match_plain_version(cuda, N, act, out_dtype):
         s = _scale(N, cuda, 270 + i)
         b = torch.from_numpy(np.random.default_rng(370 + i).normal(
             size=(1, N)).astype(np.float32)).to(cuda)
-        before = dict(qmm.path_launches)
+        before = qmm.launches_by_path()
         got = qmm.quant_matmul(x, w, s, b, act=act, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        ran = [p for p in bpm.PATHS if qmm.path_launches[p] != before[p]]
+        ran = [p for p in bpm.PATHS if qmm.launches_by_path()[p] != before[p]]
         assert ran == [_path(qmm, M, K, N, x)], (M, K, N)
         want = qmm.quant_matmul_ref(x, w, s, b, act, out_dtype)
         if act in ("none", "relu"):
@@ -415,11 +416,11 @@ def test_stacked_expert_dispatch_on_card(cuda, M):
         :, None, None]
     bits = torch.tensor([8, 4, 6, 2, 3, 8], dtype=torch.int32)
     pc = {k: v.to(cuda) for k, v in p.items()}
-    before = dict(bpm.launches)
+    before = bpm.launches_by_planes()
     got = ops.serve_linear_stacked(pc, x.to(cuda), bits.to(cuda), 8,
                                    stack_bits=True)
     torch.cuda.synchronize()
-    assert bpm.launches[8] == before[8] + G
+    assert bpm.launches_by_planes()[8] == before[8] + G
     for k in range(G):
         solo = ops.serve_linear({n: v[k] for n, v in pc.items()},
                                 x[k].to(cuda), bits[k].to(cuda), 8)
@@ -440,7 +441,8 @@ def test_fluid_linear_launches_at_its_planes(cuda, n_planes):
     bpm.reset_launches()
     got = ops.fluid_linear(x, w, ws, wbits=n_planes)
     torch.cuda.synchronize()
-    assert bpm.launches[n_planes] == 1 and sum(bpm.launches.values()) == 1
+    by_planes = bpm.launches_by_planes()
+    assert by_planes[n_planes] == 1 and sum(by_planes.values()) == 1
     xs = bf.symmetric_scale(x, 8)
     acc = bpm.bitplane_matmul_ref(bf.quantize(x, xs, 8), w, n_planes)
     assert torch.equal(got, acc.float() * xs * ws)
@@ -457,12 +459,12 @@ def test_vmap_rows_equal_grouped_on_card(cuda):
     wb = torch.tensor([3, 4, 6, 8], device=cuda)
     bpm.reset_launches()
     grouped = ops.serve_linear(p, x, wb, 8)
-    n_grouped = sum(bpm.launches.values())
+    n_grouped = sum(bpm.spec_launches.values())
     with ops.row_dispatch("vmap"):
         vmap = ops.serve_linear(p, x, wb, 8)
     torch.cuda.synchronize()
     assert n_grouped == len(ops.get_bit_families())
-    assert sum(bpm.launches.values()) - n_grouped == 4
+    assert sum(bpm.spec_launches.values()) - n_grouped == 4
     assert torch.equal(vmap, grouped)
 
 

@@ -194,3 +194,37 @@ def test_entry_points_default_to_cuda():
         tserve.main(["--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--smoke", "--batch"])
+
+
+@pytest.mark.parametrize("mode", [[], ["--batch"]])
+def test_specialisations_line_does_not_grow_with_budgets(monkeypatch, capsys,
+                                                         mode):
+    """The counterpart of the reference's compiled-programs line: the
+    kernel specialisations a run launched (bit-plane launches counted by
+    a plain version that keys them as the wrapper does) are the same
+    set for one budget level and for three."""
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import ops
+
+    def counting(x_q, w_q, *, n_planes=8):
+        M, K = x_q.shape
+        N = w_q.shape[1]
+        key = (bpm.plan(M, K, N).path, n_planes, M, K, N)
+        bpm.spec_launches[key] = bpm.spec_launches.get(key, 0) + 1
+        return bpm.bitplane_matmul_ref(x_q, w_q, n_planes)
+
+    monkeypatch.setattr(ops, "bitplane_matmul", counting)
+    runs = []
+    for budgets in (["2.0"], ["2.0", "0.5", "0.4"]):
+        monkeypatch.setattr(bpm, "spec_launches", {})
+        out = tserve.main(BASE + ["--device", "cpu", "--budgets"] + budgets
+                          + mode)
+        line = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[serve] kernel specialisations:")]
+        assert line == [f"[serve] kernel specialisations: bitplane="
+                        f"{out['specialisations']['bitplane_matmul']} "
+                        f"flash=0 (fluid across {len(budgets)} budget "
+                        f"levels)"]
+        runs.append((out["specialisations"], set(bpm.spec_launches)))
+    assert runs[0][0]["bitplane_matmul"] > 0
+    assert runs[0] == runs[1]
