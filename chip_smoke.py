@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Thirteen paths, each at full width with random weights from a seed:
+Fourteen paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -36,7 +36,7 @@ Thirteen paths, each at full width with random weights from a seed:
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
   through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
-  shape, cut to its first 6 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  shape, cut to its first 2 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
   keys (512-1024-token prompts, int8), plus four late prompts that
   share the first two keys' prefixes, so misses, full hits and partial
   hits (extended token by token through ``decode_step``, the bit-plane
@@ -118,7 +118,10 @@ Thirteen paths, each at full width with random weights from a seed:
   Moonshot-v1-16B-A3B at full width, its first 4 layers, expert-parallel
   on (1, 2) (32 experts a rank), ``generate`` at 2 x 512 tokens; (d)
   ResNet18@224 on both meshes; (e) SMOKE speculation and prefix hits
-  whose rows cross ranks on (2, 1), and n_kv_heads=1 on (1, 2).
+  whose rows cross ranks on (2, 1), and n_kv_heads=1 on (1, 2); (f)
+  Qwen3-4B FULL at B=1 on (2, 1): one row does not split over two data
+  ranks, so the cache's sequence does (the sequence-sharded KV cache),
+  ``generate`` of a 2304-token prompt and 4 new tokens;
 * sharded training: two ranks on ``cuda:0`` in one gloo group, the same
   world as a (1, 2) and a (2, 1) mesh, each through ``make_train_step``
   with parameters and AdamW state placed by ``dist.sharding`` and
@@ -147,6 +150,12 @@ Thirteen paths, each at full width with random weights from a seed:
   (d) one continuous ``step()`` and one speculative round of (b)'s
   engine under ``torch.cuda.set_sync_debug_mode("warn")``, every sync
   the card reports counted by where it ran.
+* the lowering report (``repro_torch.launch.dryrun``) held against the
+  card, on path 3's weights: (a) ``lm.prefill`` of 2 x 4096 tokens and
+  one ``lm.decode_step`` on one card, predicted first by the same two
+  calls on fake CUDA tensors (launches by key, argument bytes, peak
+  memory, FLOPs and bytes by kernel); (b) path 11 (f)'s collectives
+  predicted on a ``RecordingMesh`` (2, 1).
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -299,7 +308,12 @@ result line:
      the statement; (d) logits EQUAL path 1's; (e) tokens, hits and
      speculative rounds EQUAL one device's; then (a)'s and (c)'s
      bit-plane shapes held EQUAL and timed, flash at a rank's heads, each
-     rank's wall, peak memory and collectives by kind and bytes.
+     rank's wall, peak memory and collectives by kind and bytes; (f) the
+     cache after prefill EQUAL one device's blocks (each rank's slice of
+     the ring, ``kpos`` whole, by SHA-256), tokens as ``tokens_agree``
+     says against one device's, and each rank's ``Mesh.counts`` EQUAL
+     the lowering report's prediction on a ``RecordingMesh``; then
+     (f)'s bit-plane shapes held EQUAL and timed, flash at its prefill.
  15. sharded training: (a) and (b) on one device first (the card freed
      before the ranks); then the ranks, gated: every rank's metrics
      EQUAL; each step's loss and z-loss within P12_LOSS_TOL and grad norm
@@ -323,6 +337,14 @@ result line:
      vanilla tick, the second one speculative round, and every sync
      inside a program body one the lint or RT502 reports.  Then (b)'s
      and (c)'s bit-plane shapes timed, flash at (b)'s prefill shape.
+ 17. the lowering report against the card (after phase 16): the
+     launches by key EQUAL the prediction's, the argument bytes EQUAL
+     the card's storages, the predicted peak within P14_PEAK_TOL of
+     ``max_memory_allocated()``'s rise after a warm-up, and no kernel
+     family's traced device time below P14_BOUND_FLOOR of the report's
+     bound for its launches; the prefill's measured time over its
+     roofline.  Then the path's bit-plane shapes held EQUAL and timed,
+     flash at the prefill's shape held against its oracle and timed.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -434,11 +456,11 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
-# path 5 runs the first 3 of Qwen3-4B's 36 layers at full width (depth
+# path 5 runs the first 2 of Qwen3-4B's 36 layers at full width (depth
 # cuts that keep the whole script inside its time limit: 18 when path 7
-# was added, 9 when path 8 was, 6 when path 9 was, 3 when path 11 was;
-# PERF.md §4)
-PC_LAYERS = 3
+# was added, 9 when path 8 was, 6 when path 9 was, 3 when path 11 was,
+# 2 when path 14 was; PERF.md §4)
+PC_LAYERS = 2
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -615,6 +637,14 @@ P13_BLOCK = 1            # (b)/(d) decode block (path 4's slots and
 P13_CNN = (224, 16)      # (c) ResNet18: image, batch
 # (d) prompt lengths: two vanilla requests, then one that drafts
 P13_SYNC_PROMPTS, P13_SYNC_NEW = (300, 700, 500), 8
+# path 14: the lowering report against the card.  (a) lm.prefill B x S on
+# path 3's weights, then one lm.decode_step; (b) in path 11's ranks, B=1
+# on (2, 1) with the sequence-sharded cache: B, prompt (> FLASH_THRESHOLD),
+# new tokens
+P14_A = (2, 4096)
+P14_SEQ = (1, 2304, 4)
+P14_PEAK_TOL = 0.10      # predicted peak against the card's, relative
+P14_BOUND_FLOOR = 0.95   # a kernel family's device time over its bound
 
 
 def hardware() -> None:
@@ -809,9 +839,9 @@ class Bench:
         p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s))
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bf.unpack_int4_halves(w))
-        t_bytes = (M * K + K * N // 2 + 4 * N + 4 * M * N) \
-            / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
+        ops, nbytes = i4mm.work(M, K, N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT8_OPS_PER_S * 1e3
         self.row_note(f"int4_matmul ({M},{K},{N}) f32 out",
                       i4mm.plan(M, K, N).path, k_ms, d_ms, p_ms, l_ms, ld_ms,
                       padded, l_row, l_kmaj, t_bytes, t_ops,
@@ -831,10 +861,10 @@ class Bench:
         p_ms = self.time_ms(lambda: qmm.quant_matmul_ref(
             x, w, s, bias, act, out_dtype))
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(x, w)
-        out_b = 2 if out_dtype == self.torch.bfloat16 else 4
-        t_bytes = (M * K + K * N + 8 * N + out_b * M * N) \
-            / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
+        ops, nbytes = qmm.work(M, K, N,
+                               2 if out_dtype == self.torch.bfloat16 else 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT8_OPS_PER_S * 1e3
         self.row_note(f"quant_matmul ({M},{K},{N}) act={act} "
                       f"{str(out_dtype).split('.')[-1]} out",
                       qmm.plan(M, K, N).path, k_ms, d_ms, p_ms, l_ms, ld_ms,
@@ -868,8 +898,9 @@ class Bench:
         # library yardstick: one torch._int_mm on the sign-extended weights
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bpm.sign_extend_field(w, n))
-        t_bytes = (M * K + K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * M * N * K / INT8_OPS_PER_S * 1e3
+        ops, nbytes = bpm.work(M, K, N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT8_OPS_PER_S * 1e3
         print(f"{self.tag} bitplane_matmul ({M},{K},{N}) n_planes={n}: "
               f"kernel {k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, "
               f"torch._int_mm {l_ms:.4f} ms (device {ld_ms:.4f})"
@@ -926,7 +957,8 @@ def trace(torch, tag, label, fn, match):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{tag}   {us / 1e3:8.3f} ms  {us / dev_total:6.3f}  {name}")
     return {"wall_ms": traced_s * 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": idle, "device_ops": len(dev_events)}
+            "idle_share": idle, "device_ops": len(dev_events),
+            "kernel_ms": {m: v * dev_total / 1e3 for m, v in shares.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1604,8 +1636,7 @@ def flash_row(b: Bench, shape, label: str = "", Sk: int = 0,
     q = torch.randn(shape, generator=b.gen, device=b.dev).bfloat16()
     k = torch.randn((BH, Sk, hd), generator=b.gen, device=b.dev).bfloat16()
     v = torch.randn_like(k)
-    flops = 4.0 * BH * S * Sk * hd / (2 if causal else 1)
-    nbytes = 2 * BH * (S + Sk) * hd * 2
+    flops, nbytes = fa.work(BH, S, Sk, hd, causal)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = {"ms": b.time_ms(lambda: fa.flash_attention(q, k, v,
                                                       causal=causal)),
@@ -3339,6 +3370,25 @@ def shape_rows(b: Bench, shapes, known) -> dict:
     ``known`` (an earlier path's rows) where it has it."""
     return {k: known[k] if k in known else b.gemm_row(*k)
             for k in sorted(shapes)}
+
+
+def held_rows(b: Bench, shapes, paths, cuda: bool = True) -> dict:
+    """The bit-plane kernel at each (M, K, N, n_planes) of ``shapes``
+    (launches a shape): held EQUAL to its plain version on random
+    operands, timed by ``gemm_row``, and summed over the launches into
+    the JSON line's entry (``paths``: launches by path).  Off the card
+    (a SMOKE run) the times are zero."""
+    tot = [0.0] * 8
+    for (M, K, N, n_pl), c in sorted(shapes.items()) if cuda else ():
+        b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
+        row = b.gemm_row(M, K, N, n_pl)
+        tot = [x + c * v for x, v in zip(tot, list(row)
+                                         + [max(row[3], row[4])])]
+    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    return {"launches": sum(shapes.values()), "ms": kms, "plain_ms": pms,
+            "library_ms": lms, "t_bytes": tb, "t_ops": to,
+            "device_ms": dms, "library_device_ms": ldms, "bound_ms": bms,
+            "paths": paths}
 
 
 def so_path(b: Bench, cfg, qparams, cnn_ref=None, cb_ref=None) -> dict:
@@ -6089,6 +6139,8 @@ def p11_rank(rank: int, init_method: str, out_dir: str, device: str,
         out["b_partial"] = p11_phase(torch, dev, both, p11_serve_qwen, torch,
                                      dev, cfg, qparams, sizes, gen, reqs,
                                      m21, partial, False)
+        out["f"] = p11_phase(torch, dev, both, p14_seq_rank, torch, dev,
+                             cfg, qparams, m21, smoke)
         del qparams
         out["c"] = p11_phase(torch, dev, both, p11_rank_moe, torch, dev, m12,
                              smoke)
@@ -6215,6 +6267,9 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
     t0 = time.perf_counter()
     want = p11_serve_qwen(torch, dev, cfg, qparams, sizes, gen, reqs, None)
     single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq_want = p14_seq_single(torch, dev, cfg, qparams, smoke)
+    seq_single_s = time.perf_counter() - t0
     del qparams
     if cnn_ref is not None and not smoke:
         want_logits = cnn_ref["logits"]
@@ -6237,12 +6292,22 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
           f"continuous requests in {single_s:.3f} s; the parent's weights "
           f"freed before the ranks")
 
-    # ---- the ranks
+    # ---- the ranks; beside them, the lowering report's prediction of
+    # (f)'s collectives on a RecordingMesh (host only)
+    from repro_torch.launch import dryrun
+    Bq, Sq, newq = p14_sizes(smoke)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        tmp.start_processes(p11_rank, args=(
+        ctx = tmp.start_processes(p11_rank, args=(
             f"tcp://127.0.0.1:{free_port()}", d, str(dev), smoke),
-            nprocs=P11_RANKS, join=True, start_method="spawn")
+            nprocs=P11_RANKS, join=False, start_method="spawn")
+        t1 = time.perf_counter()
+        seq_pred = dryrun.predict_counts(cfg, (P11_RANKS, 1), batch=Bq,
+                                         prompt=Sq, steps=newq - 1,
+                                         max_len=Sq + newq, reuse=True)
+        pred_s = time.perf_counter() - t1
+        while not ctx.join():
+            pass
         ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
                  for r in range(P11_RANKS)]
     ranks_s = time.perf_counter() - t0
@@ -6355,7 +6420,41 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
           f"({e0['pc_auto']['moved']} row broadcasts across ranks), and "
           f"n_kv_heads=1 on (1, {P11_RANKS}): tokens EQUAL")
 
-    # ---- (f) the kernel at (a)'s and (c)'s shapes: held EQUAL, timed
+    # ---- (f) B=1 on (2, 1): the sequence-sharded KV cache
+    check(seq_want["stepwise"] == seq_want["tokens"][0].tolist(),
+          f"(f) one device: generate {seq_want['tokens'][0].tolist()} != "
+          f"its calls step by step {seq_want['stepwise']}")
+    n_cmp = []
+    for r, out in enumerate(ranks):
+        f = out["f"]
+        n_slot = (Sq + newq) // P11_RANKS
+        check(f["cache_shapes"]["k"][2] == n_slot
+              and f["cache_shapes"]["kpos"][2] == Sq + newq,
+              f"(f) rank {r}: cache shapes {f['cache_shapes']} are not the "
+              f"sequence-sharded layout ({n_slot} of {Sq + newq} slots)")
+        check(f["digests"] == seq_want["blocks"][r],
+              f"(f) rank {r}: the cache after prefill is not one device's "
+              f"blocks: "
+              f"{[k for k in f['digests'] if f['digests'][k] != seq_want['blocks'][r][k]]}")
+        n_cmp.append(tokens_agree(f"(f) rank {r}", f["tokens"][0].tolist(),
+                                  seq_want["tokens"][0].tolist(),
+                                  seq_want["gaps"]))
+        check(f["counts"] == seq_pred, f"(f) rank {r}: collectives "
+              f"{f['counts']} != the report's prediction {seq_pred}")
+    print(f"(f) {cfg.name} B={Bq} on ({P11_RANKS}, 1), FSDP weights: "
+          f"generate of a {Sq}-token prompt, {newq} new: the cache's "
+          f"sequence over the data axis ({(Sq + newq) // P11_RANKS} of "
+          f"{Sq + newq} slots a rank), EQUAL to one device's blocks after "
+          f"prefill (SHA-256 of k, v and kpos); tokens "
+          f"{ranks[0]['f']['tokens'][0].tolist()} against one device's "
+          f"{seq_want['tokens'][0].tolist()} (compared, exact: {n_cmp}; "
+          f"top-2 gaps {[round(g, 5) for g in seq_want['gaps']]}); "
+          f"collectives a rank EQUAL the report's RecordingMesh "
+          f"prediction {seq_pred} (predicted on the host beside the "
+          f"ranks in {pred_s:.3f} s; one device's side "
+          f"{seq_single_s:.3f} s)")
+
+    # ---- the kernel at (a)'s and (c)'s shapes: held EQUAL, timed
     shapes: dict = {}
     paths = {p: 0 for p in bpm.PATHS}
     for key in ("a", "c"):
@@ -6365,21 +6464,23 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
             paths[k] += n
     check(not cuda or sum(shapes.values()) > 0,
           "path 11 launched no bit-plane kernel")
-    tot = [0.0] * 8
-    if cuda:
-        for (M, K, N, n_pl), c in sorted(shapes.items()):
-            b.hold_bitplane(b.rand_i8((M, K)), b.rand_i8((K, N)), n_pl)
-            row = b.gemm_row(M, K, N, n_pl)
-            tot = [x + c * v for x, v in zip(tot, list(row)
-                                             + [max(row[3], row[4])])]
-    kms, pms, lms, tb, to, dms, ldms, bms = tot
+    bp = held_rows(b, shapes, paths, cuda)
     fl_shape = (B * cfg.n_heads // P11_RANKS, S, cfg.head_dim)
     n_fl = ranks[0]["a"]["flash"]
     fl = (flash_row(b, fl_shape, " (path 11 (a), one rank's heads)")
           if cuda else {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                         "library_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
                         "bound_ms": 0.0})
-    for key in ("a", "b_fsdp", "b_partial", "c", "d21", "d12", "e"):
+    # (f)'s shapes: whole weights (FSDP gathers them), B=1 rows
+    f_out = ranks[0]["f"]
+    f_bp = held_rows(b, f_out["shapes"], f_out["paths"], cuda)
+    f_fl_shape = (Bq * cfg.n_heads, Sq, cfg.head_dim)
+    n_fl_f = f_out["flash"]
+    f_fl_err = (hold_flash(b, *f_fl_shape[:2], Sq, cfg.head_dim, True, 0)
+                if cuda else 0.0)
+    f_fl = (flash_row(b, f_fl_shape, " (path 11 (f), B=1 on (2, 1))")
+            if cuda else fl)
+    for key in ("a", "b_fsdp", "b_partial", "f", "c", "d21", "d12", "e"):
         print(f"{tag} path 11 ({key}) a rank: wall " + ", ".join(
             f"{out[key]['wall_s']:.3f} s" for out in ranks)
             + "; peak above resident " + ", ".join(
@@ -6388,20 +6489,26 @@ def p11_path(b: Bench, cnn_ref=None, smoke: bool = False) -> dict:
             f"{ {k: tuple(v) for k, v in ranks[0][key]['collectives'].items()} }")
     wall = time.perf_counter() - t_path
     print(f"{tag} path 11 kernels (rank 0's (a) and (c)): bit-plane "
-          f"{sum(shapes.values())} launches at {len(shapes)} (M, K, N, "
-          f"planes) (by path {paths}), kernel {kms:.3f} ms (device "
-          f"{dms:.3f}), bound {bms:.3f} ms, plain {pms:.3f} ms, "
-          f"torch._int_mm {lms:.3f} ms; flash {n_fl} launches at {fl_shape}, "
+          f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes) "
+          f"(by path {paths}), kernel {bp['ms']:.3f} ms (device "
+          f"{bp['device_ms']:.3f}), bound {bp['bound_ms']:.3f} ms, plain "
+          f"{bp['plain_ms']:.3f} ms, torch._int_mm {bp['library_ms']:.3f} "
+          f"ms; flash {n_fl} launches at {fl_shape}, "
           f"{n_fl * fl['ms']:.3f} ms")
+    print(f"{tag} path 11 kernels (rank 0's (f)): bit-plane "
+          f"{f_bp['launches']} launches at {len(f_out['shapes'])} (M, K, "
+          f"N, planes) (by path {f_out['paths']}), EQUAL to the plain "
+          f"version, "
+          f"kernel {f_bp['ms']:.3f} ms (device {f_bp['device_ms']:.3f}), "
+          f"bound {f_bp['bound_ms']:.3f} ms, plain {f_bp['plain_ms']:.3f} "
+          f"ms, torch._int_mm {f_bp['library_ms']:.3f} ms; flash {n_fl_f} "
+          f"launches at {f_fl_shape} (max |err| {f_fl_err:.6g} against the "
+          f"f32 oracle), {n_fl_f * f_fl['ms']:.3f} ms")
     print(f"{tag} path 11 wall {wall:.3f} s (the ranks {ranks_s:.3f} s; "
           f"weights drawn a rank in " + ", ".join(
               f"{out['weights_s']:.3f} s" for out in ranks) + ")")
-    return {"bitplane": {"launches": sum(shapes.values()), "ms": kms,
-                         "plain_ms": pms, "library_ms": lms, "t_bytes": tb,
-                         "t_ops": to, "device_ms": dms,
-                         "library_device_ms": ldms, "bound_ms": bms,
-                         "paths": paths},
-            "flash": flash_entry(n_fl, fl, n_fl),
+    return {"bitplane": bp, "flash": flash_entry(n_fl, fl, n_fl),
+            "bitplane_f": f_bp, "flash_f": flash_entry(n_fl_f, f_fl, n_fl_f),
             "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
 
 
@@ -7430,6 +7537,215 @@ def p13_path(b: Bench, cfg, qparams, known=None) -> dict:
                     "syncs": (len(tick), len(spec))}}
 
 
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (on the host)."""
+    import hashlib
+    import torch
+    raw = t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def p14_path(b: Bench, cfg, qparams) -> dict:
+    """Path 14 (a): the lowering report's prediction for ``lm.prefill``
+    of P14_A and one ``lm.decode_step`` on one card (fake CUDA tensors,
+    ``dryrun.one_device_calls``), then the same two calls on path 3's
+    weights, gated (module docstring, phase 17)."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun, opcost
+    from repro_torch.models import lm
+
+    t_path = time.perf_counter()
+    B, S = P14_A
+    t0 = time.perf_counter()
+    pred = dryrun.one_device_calls(cfg, B, S, max_len=S + 1, device="cuda")
+    pred_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n = lm.n_bit_slots(cfg)
+    bits = torch.full((n,), 8, dtype=torch.int32, device=dev)
+    base = torch.cuda.memory_allocated()
+    cache = lm.empty_cache(cfg, B, S + 1, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    args = opcost.tree_bytes(qparams, cache, tokens)
+    check(args == pred["args"], f"(a) argument bytes on the card {args} "
+          f"!= the report's {pred['args']}")
+    print(f"{tag} (a) argument bytes (qparams, cache, tokens) "
+          f"{args / 2 ** 30:.4f} GiB EQUAL the report's; the cache and "
+          f"tokens raised torch.cuda.memory_allocated() by "
+          f"{(torch.cuda.memory_allocated() - base) / 2 ** 30:.4f} GiB")
+
+    def calls():
+        logits, _ = lm.prefill(qparams, {"tokens": tokens}, cfg, bits, bits,
+                               cache)
+        step, _ = lm.decode_step(qparams, tok, S, cache, cfg, bits, bits)
+        return logits, step
+
+    out = calls()                               # warm-up
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_keys()
+    t0 = time.perf_counter()
+    logits, _ = lm.prefill(qparams, {"tokens": tokens}, cfg, bits, bits,
+                           cache)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    step, _ = lm.decode_step(qparams, tok, S, cache, cfg, bits, bits)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = kernels.launches_since(before)
+    check(got == pred["kernels"], f"(a) launches by key on the card "
+          f"{sorted(got.items(), key=str)} != the report's "
+          f"{sorted(pred['kernels'].items(), key=str)}")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+          and tuple(logits.shape) == (B, 1, cfg.padded_vocab),
+          f"(a) logits {tuple(logits.shape)} not finite")
+    gap = abs(pred["peak"] - peak) / peak
+    check(gap <= P14_PEAK_TOL, f"(a) predicted peak {pred['peak']} bytes "
+          f"is {gap:.3f} off the card's {peak}")
+    print(f"{tag} (a) launches by key EQUAL the report's: "
+          f"{sum(got.values())} over {len(got)} keys; peak above the "
+          f"arguments: predicted {pred['peak'] / 2 ** 30:.4f} GiB, "
+          f"max_memory_allocated() rise {peak / 2 ** 30:.4f} GiB "
+          f"({gap:.4f} apart, tolerance {P14_PEAK_TOL})")
+    del logits, step
+    tr = trace(torch, tag, "path 14 (a) prefill + decode step",
+               calls, ("bitplane_matmul", "flash_attention"))
+    work = {}
+    for cost in (pred["prefill"], pred["decode"]):
+        for k, w in cost.kernel_work.items():
+            work[k] = [a + c for a, c in zip(work.get(k, [0.0] * 3), w)]
+    for k, (ops, nbytes, bound_s) in sorted(work.items()):
+        ms = tr["kernel_ms"][k]
+        check(ms >= P14_BOUND_FLOOR * bound_s * 1e3,
+              f"(a) {k}: traced device time {ms:.3f} ms under "
+              f"{P14_BOUND_FLOOR} of the report's bound "
+              f"{bound_s * 1e3:.3f} ms for its launches")
+        print(f"{tag} (a) {k}: traced device {ms:.3f} ms, the report's "
+              f"bound {bound_s * 1e3:.3f} ms ({ops:.4g} ops, "
+              f"{nbytes / 1e9:.3f} GB), {bound_s * 1e3 / ms:.3f} of bound")
+    roof = dryrun.roofline_s(pred["prefill"])
+    # ---- the kernels at the path's shapes: held, timed
+    from repro_torch.kernels import bitplane_matmul as bpm
+    shapes, paths = {}, {p: 0 for p in bpm.PATHS}
+    for key, c in got.items():
+        if key[0] == "bitplane_matmul":
+            _, path, n_pl, M, K, N = key
+            shapes[(M, K, N, n_pl)] = shapes.get((M, K, N, n_pl), 0) + c
+            paths[path] += c
+    bp = held_rows(b, shapes, paths)
+    n_fl = sum(c for key, c in got.items() if key[0] == "flash_attention")
+    fl_shape = (B * cfg.n_heads, S, cfg.head_dim)
+    fl_err = hold_flash(b, *fl_shape[:2], S, cfg.head_dim, True, 0)
+    fl = flash_row(b, fl_shape, " (path 14 (a) prefill)")
+    print(f"{tag} (a) kernels at the path's shapes: bit-plane "
+          f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes), "
+          f"EQUAL to the plain version, kernel {bp['ms']:.3f} ms (device "
+          f"{bp['device_ms']:.3f}), bound {bp['bound_ms']:.3f} ms, plain "
+          f"{bp['plain_ms']:.3f} ms, torch._int_mm {bp['library_ms']:.3f} "
+          f"ms; flash {n_fl} launches at {fl_shape} causal (max |err| "
+          f"{fl_err:.6g} against the f32 oracle), {n_fl * fl['ms']:.3f} ms")
+    wall = time.perf_counter() - t_path
+    print(f"{tag} (a) prefill {B} x {S}: measured {pre_s * 1e3:.3f} ms, "
+          f"roofline {roof * 1e3:.3f} ms (compute and memory terms of "
+          f"the report's FLOPs and byte floor), measured / roofline "
+          f"{pre_s / roof:.3f}; the prediction took {pred_s:.3f} s on the "
+          f"host; path 14 (a) wall {wall:.3f} s")
+    del cache, tokens
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "pred_s": pred_s, "peak": (pred["peak"], peak),
+            "prefill_ms": pre_s * 1e3, "roofline_ms": roof * 1e3,
+            "launches": sum(got.values()), "bitplane": bp,
+            "flash": flash_entry(n_fl, fl, n_fl)}
+
+
+def p14_seq_rank(torch, dev, cfg, qparams, mesh, smoke: bool) -> dict:
+    """Path 11 (f), on a rank: ``generate`` of P14_SEQ at B=1 on the
+    (2, 1) mesh (FSDP weights, the sequence-sharded cache), its
+    collectives; then the same prompt's prefill on a fresh cache, whose
+    blocks it digests."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    B, S, new = p14_sizes(smoke)
+    prompt = p14_prompt(cfg, B, S)
+    eng = ServeEngine(cfg, qparams, max_len=S + new, mesh=mesh,
+                      controller=default_controller(lm.n_bit_slots(cfg)),
+                      device=dev)
+    eng.set_budget(10.0)
+    mesh.reset_counts()
+    with mesh.reuse_gathers():      # the prefill below gathers no weight
+        toks = eng.generate({"tokens": prompt}, new).cpu().numpy()
+        counts = {k: list(v) for k, v in mesh.counts.items()}
+        with eng.compute_ctx():
+            wv, av = eng._bits()
+            cache = lm.empty_cache(cfg, B, S + new, device=dev, mesh=mesh)
+            lm.prefill(eng.qparams,
+                       {"tokens": torch.as_tensor(prompt).to(dev)}, cfg, wv,
+                       av, cache)
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    digests = {k: digest(v) for k, v in cache.items()}
+    del eng, cache
+    return {"tokens": np.asarray(toks), "counts": counts,
+            "cache_shapes": shapes, "digests": digests}
+
+
+def p14_sizes(smoke: bool):
+    return (1, 40, 4) if smoke else P14_SEQ
+
+
+def p14_prompt(cfg, B, S):
+    import numpy as np
+    return np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def p14_seq_single(torch, dev, cfg, qparams, smoke: bool) -> dict:
+    """Path 11 (f)'s one-device side: ``generate`` of the same prompt, the
+    same calls step by step (greedy, keeping each step's top-2 logit gap
+    for ``tokens_agree``), and each rank's block of the cache after
+    prefill, digested."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    B, S, new = p14_sizes(smoke)
+    prompt = p14_prompt(cfg, B, S)
+    eng = ServeEngine(cfg, qparams, max_len=S + new,
+                      controller=default_controller(lm.n_bit_slots(cfg)),
+                      device=dev)
+    eng.set_budget(10.0)
+    toks = eng.generate({"tokens": prompt}, new).cpu().numpy()
+    gaps, stepwise = [], []
+    with eng.compute_ctx():
+        wv, av = eng._bits()
+        cache = lm.empty_cache(cfg, B, S + new, device=dev)
+        logits, _ = lm.prefill(eng.qparams,
+                               {"tokens": torch.as_tensor(prompt).to(dev)},
+                               cfg, wv, av, cache)
+        n = cache["kpos"].shape[-1] // P11_RANKS
+        blocks = [{k: digest(v if k == "kpos" else v[:, :, r * n:(r + 1) * n])
+                   for k, v in cache.items()} for r in range(P11_RANKS)]
+        for i in range(new):
+            lg = logits[0, -1, :cfg.vocab_size].float()
+            top2 = torch.topk(lg, 2).values
+            gaps.append(float((top2[0] - top2[1]) / lg.abs().max()))
+            tok = int(lg.argmax())
+            stepwise.append(tok)
+            if i + 1 < new:
+                logits, _ = lm.decode_step(
+                    eng.qparams, torch.tensor([[tok]], dtype=torch.int32,
+                                              device=dev),
+                    S + i, cache, cfg, wv, av)
+    del eng, cache
+    return {"tokens": toks, "stepwise": stepwise, "gaps": gaps,
+            "blocks": blocks}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -7581,9 +7897,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-16. the thirteen paths (a development run may pick some with
-    # --paths 1,4; only a run of all thirteen prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+    # ---- 4.-17. the fourteen paths (a development run may pick some with
+    # --paths 1,4; only a run of all fourteen prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -7594,7 +7910,7 @@ def main() -> None:
             cnn_path(b)
         if 2 in picked:
             alexnet_path(b)
-        if picked & {3, 4, 5, 6, 13}:
+        if picked & {3, 4, 5, 6, 13, 14}:
             cfg, qparams = lm_weights(b)
             if 3 in picked:
                 lm_path(b, cfg, qparams)
@@ -7606,6 +7922,8 @@ def main() -> None:
             if 13 in picked:
                 p13_path(b, cfg, qparams,
                          known=cbr["per_shape"] if cbr else None)
+            if 14 in picked:
+                p14_path(b, cfg, qparams)
             del qparams
             torch.cuda.empty_cache()
         if 7 in picked:
@@ -7647,6 +7965,7 @@ def main() -> None:
     sor = timed("6", so_path, b, cfg, qparams, cnn_ref=cnn, cb_ref=cbr)
     p13r = timed("13", p13_path, b, cfg, qparams,
                  known={**cbr["per_shape"], **cnn["per_shape"]})
+    p14r = timed("14 (a)", p14_path, b, cfg, qparams)
     del qparams                 # path 7 needs the card's memory
     torch.cuda.empty_cache()
     moer = timed("7 (a)", moe_path, b)
@@ -7685,9 +8004,11 @@ def main() -> None:
                 "qwen3_4b_trained_generate_call": p9r["bitplane"],
                 "qwen3_4b_serve_cli_runs": p10r["bitplane"],
                 "tensor_and_expert_parallel_rank": p11r["bitplane"],
+                "sequence_sharded_rank": p11r["bitplane_f"],
                 "trained_tensor_parallel_serve_rank": p12r["bitplane"],
                 "qwen3_4b_analysis_audit": p13r["bitplane_b"],
-                "resnet18_hawq_analysis_audit": p13r["bitplane_c"]}
+                "resnet18_hawq_analysis_audit": p13r["bitplane_c"],
+                "qwen3_4b_lowering_report_calls": p14r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -7696,7 +8017,9 @@ def main() -> None:
                 "stablelm_generate_call": p8r["dense"]["flash"],
                 "qwen3_4b_serve_cli_batch_run": p10r["flash"],
                 "qwen3_4b_tensor_parallel_rank": p11r["flash"],
-                "qwen3_4b_analysis_generate": p13r["flash"]}
+                "qwen3_4b_analysis_generate": p13r["flash"],
+                "qwen3_4b_sequence_sharded_rank": p11r["flash_f"],
+                "qwen3_4b_lowering_report_prefill": p14r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -7757,7 +8080,10 @@ def main() -> None:
           f"analysis suite on the card) {p13r['e2e']['wall_s']:.3f} s, "
           f"its analyze --all {p13r['e2e']['analyze_s']:.3f} s, syncs the "
           f"card reported in a tick and a speculative round "
-          f"{p13r['e2e']['syncs']}")
+          f"{p13r['e2e']['syncs']}; path 14 (a) (the lowering report "
+          f"against the card) {p14r['wall_s']:.3f} s, a {P14_A[0]} x "
+          f"{P14_A[1]} prefill {p14r['prefill_ms']:.3f} ms against its "
+          f"roofline {p14r['roofline_ms']:.3f} ms")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

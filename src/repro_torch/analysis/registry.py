@@ -125,7 +125,7 @@ HOST_METHODS = frozenset({
 # stacked tensor per tick, then ``.numpy()`` of the host copy)
 SHAPE_METHODS = frozenset({
     "size", "dim", "numel", "element_size", "data_ptr", "is_contiguous",
-    "stride", "get_device", "nelement",
+    "stride", "get_device", "nelement", "storage_offset",
 })
 TRANSFER_METHODS = frozenset({"cpu"})
 

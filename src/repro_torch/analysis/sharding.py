@@ -28,9 +28,13 @@ group), checking three things:
   place at least one quantized-parameter leaf on ``model``, one on
   ``data``, and one cache leaf on ``data``.
 
-``BATCH = 8`` divides every data-parallel size here, so the
-sequence-sharded cache (which the port does not serve) is never asked
-for.
+``BATCH = 8`` divides every data-parallel size here, so the batch
+caches take rows over the data axis.  The sequence-sharded cache (a B=1
+row that no data axis divides: ``dist.sharding._kv_cache_spec`` puts the
+SEQUENCE over the data axis, which ``models.transformer`` serves) is
+asked for separately: every config with a KV cache is audited at B=1 on
+the meshes with a data axis (``cache_b1``), and the 2x2 safety net must
+place its k/v sequence on ``data`` (SH603).
 """
 from __future__ import annotations
 
@@ -167,6 +171,7 @@ def dropped_axes(mesh: FakeMesh, logical: Tuple[Optional[str], ...],
 def _abstract_state(cfg):
     """(params, qparams, opt, cache, {bits, budgets, batch}) as
     fake-tensor trees (:mod:`repro_torch.launch.specs`)."""
+    from repro_torch.dist import sharding as dsh
     from repro_torch.launch import specs
     from repro_torch.models import lm
     from repro_torch.models.config import ShapeConfig
@@ -176,12 +181,22 @@ def _abstract_state(cfg):
     opt = specs.abstract_opt(cfg, specs.optimizer_for(cfg))
     cache = specs.abstract_cache(cfg, ShapeConfig("audit", CACHE_LEN, BATCH,
                                                   "decode"))
+    cache_b1 = specs.abstract_cache(cfg, ShapeConfig("audit_b1", CACHE_LEN,
+                                                     1, "decode"))
     nb = lm.n_bit_slots(cfg)
     small = {"bits": specs.fake_tensor((BATCH, nb), torch.int32),
              "budgets": specs.fake_tensor((BATCH,), torch.float32),
              "batch": {"tokens": specs.fake_tensor((BATCH, CACHE_LEN),
                                                    torch.int32)}}
+    if any(dsh._keys(p)[-1] in ("k", "v")
+           for p, _ in dsh.tree_paths(cache_b1)):
+        small["cache_b1"] = cache_b1        # the configs with a KV cache
     return params, qparams, opt, cache, small
+
+
+def dp_meshes(meshes: Sequence[FakeMesh]) -> List[FakeMesh]:
+    """The meshes with a data axis larger than 1."""
+    return [m for m in meshes if m.shape.get("data", 1) > 1]
 
 
 def _plans(cfg):
@@ -213,12 +228,13 @@ def audit_config_sharding(name: str, meshes: Sequence[FakeMesh],
     findings: List[Finding] = []
     stats = {"leaves": 0, "sharded": 0}
 
-    def family(tag: str, tree, specs_of, logical_of=None):
+    def family(tag: str, tree, specs_of, logical_of=None, on=None):
         """``specs_of(mesh)``: the rule's resolved spec tree for ``tree``;
         ``logical_of(keys, leaf)``: its logical spec (SH602), or None
-        for rules that resolve against the mesh themselves."""
+        for rules that resolve against the mesh themselves; ``on``: the
+        meshes (default all)."""
         leaves = [(k, l) for k, l in tree_paths(tree)]
-        for mesh in meshes:
+        for mesh in (meshes if on is None else on):
             got = [s for _, s in tree_paths(specs_of(mesh))]
             for (path, leaf), spec in zip(leaves, got):
                 keys = dsh._keys(path)
@@ -277,6 +293,10 @@ def audit_config_sharding(name: str, meshes: Sequence[FakeMesh],
         # cache specs resolve against the mesh with their own
         # divisibility logic: arithmetic-check them directly
         family("cache", cache, lambda m: dsh.cache_shardings(cache, m))
+        b1 = small.get("cache_b1")
+        if b1 is not None:        # B=1: the sequence over the data axis
+            family("cache_b1", b1, lambda m: dsh.cache_shardings(b1, m),
+                   on=dp_meshes(meshes))
 
         # safety net: the 2x2 mesh must actually place both axes
         net = FakeMesh(tuple(sorted(SAFETY_NET_MESH.items())))
@@ -300,6 +320,16 @@ def audit_config_sharding(name: str, meshes: Sequence[FakeMesh],
                             f"for this config",
                     hint="check _logical_spec's key patterns against this "
                          "config's param tree"))
+        if b1 is not None and not any(
+                dsh._keys(p)[-1] in ("k", "v") and len(spec) > 2
+                and "data" in dsh.entry_axes(spec[2])
+                for p, spec in tree_paths(dsh.cache_shardings(b1, net))):
+            findings.append(Finding(
+                rule="SH603", file=SHARDING_FILE, line=0,
+                scope=f"{name}/cache_b1@{mesh_label(net)}",
+                message="no k/v cache leaf has its sequence on 'data' on "
+                        "the 2x2 mesh at B=1",
+                hint="check _kv_cache_spec's sequence placement"))
         if not placed(dsh.cache_shardings(cache, net), "data"):
             findings.append(Finding(
                 rule="SH603", file=SHARDING_FILE, line=0,

@@ -9,7 +9,7 @@ tensor-parallel linears over the model axis (``serve/engine.py``,
 ``serve/cnn.py``)."""
 from repro_torch.dist import api, placement, sharding  # noqa: F401
 from repro_torch.dist.api import (DataMesh, Mesh, P,  # noqa: F401
-                                  active_mesh, constrain, constrain_heads,
+                                  RecordingMesh, active_mesh, constrain, constrain_heads,
                                   dp_size, in_manual_mode, logical_to_mesh,
                                   manual_mode, mesh_axes_for,
                                   shard_map_compat, tp_size, use_mesh)

@@ -381,25 +381,10 @@ class Mesh:
             raise NotImplementedError(
                 f"the port's meshes stage their collectives through CPU "
                 f"tensors and need a gloo group, not {backend!r}")
-        shape = tuple(int(s) for s in shape)
-        names = (tuple(axis_names) if axis_names is not None
-                 else _MESH_AXES.get(len(shape)))
-        if names is None or len(names) != len(shape):
-            raise ValueError(f"a mesh of shape {shape} needs axis names")
-        self.size = tdist.get_world_size()
-        if math.prod(shape) != self.size:
-            raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
-                             f"ranks, the group {self.size}")
-        self.axis_names = names
-        self.shape: Dict[str, int] = dict(zip(names, shape))
-        self.rank = tdist.get_rank()
-        self.coords: Dict[str, int] = {}
-        rem = self.rank
-        for a, n in reversed(list(zip(names, shape))):
-            self.coords[a] = rem % n
-            rem //= n
-        self.counts: Dict[str, list] = {}
-        self._gathered: Optional[dict] = None
+        shape, names = self._place(shape, axis_names, tdist.get_rank())
+        if self.size != tdist.get_world_size():
+            raise ValueError(f"mesh shape {shape} holds {self.size} ranks, "
+                             f"the group {tdist.get_world_size()}")
         # one subgroup per line of each combination of non-trivial axes,
         # created by every rank in the same order
         self._groups: Dict[Tuple[str, ...], object] = {}
@@ -413,6 +398,27 @@ class Mesh:
                     g = tdist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[combo] = g
+
+    def _place(self, shape, axis_names, rank: int):
+        """Set the layout: axis names and sizes, this rank's coordinates,
+        empty counts.  Returns (shape, axis names) as tuples."""
+        shape = tuple(int(s) for s in shape)
+        names = (tuple(axis_names) if axis_names is not None
+                 else _MESH_AXES.get(len(shape)))
+        if names is None or len(names) != len(shape):
+            raise ValueError(f"a mesh of shape {shape} needs axis names")
+        self.size = math.prod(shape)
+        self.axis_names = names
+        self.shape: Dict[str, int] = dict(zip(names, shape))
+        self.rank = rank
+        self.coords: Dict[str, int] = {}
+        rem = rank
+        for a, n in reversed(list(zip(names, shape))):
+            self.coords[a] = rem % n
+            rem //= n
+        self.counts: Dict[str, list] = {}
+        self._gathered: Optional[dict] = None
+        return shape, names
 
     def _lines(self, axes: Tuple[str, ...]):
         """Every group of global ranks that differ only along ``axes``."""
@@ -639,7 +645,9 @@ class Mesh:
         gathered at every call: each use backs its own reduce-scatter)."""
         if self._gathered is None or _tracks(t):
             return self.all_gather(t, axes, dim=dim, kind="gather_weight")
-        key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype,
+        # the block's storage and offset (a fake tensor has no data_ptr)
+        key = (t.untyped_storage()._cdata, t.storage_offset(),
+               tuple(t.shape), tuple(t.stride()), t.dtype,
                entry_axes(axes), dim % t.ndim)
         hit = self._gathered.get(key)
         if hit is None:
@@ -648,13 +656,17 @@ class Mesh:
         return hit
 
 
-def enter_tp(t: torch.Tensor) -> torch.Tensor:
+def enter_tp(t: torch.Tensor, float32: bool = False) -> torch.Tensor:
     """``t`` as it is, its gradient SUMmed over the active mesh's model
     axis (:meth:`Mesh.enter`): a replicated value applied to this rank's
-    heads.  The identity off a model axis."""
+    heads.  The identity off a model axis.  ``float32``: where autograd
+    records ``t``, enter ``t.float()``, so the partial gradients of its
+    column-parallel consumers stay float32 through the SUM."""
     mesh = active_mesh()
     if not isinstance(mesh, Mesh) or tp_size(mesh) <= 1:
         return t
+    if float32 and _tracks(t):
+        t = t.float()
     return mesh.enter(t, mesh.tp_axes)
 
 
@@ -705,6 +717,90 @@ class _Enter(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.mesh.sum_grad(g, ctx.axes, kind=ctx.kind), None, None,
                 None)
+
+
+class RecordingMesh(Mesh):
+    """A :class:`Mesh` with no process group: one rank's view of a mesh
+    of any size, whose collectives run nothing and are recorded.
+
+    Built from a shape, axis names (the :class:`Mesh` default by the
+    number of axes) and a rank, it sets ``coords``, ``shape`` and the
+    rest as :class:`Mesh` does, so every layout rule and every local
+    block is the one that rank would hold.  Each method of :class:`Mesh`
+    that calls ``torch.distributed`` (construction, ``_all_reduce``,
+    ``_all_gather``, ``gather_whole``, ``broadcast``; ``sum_grad``,
+    ``gather_rows``, ``gather_weight`` and the autograd forms reach the
+    group only through these) is overridden: it counts the call in
+    ``counts`` exactly as the mesh would, records it in ``records`` by
+    collective and axis combination with the bytes of its result, and
+    returns an uninitialised tensor of the result's shape on the input's
+    device.  So it serves to count a program on fake tensors (the
+    lowering report, ``repro_torch.launch.dryrun``); its values are not
+    the collectives'.
+
+    ``records`` maps ``(collective, axes)`` to ``[calls, result bytes]``,
+    ``collective`` one of ``all-reduce`` (SUM or MAX), ``all-gather``,
+    ``gather`` (to one rank, the whole value) and ``broadcast``."""
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Optional[Sequence[str]] = None, *,
+                 rank: int = 0) -> None:
+        self._place(shape, axis_names, rank)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
+        self.records: Dict[Tuple[str, Tuple[str, ...]], list] = {}
+        self._groups = {}
+
+    def _record(self, collective: str, live, nbytes: int) -> None:
+        r = self.records.setdefault((collective, tuple(live)), [0, 0])
+        r[0] += 1
+        r[1] += int(nbytes)
+
+    def reset_counts(self) -> None:
+        self.counts = {}
+        self.records = {}
+
+    def _all_reduce(self, t: torch.Tensor, axes, op: str = "sum", *,
+                    kind: Optional[str] = None) -> torch.Tensor:
+        live = self.live_axes(axes)
+        if not live:
+            return t
+        self._count(kind or f"all_reduce_{op}", t)
+        self._record("all-reduce", live, t.numel() * t.element_size())
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def _all_gather(self, t: torch.Tensor, axes, dim: int = 0, *,
+                    kind: str = "all_gather") -> torch.Tensor:
+        live = self.live_axes(axes)
+        if not live:
+            return t
+        self._count(kind, t)
+        n = self.axis_size(live)
+        shape = list(t.shape) if t.ndim else [1]
+        shape[dim % max(t.ndim, 1)] *= n
+        self._record("all-gather", live, math.prod(shape) * t.element_size())
+        return t.new_empty(shape)
+
+    def gather_whole(self, t: torch.Tensor, spec, *,
+                     kind: str = "gather_whole") -> Optional[torch.Tensor]:
+        live = self.live_axes(tuple(a for e in spec for a in entry_axes(e)))
+        t = t.detach().to("cpu").contiguous()
+        if not live:
+            return t
+        self._count(kind, t)
+        whole = tuple(d * self.axis_size(e) for d, e in zip(t.shape, spec))
+        self._record("gather", live, math.prod(whole) * t.element_size())
+        line = next(ln for ln in self._lines(live) if self.rank in ln)
+        return t.new_empty(whole) if line[0] == self.rank else None
+
+    def broadcast(self, t: torch.Tensor, src: int, axes=None, *,
+                  kind: str = "broadcast") -> torch.Tensor:
+        live = self.live_axes(self.dp_axes if axes is None else axes)
+        if not live:
+            return t.detach().to("cpu").clone()
+        self._count(kind, t)
+        self._record("broadcast", live, t.numel() * t.element_size())
+        return torch.empty(t.shape, dtype=t.dtype, device="cpu")
 
 
 class DataMesh(Mesh):

@@ -23,7 +23,10 @@ picks from the shape:
 On a CUDA tensor the wrapper launches the kernel, or raises: there is no
 fallback.  On a CPU tensor it takes the plain version,
 :func:`bitplane_matmul_ref`, which is also the oracle the kernel is held
-against on the card.
+against on the card.  A fake tensor that stands for the card's
+(``kernels.card_fake``) plans and allocates as the card does, runs
+nothing and reports the launch, priced by :func:`work`, to
+``kernels.observe``; the launch counters count real launches only.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import cuda_build
 
 # the kernel's paths: the small-M GEMV, or the large-M wgmma GEMM with x
@@ -173,6 +177,14 @@ def bitplane_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     return (x_q.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
 
 
+def work(M: int, K: int, N: int) -> Tuple[float, float]:
+    """(operations, bytes) one launch at (M, K, N) must do: 2 M N K int8
+    multiply-adds, each input read once (x, w) and the int32 output
+    written once.  The bound of ``chip_smoke.py``'s table and the
+    lowering report's price of a launch."""
+    return 2.0 * M * N * K, float(M * K + K * N + 4 * M * N)
+
+
 def _check(x_q: torch.Tensor, w_q: torch.Tensor, n_planes: int) -> None:
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"bitplane_matmul takes int8 operands, got "
@@ -191,9 +203,10 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
     """int8 (M, K) @ int8-container (K, N) -> int32 (M, N) at ``n_planes``."""
     _check(x_q, w_q, n_planes)
     dev = x_q.device
-    if dev.type == "cpu":
+    fake = kernels.card_fake(x_q)         # the lowering report's launch
+    if dev.type == "cpu" and not fake:
         return bitplane_matmul_ref(x_q, w_q, n_planes)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"bitplane_matmul runs on cuda or cpu tensors, "
                          f"not {dev}")
     if not (x_q.is_contiguous() and w_q.is_contiguous()):
@@ -204,9 +217,16 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
     if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"bitplane_matmul: ({M}, {K}) @ ({K}, {N}) exceeds "
                          f"the kernel's grid")
-    p = plan(M, K, N, sm_count(dev), x_q.data_ptr() % 16 == 0)
+    if fake:
+        p = plan(M, K, N, H100_SMS, kernels.fake_aligned(x_q))
+    else:
+        p = plan(M, K, N, sm_count(dev), x_q.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=torch.int32, device=dev)
     scratch = alloc_scratch(p, M, N, dev)
+    spec = (p.path, n_planes, M, K, N)
+    if fake:                # priced, not counted: nothing was launched
+        kernels.launched("bitplane_matmul", spec, *work(M, K, N), "int8")
+        return out
     err = _entry()(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(),
                    ptr_or_none(scratch), M, N, K, n_planes, p.steps,
                    int(p.copy_x), current_stream(dev))
@@ -214,7 +234,6 @@ def bitplane_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *,
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "
                            f"error {err} at ({M}, {K}) @ ({K}, {N}), "
                            f"n_planes={n_planes}, plan {p}")
-    spec = (p.path, n_planes, M, K, N)
     spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out
 

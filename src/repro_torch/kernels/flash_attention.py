@@ -26,7 +26,10 @@ Two plain versions sit beside it, as in the reference's ``kernels/ref.py``:
 
 On a CUDA tensor the wrapper launches the kernel, or raises: there is no
 fallback.  On a CPU tensor :func:`repro_torch.kernels.ops.flash_attention`
-takes one of the plain versions.
+takes one of the plain versions.  A fake tensor that stands for the
+card's (``kernels.card_fake``) pads and allocates without running the
+kernel and reports the launch, priced by :func:`work`, to
+``kernels.observe``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import cuda_build
 
 NEG_INF = -1e30
@@ -156,6 +160,23 @@ def kernel_head_dim(hd: int) -> int:
                      f"largest instantiation, {HEAD_DIMS[-1]}")
 
 
+def work(BH: int, Sq: int, Sk: int, hd: int, causal: bool,
+         window: int = 0) -> Tuple[float, float]:
+    """(flops, bytes) one launch must do: 4 hd flops (q.k and p.v) per
+    visible (query, key) pair of each flat head, and q, k, v read and
+    the output written once in bf16.  The visible pairs are Sq Sk, half
+    of that under a causal mask, and exactly those inside the band under
+    a causal sliding window (queries at positions Sk - Sq .. Sk - 1)."""
+    if causal and window:
+        # query i sees min(Sk - Sq + i + 1, window) keys
+        first = Sk - Sq + 1
+        short = max(0, min(Sq, window - first))     # rows below the band
+        pairs = short * (2 * first + short - 1) / 2 + (Sq - short) * window
+    else:
+        pairs = Sq * Sk / (2 if causal else 1)
+    return 4.0 * BH * pairs * hd, float(2 * BH * (Sq + Sk) * hd * 2)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("flash_attention takes (BH, S, hd) tensors")
@@ -185,7 +206,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "to q, k or v (the backward kernel is ROADMAP Queue B 3 (a)); "
             "train at sequences of at most transformer.FLASH_THRESHOLD, or "
             "call it under torch.no_grad()")
-    if q.device.type != "cuda":
+    fake = kernels.card_fake(q)           # the lowering report's launch
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention's kernel runs on cuda tensors, "
                          f"not {q.device} (the plain versions serve the "
                          f"CPU)")
@@ -206,10 +228,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pad = (0, hk - hd)
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
+        offset = (t.storage_offset() * t.element_size() if fake
+                  else t.data_ptr())
+        if offset % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned")
     out = torch.empty((BH, Sq, hk), dtype=torch.bfloat16, device=q.device)
+    spec = (hk, bool(causal), int(window))
+    if fake:                # priced, not counted: nothing was launched
+        kernels.launched("flash_attention", spec,
+                         *work(BH, Sq, Sk, hd, causal, window), "bf16")
+        return out if hk == hd else out[..., :hd]
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -220,7 +249,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} at BH={BH}, Sq={Sq}, Sk={Sk}, "
                            f"hd={hd}")
-    spec = (hk, bool(causal), int(window))
     spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out if hk == hd else out[..., :hd]
 

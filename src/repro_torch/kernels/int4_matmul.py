@@ -16,16 +16,20 @@ logical columns: a GEMV block's 128 of them are 64 packed byte columns)
 picks one per call: a split-K GEMV on the packed bytes for ``M <= 16``,
 else a pre-pass that unpacks the weight K-major and the ``wgmma`` tile.
 On a CPU tensor it takes the plain version, :func:`int4_matmul_ref`,
-which is also the oracle the kernel is held against on the card.
+which is also the oracle the kernel is held against on the card.  A fake
+tensor that stands for the card's (``kernels.card_fake``) plans and
+allocates without running the kernel and reports the launch, priced
+by :func:`work`, to ``kernels.observe``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import bitfluid as bf
 from repro_torch.kernels import bitplane_matmul as bpm
 from repro_torch.kernels import cuda_build
@@ -57,6 +61,16 @@ def int4_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
     return (acc.float() * scale).to(out_dtype)
 
 
+def work(M: int, K: int, N: int, out_bytes: int = 4
+         ) -> Tuple[float, float]:
+    """(operations, bytes) one launch at (M, K, N logical columns) must
+    do: 2 M N K multiply-adds; x, the packed weight (K N / 2 bytes) and
+    the f32 scale read once, the output (``out_bytes`` an element)
+    written once."""
+    return 2.0 * M * N * K, float(M * K + K * N // 2 + 4 * N
+                                  + out_bytes * M * N)
+
+
 def _check(x_q, w_packed, scale, out_dtype) -> None:
     if x_q.dtype != torch.int8 or w_packed.dtype != torch.uint8:
         raise TypeError(f"int4_matmul takes int8 activations and uint8 "
@@ -85,9 +99,10 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor,
     """int8 (M, K) @ halves-packed uint8 (K, N/2), times f32 scale (1, N)
     -> (M, N) in ``out_dtype`` (float32 or bfloat16)."""
     _check(x_q, w_packed, scale, out_dtype)
-    if x_q.device.type == "cpu":
+    fake = kernels.card_fake(x_q)         # the lowering report's launch
+    if x_q.device.type == "cpu" and not fake:
         return int4_matmul_ref(x_q, w_packed, scale, out_dtype)
-    if x_q.device.type != "cuda":
+    if x_q.device.type != "cuda" and not fake:
         raise ValueError(f"int4_matmul runs on cuda or cpu tensors, not "
                          f"{x_q.device}")
     if not (x_q.is_contiguous() and w_packed.is_contiguous()
@@ -100,9 +115,16 @@ def int4_matmul(x_q: torch.Tensor, w_packed: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"int4_matmul: ({M}, {K}) @ ({K}, {N // 2}) "
                          f"exceeds the kernel's grid")
-    p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
+    if fake:
+        p = plan(M, K, N, bpm.H100_SMS, kernels.fake_aligned(x_q))
+    else:
+        p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     scratch = bpm.alloc_scratch(p, M, N, dev, partials=True)
+    if fake:                # priced, not counted: nothing was launched
+        kernels.launched("int4_matmul", (p.path,),
+                         *work(M, K, N, out.element_size()), "int8")
+        return out
     err = _entry()(x_q.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
                    out.data_ptr(), bpm.ptr_or_none(scratch), M, N, K,
                    int(out_dtype == torch.bfloat16), p.steps, int(p.copy_x),

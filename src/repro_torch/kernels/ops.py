@@ -62,6 +62,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import bitfluid as bf
 from repro_torch.dist import api as dist_api
 from repro_torch.dist import sharding as shd
@@ -569,7 +570,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale.  CPU tensors take a plain version, as the reference does off
     the TPU: the blockwise online-softmax lowering when a sequence is
     longer than one chunk, the exact oracle otherwise."""
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or kernels.card_fake(q):
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=q.shape[-1] ** -0.5)
     if max(q.shape[1], k.shape[1]) > fa.FLASH_CHUNK:

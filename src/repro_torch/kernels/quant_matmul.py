@@ -17,7 +17,10 @@ bit-plane kernel's, shared) picks one per call: a split-K GEMV for
 scratch before the epilogue), else a K-major pre-pass and the ``wgmma``
 tile, with x re-pitched where its rows are not 16-byte aligned.  On a
 CPU tensor it takes the plain version, :func:`quant_matmul_ref`, which
-is also the oracle the kernel is held against on the card.
+is also the oracle the kernel is held against on the card.  A fake
+tensor that stands for the card's (``kernels.card_fake``) plans and
+allocates without running the kernel and reports the launch, priced
+by :func:`work`, to ``kernels.observe``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import bitplane_matmul as bpm
 from repro_torch.kernels import cuda_build
 
@@ -93,6 +97,14 @@ def quant_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     return activate(acc.float() * scale + bias, act).to(out_dtype)
 
 
+def work(M: int, K: int, N: int, out_bytes: int = 4
+         ) -> Tuple[float, float]:
+    """(operations, bytes) one launch at (M, K, N) must do: 2 M N K
+    multiply-adds; x, w and the f32 scale and bias read once, the output
+    (``out_bytes`` an element) written once."""
+    return 2.0 * M * N * K, float(M * K + K * N + 8 * N + out_bytes * M * N)
+
+
 def _check(x_q, w_q, scale, bias, act, out_dtype) -> None:
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"quant_matmul takes int8 operands, got "
@@ -121,9 +133,10 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     """int8 (M, K) @ int8 (K, N) -> act(f32(acc) * scale + bias), with
     f32 ``scale`` and ``bias`` of shape (1, N), in ``out_dtype``."""
     _check(x_q, w_q, scale, bias, act, out_dtype)
-    if x_q.device.type == "cpu":
+    fake = kernels.card_fake(x_q)         # the lowering report's launch
+    if x_q.device.type == "cpu" and not fake:
         return quant_matmul_ref(x_q, w_q, scale, bias, act, out_dtype)
-    if x_q.device.type != "cuda":
+    if x_q.device.type != "cuda" and not fake:
         raise ValueError(f"quant_matmul runs on cuda or cpu tensors, not "
                          f"{x_q.device}")
     if not all(t.is_contiguous() for t in (x_q, w_q, scale, bias)):
@@ -135,9 +148,17 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if max(M, K, N) >= 2 ** 31 or M * N >= 2 ** 40:
         raise ValueError(f"quant_matmul: ({M}, {K}) @ ({K}, {N}) exceeds "
                          f"the kernel's grid")
-    p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
+    if fake:
+        p = plan(M, K, N, bpm.H100_SMS, kernels.fake_aligned(x_q))
+    else:
+        p = plan(M, K, N, bpm.sm_count(dev), x_q.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     scratch = bpm.alloc_scratch(p, M, N, dev, partials=True)
+    spec = (act, p.path)
+    if fake:                # priced, not counted: nothing was launched
+        kernels.launched("quant_matmul", spec,
+                         *work(M, K, N, out.element_size()), "int8")
+        return out
     err = _entry()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                    bias.data_ptr(), out.data_ptr(),
                    bpm.ptr_or_none(scratch), M, N, K, ACTS.index(act),
@@ -147,7 +168,6 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err} at ({M}, {K}) @ ({K}, {N}), act={act}, "
                            f"plan {p}")
-    spec = (act, p.path)
     spec_launches[spec] = spec_launches.get(spec, 0) + 1
     return out
 

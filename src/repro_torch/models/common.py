@@ -144,11 +144,37 @@ def local_linear(p: dict, x: torch.Tensor, wbits=8, abits=8
     return apply_linear(p, x, wbits, abits)
 
 
-def _train_linear(p: dict, x: torch.Tensor, wbits, abits) -> torch.Tensor:
-    """Scalar-bits fake-quant (STE) linear, bf16 around the product."""
+class _F32InputGrad(torch.autograd.Function):
+    """The identity on a product ``y``; the gradient of its float32 input
+    ``x32`` is ``dy @ w^T`` taken in float32 (a column-parallel partial,
+    SUMmed over the model axis before it rounds once)."""
+
+    @staticmethod
+    def forward(ctx, y, x32, w):
+        ctx.save_for_backward(w)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, = ctx.saved_tensors
+        return dy, dy.float() @ w.float().transpose(-1, -2), None
+
+
+def _train_linear(p: dict, x: torch.Tensor, wbits, abits,
+                  grad_f32: bool = False) -> torch.Tensor:
+    """Scalar-bits fake-quant (STE) linear, bf16 around the product.
+
+    ``grad_f32`` (a float32 ``x`` holding bf16 values): the same bf16
+    product, but ``x``'s gradient leaves it in float32
+    (:class:`_F32InputGrad`; the straight-through estimator passes it as
+    it is)."""
     w = bf.fake_quant(p["w"], wbits, axis=0)
     xq = bf.fake_quant(x.to(DTYPE), abits, reduce=kops.tensor_amax_reduce())
-    y = torch.matmul(xq, w).float()
+    if grad_f32:
+        y = _F32InputGrad.apply(torch.matmul(xq.detach(), w), x,
+                                w.detach()).float()
+    else:
+        y = torch.matmul(xq, w).float()
     if "b" in p:
         y = y + p["b"].float()
     return y.to(DTYPE)
@@ -171,8 +197,9 @@ def _train_linear_local(p, x: torch.Tensor, wbits, abits,
     FSDP (data-axis) blocks are all-gathered, so their gradients
     reduce-scatter back.  A column-parallel weight keeps its model-axis
     columns: ``x`` enters the region (its gradient SUMs over the model
-    axis), the bias is sliced to the columns, and the output columns are
-    gathered unless ``local_out``.  A row-parallel weight keeps its rows:
+    axis in float32 and rounds to bf16 once, as one device's whole
+    product rounds it), the bias is sliced to the columns, and the
+    output columns are gathered unless ``local_out``.  A row-parallel weight keeps its rows:
     ``x`` is (or is sliced to) this rank's part of the reduction dim, the
     activation amax and each column's weight amax are MAX-reduced over the
     model axis in one collective, so both quantize on the whole tensor's
@@ -192,10 +219,14 @@ def _train_linear_local(p, x: torch.Tensor, wbits, abits,
         x = dist.constrain(x, lead + (None,), have=lead + ("tp",))
     if ne is not None:                              # column-parallel
         axes = dist.entry_axes(ne)
-        x = mesh.enter(x, axes)
+        # this rank's columns give a partial gradient of x: it stays
+        # float32 through the SUM (an x entered in float32 already, by
+        # dist.enter_tp, is not entered again)
+        f32 = x.requires_grad and torch.is_grad_enabled()
+        x = mesh.enter(x.float() if f32 else x, axes)
         if b is not None:
             whole["b"] = mesh.local_block(mesh.enter(b, axes), axes, -1)
-        y = _train_linear(whole, x, wbits, abits)
+        y = _train_linear(whole, x, wbits, abits, grad_f32=f32)
         if local_out:
             return y
         return mesh.all_gather(y, axes, dim=-1, kind="gather_cols")

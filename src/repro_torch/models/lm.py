@@ -463,8 +463,9 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig, wb=8, ab=8, *,
         sharded = isinstance(params, shd.Local) and "emb" in params.layout
         emb, lo, axes = (_emb_rows(params) if sharded
                          else (params["emb"], 0, ()))
-        if axes:        # every model rank's h feeds its own columns
-            h = params.mesh.enter(h, axes)
+        if axes:        # every model rank's h feeds its own columns; its
+            # partial gradient stays float32 through the SUM
+            h = params.mesh.enter(h.float(), axes)
         emb = emb.float().T
         if not rows_alone:
             logits = h.float() @ emb
@@ -611,8 +612,9 @@ def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``batch``-row cache as ``dist.sharding.cache_shardings`` lays it out:
     rows over the data axis (``split_rows=False`` keeps every row, for a
     row every rank computes), KV heads or the head dim over the model
-    axis.  A layout that shards the sequence over the data axis (rows
-    that do not split) is not served, and raises."""
+    axis, or, where the rows do not split over the data ranks and the
+    sequence does, each data rank's slice of the sequence (``kpos``
+    whole: ``transformer``'s sequence-sharded cache)."""
     _require_ported(cfg)
     dev = cm.resolve_device(device)
     if mesh is not None:
@@ -644,13 +646,7 @@ def _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows) -> dict:
         spec = list(specs[name])
         if spec[1] is not None and not split_rows:
             spec[1] = None
-        if len(spec) > 2 and spec[2] is not None:
-            if split_rows:
-                raise NotImplementedError(
-                    f"{batch} cache rows do not split over the mesh's "
-                    f"{dist.dp_size(mesh)} data ranks; the reference "
-                    f"shards the sequence then, which the port does not "
-                    f"serve")
+        if len(spec) > 2 and spec[2] is not None and not split_rows:
             spec[2] = None
         shape = dist.local_shape(mesh, spec, t.shape)
         fill = tf.EMPTY_POS if name == "kpos" else 0

@@ -40,6 +40,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import bitfluid as bf
 from repro_torch.dist import api as dist_api
@@ -212,7 +213,8 @@ def _ep_local(xf, topi, topv, experts, cfg, wbits, abits, rank: int,
     mine = (local_i >= 0) & (local_i < E_loc)
     li = torch.where(mine, local_i, E_loc)      # E_loc: the overflow slot
     eid, pos, keep = _positions(li, E_loc + 1, C_shard)
-    ep_dropped[0] += int((mine.reshape(-1) & ~keep).sum())
+    if not is_fake(mine):       # fake tensors (the lowering report) hold
+        ep_dropped[0] += int((mine.reshape(-1) & ~keep).sum())  # no count
     keep = keep & mine.reshape(-1)
     gate = (topv.reshape(-1) * keep).float()
     xr = torch.repeat_interleave(xf, k, dim=0)

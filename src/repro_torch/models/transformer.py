@@ -45,6 +45,22 @@ cache keeps the reference's layout, ``hd`` over the model axis, gathered
 around each call.  The MLP's ``wg``/``wu``/``wi`` keep their local
 columns and ``wd`` reduces.
 
+When the rows of a cache do not split over a mesh's data ranks and its
+sequence does (a B=1 long-context decode), ``dist.sharding`` puts the
+cache's SEQUENCE over the data axis, as the reference does: each data
+rank holds its slice ``[lo, lo + n)`` of every row's ring in ``k``/``v``,
+while ``kpos`` stays whole on every rank (``cache["k"].shape[1] <
+cache["kpos"].shape[-1]`` says so).  Every rank computes the rows whole;
+a prefill keeps its slice of the ring, and a decode step writes the new
+K/V only on the rank that owns slot ``t % Sc``, computes attention over
+its slice, and combines the ranks' partials through the mesh as the
+reference's SPMD lowering partitions the same softmax: a MAX of the f32
+scores, a SUM of the sums of exp (the log-sum-exp denominator), then a
+SUM of each rank's P.V on the probabilities rounded to bf16 as one
+device rounds them.  Only the f32 sums run in another order, so a
+step's output is within a tolerance of one device's (EQUAL in the
+tests' runs).
+
 Cross-attention (``attention(kv=(k, v))``, the encoder-decoder's) takes
 precomputed keys and values and skips RoPE, as the reference does.  The
 reference also projects ``x`` through ``wk`` and ``wv`` there and
@@ -213,7 +229,8 @@ def _qkv(p, x, cfg, wbits, abits, local: bool = False):
     B, S = x.shape[:2]
     hd = cfg.head_dim
     if all(cm.column_parallel(p[n]) for n in ("wq", "wk", "wv")):
-        x = dist.enter_tp(x)    # one gradient SUM for q, k and v
+        # one gradient SUM for q, k and v, in float32
+        x = dist.enter_tp(x, float32=True)
     q = _q(p, x, cfg, wbits, abits, local)
     lin = cm.local_linear if local else cm.apply_linear
     k = lin(p["wk"], x, wbits, abits).reshape(B, S, -1, hd)
@@ -285,6 +302,82 @@ def _sdpa_rows(q, k, v, bias):
         o = cm.row_sum(probs[..., None, :] * vt)[..., 0]      # (B,KV,G,hd)
         out.append(o.reshape(B, 1, H * hd))
     return torch.cat(out, dim=1).to(cm.DTYPE)
+
+
+def seq_sharded(cache: Optional[dict]) -> bool:
+    """Whether ``cache``'s k/v hold this data rank's slice of the ring
+    (the sequence-sharded layout; module docstring)."""
+    return (cache is not None and "kpos" in cache
+            and cache["k"].shape[-3] != cache["kpos"].shape[-1])
+
+
+def _seq_slice(cache: dict):
+    """(mesh, lo, n): the active mesh and this data rank's slots
+    ``[lo, lo + n)`` of a sequence-sharded cache."""
+    mesh = dist.active_mesh()
+    n = cache["k"].shape[-3]
+    if mesh is None or dist.dp_size(mesh) * n != cache["kpos"].shape[-1]:
+        raise ValueError(f"a cache of {n} k/v slots against "
+                         f"{cache['kpos'].shape[-1]} positions is a data "
+                         f"rank's slice: it needs its mesh active")
+    return mesh, mesh.dp_index * n, n
+
+
+def _sdpa_rows_seq(q, k, v, bias, mesh):
+    """:func:`_sdpa_rows` for one query over this data rank's slice of
+    the keys (k, v (B, n, KV, hd); bias (B, 1, n)), partitioned as the
+    reference's SPMD lowering partitions the same softmax over a sharded
+    key axis: the f32 scores' MAX over the data axis, a SUM of each
+    rank's sum of exp (the log-sum-exp denominator), then each rank's
+    P.V on the probabilities rounded to bf16 as one device rounds them,
+    and a SUM of those."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    kt = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B,KV,1,n,hd)
+    vt = v.float().permute(0, 2, 3, 1)[:, :, None]       # (B,KV,1,hd,n)
+    qu = q[:, 0].float().reshape(B, KV, G, 1, hd)
+    scores = cm.row_sum(qu * kt)[..., 0] * (hd ** -0.5)  # (B,KV,G,n)
+    scores = scores + bias[:, 0, None, None]
+    m = mesh.all_reduce(scores.amax(dim=-1), mesh.dp_axes, "max",
+                        kind="seq_max")
+    e = torch.exp(scores - m[..., None])
+    den = mesh.all_reduce(cm.row_sum(e), mesh.dp_axes, "sum",
+                          kind="seq_sum")
+    probs = (e / den).to(k.dtype).float()
+    out = cm.row_sum(probs[..., None, :] * vt)[..., 0]   # (B,KV,G,hd)
+    out = mesh.all_reduce(out, mesh.dp_axes, "sum", kind="seq_pv")
+    return out.reshape(B, 1, H * hd).to(cm.DTYPE)
+
+
+def _seq_decode(q, k_new, v_new, cache, positions, t, cfg):
+    """The decode branch of :func:`attention` on a sequence-sharded
+    cache (module docstring): ``kpos`` is written on every rank, the
+    new K/V only in the slice that owns slot ``t % Sc``."""
+    if "ks" in cache:
+        raise NotImplementedError(
+            "the int8 KV cache is not served sequence-sharded")
+    mesh, lo, n = _seq_slice(cache)
+    B = q.shape[0]
+    Sc = cache["kpos"].shape[-1]
+    t_b = torch.as_tensor(t, dtype=torch.int32, device=q.device).expand(B)
+    slot = t_b % Sc
+    kpos = _row_insert(cache["kpos"], t_b[:, None], slot)
+    local = slot - lo
+    mine = ((local >= 0) & (local < n))[:, None, None]
+    rows = torch.arange(B, device=q.device)
+    idx = local.clamp(0, n - 1).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name]
+        buf[rows, idx] = torch.where(mine, new[:, 0].to(buf.dtype),
+                                     buf[rows, idx])
+    kp = kpos[:, lo:lo + n]
+    visible = kp <= positions[:, -1:]
+    if cfg.sliding_window:
+        visible &= kp > positions[:, -1:] - cfg.sliding_window
+    bias = cm.visibility_bias(visible)[:, None, :]
+    out = _sdpa_rows_seq(q, cache["k"], cache["v"], bias, mesh)
+    return out, {"k": cache["k"], "v": cache["v"], "kpos": kpos}
 
 
 def _flash(q, k, v, cfg, causal: bool):
@@ -361,7 +454,10 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         have = _heads_have(k_new, cfg.n_kv_heads)
         k_new = dist.constrain_heads(k_new, 2, 3, True, have=have)
         v_new = dist.constrain_heads(v_new, 2, 3, True, have=have)
-    if cache is not None and x.shape[1] == 1:            # decode (S == 1)
+    if cache is not None and x.shape[1] == 1 and seq_sharded(cache):
+        out, new_cache = _seq_decode(q, k_new, v_new, cache, positions, t,
+                                     cfg)
+    elif cache is not None and x.shape[1] == 1:          # decode (S == 1)
         B = x.shape[0]
         Sc = cache["k"].shape[1]
         t_b = torch.as_tensor(t, dtype=torch.int32,
@@ -394,6 +490,9 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         # chunk computes what U single-token steps compute (the draft's
         # stale entries past each query are masked; the caller rolls
         # rejected slots back to EMPTY_POS)
+        if seq_sharded(cache):
+            raise NotImplementedError(
+                "chunked decode is not served on a sequence-sharded cache")
         B = x.shape[0]
         Sc = cache["k"].shape[1]
         pos = positions.to(torch.int32).expand(B, -1)    # (B, U)
@@ -424,6 +523,10 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         if S > FLASH_THRESHOLD:
             out = _flash(q, k_new, v_new, cfg, causal=causal)
         elif causal and cache is not None and positions.shape[0] > 1:
+            if seq_sharded(cache):
+                raise NotImplementedError(
+                    "ragged prefill is not served on a sequence-sharded "
+                    "cache")
             # ragged prefill: rows carry different valid lengths, so the
             # mask is per row
             bias = cm.causal_mask_bias_batched(positions, positions,
@@ -466,8 +569,13 @@ def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
 
     ``positions`` (B, S) or (1, S) may differ per row: padded tokens at
     EMPTY_POS land as EMPTY_POS slots.  When the prompt exceeds the ring
-    capacity, each row keeps its own last ``Sc`` valid tokens."""
-    Sc = cache_layer["k"].shape[1]
+    capacity, each row keeps its own last ``Sc`` valid tokens.  A
+    sequence-sharded cache keeps this data rank's slice of the ring
+    (``kpos`` whole)."""
+    lo, n = 0, None
+    if seq_sharded(cache_layer):
+        _, lo, n = _seq_slice(cache_layer)
+    Sc = cache_layer["kpos"].shape[-1]
     B, S = k.shape[0], k.shape[1]
     keep = min(S, Sc)
     positions = positions.to(torch.int32).expand(B, S)
@@ -484,6 +592,16 @@ def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
         k_keep = torch.gather(k, 1, gidx)
         v_keep = torch.gather(v, 1, gidx)
     cache_layer["kpos"][:, :keep] = kpos_new
+    if n is not None:                   # this rank's slots [lo, lo + n)
+        if "ks" in cache_layer:
+            raise NotImplementedError(
+                "the int8 KV cache is not served sequence-sharded")
+        m = min(max(keep - lo, 0), n)
+        cache_layer["k"][:, :m] = k_keep[:, lo:lo + m].to(
+            cache_layer["k"].dtype)
+        cache_layer["v"][:, :m] = v_keep[:, lo:lo + m].to(
+            cache_layer["v"].dtype)
+        return cache_layer
     if "ks" in cache_layer:                              # int8 cache
         for name, new in (("k", k_keep), ("v", v_keep)):
             vals, scale = _quant_heads(new)
@@ -504,7 +622,8 @@ def mlp(p, x, cfg, wbits=8, abits=8):
     columns stay local between the two linears)."""
     if cfg.mlp_type == "swiglu":
         if cm.column_parallel(p["wg"]) and cm.column_parallel(p["wu"]):
-            x = dist.enter_tp(x)    # one gradient SUM for the pair
+            # one gradient SUM for the pair, in float32
+            x = dist.enter_tp(x, float32=True)
         g = cm.local_linear(p["wg"], x, wbits, abits)
         u = cm.local_linear(p["wu"], x, wbits, abits)
         h = torch.nn.functional.silu(g.float()) * u.float()

@@ -189,17 +189,26 @@ class ServeRuntime:
                    ) -> Optional[Tuple[int, int]]:
         """This data rank's block ``[lo, hi)`` of ``n_rows`` request rows,
         or None when nothing splits them (no mesh, or a data axis of 1).
-        Rows that do not divide evenly over the data ranks raise (the
-        reference would shard the cache's sequence instead)."""
+        Rows of a batch (``what="rows"``) that do not divide evenly over
+        the data ranks are not split either: every rank computes every
+        row, and the cache takes the sequence-sharded layout where its
+        sequence divides (``dist.sharding._kv_cache_spec``), which needs
+        a :class:`repro_torch.dist.Mesh` (its collectives).  Slots that
+        do not divide raise, and so do rows on another mesh object."""
         if self.mesh is None:
             return None
         dp = dist.dp_size(self.mesh)
         if dp <= 1:
             return None
+        if n_rows % dp and what == "rows" and isinstance(self.mesh,
+                                                         dist.Mesh):
+            return None
         if n_rows % dp:
             raise NotImplementedError(
                 f"{n_rows} {what} do not split evenly over the mesh's "
-                f"{dp} data ranks")
+                f"{dp} data ranks" + (
+                    "; a sequence-sharded cache needs a "
+                    "repro_torch.dist.Mesh" if what == "rows" else ""))
         n = n_rows // dp
         i = getattr(self.mesh, "dp_index", None)
         i = self.mesh.rank if i is None else i

@@ -388,8 +388,13 @@ def _reference_specs(name, meshes):
     from repro.dist import sharding as jdsh
     from repro.models import lm as jlm
 
+    from repro.launch import specs as jsp
+    from repro.models.config import ShapeConfig as JShape
+
     cfg = jconfigs.get(name)
     params, qparams, cache, bits, budgets, batch = jsh._abstract_state(cfg)
+    cache_b1 = jsp.abstract_cache(cfg, JShape("audit_b1", sharding.CACHE_LEN,
+                                              1, "decode"))
     gd = jlm.layer_gemm_dims(cfg)
     rep = [8] * len(gd)
     head = jlm.head_gemm_dims(cfg)
@@ -423,6 +428,10 @@ def _reference_specs(name, meshes):
         for keys, shape in keyed(cache):
             out[("cache", ".".join(keys), label)] = tuple(
                 jdsh._cache_leaf_spec(m, keys, L(shape)))
+        if mesh in sharding.dp_meshes(meshes):      # B=1 on the dp meshes
+            for keys, shape in keyed(cache_b1):
+                out[("cache_b1", ".".join(keys), label)] = tuple(
+                    jdsh._cache_leaf_spec(m, keys, L(shape)))
         for tag, leaf, fn in (("bits", bits, jdsh.bits_pspec),
                               ("budgets", budgets, jdsh.budgets_pspec)):
             out[(tag, tag, label)] = tuple(jdapi.logical_to_mesh(
@@ -454,6 +463,39 @@ def test_sharding_resolves_the_reference_specs(name):
     assert set(ours) == set(want)
     assert {k for k in ours if ours[k] != want[k]} == set()
     assert any(k[0] == "opt" for k in got)
+
+
+def test_sharding_audits_the_b1_sequence_sharded_cache(monkeypatch):
+    """Every config with a KV cache is audited at B=1 on the data meshes,
+    where its k/v sequence goes on ``data``; a rule that stops doing so
+    is SH603 on the 2x2 mesh."""
+    from repro_torch.dist import sharding as dsh
+
+    got = {}
+    found, _ = sharding.audit_config_sharding(
+        "starcoder2_15b", sharding.fake_meshes(), got)
+    assert found == []
+    b1 = {k: v for k, v in got.items() if k[0] == "cache_b1"}
+    assert {k[2] for k in b1} == {sharding.mesh_label(m) for m in
+                                  sharding.dp_meshes(sharding.fake_meshes())}
+    assert b1[("cache_b1", "k", "data2")] == (None, None, "data", None, None)
+    assert b1[("cache_b1", "kpos", "data2")] == (None, None, None)
+    got = {}
+    sharding.audit_config_sharding("mamba2_1_3b", sharding.fake_meshes(), got)
+    assert not any(k[0] == "cache_b1" for k in got)   # no KV cache
+
+    real = dsh._kv_cache_spec
+
+    def rows_only(mesh, shape):
+        spec = list(real(mesh, shape))
+        spec[2] = None
+        return dsh.P(*spec)
+
+    monkeypatch.setattr(dsh, "_kv_cache_spec", rows_only)
+    net = [sharding.FakeMesh((("data", 2), ("model", 2)))]
+    found, _ = sharding.audit_config_sharding("qwen3_4b", net)
+    assert [(f.rule, f.scope) for f in found] == [
+        ("SH603", "qwen3_4b/cache_b1@data2xmodel2")]
 
 
 def test_sharding_checks_catch_synthetic_violations():

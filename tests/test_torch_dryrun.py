@@ -1,0 +1,181 @@
+"""The lowering report (``repro_torch.launch.dryrun``) against the
+reference's planning and analytic counts, its CLI, and its recording
+mesh against real gloo meshes.
+
+* The reference's ``planned_cells()``, ``param_counts`` and
+  ``model_flops`` are read for all ten configs in one subprocess
+  (importing ``repro.launch.dryrun`` rewrites ``XLA_FLAGS`` to 512
+  devices, which must not reach this process's JAX); the port's are
+  EQUAL.
+* The refused cells are exactly the ssm, hybrid and encdec ones, each
+  naming ROADMAP Queue A 22.
+* One FULL cell through the CLI (``--all`` over a refused cell and
+  qwen3_4b ``decode_32k`` on 256 chips, the latter in its subprocess):
+  int8 operations counted, it fits 80 GB, a dominant roofline term.
+* Two spawned CPU ranks (gloo, a file rendezvous under ``tmp_path``) run
+  ``dryrun.serve_run`` at SMOKE size on real tensors: qwen3_4b
+  tensor-parallel on ``(1, 2)``, FSDP on ``(2, 1)`` with the rows split,
+  and Moonshot expert-parallel on ``(1, 2)``; each rank's ``Mesh.counts``
+  EQUAL a ``RecordingMesh``'s for the same run on fake tensors (the
+  sequence-sharded decode's are in ``tests/test_torch_seq_kv.py``).
+"""
+import datetime
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as tdist  # noqa: E402
+import torch.multiprocessing as tmp  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.config import SHAPES_BY_NAME  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 2
+# (label, arch, mesh (data, model), batch, prompt)
+MESH_RUNS = (("tp", "qwen3_4b", (1, 2), 2, 10),
+             ("fsdp", "qwen3_4b", (2, 1), 2, 10),
+             ("ep", "moonshot_v1_16b_a3b", (1, 2), 2, 10))
+STEPS, MAX_LEN = 2, 16
+
+_REFERENCE = r"""
+import json
+from repro import configs
+from repro.launch import dryrun as d
+from repro.models.config import SHAPES_BY_NAME
+out = {"cells": d.planned_cells(), "params": {}, "flops": {},
+       "accum": {}}
+for arch in configs.ARCH_IDS:
+    cfg = configs.get(arch)
+    c = d.param_counts(cfg)
+    out["params"][arch] = c
+    out["flops"][arch] = {s: d.model_flops(cfg, sh, c)
+                          for s, sh in SHAPES_BY_NAME.items()}
+    out["accum"][arch] = {s: d.accum_for(cfg, sh)
+                          for s, sh in SHAPES_BY_NAME.items()}
+print(json.dumps(out))
+"""
+
+
+def _env():
+    return dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+                PYTHONPATH=os.pathsep.join(
+                    [os.path.join(ROOT, "src")]
+                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def test_planning_and_counts_equal_the_reference():
+    r = subprocess.run([sys.executable, "-c", _REFERENCE], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ref = json.loads(r.stdout.strip().splitlines()[-1])
+    assert [list(c) for c in dryrun.planned_cells()] == ref["cells"]
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get(arch)
+        counts = dryrun.param_counts(cfg)
+        assert counts == ref["params"][arch], arch
+        for s, shape in SHAPES_BY_NAME.items():
+            assert dryrun.model_flops(cfg, shape, counts) == \
+                ref["flops"][arch][s], (arch, s)
+            assert dryrun.accum_for(cfg, shape) == ref["accum"][arch][s]
+
+
+def test_refused_cells_are_the_recurrent_and_encdec_families():
+    refused = [(a, s) for a, s in dryrun.planned_cells()
+               if dryrun.refusal(configs.get(a), SHAPES_BY_NAME[s])]
+    assert len(refused) == 11
+    assert {a for a, _ in refused} == {"mamba2_1_3b", "zamba2_2_7b",
+                                       "seamless_m4t_medium"}
+    assert {configs.get(a).family for a, _ in refused} == {
+        "ssm", "hybrid", "encdec"}
+    res = dryrun.report_cell("zamba2_2_7b", "long_500k", multi_pod=True)
+    assert res["mesh"] == "2x16x16" and "Queue A 22" in res["refused"]
+
+
+def test_a_full_cell_through_the_cli(tmp_path, monkeypatch, capsys):
+    """``--all`` over a refused cell and qwen3_4b decode_32k (256 chips,
+    in a subprocess); the cell's JSON has the report's sections."""
+    monkeypatch.setattr(dryrun, "planned_cells", lambda: [
+        ("mamba2_1_3b", "decode_32k"), ("qwen3_4b", "decode_32k")])
+    monkeypatch.setenv("PYTHONPATH", _env()["PYTHONPATH"])
+    assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
+    assert "1 ok, 1 refused, 0 failed" in capsys.readouterr().out
+    res = json.loads((tmp_path / "qwen3_4b.decode_32k.16x16.json")
+                     .read_text())
+    assert res["chips"] == 256 and res["kind"] == "decode"
+    assert res["cost"]["ops_int8_per_device"] > 0
+    assert res["memory"]["fits_hbm_80g"]
+    assert res["memory"]["peak_bytes_per_device"] > \
+        res["memory"]["argument_bytes"] > 0
+    assert res["roofline"]["dominant"] in ("compute", "memory",
+                                           "collective")
+    # 128 rows over 16 data ranks: the GEMVs run at M = 8
+    keys = {tuple(k[:-1]) for k in res["kernels"]["launches"]}
+    assert keys and all(k[0] == "bitplane_matmul" and k[3] == 8
+                        for k in keys)
+    assert res["links"] == {"data": "nic", "model": "nic"}
+    assert res["params"] == dryrun.param_counts(configs.get("qwen3_4b"))
+    refused = json.loads((tmp_path / "mamba2_1_3b.decode_32k.16x16.json")
+                         .read_text())
+    assert "Queue A 22" in refused["refused"]
+
+
+def _smoke_q(arch):
+    cfg = configs.get_smoke(arch)
+    return cfg, lm.quantize_params(lm.init_params(
+        cfg, torch.Generator().manual_seed(6), device="cpu"), cfg)
+
+
+def _rank(rank, init_file, out_dir):
+    torch.set_num_threads(1)
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=WORLD, timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        meshes = {(1, 2): make_host_mesh(model=2),
+                  (2, 1): make_host_mesh(model=1)}
+        for label, arch, shape, B, S in MESH_RUNS:
+            cfg, q = _smoke_q(arch)
+            tokens = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32))
+            mesh = meshes[shape]
+            mesh.reset_counts()
+            dryrun.serve_run(cfg, mesh, q, tokens, steps=STEPS,
+                             max_len=MAX_LEN)
+            out[label] = {k: list(v) for k, v in mesh.counts.items()}
+    finally:
+        tdist.destroy_process_group()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dryrun_mesh")
+    tmp.start_processes(_rank, args=(str(d / "rendezvous"), str(d)),
+                        nprocs=WORLD, join=True, start_method="spawn")
+    return [torch.load(d / f"rank{r}.pt", weights_only=False)
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("run", MESH_RUNS, ids=[r[0] for r in MESH_RUNS])
+def test_mesh_counts_equal_the_recording_mesh(ranks, run):
+    label, arch, shape, B, S = run
+    want = dryrun.predict_counts(configs.get_smoke(arch), shape, batch=B,
+                                 prompt=S, steps=STEPS, max_len=MAX_LEN)
+    assert want
+    for out in ranks:
+        assert out[label] == want
+    if label == "tp":
+        assert "acc_tp" in want and "gather_weight" not in want
+    if label == "fsdp":
+        assert "gather_weight" in want and "amax_dp" in want

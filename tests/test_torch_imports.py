@@ -56,7 +56,8 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.analysis.lint", "repro_torch.analysis.ledger",
             "repro_torch.analysis.registry", "repro_torch.analysis.retrace",
             "repro_torch.analysis.sharding", "repro_torch.launch.analyze",
-            "repro_torch.launch.specs"} \
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.launch.opcost"} \
         <= set(names.split(","))
     assert bad == "", f"importing repro_torch loaded {bad}"
 
@@ -84,6 +85,34 @@ def test_analysis_suite_runs_without_jax_or_the_reference():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     assert "RC 0" in lines, res.stdout
+    assert "BAD " in lines, res.stdout
+
+
+_DRYRUN_CHILD = r"""
+import sys
+from repro_torch import configs
+from repro_torch.launch import dryrun
+counts = dryrun.predict_counts(configs.get_smoke("qwen3_4b"), (2, 1),
+                               batch=1, prompt=8, steps=1, max_len=16)
+refused = dryrun.report_cell("mamba2_1_3b", "decode_32k")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print("SEQ", counts["seq_max"][0], "refused" in refused)
+print("BAD", ",".join(bad))
+"""
+
+
+def test_lowering_report_runs_without_jax_or_the_reference():
+    """repro_torch.launch.dryrun and opcost, run on fake tensors and a
+    recording mesh, load no jax and no reference module."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert "SEQ 2 True" in lines, res.stdout     # 2 layers, 1 decode step
     assert "BAD " in lines, res.stdout
 
 

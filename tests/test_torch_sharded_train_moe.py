@@ -60,6 +60,7 @@ MOE_PARAM_TOL = 2.0
 MOE_PARAM_MEAN = 0.2
 ADAM_TOL = 1e-5
 LINEAR_TOL = 1
+COLPAR_APART = 1e-3
 # leaves of every layout the rules give (paths decide the rule)
 ADAM_SHAPES = {"emb": (16, 8), "ln_f": {"scale": (8,)},
                "layers": {"attn": {"wq": {"w": (2, 8, 12)},
@@ -110,13 +111,35 @@ def _moe_train(mesh):
     return out, dict(mesh.counts)
 
 
+def _xent_split_order(logits, targets, mask, mesh=None, axes=()):
+    """``lm._xent`` of one process with the log-partition summed in the
+    vocab-split mesh's f32 order, the reference's SPMD partition of the
+    same softmax: a MAX of the WORLD vocab blocks' maxima, then a SUM of
+    their ``exp`` sums.  ``torch.logsumexp`` over the whole row sums in
+    another order, so its z-loss may stand one f32 ulp apart."""
+    blocks = logits.chunk(WORLD, dim=-1)
+    m = torch.stack([b.detach().amax(dim=-1) for b in blocks]).amax(dim=0)
+    se = torch.exp(blocks[0] - m[..., None]).sum(dim=-1)
+    for b in blocks[1:]:
+        se = se + torch.exp(b - m[..., None]).sum(dim=-1)
+    logz = torch.log(se) + m
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    zloss = ((logz * mask) ** 2).sum() / denom
+    return nll.sum() / denom, zloss
+
+
 def _moe_one(steps):
     """Each step again in one process from the mesh's starting state,
-    ``moe.apply_moe`` replaced by ``moe.ep_reference(tp=2)``."""
+    ``moe.apply_moe`` replaced by ``moe.ep_reference(tp=2)`` and the
+    cross-entropy's log-partition summed in the mesh's order
+    (:func:`_xent_split_order`)."""
     cfg, _, _, batch, step = _moe_setup()
-    apply = moe.apply_moe
+    apply, xent = moe.apply_moe, lm._xent
     moe.apply_moe = lambda p, x, c, wb=8, ab=8: moe.ep_reference(
         p, x, c, wb, ab, tp=2)
+    lm._xent = _xent_split_order
     out = []
     try:
         for st in steps:
@@ -126,7 +149,7 @@ def _moe_one(steps):
                         "metrics": {k: float(v) for k, v in m.items()},
                         "params": _np_tree(params)})
     finally:
-        moe.apply_moe = apply
+        moe.apply_moe, lm._xent = apply, xent
     return out
 
 
@@ -237,6 +260,27 @@ def _linear_case(mesh):
     return res
 
 
+def _colpar_grad_case(mesh):
+    """The input gradient of a column-parallel linear (no quantization:
+    bits 16) on ``mesh`` and of the whole weight in one process."""
+    gen = torch.Generator().manual_seed(5)
+    w = (torch.randn((512, 1024), generator=gen) * 0.05).to(torch.bfloat16)
+    x = torch.randn((64, 512), generator=gen).to(torch.bfloat16)
+    dy = torch.randn((64, 1024), generator=gen).to(torch.bfloat16)
+    out = {}
+    for key, p, m in (("whole", {"wq": {"w": w}}, None),
+                      ("mesh", shd.shard_params({"wq": {"w": w}}, mesh),
+                       mesh)):
+        xin = x.clone().requires_grad_(True)
+        with contextlib.ExitStack() as ctx:
+            if m is not None:
+                ctx.enter_context(dist.use_mesh(m))
+            y = cm.apply_linear(p["wq"], xin, 16, 16)
+            y.backward(dy)
+        out[key] = xin.grad.float().numpy()
+    return out
+
+
 def _remat_case(mesh):
     """qwen3_4b SMOKE with ``remat="full"`` on ``mesh``: the gradients of
     one loss with the backward (and so each layer's recompute) run on
@@ -280,6 +324,7 @@ def _rank(rank, init_file, out_dir):
     try:
         meshes = {"12": make_host_mesh(model=2), "21": make_host_mesh(model=1)}
         out["moe"], out["moe_counts"] = _moe_train(meshes["12"])
+        out["colpar_grad"] = _colpar_grad_case(meshes["12"])
         for name, mesh in meshes.items():
             out[("remat", name)] = _remat_case(mesh)
             out[("adam", name)] = _adam_case(mesh)
@@ -390,6 +435,25 @@ def test_train_linear_on_a_mesh_against_whole(ranks, mesh):
                 n = g.shape[-1]
                 w = w[..., r["rank"] * n:(r["rank"] + 1) * n]
             np.testing.assert_array_equal(g, w)
+
+
+def test_column_parallel_input_gradient_rounds_once(ranks):
+    """A column-parallel linear's input gradient on (1, 2) against one
+    process's: each rank's partial ``dy @ w^T`` over its columns stays
+    float32 through the SUM over the model axis and rounds to bf16 once,
+    as one process rounds its whole product once.  Only the order of
+    the f32 sum differs, so an element may round to the neighbouring
+    bf16 value: at most one bf16 step at its own magnitude (plus one f32
+    step at the largest, the sum's own rounding where its terms cancel),
+    in at most COLPAR_APART of the elements (partials rounded to bf16
+    before the SUM left 12,217 of these 32,768 elements apart)."""
+    for r in ranks:
+        got, whole = r["colpar_grad"]["mesh"], r["colpar_grad"]["whole"]
+        step = (np.spacing(np.maximum(np.abs(got), np.abs(whole))) * 2.0 ** 16
+                + np.spacing(np.abs(whole).max()))
+        assert (np.abs(got - whole) <= step).all()
+        apart = int((got != whole).sum())
+        assert apart <= COLPAR_APART * whole.size, apart
 
 
 @pytest.mark.parametrize("mesh", ["12", "21"])
