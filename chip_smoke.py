@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Fourteen paths, each at full width with random weights from a seed:
+Fifteen paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -36,7 +36,7 @@ Fourteen paths, each at full width with random weights from a seed:
   runs at M = 1024, 8 and 72;
 * the prefix cache and the closed loop, replayed from seeded traces
   through ``serve.traffic.TraceReplayer``: (a) the same Qwen3-4B engine
-  shape, cut to its first 2 layers, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
+  shape, cut to its first layer, with ``PrefixCache(chunk=64)`` on a Poisson trace with repeated
   keys (512-1024-token prompts, int8), plus four late prompts that
   share the first two keys' prefixes, so misses, full hits and partial
   hits (extended token by token through ``decode_step``, the bit-plane
@@ -156,6 +156,16 @@ Fourteen paths, each at full width with random weights from a seed:
   calls on fake CUDA tensors (launches by key, argument bytes, peak
   memory, FLOPs and bytes by kernel); (b) path 11 (f)'s collectives
   predicted on a ``RecordingMesh`` (2, 1).
+* the recurrent and encoder-decoder families on a mesh: two ranks on
+  ``cuda:0`` in one gloo group, as a (1, 2) and a (2, 1) mesh, serve
+  mamba2-1.3b (its first 8 layers), zamba2-2.7b (its first 2
+  super-blocks, every LoRA ``b`` drawn non-zero) and
+  seamless-m4t-medium (2 + 2 layers) at published widths through
+  ``ServeEngine(mesh=).generate``: (a) tensor-parallel, 2 x 2304 tokens
+  (seamless behind 2304 frames), 2 new, flash on each rank's heads; (b)
+  FSDP with the rows split, and a B=1 row each of mamba2 (its state
+  whole on both ranks) and zamba2 (the shared block's ring
+  sequence-sharded).
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -345,6 +355,16 @@ result line:
      bound for its launches; the prefill's measured time over its
      roofline.  Then the path's bit-plane shapes held EQUAL and timed,
      flash at the prefill's shape held against its oracle and timed.
+ 18. the recurrent and encoder-decoder families on a mesh: one device's
+     ``generate`` of each phase first (the card freed before the ranks);
+     then, phase by phase, tokens EQUAL one device's, the prefill's
+     last-position logits and the cache after prefill (the ranks'
+     blocks put together) EQUAL, or, for a Mamba model on (1, 2) only,
+     within P15_SSD_TOL with the first layer apart printed; every cache
+     leaf its spec's local block; bit-plane and flash launches on every
+     phase that reaches them and no int4 or quant launch.  Then every
+     bit-plane shape the ranks launched held EQUAL and timed, every flash
+     shape held against its oracle and timed.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -456,11 +476,11 @@ PC_LATE_TICK, PC_KEEP, PC_FRESH, PC_PREFIX = 6, 512, 8, 256
 PC_SOURCES = 2          # keys whose prompts the late prompts extend
 PC_SLO_FRACTION = 0.6
 PC_SMOKE_PREFILL = 24
-# path 5 runs the first 2 of Qwen3-4B's 36 layers at full width (depth
-# cuts that keep the whole script inside its time limit: 18 when path 7
-# was added, 9 when path 8 was, 6 when path 9 was, 3 when path 11 was,
-# 2 when path 14 was; PERF.md §4)
-PC_LAYERS = 2
+# path 5 runs the first layer of Qwen3-4B's 36 at full width (depth cuts
+# that keep the whole script inside its time limit: 18 when path 7 was
+# added, 9 when path 8 was, 6 when path 9 was, 3 when path 11 was, 2
+# when path 14 was, 1 when path 15 was; PERF.md §4)
+PC_LAYERS = 1
 SPIKE = dict(ticks=24, rate=4.0, burst_mag=10, burst_at=8, burst_len=4,
              cnn_frac=1.0, cnn_archs=("resnet18",))
 SPIKE_WINDOW = 4                         # the closed loop's window, ticks
@@ -645,6 +665,29 @@ P14_A = (2, 4096)
 P14_SEQ = (1, 2304, 4)
 P14_PEAK_TOL = 0.10      # predicted peak against the card's, relative
 P14_BOUND_FLOOR = 0.95   # a kernel family's device time over its bound
+# path 15: the recurrent and encoder-decoder families on two gloo ranks
+# sharing cuda:0, at their published widths, depth cut: mamba2-1.3b's
+# first P15_SSM_LAYERS of 48 layers, zamba2-2.7b's first P15_HYB_SUPER of
+# 9 super-blocks (6 Mamba layers each), seamless-m4t-medium's first
+# P15_ED_LAYERS (encoder, decoder) of 12 + 12.  (a) (1, 2) tensor-parallel
+# generate of P15_GEN = (B, prompt tokens (> FLASH_THRESHOLD), new),
+# seamless behind as many frames; (b) (2, 1) with FSDP weights and the
+# rows split, and P15_B1 rows of mamba2 and zamba2 (the Mamba state whole
+# on both data ranks, the shared block's ring sequence-sharded)
+P15_RANKS = 2
+P15_GEN = (2, 2304, 2)
+P15_B1 = (1, 2304, 2)
+P15_SSM_LAYERS, P15_HYB_SUPER, P15_ED_LAYERS = 8, 2, (2, 2)
+# default_controller: mamba2 per-request int4 and int8 rows; zamba2 int8;
+# seamless mixed
+P15_BUDGETS = {"ssm": (0.4, 10.0), "hybrid": 10.0, "encdec": 0.8}
+P15_LORA_B = 0.5         # zamba2's LoRA b ~ N(0, 0.5) (lora_init: zeros)
+# the one permitted gap: a Mamba-bearing model on (1, 2), whose f32 SSD
+# einsums at H/tp heads may pick other library kernels than one device's;
+# its prefill logits within P15_SSD_TOL x max|logit| (path 8's card-vs-CPU
+# gate), tokens EQUAL.  Everything else is EQUAL
+P15_SSD_TOL = 2e-2
+P15_SMOKE_FLASH = 16     # a CPU rehearsal's flash threshold (prompts of 40)
 
 
 def hardware() -> None:
@@ -7746,6 +7789,408 @@ def p14_seq_single(torch, dev, cfg, qparams, smoke: bool) -> dict:
             "blocks": blocks}
 
 
+# ---------------------------------------------------------------------------
+# Path 15: the recurrent and encoder-decoder families on a mesh
+# ---------------------------------------------------------------------------
+
+def p15_configs(smoke: bool) -> dict:
+    """Path 15's three configs: the published widths (path 8's, held
+    there) cut in depth, or SMOKE for a CPU rehearsal."""
+    from repro_torch import configs
+    if smoke:
+        return {"ssm": configs.get_smoke(SSM_ARCH),
+                "hybrid": configs.get_smoke(HYB_ARCH),
+                "encdec": configs.get_smoke(ED_ARCH)}
+    full = p8_configs()
+    hyb = full["hybrid"]
+    return {"ssm": full["ssm"].with_(n_layers=P15_SSM_LAYERS),
+            "hybrid": hyb.with_(n_layers=P15_HYB_SUPER * hyb.attn_every),
+            "encdec": full["encdec"].with_(n_enc_layers=P15_ED_LAYERS[0],
+                                           n_layers=P15_ED_LAYERS[1])}
+
+
+def p15_weights(torch, dev, cfg):
+    """Serve-form weights drawn from seed 15 on ``dev`` (every rank draws
+    the same); zamba2's LoRA ``b`` drawn N(0, P15_LORA_B), so the side
+    branch adds what a misaligned delta would get wrong."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=dev).manual_seed(15)
+    params = lm.init_params(cfg, gen, device=dev)
+    if cfg.family == "hybrid":
+        for pair in params["layers"]["lora"].values():
+            pair["b"] = (torch.randn(pair["b"].shape, generator=gen,
+                                     device=dev) * P15_LORA_B
+                         ).to(pair["b"].dtype)
+    return lm.quantize_params(params, cfg)
+
+
+def p15_sizes(smoke: bool) -> dict:
+    return ({"gen": (2, 40, 2), "b1": (1, 40, 2)} if smoke else
+            {"gen": P15_GEN, "b1": P15_B1})
+
+
+def p15_batch(cfg, sizes: dict, key: str) -> dict:
+    """The seeded batch of ``key`` ("gen" or "b1", the first row of
+    "gen's"): tokens, and for encdec as many frame embeddings as
+    tokens."""
+    import numpy as np
+    B, S, _ = sizes["gen"]
+    rng = np.random.default_rng(15)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))
+             .astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    return {k: v[:sizes[key][0]] for k, v in batch.items()}
+
+
+def p15_budget(cfg, rows: int):
+    b = P15_BUDGETS[cfg.family]
+    return list(b[:rows]) if isinstance(b, tuple) else b
+
+
+def p15_host(tree):
+    """A host copy of a cache tree (the serve loop writes the card's in
+    place)."""
+    if isinstance(tree, dict):
+        return {k: p15_host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def p15_serve(torch, dev, cfg, qparams, batch, new: int, mesh) -> dict:
+    """One ``generate`` on ``mesh`` (None: one device) at the family's
+    budget: its tokens, this rank's rows of the prefill's last-position
+    logits and a host copy of the cache after prefill, the flash
+    launches by (q shape, keys, causal), and the rows this rank ran."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    B, S = batch["tokens"].shape
+    eng = ServeEngine(cfg, qparams, max_len=S + new, device=dev, mesh=mesh,
+                      controller=default_controller(lm.n_bit_slots(cfg)))
+    eng.set_budget(p15_budget(cfg, B))
+    firsts, caches, flash = [], [], {}
+    first, prefill, fa = eng._sample_first, lm.prefill, kops.flash_attention
+
+    def keep_first(logits, temp, topk, rows=None):
+        firsts.append(logits[:, -1].float().cpu())
+        return first(logits, temp, topk, rows)
+
+    def keep_cache(*args, **kw):
+        out = prefill(*args, **kw)
+        caches.append(p15_host(out[1]))
+        return out
+
+    def count_flash(q, k, v, **kw):
+        key = (tuple(q.shape), k.shape[1], bool(kw.get("causal", True)))
+        flash[key] = flash.get(key, 0) + 1
+        return fa(q, k, v, **kw)
+
+    eng._sample_first = keep_first
+    lm.prefill, kops.flash_attention = keep_cache, count_flash
+    try:
+        toks = eng.generate(batch, new).cpu().numpy()
+    finally:
+        lm.prefill, kops.flash_attention = prefill, fa
+    out = {"tokens": toks, "logits": firsts[0].numpy(), "cache": caches[0],
+           "flash_shapes": flash, "rows": eng._row_split(B, "rows"),
+           "sharded": mesh is not None and shd.is_sharded(eng.qparams)}
+    del eng
+    return out
+
+
+P15_PHASES = (("ssm", "a", "gen"), ("ssm", "b", "gen"), ("ssm", "b1", "b1"),
+              ("hybrid", "a", "gen"), ("hybrid", "b", "gen"),
+              ("hybrid", "b1", "b1"), ("encdec", "a", "gen"),
+              ("encdec", "b", "gen"))
+
+
+def p15_rank(rank: int, init_method: str, out_dir: str, device: str,
+             smoke: bool) -> None:
+    """One rank of path 15 on ``device``: the same world as a (1, 2) and a
+    (2, 1) mesh; each family's weights drawn, then (a) on (1, 2), (b)
+    and its B=1 row on (2, 1), each a phase (``p11_phase``)."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if smoke:
+        tf.FLASH_THRESHOLD = P15_SMOKE_FLASH
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=P15_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    out = {}
+    sizes = p15_sizes(smoke)
+    try:
+        m12, m21 = make_host_mesh(model=2), make_host_mesh(model=1)
+        both = (m12, m21)
+        for fam, cfg in p15_configs(smoke).items():
+            q = p15_weights(torch, dev, cfg)
+            for f, key, size in P15_PHASES:
+                if f == fam:
+                    out[(fam, key)] = p11_phase(
+                        torch, dev, both, p15_serve, torch, dev, cfg, q,
+                        p15_batch(cfg, sizes, size), sizes[size][2],
+                        m12 if key == "a" else m21)
+            del q
+        out["coords"] = (m12.tp_index, m21.dp_index)
+    finally:
+        tdist.destroy_process_group()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def p15_whole(torch, ranks_cache: list, shape):
+    """The whole leaf of one device's ``shape`` from the ranks' blocks:
+    rank 0's where it holds it whole, else the blocks concatenated in
+    rank order along the one dim that splits them (the heads or channels
+    on (1, 2), the rows or the ring on (2, 1))."""
+    blocks = ranks_cache
+    if tuple(blocks[0].shape) == tuple(shape):
+        return blocks[0], all(torch.equal(x, blocks[0]) for x in blocks)
+    dims = [i for i, (a, b) in enumerate(zip(blocks[0].shape, shape))
+            if a != b]
+    check(len(dims) == 1, f"path 15: blocks {tuple(blocks[0].shape)} of "
+          f"{tuple(shape)} split on {len(dims)} dims")
+    return torch.cat(blocks, dim=dims[0]), True
+
+
+def p15_first_gap(torch, cfg, got: dict, want: dict):
+    """(layer, leaves) of the first layer, in forward order, whose cache
+    after prefill differs from one device's, or None.  A hybrid runs
+    super-block i's shared block (``kv[i]``) before its Mamba layers."""
+    from repro_torch.dist import sharding as shd
+    order = []
+    flat_w = {"/".join(map(str, p)): t for p, t in shd.tree_paths(want)}
+    flat_g = {"/".join(map(str, p)): t for p, t in shd.tree_paths(got)}
+    for name, t in flat_w.items():
+        for layer in range(t.shape[0]):
+            pos = layer
+            if cfg.family == "hybrid":
+                pos = (layer * (cfg.attn_every + 1) if name.startswith("kv")
+                       else layer + layer // cfg.attn_every + 1)
+            elif cfg.family == "encdec" and name.startswith("cross"):
+                pos = -1                        # the encoder's output
+            order.append((pos, layer, name))
+    for pos, layer, name in sorted(order):
+        if not torch.equal(flat_g[name][layer], flat_w[name][layer]):
+            return layer, name
+    return None
+
+
+def p15_gate(torch, cfg, fam, key, ranks, want) -> dict:
+    """One phase's gates: tokens EQUAL one device's; the prefill's
+    last-position logits (the ranks' rows in order) and the cache after
+    prefill (the ranks' blocks put together) EQUAL, except for a
+    Mamba-bearing model on (1, 2), where the card's f32 SSD einsums at
+    H/tp heads may pick other library kernels: its logits within
+    P15_SSD_TOL x max|logit|, the largest gap and the first layer that
+    differs printed; every cache leaf's shape its spec's local block;
+    weights sharded; launches on the card."""
+    import types
+    import numpy as np
+    from repro_torch.dist import api as dapi
+    from repro_torch.dist import sharding as shd
+    shape = (1, P15_RANKS) if key == "a" else (P15_RANKS, 1)
+    mesh = types.SimpleNamespace(shape=dict(zip(("data", "model"), shape)),
+                                 axis_names=("data", "model"))
+    res = [out[(fam, key)] for out in ranks]
+    for r, x in enumerate(res):
+        check(np.array_equal(x["tokens"], want["tokens"]),
+              f"path 15 {cfg.name} ({key}) rank {r}: tokens "
+              f"{x['tokens'].tolist()} != one device's "
+              f"{want['tokens'].tolist()}")
+        check(x["sharded"], f"path 15 {cfg.name} ({key}) rank {r}: no "
+              f"weight sharded")
+    split = res[0]["rows"] is not None
+    logits = (np.concatenate([x["logits"] for x in res]) if split
+              else res[0]["logits"])
+    if not split:
+        for r, x in enumerate(res[1:], 1):
+            check(np.array_equal(x["logits"], logits), f"path 15 "
+                  f"{cfg.name} ({key}): rank {r}'s logits != rank 0's")
+    V = cfg.vocab_size                  # past it: the masked padding ids
+    gap = float(np.abs(logits[..., :V] - want["logits"][..., :V]).max())
+    tree_w = want["cache"]
+    specs = shd.cache_shardings(tree_w, mesh)
+    got, same = {}, True
+
+    def build(node_w, node_s, path):
+        nonlocal same
+        out = {}
+        for k, t in node_w.items():
+            if isinstance(t, dict):
+                out[k] = build(t, node_s[k], path + (k,))
+                continue
+            blocks = [x["cache"] for x in res]
+            for p_ in path + (k,):
+                blocks = [b_[p_] for b_ in blocks]
+            want_local = dapi.local_shape(mesh, node_s[k], t.shape)
+            for r, b_ in enumerate(blocks):
+                check(tuple(b_.shape) == tuple(want_local),
+                      f"path 15 {cfg.name} ({key}) rank {r}: cache leaf "
+                      f"{'/'.join(path + (k,))} {tuple(b_.shape)} is not "
+                      f"its spec's block {want_local} of {tuple(t.shape)}")
+            out[k], agree = p15_whole(torch, blocks, t.shape)
+            same &= agree
+        return out
+
+    got = build(tree_w, specs, ())
+    check(same, f"path 15 {cfg.name} ({key}): ranks hold a replicated "
+          f"cache leaf apart")
+    first = p15_first_gap(torch, cfg, got, tree_w)
+    exact = gap == 0.0 and first is None
+    allowed = key == "a" and cfg.family in ("ssm", "hybrid")
+    limit = P15_SSD_TOL * float(np.abs(want["logits"][..., :V]).max())
+    check(exact or (allowed and gap <= limit),
+          f"path 15 {cfg.name} ({key}): prefill logits max |diff| {gap} "
+          f"(limit {limit if allowed else 0.0}), first cache layer apart "
+          f"{first}")
+    if not exact:
+        heads = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+        print(f"path 15 {cfg.name} ({key}): the SSD einsums at "
+              f"{heads // P15_RANKS} heads a rank: prefill "
+              f"logits max |diff| {gap:.6g} (gate {limit:.6g} = "
+              f"{P15_SSD_TOL} x max|logit|), first layer apart {first}; "
+              f"tokens EQUAL")
+    return {"gap": gap, "first": first, "exact": exact}
+
+
+def p15_path(b: Bench, smoke: bool = False) -> dict:
+    """Path 15: mamba2, zamba2 and seamless served on P15_RANKS gloo
+    ranks sharing the card (module docstring); returns the kernel rows
+    of the ranks' launches."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import tempfile
+    import torch.multiprocessing as tmp
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.models import transformer as tf
+    t_path = time.perf_counter()
+    cuda = dev.type == "cuda"
+    sizes = p15_sizes(smoke)
+    cfgs = p15_configs(smoke)
+    prev = tf.FLASH_THRESHOLD
+    if smoke:
+        tf.FLASH_THRESHOLD = P15_SMOKE_FLASH
+    # ---- one device first (the card freed before the ranks)
+    want, t0 = {}, time.perf_counter()
+    try:
+        for fam, cfg in cfgs.items():
+            q = p15_weights(torch, dev, cfg)
+            for size in ("gen", "b1") if fam != "encdec" else ("gen",):
+                want[(fam, size)] = p15_serve(
+                    torch, dev, cfg, q, p15_batch(cfg, sizes, size),
+                    sizes[size][2], None)
+            del q
+    finally:
+        tf.FLASH_THRESHOLD = prev
+    single_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp.start_processes(p15_rank, args=(
+            f"tcp://127.0.0.1:{free_port()}", d, str(dev), smoke),
+            nprocs=P15_RANKS, join=True, start_method="spawn")
+        ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                 for r in range(P15_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        check(out["coords"] == (r, r), f"path 15 rank {r}: mesh coords "
+              f"{out['coords']}")
+    # ---- the gates, phase by phase
+    gates = {}
+    for fam, key, size in P15_PHASES:
+        cfg = cfgs[fam]
+        gates[(fam, key)] = g = p15_gate(torch, cfg, fam, key, ranks,
+                                         want[(fam, size)])
+        for r, out in enumerate(ranks):
+            x = out[(fam, key)]
+            needs_flash = fam != "ssm" and sizes[size][1] > (
+                P15_SMOKE_FLASH if smoke else tf.FLASH_THRESHOLD)
+            check(not cuda or (sum(x["shapes"].values()) > 0
+                               and x["off_path"] == (0, 0)
+                               and (x["flash"] > 0) == needs_flash),
+                  f"path 15 {cfg.name} ({key}) rank {r}: bit-plane "
+                  f"{sum(x['shapes'].values())}, flash {x['flash']}, "
+                  f"int4/quant {x['off_path']}")
+        x0 = ranks[0][(fam, key)]
+        B, S, new = sizes[size]
+        mesh_s = (f"(1, {P15_RANKS}) tensor-parallel" if key == "a" else
+                  f"({P15_RANKS}, 1) FSDP" + (", the row whole on every "
+                                               "rank" if B == 1 else
+                                               ", rows split"))
+        print(f"(15 {key}) {cfg.name} ({cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder" if fam == "encdec" else "")
+              + f") on {mesh_s}: generate B = {B} x {S}"
+              + (f" behind {S} frames" if fam == "encdec" else "")
+              + f", {new} new, budget {p15_budget(cfg, B)}: tokens EQUAL, "
+              f"prefill logits and cache "
+              + ("EQUAL" if g["exact"] else
+                 f"{g['gap']:.6g} apart (first layer {g['first']})")
+              + f"; launches rank 0 / rank 1: bit-plane "
+              + " / ".join(str(sum(out[(fam, key)]["shapes"].values()))
+                           for out in ranks)
+              + ", flash " + " / ".join(str(out[(fam, key)]["flash"])
+                                        for out in ranks)
+              + f" at {sorted(x0['flash_shapes'])}; wall "
+              + " / ".join(f"{out[(fam, key)]['wall_s']:.3f} s"
+                           for out in ranks)
+              + f"; collectives rank 0 "
+              f"{ {k: tuple(v) for k, v in x0['collectives'].items()} }")
+    # ---- every shape the ranks launched: held and timed
+    shapes, paths, fl_shapes = {}, {p: 0 for p in bpm.PATHS}, {}
+    for fam, key, _ in P15_PHASES:
+        x = ranks[0][(fam, key)]
+        for k, n in x["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + n
+        for k, n in x["paths"].items():
+            paths[k] += n
+        for k, n in x["flash_shapes"].items():
+            fl_shapes[k] = fl_shapes.get(k, 0) + n
+    check(not cuda or (sum(shapes.values()) > 0 and fl_shapes),
+          "path 15 launched no bit-plane or no flash kernel")
+    bp = held_rows(b, shapes, paths, cuda)
+    n_fl = sum(fl_shapes.values())
+    fl = {"launches": n_fl}
+    for (qs, Sk, causal), c in sorted(fl_shapes.items()) if cuda else ():
+        BH, Sq, hd = qs
+        err = hold_flash(b, BH, Sq, Sk, hd, causal, 0)
+        row = flash_row(b, qs, f" (path 15, one rank's heads; max |err| "
+                        f"{err:.6g})", Sk=0 if Sk == Sq and causal else Sk,
+                        causal=causal)
+        for k_, v_ in row.items():
+            fl[k_] = fl.get(k_, 0.0) + c * v_
+    for k_ in ("ms", "device_ms", "plain_ms", "library_ms", "t_ops",
+               "t_bytes", "bound_ms"):
+        fl.setdefault(k_, 0.0)
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 15 kernels (rank 0's phases): bit-plane "
+          f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes) "
+          f"(by path {paths}), each held EQUAL to the plain version, kernel "
+          f"{bp['ms']:.3f} ms (device {bp['device_ms']:.3f}), bound "
+          f"{bp['bound_ms']:.3f} ms, plain {bp['plain_ms']:.3f} ms, "
+          f"torch._int_mm {bp['library_ms']:.3f} ms; flash {n_fl} launches "
+          f"at {dict(sorted(fl_shapes.items()))}, each shape held against "
+          f"the f32 oracle, {fl['ms']:.3f} ms (device "
+          f"{fl['device_ms']:.3f}), bound {fl['bound_ms']:.3f} ms, plain "
+          f"{fl['plain_ms']:.3f} ms, scaled_dot_product_attention "
+          f"{fl['library_ms']:.3f} ms")
+    print(f"{tag} path 15 wall {wall:.3f} s (one device {single_s:.3f} s, "
+          f"the ranks {ranks_s:.3f} s)")
+    return {"bitplane": bp, "flash": fl, "gates": gates,
+            "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -7897,9 +8342,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-17. the fourteen paths (a development run may pick some with
-    # --paths 1,4; only a run of all fourteen prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
+    # ---- 4.-18. the fifteen paths (a development run may pick some with
+    # --paths 1,4; only a run of all fifteen prints the result lines)
+    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -7943,6 +8388,8 @@ def main() -> None:
             p11_path(b)
         if 12 in picked:
             p12_path(b)
+        if 15 in picked:
+            p15_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed in "
               f"{time.perf_counter() - t_paths:.3f} s; no result line for "
@@ -7976,6 +8423,7 @@ def main() -> None:
     p10r = timed("10", p10_path, b)
     p11r = timed("11", p11_path, b, cnn_ref=cnn)
     p12r = timed("12", p12_path, b)
+    p15r = timed("15", p15_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -8008,7 +8456,8 @@ def main() -> None:
                 "trained_tensor_parallel_serve_rank": p12r["bitplane"],
                 "qwen3_4b_analysis_audit": p13r["bitplane_b"],
                 "resnet18_hawq_analysis_audit": p13r["bitplane_c"],
-                "qwen3_4b_lowering_report_calls": p14r["bitplane"]}
+                "qwen3_4b_lowering_report_calls": p14r["bitplane"],
+                "recurrent_and_encdec_mesh_rank": p15r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -8019,7 +8468,8 @@ def main() -> None:
                 "qwen3_4b_tensor_parallel_rank": p11r["flash"],
                 "qwen3_4b_analysis_generate": p13r["flash"],
                 "qwen3_4b_sequence_sharded_rank": p11r["flash_f"],
-                "qwen3_4b_lowering_report_prefill": p14r["flash"]}
+                "qwen3_4b_lowering_report_prefill": p14r["flash"],
+                "zamba2_and_seamless_mesh_rank": p15r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -8083,7 +8533,10 @@ def main() -> None:
           f"{p13r['e2e']['syncs']}; path 14 (a) (the lowering report "
           f"against the card) {p14r['wall_s']:.3f} s, a {P14_A[0]} x "
           f"{P14_A[1]} prefill {p14r['prefill_ms']:.3f} ms against its "
-          f"roofline {p14r['roofline_ms']:.3f} ms")
+          f"roofline {p14r['roofline_ms']:.3f} ms; path 15 (the recurrent "
+          f"and encoder-decoder families on {P15_RANKS} gloo ranks sharing "
+          f"the card) {p15r['e2e']['wall_s']:.3f} s, its ranks "
+          f"{p15r['e2e']['ranks_s']:.3f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -32,10 +32,9 @@ on fake CPU tensors, as the reference's lowering runs off the TPU: the
 train form reaches no int8 kernel, and attention past 2048 tokens has
 no backward kernel, so it takes the chunked plain version.
 
-A cell whose family the port does not run on a mesh (outside
-``serve.engine._MESH_FAMILIES`` or ``models.lm.MESH_TRAIN_FAMILIES``) is
-refused before anything runs, naming ROADMAP Queue A 22; any other cell
-that raises is a failure.
+A train cell whose family the port does not train on a mesh (outside
+``models.lm.MESH_TRAIN_FAMILIES``) is refused before anything runs,
+naming ROADMAP Queue A 22 (b); any other cell that raises is a failure.
 
 Roofline denominators are the H100 SXM datasheet's (``launch/mesh.py``):
 bf16, f32 and int8 peaks, HBM bandwidth, and per collective NVLink when
@@ -69,11 +68,10 @@ from repro_torch.launch import opcost
 from repro_torch.launch import specs as sp
 from repro_torch.models import lm
 from repro_torch.models.config import SHAPES_BY_NAME, ModelConfig
-from repro_torch.serve import engine as serve_engine
 from repro_torch.train.loop import TrainConfig, make_train_step
 
-QUEUE_A_22 = ("the port does not run the family on a mesh yet (ROADMAP "
-              "Queue A 22)")
+QUEUE_A_22 = ("the port does not train the family on a mesh yet (ROADMAP "
+              "Queue A 22 (b))")
 TRAIN_ATTENTION = ("plain chunked: the card has no flash backward "
                    "(ROADMAP Queue B 3 (a))")
 
@@ -103,10 +101,10 @@ def accum_for(cfg, shape) -> int:
 
 
 def refusal(cfg: ModelConfig, shape) -> Optional[str]:
-    """Why the port cannot run this cell on a mesh, or None."""
-    fams = (lm.MESH_TRAIN_FAMILIES if shape.kind == "train"
-            else serve_engine._MESH_FAMILIES)
-    if cfg.family in fams:
+    """Why the port cannot run this cell on a mesh, or None: every family
+    serves on a mesh, and the recurrent and encoder-decoder families do
+    not train there yet."""
+    if shape.kind != "train" or cfg.family in lm.MESH_TRAIN_FAMILIES:
         return None
     return f"{cfg.family}: {QUEUE_A_22}"
 
@@ -228,10 +226,10 @@ def _on(mesh, split: bool, card: bool):
 
 
 def run_serve(cfg, shape, mesh, container: str = "int8"):
-    """``(logits, Cost, argument bytes)`` of one serve cell's call on
-    this rank's blocks, as fake tensors on :func:`serve_device`: the
-    rows split over the data ranks where they divide (the engines'
-    split), every bit slot at 8."""
+    """``(logits, Cost, argument bytes, cache bytes)`` of one serve
+    cell's call on this rank's blocks, as fake tensors on
+    :func:`serve_device`: the rows split over the data ranks where they
+    divide (the engines' split), every bit slot at 8."""
     device = serve_device()
     B, S = shape.global_batch, shape.seq_len
     dp = dist.dp_size(mesh)
@@ -251,14 +249,19 @@ def run_serve(cfg, shape, mesh, container: str = "int8"):
             inputs["prefix"] = torch.empty((rows, P, cfg.d_model),
                                            dtype=torch.bfloat16,
                                            device=device)
+        if cfg.family == "encdec" and shape.kind == "prefill":
+            inputs["frames"] = torch.empty(
+                (rows, S // cfg.frames_ratio, cfg.d_model),
+                dtype=torch.bfloat16, device=device)
     args = opcost.tree_bytes(q, inputs, cache)
+    cache_bytes = opcost.tree_bytes(cache)
     with _on(mesh, split, True), opcost.Cost() as cost:
         if shape.kind == "prefill":
             logits, _ = lm.prefill(q, inputs, cfg, bits, bits, cache)
         else:
             logits, _ = lm.decode_step(q, inputs["tokens"], S - 1, cache,
                                        cfg, bits, bits)
-    return logits, cost, args
+    return logits, cost, args, cache_bytes
 
 
 def run_train(cfg, shape, mesh):
@@ -295,11 +298,13 @@ def report_cell(arch: str, shape_name: str, multi_pod: bool = False,
         return {**head, "refused": why}
     mesh = lmesh.recording_production_mesh(multi_pod=multi_pod)
     t0 = time.perf_counter()
+    cache_bytes = None
     if shape.kind == "train":
         out, cost, args = run_train(cfg, shape, mesh)
         outs = opcost.tree_bytes(out[0], out[1])
     else:
-        out, cost, args = run_serve(cfg, shape, mesh, container)
+        out, cost, args, cache_bytes = run_serve(cfg, shape, mesh,
+                                                 container)
         outs = opcost.tree_bytes(out)
     t_run = time.perf_counter() - t0
     coll = collective_report(mesh)
@@ -313,7 +318,8 @@ def report_cell(arch: str, shape_name: str, multi_pod: bool = False,
     peak = args + cost.peak_bytes
     res = {
         **head, "time_s": t_run, "aten_ops": cost.ops,
-        "memory": {"argument_bytes": args, "output_bytes": outs,
+        "memory": {"argument_bytes": args, "cache_bytes": cache_bytes,
+                   "output_bytes": outs,
                    "transient_peak_bytes": cost.peak_bytes,
                    "peak_bytes_per_device": peak,
                    "fits_hbm_80g": bool(peak <= lmesh.HBM_PER_CARD)},
@@ -394,7 +400,8 @@ def roofline_s(cost: opcost.Cost) -> float:
 
 
 def serve_run(cfg, mesh, q, tokens: torch.Tensor, *, steps: int,
-              max_len: int, reuse: bool = False) -> torch.Tensor:
+              max_len: int, reuse: bool = False,
+              frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``lm.prefill`` of ``tokens`` (B, S) then ``steps`` decode steps
     (each feeding the prompt's last token) with every bit slot at 8, on
     ``mesh`` (None: one device): the whole serve-form ``q`` placed by
@@ -402,7 +409,8 @@ def serve_run(cfg, mesh, q, tokens: torch.Tensor, *, steps: int,
     where they divide, the cache as ``lm.empty_cache(mesh=)`` lays it out.
     ``reuse`` gathers each FSDP weight once for the whole run, as
     ``ServeEngine.generate`` does.  Real or fake tensors alike: the
-    program :func:`predict_counts` records.  Returns the last logits."""
+    program :func:`predict_counts` records.  An encdec batch's
+    ``frames`` (B, F, d) split with the rows.  Returns the last logits."""
     dev = tokens.device
     B, S = tokens.shape
     dp = dist.dp_size(mesh) if mesh is not None else 1
@@ -420,8 +428,10 @@ def serve_run(cfg, mesh, q, tokens: torch.Tensor, *, steps: int,
             if reuse:
                 st.enter_context(mesh.reuse_gathers())
         st.enter_context(kops.split_rows(mesh if split else None))
-        logits, cache = lm.prefill(q, {"tokens": tokens[rows]}, cfg, bits,
-                                   bits, cache)
+        inputs = {"tokens": tokens[rows]}
+        if frames is not None:
+            inputs["frames"] = frames[rows]
+        logits, cache = lm.prefill(q, inputs, cfg, bits, bits, cache)
         tok = tokens[rows, -1:]
         for i in range(steps):
             logits, cache = lm.decode_step(q, tok, S + i, cache, cfg, bits,
@@ -430,19 +440,22 @@ def serve_run(cfg, mesh, q, tokens: torch.Tensor, *, steps: int,
 
 
 def predict_counts(cfg, mesh_shape, *, batch: int, prompt: int,
-                   steps: int, max_len: int, reuse: bool = False
-                   ) -> Dict[str, list]:
+                   steps: int, max_len: int, reuse: bool = False,
+                   frames: int = 0) -> Dict[str, list]:
     """The ``Mesh.counts`` one rank of a ``mesh_shape`` mesh makes for
-    :func:`serve_run` of ``batch`` x ``prompt`` tokens and ``steps``
-    decode steps, recorded by a :class:`RecordingMesh` on fake CPU
-    tensors.  ``ServeEngine.generate`` of ``new`` tokens is
-    ``steps=new - 1, reuse=True``."""
+    :func:`serve_run` of ``batch`` x ``prompt`` tokens (behind ``frames``
+    encoder frames for encdec) and ``steps`` decode steps, recorded by a
+    :class:`RecordingMesh` on fake CPU tensors.
+    ``ServeEngine.generate`` of ``new`` tokens is ``steps=new - 1,
+    reuse=True``."""
     mesh = dist.RecordingMesh(mesh_shape)
     q = sp.abstract_qparams(cfg)
     with sp.fake_mode():
         tokens = torch.empty((batch, prompt), dtype=torch.int32)
+        fr = (torch.empty((batch, frames, cfg.d_model), dtype=torch.bfloat16)
+              if frames else None)
         serve_run(cfg, mesh, q, tokens, steps=steps, max_len=max_len,
-                  reuse=reuse)
+                  reuse=reuse, frames=fr)
     return {k: list(v) for k, v in mesh.counts.items()}
 
 

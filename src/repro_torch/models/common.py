@@ -7,7 +7,7 @@ linear is a dict ``{"w": (K, N) [, "b": (N,)]}`` in training form, or
 ``{"q4": uint8 (K, N/2), "s": ...}`` (packed int4 container) in serving
 form; :func:`apply_linear` dispatches on the keys.  A serve-form linear
 may also carry ``lora_delta`` (K, N) bf16, a hybrid's per-site LoRA,
-added as an f32 side branch.
+added as a side branch (:func:`lora_side`).
 """
 from __future__ import annotations
 
@@ -107,6 +107,8 @@ def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
             return _train_linear_local(p, x, wbits, abits, local_out)
         if "w" in p:
             p = shd.full(p)
+        elif "lora_delta" in p:
+            return _lora_linear_local(p, x, wbits, abits, local_out)
         else:
             y = kops.sharded_linear(p, x, wbits, abits, local_out=local_out)
             return y.to(DTYPE)
@@ -127,11 +129,53 @@ def apply_linear(p: dict, x: torch.Tensor, wbits=8, abits=8, *,
     y = kops.serve_linear(p, x, wbits, abits)
     if "lora_delta" in p:
         # a hybrid's per-site LoRA around the shared quantized base: the
-        # bf16 (K, N) delta A @ B as an f32 side branch, added before the
-        # bf16 cast (the reference attaches it and never reads it:
+        # bf16 (K, N) delta A @ B as a side branch, added in f32 before
+        # the bf16 cast (the reference attaches it and never reads it:
         # ROADMAP Queue C)
-        y = y + x.float() @ p["lora_delta"].float()
+        y = y + lora_side(x, p["lora_delta"])
     return y.to(DTYPE)
+
+
+def lora_side(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``x @ delta`` of bf16 values, summed in float64 and rounded to
+    float32.  The bf16 x bf16 products are exact in float64 and its sums
+    carry 29 bits more than float32's, so the rounded result does not
+    depend on the order a library's kernel sums in, which on the card
+    changes with the rows or the column block beside it: one device, a
+    data rank's rows and a model rank's columns give the same values."""
+    return (x.double() @ delta.double()).float()
+
+
+def _lora_linear_local(p, x: torch.Tensor, wbits, abits,
+                       local_out: bool) -> torch.Tensor:
+    """A placed serve-form linear with a hybrid's ``lora_delta``, EQUAL to
+    :func:`apply_linear` of the whole linear: the side branch
+    (:func:`lora_side`) is added before the bf16 cast, as one device adds
+    it.
+
+    A column-parallel base carries the delta's columns of this model
+    rank (``layout`` says so): the side branch is this rank's columns,
+    added to the local ones before they are gathered.  Any other base
+    (row-parallel, or whole in N) carries the whole delta: its input's
+    model-axis slices are gathered whole and the side branch, one
+    device's product, is added after the reduced sum."""
+    delta = p["lora_delta"]
+    base = shd.Local({k: v for k, v in p.items() if k != "lora_delta"},
+                     p.mesh, {k: v for k, v in p.layout.items()
+                              if k != "lora_delta"})
+    _, (_, de) = p.spec("lora_delta")
+    if de is not None:                                  # column-parallel
+        y = kops.sharded_linear(base, x, wbits, abits, local_out=True)
+        y = (y + lora_side(x, delta)).to(DTYPE)
+        if local_out:
+            return y
+        return p.mesh.all_gather(y, dist.entry_axes(de), dim=-1,
+                                 kind="gather_cols")
+    y = kops.sharded_linear(base, x, wbits, abits, local_out=local_out)
+    if x.shape[-1] != delta.shape[-2]:
+        lead = (None,) * (x.ndim - 1)
+        x = dist.constrain(x, lead + (None,), have=lead + ("tp",))
+    return (y + lora_side(x, delta)).to(DTYPE)
 
 
 def local_linear(p: dict, x: torch.Tensor, wbits=8, abits=8

@@ -9,6 +9,12 @@ stacks keep the reference's ``(L, ...)`` layout; a Python loop runs them.
 Without a cache, each encoder and decoder layer is one remat region under
 ``remat="full"`` (``common.remat``), as the reference checkpoints its
 scans.
+
+On a mesh the encoder's self-attention and the decoder's cross-attention
+run on each model rank's heads, as the decoder's self-attention does
+(``transformer``), and the cross cache holds this rank's block of the
+K/V heads; the rows of ``frames`` split over the data ranks with the
+tokens' rows.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist import api as dist
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 
@@ -54,15 +61,21 @@ def encode(p, frames: torch.Tensor, cfg, wvec, avec) -> torch.Tensor:
 def cross_kv(p_dec, enc_out: torch.Tensor, cfg, wvec, avec) -> dict:
     """Project the encoder output to per-decoder-layer cross K/V (prefill):
     ``{"k", "v"}`` of shape (L, B, F, KV, hd); ``wvec``/``avec`` are the
-    decoder's slots."""
+    decoder's slots.  On a model axis they hold this rank's block as the
+    cache's spec lays it out: its KV heads (``wk``/``wv`` kept local), or
+    its slice of the head dim where the heads do not divide the axis."""
     B, F, _ = enc_out.shape
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    use_head = tf.local_heads(cfg)
+    lin = cm.local_linear if use_head else cm.apply_linear
     ks, vs = [], []
     for i, xp in enumerate(cm.unstack(p_dec["xattn"], cfg.n_layers)):
-        ks.append(cm.apply_linear(xp["wk"], enc_out, wvec[i], avec[i])
-                  .reshape(B, F, KV, hd))
-        vs.append(cm.apply_linear(xp["wv"], enc_out, wvec[i], avec[i])
-                  .reshape(B, F, KV, hd))
+        kv = [lin(xp[n], enc_out, wvec[i], avec[i]).reshape(B, F, -1, hd)
+              for n in ("wk", "wv")]
+        if not use_head:
+            kv = [dist.constrain_heads(t, 2, 3, False) for t in kv]
+        ks.append(kv[0])
+        vs.append(kv[1])
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 

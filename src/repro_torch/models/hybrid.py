@@ -14,10 +14,12 @@ everywhere, its precision is global: the shared block runs at
 
 In the serve form each site's delta ``A @ B`` (f32, rounded to bf16) is
 attached to the quantized base as ``lora_delta``, and
-``common.apply_linear`` adds ``x @ lora_delta`` in f32 to the base's
-output.  The reference attaches the same delta and never reads it, so
-its serve form runs every site on the bare base (ROADMAP Queue C); with
-``b = 0``, as ``lora_init`` draws it, the two agree bit for bit.
+``common.apply_linear`` adds ``x @ lora_delta`` (``common.lora_side``)
+to the base's f32 output.  On a mesh each base stays placed and carries
+the delta its block needs (:func:`_placed_lora`).  The reference
+attaches the same delta and never reads it, so its serve form runs every
+site on the bare base (ROADMAP Queue C); with ``b = 0``, as
+``lora_init`` draws it, the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dist import api as dist
+from repro_torch.dist import sharding as shd
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as tf
@@ -63,10 +67,14 @@ def hybrid_init(gen: torch.Generator, cfg, *, device) -> dict:
 def _lora_attn_params(shared_attn: dict, lora: dict) -> dict:
     """Site-specific attention weights: W + A @ B (train form), or the
     quantized base with the delta attached as ``lora_delta`` (serve
-    form, applied by ``common.apply_linear``)."""
+    form, applied by ``common.apply_linear``).  On a mesh each base stays
+    placed (:func:`_placed_lora`)."""
     out = dict(shared_attn)
     for name in ("wq", "wk", "wv", "wo"):
         base = shared_attn[name]
+        if isinstance(base, shd.Local) or isinstance(lora[name], shd.Local):
+            out[name] = _placed_lora(base, lora[name])
+            continue
         delta = lora[name]["a"].float() @ lora[name]["b"].float()
         if "w" in base:
             out[name] = dict(base, w=(base["w"].float() + delta
@@ -74,6 +82,47 @@ def _lora_attn_params(shared_attn: dict, lora: dict) -> dict:
         else:
             out[name] = dict(base, lora_delta=delta.to(cm.DTYPE))
     return out
+
+
+def _placed_lora(base, pair):
+    """:func:`_lora_attn_params` of one projection whose base or LoRA pair
+    is placed on a mesh (``dist.sharding.Local``), EQUAL in value to the
+    whole one's, the base kept placed.
+
+    ``a`` (FSDP on ``d_in``) and ``b`` (split on ``d_out`` over the model
+    axis) are gathered whole and the delta is formed as one device forms
+    it.  An int8 serve-form base whose columns the model axis splits
+    keeps the delta's columns of this rank (its layout says so); any
+    other serve-form base keeps the whole delta (``common.apply_linear``
+    gathers a row-parallel input for it).  A train-form base takes
+    ``W + A @ B`` whole, laid out again on the model axis as ``W`` was
+    (whole on the data axis)."""
+    mesh = next(t.mesh for t in (base, pair) if isinstance(t, shd.Local))
+    a, b = ((shd.gather_leaf(pair, n) if isinstance(pair, shd.Local)
+             else pair[n]) for n in ("a", "b"))
+    delta = a.float() @ b.float()
+    if not isinstance(base, shd.Local):
+        base = shd.Local(base, mesh, {})
+    layout = dict(base.layout)
+    if "w" in base:
+        w = (shd.gather_leaf(base, "w").float() + delta).to(base["w"].dtype)
+        if "w" in layout:
+            # the model-axis blocks only: a data-axis block of this
+            # temporary would be gathered again under a cache keyed by
+            # storage, which a later temporary may reuse
+            shape, spec = layout["w"]
+            spec = tuple(e if dist.is_tp_entry(e) else None for e in spec)
+            w = shd.block(mesh, w, spec[-2:])
+            layout["w"] = (shape, spec)
+            if all(e is None for e in spec):
+                del layout["w"]
+        return shd.Local({**base, "w": w}, mesh, layout)
+    delta = delta.to(cm.DTYPE)
+    ne = layout.get("q", ((), (None,)))[1][-1]
+    if dist.is_tp_entry(ne):
+        layout["lora_delta"] = (tuple(delta.shape), (None, ne))
+        delta = mesh.local_block(delta, dist.entry_axes(ne), -1)
+    return shd.Local({**base, "lora_delta": delta}, mesh, layout)
 
 
 def hybrid_forward(p, x, cfg, wbits, abits, *, positions,

@@ -558,7 +558,7 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
         raise NotImplementedError(
             f"training on a mesh runs the families {MESH_TRAIN_FAMILIES}, "
             f"not {cfg.family!r}: the recurrent and encoder-decoder "
-            f"families on a mesh wait for ROADMAP item 22")
+            f"families train on a mesh in ROADMAP item 22 (b)")
     dev = params["emb"].device
     if cfg.tie_embeddings:
         params = _emb_gathered_once(params)
@@ -608,13 +608,15 @@ def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ring and the cross K/V at ``max_len // frames_ratio`` frames
     (encdec; prefill replaces the cross K/V with the encoder's).
 
-    On a ``mesh`` (attention families): this rank's block of the
-    ``batch``-row cache as ``dist.sharding.cache_shardings`` lays it out:
-    rows over the data axis (``split_rows=False`` keeps every row, for a
-    row every rank computes), KV heads or the head dim over the model
-    axis, or, where the rows do not split over the data ranks and the
-    sequence does, each data rank's slice of the sequence (``kpos``
-    whole: ``transformer``'s sequence-sharded cache)."""
+    On a ``mesh``: this rank's block of the ``batch``-row cache as
+    ``dist.sharding.cache_shardings`` lays it out: rows over the data
+    axis (``split_rows=False`` keeps every row, for a row every rank
+    computes), KV heads or the head dim over the model axis, or, where
+    the rows do not split over the data ranks and the sequence does,
+    each data rank's slice of the sequence (``kpos`` whole:
+    ``transformer``'s sequence-sharded cache); the Mamba states' heads
+    and conv channels over the model axis (a row that does not split
+    keeps its state whole on every data rank)."""
     _require_ported(cfg)
     dev = cm.resolve_device(device)
     if mesh is not None:
@@ -635,23 +637,31 @@ def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows) -> dict:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"a cache on a mesh is served for the attention families, not "
-            f"{cfg.family!r}")
-    whole = tf.empty_cache(cfg, batch, max_len, device="meta")
+    """This rank's blocks of the family's whole cache (built on the meta
+    device) as ``dist.sharding.cache_shardings`` lays them out;
+    ``split_rows=False`` drops the data-axis entries (rows and sequence
+    every rank keeps whole)."""
+    whole = empty_cache(cfg, batch, max_len, device="meta")
     specs = shd.cache_shardings(whole, mesh)
-    out = {}
-    for name, t in whole.items():
-        spec = list(specs[name])
-        if spec[1] is not None and not split_rows:
-            spec[1] = None
-        if len(spec) > 2 and spec[2] is not None and not split_rows:
-            spec[2] = None
-        shape = dist.local_shape(mesh, spec, t.shape)
-        fill = tf.EMPTY_POS if name == "kpos" else 0
-        out[name] = torch.full(shape, fill, dtype=t.dtype, device=dev)
-    return out
+    if cfg.family == "encdec" and specs["cross"]["k"][2] is not None:
+        raise NotImplementedError(
+            "an encdec cross cache sequence-sharded over the data axis "
+            "(rows that do not split over the data ranks) is not served "
+            "(ROADMAP Queue A 24)")
+
+    def rec(node, spec_node):
+        out = {}
+        for name, t in node.items():
+            if isinstance(t, dict):
+                out[name] = rec(t, spec_node[name])
+                continue
+            spec = [e if e is None or split_rows or dist.is_tp_entry(e)
+                    else None for e in spec_node[name]]
+            shape = dist.local_shape(mesh, spec, t.shape)
+            fill = tf.EMPTY_POS if name == "kpos" else 0
+            out[name] = torch.full(shape, fill, dtype=t.dtype, device=dev)
+        return out
+    return rec(whole, specs)
 
 
 def _last_layer_bits(vec):

@@ -19,6 +19,17 @@ recurrence loops over the chunks.
 
 Decode carries ``{"conv": (B, K-1, Cch), "ssm": (B, H, P, N)}`` per layer:
 constant-size state.
+
+On a mesh with a model axis the state keeps this rank's heads and conv
+channels (``dist.sharding``'s cache rules).  ``in_proj`` is
+column-parallel over ``[z | x B C | dt]``, whose column blocks do not
+follow the heads, so its output is gathered whole; each rank runs the
+SSD on its heads (every head reads all of ``B`` and ``C``) and the
+heads' ``y`` are gathered before the gated RMSNorm, whose f32 sum runs
+over all of ``d_inner``; ``out_proj`` is row-parallel, its int32 sums
+and activation amax reduced exactly.  Every value EQUALS one device's
+where the per-head products do (the f32 einsums at fewer heads may pick
+another library kernel on the card).
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import api as dist
+from repro_torch.dist import sharding as shd
 from repro_torch.models import common as cm
 
 
@@ -139,6 +152,18 @@ def ssd_chunked(xh, Bm, Cm, dt, a, h0, chunk: int):
     return y.reshape(Bsz, Sp, H, Pd)[:, :S], h
 
 
+def _model_split(p, H: int, C: int):
+    """``(mesh, head axes, channel axes)``: the model axes the active
+    mesh splits the ``H`` SSM heads and the ``C`` conv channels over, by
+    ``dist.sharding``'s rules for the ``ssm`` and ``conv`` cache leaves
+    (() where they stay whole, and off a model axis)."""
+    mesh = dist.active_mesh()
+    if mesh is None or dist.in_manual_mode() or dist.tp_size(mesh) <= 1:
+        return None, (), ()
+    h, c = (dist.logical_to_mesh(mesh, ("tp",), (n,))[0] for n in (H, C))
+    return mesh, dist.entry_axes(h), dist.entry_axes(c)
+
+
 def mamba_block(p, x, cfg, wbits=8, abits=8, *, state: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d).
@@ -148,7 +173,14 @@ def mamba_block(p, x, cfg, wbits=8, abits=8, *, state: Optional[dict] = None
       conv window starts from zeros, as in the reference); state out.
     * state given, S==1 ... single-step decode; state out.
 
-    The state out is a new dict; the caller writes it where it keeps it."""
+    The state out is a new dict; the caller writes it where it keeps it.
+
+    On a model axis (module docstring) the rank runs the SSD, ``D`` and
+    the gate on its block of the heads and gathers ``y`` before the
+    gated RMSNorm; ``in_proj``'s columns are gathered, the conv runs on
+    every channel in a full sequence (``conv_w`` gathered) and on this
+    rank's channels in a decode step (its output gathered), and the
+    state keeps this rank's heads and channels."""
     d_inner, H, N, P = dims(cfg)
     B, S = x.shape[:2]
     res = x
@@ -156,45 +188,74 @@ def mamba_block(p, x, cfg, wbits=8, abits=8, *, state: Optional[dict] = None
                          cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps),
                          wbits, abits)
     z, xBC, dt_raw = _split(p, xz, cfg)
-    a = -torch.exp(p["A_log"].float())                     # (H,)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
+    mesh, h_axes, c_axes = _model_split(p, H, xBC.shape[-1])
+    n_h = H // mesh.axis_size(h_axes) if h_axes else H
+    h0 = mesh.index(h_axes) * n_h if h_axes else 0
+    heads = slice(h0, h0 + n_h)
+    if h_axes:
+        # every model rank reads z and dt in part: their gradients SUM
+        z, dt_raw = (mesh.enter(t, h_axes) for t in (z, dt_raw))
+    a = -torch.exp(p["A_log"].float()[heads])              # (n_h,)
+    dt = F.softplus(dt_raw.float()[..., heads]
+                    + p["dt_bias"].float()[heads])         # (B,S,n_h)
 
     if state is None or S > 1:
         xBC_raw = xBC
-        xBC = _causal_conv(p["conv_w"], p["conv_b"], xBC)
-        xh = xBC[..., :d_inner].reshape(B, S, H, P)
+        conv_w = (shd.gather_leaf(p, "conv_w") if isinstance(p, shd.Local)
+                  else p["conv_w"])
+        xBC = _causal_conv(conv_w, p["conv_b"], xBC)
+        if h_axes:
+            xBC = mesh.enter(xBC, h_axes)
+        xh = xBC[..., :d_inner].reshape(B, S, H, P)[:, :, heads]
         Bm = xBC[..., d_inner:d_inner + N]
         Cm = xBC[..., d_inner + N:]
-        h0 = (state["ssm"] if state is not None else
-              torch.zeros((B, H, P, N), dtype=torch.float32,
-                          device=x.device))
-        y, h_fin = ssd_chunked(xh, Bm, Cm, dt, a, h0, cfg.ssm_chunk)
+        h_init = (state["ssm"] if state is not None else
+                  torch.zeros((B, n_h, P, N), dtype=torch.float32,
+                              device=x.device))
+        y, h_fin = ssd_chunked(xh, Bm, Cm, dt, a, h_init, cfg.ssm_chunk)
         new_state = None
         if state is not None:
             K = cfg.d_conv
-            new_state = {"conv": xBC_raw[:, S - (K - 1):, :], "ssm": h_fin}
+            window = xBC_raw[:, S - (K - 1):, :]
+            if c_axes:
+                window = mesh.local_block(window, c_axes, -1)
+            new_state = {"conv": window, "ssm": h_fin}
     else:
         # decode: roll the conv window, one SSM step
-        conv_in = torch.cat([state["conv"], xBC.to(state["conv"].dtype)],
+        w, b, new_in = p["conv_w"], p["conv_b"], xBC
+        if c_axes:              # this rank's channels of the window
+            if not (isinstance(p, shd.Local) and "conv_w" in p.layout):
+                w = mesh.local_block(w, c_axes, -1)
+            b = mesh.local_block(b, c_axes, -1)
+            new_in = mesh.local_block(xBC, c_axes, -1)
+        conv_in = torch.cat([state["conv"],
+                             new_in.to(state["conv"].dtype)],
                             dim=1)                          # (B,K,C)
-        w = p["conv_w"].float()
+        w = w.float()
         acc = torch.zeros((B, conv_in.shape[2]), dtype=torch.float32,
                           device=x.device)                  # (B,C)
         for i in range(w.shape[0]):
             acc = acc + conv_in[:, i].float() * w[i]
-        xBC1 = F.silu(acc + p["conv_b"].float())[:, None]   # (B,1,C)
-        xh = xBC1[..., :d_inner].reshape(B, 1, H, P)
+        xBC1 = F.silu(acc + b.float())[:, None]             # (B,1,C)
+        if c_axes:
+            xBC1 = mesh.all_gather(xBC1, c_axes, dim=-1,
+                                   kind="gather_conv")
+        xh = xBC1[..., :d_inner].reshape(B, 1, H, P)[:, :, heads]
         Bm = xBC1[..., d_inner:d_inner + N]
         Cm = xBC1[..., d_inner + N:]
-        dA = torch.exp(a[None, :] * dt[:, 0])                # (B,H)
+        dA = torch.exp(a[None, :] * dt[:, 0])                # (B,n_h)
         h = state["ssm"] * dA[..., None, None] + torch.einsum(
             "bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(), xh[:, 0].float())
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h)[:, None]
         new_state = {"conv": conv_in[:, 1:], "ssm": h}
 
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_inner)
-    y = y * F.silu(z.float())
-    y = cm.rms_norm(y.to(cm.DTYPE), p["gn"]["scale"], cfg.norm_eps)
+    y = y + p["D"].float()[heads][None, None, :, None] * xh.float()
+    y = y.reshape(B, S, n_h * P)
+    y = y * F.silu(z[..., h0 * P:(h0 + n_h) * P].float())
+    y = y.to(cm.DTYPE)
+    if h_axes:
+        # the norm's f32 sum runs over every head: gather them first
+        y = mesh.all_gather(y, h_axes, dim=-1, kind="gather_heads")
+    y = cm.rms_norm(y, p["gn"]["scale"], cfg.norm_eps)
     out = cm.apply_linear(p["out_proj"], y, wbits, abits)
     return res + out, new_state

@@ -62,7 +62,8 @@ step's output is within a tolerance of one device's (EQUAL in the
 tests' runs).
 
 Cross-attention (``attention(kv=(k, v))``, the encoder-decoder's) takes
-precomputed keys and values and skips RoPE, as the reference does.  The
+precomputed keys and values and skips RoPE, as the reference does; on a
+model axis it runs on this rank's heads of q and of the cross cache.  The
 reference also projects ``x`` through ``wk`` and ``wv`` there and
 discards both results; the port skips those two GEMMs (no output
 changes).
@@ -428,8 +429,16 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
                                  positions=positions, causal=causal,
                                  cache=cache, t=t)
     if kv is not None:                                   # cross-attention
-        q = _q(p, x, cfg, wbits, abits)
+        use_head = local_heads(cfg)
+        q = _q(p, x, cfg, wbits, abits, local=use_head)
         k, v = kv
+        if k.shape[-1] != cfg.head_dim:     # the head dim over the model
+            mesh = dist.active_mesh()       # axis: gathered whole
+            k, v = (mesh.all_gather(t, mesh.tp_axes, dim=-1,
+                                    kind="gather_cache") for t in (k, v))
+        if use_head:                        # heads a whole wq made: local
+            q = dist.constrain_heads(q, 2, 3, True,
+                                     have=_heads_have(q, cfg.n_heads))
         if q.shape[1] * k.shape[1] > FLASH_THRESHOLD ** 2:
             out = _flash(q, k, v, cfg, causal=False)
         else:

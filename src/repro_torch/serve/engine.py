@@ -112,9 +112,14 @@ semantics instead).
     prefilled it; a hit for a slot another rank owns broadcasts the row
     (and a full hit's logits) to the owner (``CachePool.move_row``).
 
-The recurrent and encoder-decoder families do not serve on a mesh
-(``NotImplementedError``), nor do rows that do not split evenly over the
-data ranks (the reference shards the cache's sequence then).
+The recurrent and encoder-decoder families serve on a mesh through
+``generate`` (their only API): the Mamba states keep each model rank's
+heads and conv channels, an encdec batch's ``frames`` split with its
+rows, and a row that does not split over the data ranks keeps its Mamba
+state whole on every data rank while a hybrid's shared-attention ring
+takes the sequence-sharded layout.  An encdec cross cache does not shard
+its frames (``NotImplementedError``), nor do continuous-batching slots
+that do not split evenly over the data ranks.
 """
 from __future__ import annotations
 
@@ -138,7 +143,6 @@ from repro_torch.serve.runtime import (ServeRuntime, SlotTable,
                                        UNCONSTRAINED_BUDGET)
 
 TOPK_MAX = 64          # top-k sort width; per-row k <= TOPK_MAX
-_MESH_FAMILIES = ("dense", "moe", "vlm")     # served on a mesh
 SPEC_K_MAX = 8         # draft depth ceiling: a speculative round verifies
                        # one (SPEC_K_MAX + 1)-wide chunk per row
 
@@ -293,10 +297,6 @@ class ServeEngine(ServeRuntime):
                 f"SLO loop")
         super().__init__(controller, n, gemms=lm.layer_gemm_dims(cfg),
                          head=lm.head_gemm_dims(cfg), mesh=mesh, plan=plan)
-        if self.mesh is not None and cfg.family not in _MESH_FAMILIES:
-            raise NotImplementedError(
-                f"serving on a mesh runs the families {_MESH_FAMILIES}, not "
-                f"{cfg.family!r}")
         # this rank's block of slots under the row split (None off a mesh)
         self._rows = self._row_split(n_slots, "slots")
         self._sl = slice(*self._rows) if self._rows else slice(None)
@@ -575,7 +575,7 @@ class ServeEngine(ServeRuntime):
                 raise ValueError(f"encdec batches need frames of shape "
                                  f"(B={B}, F, d_model={self.cfg.d_model}), "
                                  f"got {shape}")
-            inputs["frames"] = torch.as_tensor(frames).to(dev)
+            inputs["frames"] = torch.as_tensor(frames).to(dev)[sl]
         temp = torch.zeros((B,), dtype=torch.float32, device=dev) \
             if temperature is None else torch.as_tensor(
                 temperature, dtype=torch.float32).to(dev).expand(B)

@@ -7,11 +7,12 @@ mesh against real gloo meshes.
   (importing ``repro.launch.dryrun`` rewrites ``XLA_FLAGS`` to 512
   devices, which must not reach this process's JAX); the port's are
   EQUAL.
-* The refused cells are exactly the ssm, hybrid and encdec ones, each
-  naming ROADMAP Queue A 22.
-* One FULL cell through the CLI (``--all`` over a refused cell and
-  qwen3_4b ``decode_32k`` on 256 chips, the latter in its subprocess):
-  int8 operations counted, it fits 80 GB, a dominant roofline term.
+* The refused cells are exactly the ssm, hybrid and encdec train cells,
+  each naming ROADMAP Queue A 22 (b).
+* Two FULL cells through the CLI (``--all`` over a refused cell,
+  qwen3_4b ``decode_32k`` and mamba2_1_3b ``decode_32k`` on 256 chips,
+  each in its subprocess): int8 operations counted, it fits 80 GB, a
+  dominant roofline term; mamba2's cache bytes are its spec's.
 * Two spawned CPU ranks (gloo, a file rendezvous under ``tmp_path``) run
   ``dryrun.serve_run`` at SMOKE size on real tensors: qwen3_4b
   tensor-parallel on ``(1, 2)``, FSDP on ``(2, 1)`` with the rows split,
@@ -19,8 +20,11 @@ mesh against real gloo meshes.
   EQUAL a ``RecordingMesh``'s for the same run on fake tensors (the
   sequence-sharded decode's are in ``tests/test_torch_seq_kv.py``).
 """
+import contextlib
 import datetime
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +38,7 @@ import torch.distributed as tdist  # noqa: E402
 import torch.multiprocessing as tmp  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.dist import api as dapi  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -90,25 +95,49 @@ def test_planning_and_counts_equal_the_reference():
 
 
 def test_refused_cells_are_the_recurrent_and_encdec_families():
+    """Every family serves on a mesh; the ssm, hybrid and encdec train
+    cells alone are refused, each naming ROADMAP Queue A 22 (b)."""
     refused = [(a, s) for a, s in dryrun.planned_cells()
                if dryrun.refusal(configs.get(a), SHAPES_BY_NAME[s])]
-    assert len(refused) == 11
-    assert {a for a, _ in refused} == {"mamba2_1_3b", "zamba2_2_7b",
-                                       "seamless_m4t_medium"}
+    assert sorted(refused) == [("mamba2_1_3b", "train_4k"),
+                               ("seamless_m4t_medium", "train_4k"),
+                               ("zamba2_2_7b", "train_4k")]
     assert {configs.get(a).family for a, _ in refused} == {
         "ssm", "hybrid", "encdec"}
-    res = dryrun.report_cell("zamba2_2_7b", "long_500k", multi_pod=True)
-    assert res["mesh"] == "2x16x16" and "Queue A 22" in res["refused"]
+    res = dryrun.report_cell("zamba2_2_7b", "train_4k", multi_pod=True)
+    assert res["mesh"] == "2x16x16" and "Queue A 22 (b)" in res["refused"]
 
 
-def test_a_full_cell_through_the_cli(tmp_path, monkeypatch, capsys):
-    """``--all`` over a refused cell and qwen3_4b decode_32k (256 chips,
-    in a subprocess); the cell's JSON has the report's sections."""
-    monkeypatch.setattr(dryrun, "planned_cells", lambda: [
-        ("mamba2_1_3b", "decode_32k"), ("qwen3_4b", "decode_32k")])
-    monkeypatch.setenv("PYTHONPATH", _env()["PYTHONPATH"])
-    assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
-    assert "1 ok, 1 refused, 0 failed" in capsys.readouterr().out
+@pytest.fixture(scope="module")
+def cli_cells(tmp_path_factory):
+    """``--all`` over a refused cell, qwen3_4b decode_32k and
+    mamba2_1_3b decode_32k (256 chips, each in its subprocess): the
+    printed output and the directory of the cells' JSON."""
+    out = tmp_path_factory.mktemp("dryrun_cli")
+    prev_cells, prev_path = dryrun.planned_cells, os.environ.get(
+        "PYTHONPATH")
+    dryrun.planned_cells = lambda: [
+        ("mamba2_1_3b", "train_4k"), ("qwen3_4b", "decode_32k"),
+        ("mamba2_1_3b", "decode_32k")]
+    os.environ["PYTHONPATH"] = _env()["PYTHONPATH"]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = dryrun.main(["--all", "--out", str(out)])
+    finally:
+        dryrun.planned_cells = prev_cells
+        if prev_path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = prev_path
+    return rc, buf.getvalue(), out
+
+
+def test_a_full_cell_through_the_cli(cli_cells):
+    """The qwen3_4b decode_32k cell's JSON has the report's sections."""
+    rc, printed, tmp_path = cli_cells
+    assert rc == 0
+    assert "2 ok, 1 refused, 0 failed" in printed
     res = json.loads((tmp_path / "qwen3_4b.decode_32k.16x16.json")
                      .read_text())
     assert res["chips"] == 256 and res["kind"] == "decode"
@@ -124,9 +153,37 @@ def test_a_full_cell_through_the_cli(tmp_path, monkeypatch, capsys):
                         for k in keys)
     assert res["links"] == {"data": "nic", "model": "nic"}
     assert res["params"] == dryrun.param_counts(configs.get("qwen3_4b"))
-    refused = json.loads((tmp_path / "mamba2_1_3b.decode_32k.16x16.json")
+    refused = json.loads((tmp_path / "mamba2_1_3b.train_4k.16x16.json")
                          .read_text())
-    assert "Queue A 22" in refused["refused"]
+    assert "Queue A 22 (b)" in refused["refused"]
+
+
+def test_a_mamba2_cell_holds_the_spec_cache(cli_cells):
+    """mamba2_1_3b decode_32k, newly admitted: its cache bytes per device
+    are the spec's local blocks (the state's heads and the conv's
+    channels over the 16 model ranks, the 128 rows over the 16 data
+    ranks), its SSD step priced in f32, its serve linears on the
+    bit-plane kernel at M = 8."""
+    _, _, tmp_path = cli_cells
+    res = json.loads((tmp_path / "mamba2_1_3b.decode_32k.16x16.json")
+                     .read_text())
+    cfg = configs.get("mamba2_1_3b")
+    mesh = dryrun.lmesh.recording_production_mesh(multi_pod=False)
+    whole = lm.empty_cache(cfg, 128, 32768, device="meta")
+    specs = dryrun.shd.cache_shardings(whole, mesh)
+    want = sum(math.prod(dapi.local_shape(mesh, specs[k], t.shape))
+               * t.element_size() for k, t in whole.items())
+    assert res["memory"]["cache_bytes"] == want
+    d_inner, H, N, P = cfg.expand * cfg.d_model, 64, cfg.ssm_state, 64
+    assert want == cfg.n_layers * 8 * (
+        H // 16 * P * N * 4 + (cfg.d_conv - 1) * (d_inner + 2 * N) // 16 * 2)
+    assert res["cost"]["flops_f32_per_device"] > 0
+    assert res["memory"]["fits_hbm_80g"]
+    keys = {tuple(k[:-1]) for k in res["kernels"]["launches"]}
+    assert keys and all(k[0] == "bitplane_matmul" and k[3] == 8
+                        for k in keys)
+    assert {"gather_heads", "gather_conv", "acc_tp"} <= set(
+        res["collective_kinds_port"])
 
 
 def _smoke_q(arch):

@@ -169,8 +169,8 @@ def test_lora_side_branch(deep, monkeypatch):
     """A nonzero b.  The reference's serve-form output is bitwise the
     same as with b = 0 (its delta is never read).  The port's differs,
     and every shared-block linear at every site gives exactly its
-    side branch: bf16(serve_linear(base, x) + x @ bf16(A_i @ B_i)), with
-    site i's own pair."""
+    side branch: bf16(serve_linear(base, x) + x @ bf16(A_i @ B_i)), the
+    product summed in float64, with site i's own pair."""
     x = np.random.default_rng(7).normal(
         size=(2, 20, deep["tcfg"].d_model)).astype(np.float32)
     wb = np.array([8, 4], np.int32)
@@ -202,7 +202,7 @@ def test_lora_side_branch(deep, monkeypatch):
         base = {k: v for k, v in p.items() if k != "lora_delta"}
         with tops.bit_families(FAMILIES):
             want = (tops.serve_linear(base, xx, wbits, abits)
-                    + xx.float() @ delta.float()).bfloat16()
+                    + (xx.double() @ delta.double()).float()).bfloat16()
         assert torch.equal(y, want)
         assert float(delta.abs().max()) > 0
 

@@ -94,7 +94,7 @@ from repro_torch import configs
 from repro_torch.launch import dryrun
 counts = dryrun.predict_counts(configs.get_smoke("qwen3_4b"), (2, 1),
                                batch=1, prompt=8, steps=1, max_len=16)
-refused = dryrun.report_cell("mamba2_1_3b", "decode_32k")
+refused = dryrun.report_cell("mamba2_1_3b", "train_4k")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))

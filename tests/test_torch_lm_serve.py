@@ -213,9 +213,11 @@ def test_not_ported_options_raise(smoke):
     assert eng.plan.fully_replicated and eng._rows == (0, 2)
     with pytest.raises(NotImplementedError, match="split evenly"):
         eng.generate({"tokens": np.zeros((1, 4), np.int32)}, 2)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        tengine.ServeEngine(smoke["tcfg"].with_(family="ssm"), smoke["tq"],
-                            device="cpu", mesh=mesh, plan="auto")
+    # every family serves on a mesh (the recurrent and encoder-decoder
+    # ones sharded too: tests/test_torch_recurrent_mesh.py)
+    eng = tengine.ServeEngine(smoke["tcfg"].with_(family="ssm"), smoke["tq"],
+                              device="cpu", mesh=mesh, plan="auto")
+    assert eng.mesh is mesh and eng.plan.fully_replicated
     # the prefix cache and vlm prefixes are ported; continuous batching
     # needs a family with ragged prefill that the port runs
     eng = _engine(smoke)
