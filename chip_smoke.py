@@ -5,7 +5,7 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --paths 8  # some paths only, no result lines
 
-Fifteen paths, each at full width with random weights from a seed:
+Sixteen paths, each at full width with random weights from a seed:
 
 * bit-fluid ResNet18 serving (224x224x3 images, 1000 classes): each
   image's EDP budget resolves through the HAWQ-V3 budget controller into a
@@ -27,7 +27,7 @@ Fifteen paths, each at full width with random weights from a seed:
   the bf16 KV cache;
 * the same Qwen3-4B by continuous batching (``ServeEngine.submit`` /
   ``submit_at`` / ``run``): (a) 9 requests (prompts of 64 to 1024
-  tokens, 4 to 8 new tokens, budgets cycling int4, mixed, int8) through
+  tokens, 4 to 6 new tokens, budgets cycling int4, mixed, int8) through
   8 slots, each prompt prefilled alone on a (1, 1024) row and every tick
   decoding 8 tokens for all slots at once; (b) 4 of them again, each to
   its first 4 new tokens, with speculative decoding (4 int4 drafts a
@@ -63,7 +63,7 @@ Fifteen paths, each at full width with random weights from a seed:
   expert (9553 a forward), flash at hd 128; (b) InternVL2-1B (24 layers,
   d_model 896, GQA 14/2 of hd 64, qkv bias, tied embeddings, 256 prefix
   tokens as seeded patch embeddings): ``generate`` on B=4 prompts of
-  4096 tokens behind their prefixes, 4 new (flash at hd 64, budgets
+  4096 tokens behind their prefixes, 2 new (flash at hd 64, budgets
   int4, mixed, int8, int8), 6 requests of 4 new tokens with prefixes by
   continuous batching
   (4 slots, ``prefill_len=1024``, a prefix cache the prefixes bypass),
@@ -112,7 +112,7 @@ Fifteen paths, each at full width with random weights from a seed:
   (``repro_torch.launch.mesh.make_host_mesh``): (a) Qwen3-4B FULL with
   no plan (tensor parallelism: Megatron linears, attention and flash on
   each rank's heads, the vocab-sharded embedding and tied head),
-  ``generate`` at 2 x 2304 tokens at budget 0.5, and 4
+  ``generate`` at 2 x 2304 tokens at budget 0.5, and 3
   continuous requests of 256-token prompts; (b) the same requests on
   (2, 1) with FSDP weights and with a partial plan; (c)
   Moonshot-v1-16B-A3B at full width, its first 4 layers, expert-parallel
@@ -131,13 +131,14 @@ Fifteen paths, each at full width with random weights from a seed:
   FSDP on (2, 1), the same steps; (c) (a)'s trained state saved from
   (1, 2) and restored onto one device and onto (2, 1); (d) the restored
   weights quantized and served on (1, 2), ``generate`` 2 x 256, 4 new;
-  (e) Moonshot-v1-16B-A3B at full width, its first 2 layers,
+  (e) Moonshot-v1-16B-A3B at full width, its first layer,
   expert-parallel training on (1, 2), 2 steps of 2 x 257 tokens; (f)
   SMOKE mesh steps card vs CPU (dense, vlm, MoE), and
   ``python -m repro_torch.launch.train --smoke --tp 2`` killed after a
   checkpoint and resumed on two ranks.
 * the analysis suite on the card: (a) ``python -m
-  repro_torch.launch.analyze --all --device cuda`` in process (lint,
+  repro_torch.launch.analyze --all --device cuda`` in a subprocess,
+  which a whole run starts beside paths 1-6 (lint,
   ledger and the sharding checker of all ten FULL configs, fake, on the
   host; the retrace audit of every SMOKE config and the HAWQ-V3 ResNet18
   matrix on ``cuda:0``, its signatures holding the kernels'
@@ -158,14 +159,28 @@ Fifteen paths, each at full width with random weights from a seed:
   predicted on a ``RecordingMesh`` (2, 1).
 * the recurrent and encoder-decoder families on a mesh: two ranks on
   ``cuda:0`` in one gloo group, as a (1, 2) and a (2, 1) mesh, serve
-  mamba2-1.3b (its first 8 layers), zamba2-2.7b (its first 2
-  super-blocks, every LoRA ``b`` drawn non-zero) and
-  seamless-m4t-medium (2 + 2 layers) at published widths through
+  mamba2-1.3b (its first 2 layers), zamba2-2.7b (its first
+  super-block, every LoRA ``b`` drawn non-zero) and
+  seamless-m4t-medium (1 + 1 layers) at published widths through
   ``ServeEngine(mesh=).generate``: (a) tensor-parallel, 2 x 2304 tokens
   (seamless behind 2304 frames), 2 new, flash on each rank's heads; (b)
   FSDP with the rows split, and a B=1 row each of mamba2 (its state
   whole on both ranks) and zamba2 (the shared block's ring
   sequence-sharded).
+* the same three families trained on a mesh: two ranks on ``cuda:0`` in
+  one gloo group, as a (1, 2) and a (2, 1) mesh, train mamba2-1.3b (its
+  first 4 layers), zamba2-2.7b (its first 2 super-blocks, every LoRA
+  ``b`` drawn non-zero) and seamless-m4t-medium (2 + 2 layers) at
+  published widths with ``remat="full"`` through ``make_train_step``:
+  (a) tensor-parallel and (b) FSDP (mamba2's first 2 layers and
+  zamba2's first super-block), each the first microbatch's gradient at
+  16 bits, held block by block, and 2 steps of 4 x 513 tokens in two
+  microbatches (path 9's optimizer and bits); (c) zamba2's (a) state saved from (1, 2) and
+  restored onto (2, 1) and one device; (d) the trained weights quantized
+  and served on (1, 2), ``generate`` 2 x 2304, 2 new (flash on each
+  rank's heads for zamba2 and seamless); (e) ``python -m
+  repro_torch.launch.train --arch mamba2_1_3b --smoke --tp 2`` beside
+  the rest.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -365,6 +380,21 @@ result line:
      phase that reaches them and no int4 or quant launch.  Then every
      bit-plane shape the ranks launched held EQUAL and timed, every flash
      shape held against its oracle and timed.
+ 19. the same families trained on a mesh: each family's one-device
+     gradient and steps first (the card freed before the ranks); then
+     (a) and (b) gated: every rank's metrics EQUAL; each leaf of the
+     first microbatch's gradient within P16_GRAD_TOL of its max from one
+     device's at 16 bits; each step's loss and z-loss within
+     P12_LOSS_TOL and grad norm within P12_NORM_TOL of one device's; the
+     trained parameters within P12_FLIPS x U a step beyond a bf16 step and
+     P12_PARAM_MEAN lr on average; no kernel launched while training; (c)
+     zamba2's state: every leaf EQUAL after both restores; (d) tokens and last-position logits EQUAL one
+     device's serve of the same weights, bit-plane launches by path as
+     ``plan()`` gives them, flash on zamba2 and seamless, no int4 or
+     quant launch; (e) the launcher exits 0 on (1, 2) and its loss falls.
+     Then (d)'s bit-plane shapes held EQUAL and timed, its flash shapes
+     held against the oracle and timed; each rank's step walls, peak
+     memory and collectives by kind and bytes a step.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -396,6 +426,13 @@ BATCH = 16            # images per served batch (the engine's max_batch)
 IMAGE = 224
 SERVED = 5            # batches on the main path; the first one warms up
 REPS = 20             # timed launches per kernel shape
+PLAIN_REPS = 5        # timed calls of a GEMM's plain version (20 until path
+#                       16 was added: 449 timed shapes spent 26 s on them)
+# the sleeping kernel that holds the stream while the host queues REPS
+# launches for device_ms: ~12 ms at the H100's clocks, several times what
+# queueing 20 launches takes (100_000_000, ~50 ms, until path 16 was
+# added: 45 s of sleeps over a run's 900 device timings)
+SLEEP_CYCLES = 25_000_000
 # the H100 SXM datasheet's rates (repro_torch.launch.mesh), set by
 # hardware() once the checkout's src is on the path
 HBM_BYTES_PER_S = INT8_OPS_PER_S = BF16_FLOPS_PER_S = None
@@ -457,9 +494,10 @@ CB_SLOTS, CB_PREFILL, CB_BLOCK = 8, 1024, 8
 # 9 requests: 8 fill the slots, 1 arrives late (a depth cut that keeps
 # the whole script inside its time limit; PERF.md §4)
 CB_REQUESTS, CB_UPFRONT, CB_LATE_TICK = 9, 8, 2
-# 4 to 8 new tokens (depth cuts: 16-32 to 8-16 when path 8 was added,
-# to 8-12 when path 11 was, to 4-8 when path 12 was; PERF.md §4)
-CB_PROMPT, CB_NEW = (64, 1024), (4, 8)
+# 4 to 6 new tokens (depth cuts: 16-32 to 8-16 when path 8 was added,
+# to 8-12 when path 11 was, to 4-8 when path 12 was, to 4-6 when path 16
+# was; PERF.md §4)
+CB_PROMPT, CB_NEW = (64, 1024), (4, 6)
 CB_SPEC_K, CB_DRAFT_BUDGET = 4, 0.4          # int4 drafts
 # (b)'s requests (8 until path 12 was added); the one at draft_k=0
 CB_SPEC_REQUESTS, CB_DRAFT0 = 4, 3
@@ -506,9 +544,10 @@ VLM_ARCH = "internvl2_1b"
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, head_dim, prefix
 # tokens) published
 VLM_WIDTHS = (24, 896, 14, 2, 4864, 151655, 64, 256)
-# 4 new tokens in generate and in the continuous run (cut from 16 to 8
-# when path 10 was added, to 4 when path 11 was; PERF.md §4)
-VLM_B, VLM_S, VLM_STEPS = 4, 4096, 4
+# 2 new tokens in generate (cut from 16 to 8 when path 10 was added, to 4
+# when path 11 was, to 2 when path 16 was) and 4 in the continuous run
+# (PERF.md §4)
+VLM_B, VLM_S, VLM_STEPS = 4, 4096, 2
 # 6 continuous requests (8 until path 12 was added)
 VLM_REQUESTS, VLM_SLOTS, VLM_NEW = 6, 4, 4
 VLM_SPEC, VLM_SPEC_NEW = 4, 4
@@ -604,10 +643,15 @@ P11_RANKS = 2
 P11_GEN = (2, 2304, 2)             # (a) generate: B, prompt tokens, new
 #                                    (4 new until path 13 was added)
 P11_BUDGETS = (0.5,)               # (2.0, 0.5) until path 12 was added
-P11_CONT = (4, 256, 2)             # (a) continuous: requests, prompt, new
+P11_CONT = (3, 256, 2)             # (a) continuous: requests, prompt, new
+#                                    (4 requests until path 16 was added;
+#                                    3 still take every P11_CONT_BUDGETS)
 #                                    (4 new until path 13 was added)
 #                                    (8 new until path 12 was added)
-P11_SLOTS, P11_BLOCK = 4, 8
+# a decode tick runs its whole block: a request of 2 new tokens needs 1
+# step, and on (2, 1) each step gathers every FSDP weight (8 until path
+# 16 was added; PERF.md §4)
+P11_SLOTS, P11_BLOCK = 4, 2
 P11_CONT_BUDGETS = (2.0, 0.75, 0.5)
 P11_MOE_LAYERS = 4                 # (c) Moonshot's first 4 of 48 layers
 P11_MOE_GEN = (2, 512, 2)          # (c) generate: B, prompt tokens, new
@@ -626,7 +670,8 @@ P12_RANKS = 2
 P12_B, P12_S, P12_ACCUM, P12_STEPS = 4, 512, 2, 2
 P12_FSDP_LAYERS = 2          # 4 until path 13 was added (PERF.md §4)
 P12_SERVE = (2, 256, 4)
-P12_MOE_LAYERS, P12_MOE_B, P12_MOE_S = 2, 2, 256
+# (e) at 1 layer (2 until path 16 was added; PERF.md §4)
+P12_MOE_LAYERS, P12_MOE_B, P12_MOE_S = 1, 2, 256
 # the gates, as tests/test_torch_sharded_train*.py state and measure them
 # on the CPU: a step's loss and z-loss within P12_LOSS_TOL and its grad
 # norm within P12_NORM_TOL of one device's (relative); the mean |gap| of
@@ -677,7 +722,9 @@ P14_BOUND_FLOOR = 0.95   # a kernel family's device time over its bound
 P15_RANKS = 2
 P15_GEN = (2, 2304, 2)
 P15_B1 = (1, 2304, 2)
-P15_SSM_LAYERS, P15_HYB_SUPER, P15_ED_LAYERS = 8, 2, (2, 2)
+# (8, 2, (2, 2) until path 16 was added, whose (d) serves the same three
+# families on (1, 2) at (4, 2, (2, 2)); PERF.md §4)
+P15_SSM_LAYERS, P15_HYB_SUPER, P15_ED_LAYERS = 2, 1, (1, 1)
 # default_controller: mamba2 per-request int4 and int8 rows; zamba2 int8;
 # seamless mixed
 P15_BUDGETS = {"ssm": (0.4, 10.0), "hybrid": 10.0, "encdec": 0.8}
@@ -688,6 +735,46 @@ P15_LORA_B = 0.5         # zamba2's LoRA b ~ N(0, 0.5) (lora_init: zeros)
 # gate), tokens EQUAL.  Everything else is EQUAL
 P15_SSD_TOL = 2e-2
 P15_SMOKE_FLASH = 16     # a CPU rehearsal's flash threshold (prompts of 40)
+# path 16: the recurrent and encoder-decoder families trained on two gloo
+# ranks sharing cuda:0, at their published widths, depth cut as path 15
+# cuts it: mamba2-1.3b's first P16_SSM_LAYERS of 48 layers, zamba2-2.7b's
+# first P16_HYB_SUPER of 9 super-blocks (every LoRA b drawn N(0,
+# P15_LORA_B)), seamless-m4t-medium's first P16_ED_LAYERS of 12 + 12, each
+# with remat="full".  (a) (1, 2) tensor-parallel and (b) (2, 1) FSDP:
+# path 12's P12_STEPS steps of P12_ACCUM microbatches on one batch of
+# P16_B rows of P16_S + 1 tokens (seamless behind make_batch's frames),
+# path 9's optimizer and bits; (c) (a)'s state through a checkpoint onto
+# (2, 1) and one device; (d) the trained weights quantized and served on
+# (1, 2): generate P16_SERVE = (B, prompt tokens (> FLASH_THRESHOLD), new)
+P16_RANKS = 2
+P16_SSM_LAYERS, P16_HYB_SUPER, P16_ED_LAYERS = 4, 2, (2, 2)
+# (b) runs mamba2 and zamba2 at a shallower cut, as path 12 (b) does: FSDP
+# gathers every weight whole through host memory at each use (the forward
+# and remat's recompute) and SUMs its gradient whole, 6.5 GB a step a rank
+# for zamba2's 2 super-blocks, 21-24 s a step on an H100 (PERF.md §6):
+# mamba2's first P16_FSDP[0] layers, zamba2's first P16_FSDP[1]
+# super-block.  seamless's FSDP step (30 s a run, most of it its two
+# 256206 x 1024 tables) is the attention families' FSDP path, which path
+# 12 (b) runs on the card; tests/test_torch_sharded_train_encdec.py holds
+# it on the CPU (it left the card when the whole script ran 1126.7 s)
+P16_FSDP = (2, 1)
+P16_B, P16_S = 4, 512
+P16_SERVE = (2, 2304, 2)
+# (c) the checkpoint of zamba2's state (mamba, shared-block and LoRA
+# leaves); the other two serve (d) from their state gathered whole
+P16_CKPT_FAMILY = "hybrid"
+# the gates against one device: the first microbatch's gradient at 16
+# bits (the fake quantizer's identity), leaf by leaf, max |mesh - one
+# device| within P16_GRAD_TOL x the leaf's max |one device| (measured: at
+# most 0.084, zamba2's emb on (1, 2); a leaf that misses a model rank's
+# block of its gradient sits 0.33-1.0 apart: tests/torch_mesh_train.py;
+# at the step's 8 and 4 bits the rounding of the ranks' GEMMs moves whole
+# quantizer steps through zamba2's 14 blocks, 0.44 apart); each step's
+# loss, z-loss and grad norm by path 12's P12_LOSS_TOL and P12_NORM_TOL
+# (measured: loss within 1.6e-4, grad norm within 2.3e-3); the
+# parameters by P12_FLIPS and P12_PARAM_MEAN (measured: 1 U, mean 0.085
+# lr); on an H100, PERF.md §6
+P16_GRAD_TOL = 0.2
 
 
 def hardware() -> None:
@@ -783,7 +870,7 @@ class Bench:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)     # ~50 ms at the H100's clocks
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -879,7 +966,8 @@ class Bench:
             self.rand_scale(N)
         k_ms = self.time_ms(lambda: i4mm.int4_matmul(x, w, s))
         d_ms = self.device_ms(lambda: i4mm.int4_matmul(x, w, s))
-        p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s))
+        p_ms = self.time_ms(lambda: i4mm.int4_matmul_ref(x, w, s),
+                            reps=PLAIN_REPS)
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bf.unpack_int4_halves(w))
         ops, nbytes = i4mm.work(M, K, N)
@@ -902,7 +990,7 @@ class Bench:
         d_ms = self.device_ms(lambda: qmm.quant_matmul(
             x, w, s, bias, act=act, out_dtype=out_dtype))
         p_ms = self.time_ms(lambda: qmm.quant_matmul_ref(
-            x, w, s, bias, act, out_dtype))
+            x, w, s, bias, act, out_dtype), reps=PLAIN_REPS)
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(x, w)
         ops, nbytes = qmm.work(M, K, N,
                                2 if out_dtype == self.torch.bfloat16 else 4)
@@ -937,7 +1025,8 @@ class Bench:
         x, w = self.rand_i8((M, K)), self.rand_i8((K, N))
         k_ms = self.time_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
         d_ms = self.device_ms(lambda: bpm.bitplane_matmul(x, w, n_planes=n))
-        p_ms = self.time_ms(lambda: bpm.bitplane_matmul_ref(x, w, n))
+        p_ms = self.time_ms(lambda: bpm.bitplane_matmul_ref(x, w, n),
+                            reps=PLAIN_REPS)
         # library yardstick: one torch._int_mm on the sign-extended weights
         l_ms, padded, l_row, l_kmaj, ld_ms = self.library_int_mm(
             x, bpm.sign_extend_field(w, n))
@@ -3432,6 +3521,27 @@ def held_rows(b: Bench, shapes, paths, cuda: bool = True) -> dict:
             "library_ms": lms, "t_bytes": tb, "t_ops": to,
             "device_ms": dms, "library_device_ms": ldms, "bound_ms": bms,
             "paths": paths}
+
+
+def held_flash_rows(b: Bench, fl_shapes, label: str, cuda: bool = True
+                    ) -> dict:
+    """The flash kernel at each (q shape, keys, causal) of ``fl_shapes``
+    (launches a shape): held against the f32 oracle, timed by
+    ``flash_row`` and summed over the launches into the JSON line's
+    entry.  Off the card (a SMOKE run) the times are zero."""
+    fl = {"launches": sum(fl_shapes.values())}
+    for (qs, Sk, causal), c in sorted(fl_shapes.items()) if cuda else ():
+        BH, Sq, hd = qs
+        err = hold_flash(b, BH, Sq, Sk, hd, causal, 0)
+        row = flash_row(b, qs, f" ({label}, one rank's heads; max |err| "
+                        f"{err:.6g})", Sk=0 if Sk == Sq and causal else Sk,
+                        causal=causal)
+        for k, v in row.items():
+            fl[k] = fl.get(k, 0.0) + c * v
+    for k in ("ms", "device_ms", "plain_ms", "library_ms", "t_ops",
+              "t_bytes", "bound_ms"):
+        fl.setdefault(k, 0.0)
+    return fl
 
 
 def so_path(b: Bench, cfg, qparams, cnn_ref=None, cb_ref=None) -> dict:
@@ -6753,16 +6863,18 @@ def p12_train(torch, dev, mesh, which: str, smoke: bool, holder: dict,
     return out
 
 
-def p12_ckpt(torch, dev, m12, m21, holder: dict, out_dir: str) -> dict:
-    """(c): save (a)'s trained state from (1, 2); restore it onto one
-    device (each rank's (1, 2) block of every leaf EQUAL to the trained
-    one) and onto (2, 1) (each block EQUAL to the whole leaf's)."""
+def p12_ckpt(torch, dev, m12, m21, holder: dict, out_dir: str,
+             name: str = "ckpt_a") -> dict:
+    """(c): save (a)'s trained state from (1, 2) under ``out_dir/name``;
+    restore it onto one device (each rank's (1, 2) block of every leaf
+    EQUAL to the trained one) and onto (2, 1) (each block EQUAL to the
+    whole leaf's)."""
     import os
     from repro_torch.dist import sharding as shd
     from repro_torch.train.checkpoint import (restore_checkpoint,
                                               save_checkpoint)
     state = dict(zip(("params", "opt"), holder.pop("a")))
-    d = f"{out_dir}/ckpt_a"
+    d = f"{out_dir}/{name}"
     t0 = time.perf_counter()
     save_checkpoint(d, P12_STEPS, state)
     save_s = time.perf_counter() - t0
@@ -7398,10 +7510,29 @@ def p13_syncs(torch, fn) -> list:
     return events
 
 
-def p13_path(b: Bench, cfg, qparams, known=None) -> dict:
-    """Path 13: (a) the analysis CLI on the card, (b) Qwen3-4B FULL's
-    entrypoints across budgets, (c) ResNet18@224 across the HAWQ-V3
-    configurations, (d) the syncs the card sees in a tick and a
+def p13_analysis(dev) -> dict:
+    """(a)'s ``python -m repro_torch.launch.analyze --all --device ...``
+    started in a subprocess on ``dev``: a whole run starts it after the
+    build, so its host work runs beside paths 1-4, and :func:`p13_path`
+    waits for it; it is killed if the script ends first."""
+    import atexit
+    import os
+    d = tempfile.mkdtemp(prefix="analysis_")
+    log = open(f"{d}/stdout.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.analyze", "--all",
+         "--device", dev.type, "--json", f"{d}/analysis.json"],
+        stdout=log, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "dir": d, "log": log, "t0": time.perf_counter()}
+
+
+def p13_path(b: Bench, cfg, qparams, known=None, analysis=None) -> dict:
+    """Path 13: (a) the analysis CLI on the card (``analysis``, a
+    :func:`p13_analysis` started earlier, or started now), (b) Qwen3-4B
+    FULL's entrypoints across budgets, (c) ResNet18@224 across the
+    HAWQ-V3 configurations, (d) the syncs the card sees in a tick and a
     speculative round; then (b)'s and (c)'s kernel rows."""
     import collections
     import numpy as np
@@ -7409,20 +7540,25 @@ def p13_path(b: Bench, cfg, qparams, known=None) -> dict:
     from repro_torch.analysis import lint, retrace
     from repro_torch.kernels import bitplane_matmul as bpm
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import analyze
     from repro_torch.models import lm
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine, default_controller
 
     t_path = time.perf_counter()
     # ---- (a) python -m repro_torch.launch.analyze --all --device cuda
+    import shutil
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="analysis_") as d:
-        out = str(Path(d) / "analysis.json")
-        rc = analyze.main(["--all", "--device", "cuda", "--json", out])
-        payload = json.loads(Path(out).read_text())
-    a_s = time.perf_counter() - t0
-    check(rc == 0 and payload["ok"] and payload["device"] == "cuda",
+    analysis = analysis or p13_analysis(dev)
+    rc = analysis["proc"].wait()
+    analysis["log"].close()
+    wait_s = time.perf_counter() - t0
+    a_s = time.perf_counter() - analysis["t0"]
+    out = Path(analysis["dir"]) / "analysis.json"
+    check(out.exists(), f"(a) the analysis suite wrote no report (exit "
+          f"{rc}): {(Path(analysis['dir']) / 'stdout.txt').read_text()[-3000:]}")
+    payload = json.loads(out.read_text())
+    shutil.rmtree(analysis["dir"], ignore_errors=True)
+    check(rc == 0 and payload["ok"] and payload["device"] == dev.type,
           f"(a) the analysis suite on the card: exit {rc}, fresh "
           f"{ {n: p['fresh'] for n, p in payload['passes'].items()} }, "
           f"stale baseline {payload['stale_baseline']}")
@@ -7430,7 +7566,7 @@ def p13_path(b: Bench, cfg, qparams, known=None) -> dict:
         print(f"(a) [{name}] ok, {res['suppressed']} baselined: "
               + "; ".join(res["notes"]))
     print(f"{tag} (a) repro_torch.launch.analyze --all --device cuda: "
-          f"PASS in {a_s:.3f} s")
+          f"PASS in {a_s:.3f} s ({wait_s:.3f} s of it waited for here)")
 
     # ---- (b) Qwen3-4B FULL: generate across budgets, path 4's engine
     # shape's prefill row and decode block across budgets and mixes
@@ -7809,19 +7945,26 @@ def p15_configs(smoke: bool) -> dict:
                                            n_layers=P15_ED_LAYERS[1])}
 
 
-def p15_weights(torch, dev, cfg):
-    """Serve-form weights drawn from seed 15 on ``dev`` (every rank draws
-    the same); zamba2's LoRA ``b`` drawn N(0, P15_LORA_B), so the side
-    branch adds what a misaligned delta would get wrong."""
+def p15_params(torch, dev, cfg, seed: int):
+    """Train-form weights drawn from ``seed`` on ``dev`` (every process
+    draws the same); zamba2's LoRA ``b`` drawn N(0, P15_LORA_B), so the
+    side branch adds what a misaligned delta would get wrong."""
     from repro_torch.models import lm
-    gen = torch.Generator(device=dev).manual_seed(15)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = lm.init_params(cfg, gen, device=dev)
     if cfg.family == "hybrid":
         for pair in params["layers"]["lora"].values():
             pair["b"] = (torch.randn(pair["b"].shape, generator=gen,
                                      device=dev) * P15_LORA_B
                          ).to(pair["b"].dtype)
-    return lm.quantize_params(params, cfg)
+    return params
+
+
+def p15_weights(torch, dev, cfg):
+    """Path 15's serve-form weights: :func:`p15_params` of seed 15,
+    quantized."""
+    from repro_torch.models import lm
+    return lm.quantize_params(p15_params(torch, dev, cfg, 15), cfg)
 
 
 def p15_sizes(smoke: bool) -> dict:
@@ -8160,19 +8303,8 @@ def p15_path(b: Bench, smoke: bool = False) -> dict:
     check(not cuda or (sum(shapes.values()) > 0 and fl_shapes),
           "path 15 launched no bit-plane or no flash kernel")
     bp = held_rows(b, shapes, paths, cuda)
-    n_fl = sum(fl_shapes.values())
-    fl = {"launches": n_fl}
-    for (qs, Sk, causal), c in sorted(fl_shapes.items()) if cuda else ():
-        BH, Sq, hd = qs
-        err = hold_flash(b, BH, Sq, Sk, hd, causal, 0)
-        row = flash_row(b, qs, f" (path 15, one rank's heads; max |err| "
-                        f"{err:.6g})", Sk=0 if Sk == Sq and causal else Sk,
-                        causal=causal)
-        for k_, v_ in row.items():
-            fl[k_] = fl.get(k_, 0.0) + c * v_
-    for k_ in ("ms", "device_ms", "plain_ms", "library_ms", "t_ops",
-               "t_bytes", "bound_ms"):
-        fl.setdefault(k_, 0.0)
+    fl = held_flash_rows(b, fl_shapes, "path 15", cuda)
+    n_fl = fl["launches"]
     wall = time.perf_counter() - t_path
     print(f"{tag} path 15 kernels (rank 0's phases): bit-plane "
           f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes) "
@@ -8189,6 +8321,607 @@ def p15_path(b: Bench, smoke: bool = False) -> dict:
           f"the ranks {ranks_s:.3f} s)")
     return {"bitplane": bp, "flash": fl, "gates": gates,
             "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
+
+
+# ---------------------------------------------------------------------------
+# Path 16: the recurrent and encoder-decoder families trained on a mesh
+# ---------------------------------------------------------------------------
+
+def p16_configs(smoke: bool, key: str = "a") -> dict:
+    """Path 16's configs with ``remat="full"``: the published widths
+    (path 8's, held there) cut in depth, (a)'s three or (b)'s two
+    (P16_FSDP), or SMOKE for a CPU rehearsal."""
+    from repro_torch import configs
+    if smoke:
+        cfgs = {"ssm": configs.get_smoke(SSM_ARCH),
+                "hybrid": configs.get_smoke(HYB_ARCH),
+                "encdec": configs.get_smoke(ED_ARCH)}
+    else:
+        full = p8_configs()
+        hyb = full["hybrid"]
+        ssm, sup = ((P16_SSM_LAYERS, P16_HYB_SUPER) if key == "a"
+                    else P16_FSDP)
+        cfgs = {"ssm": full["ssm"].with_(n_layers=ssm),
+                "hybrid": hyb.with_(n_layers=sup * hyb.attn_every),
+                "encdec": full["encdec"].with_(
+                    n_enc_layers=P16_ED_LAYERS[0],
+                    n_layers=P16_ED_LAYERS[1])}
+    if key == "b":
+        del cfgs["encdec"]
+    return {k: c.with_(remat="full") for k, c in cfgs.items()}
+
+
+def p16_sizes(smoke: bool) -> dict:
+    """(rows, tokens a row) of the train batch; (B, prompt, new) of (d)."""
+    return ({"batch": (4, 32), "serve": (2, 40, 2)} if smoke else
+            {"batch": (P16_B, P16_S), "serve": P16_SERVE})
+
+
+def p16_batch(torch, dev, cfg, smoke: bool) -> dict:
+    from repro_torch.data.pipeline import make_batch
+    B, S = p16_sizes(smoke)["batch"]
+    return tree_to(make_batch(0, 0, B, S + 1, cfg.vocab_size, cfg), dev)
+
+
+def p16_grads(torch, cfg, params, batch, bits, mesh):
+    """The gradient of every leaf on the step's first microbatch (rows 0
+    .. B/P12_ACCUM) at ``bits``, and the microbatch's loss: on one
+    device a host tree; on a mesh each rank's rows, the leaves the data
+    axis does not shard SUMmed over it (as a step does), each leaf this
+    rank's block of its layout (``p16_block_gaps`` compares blocks)."""
+    import contextlib
+    from repro_torch.dist import api as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import (leaf_layouts, tree_leaves, tree_map,
+                                         tree_unflatten)
+    mb = {k: v[:v.shape[0] // P12_ACCUM] for k, v in batch.items()}
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with contextlib.ExitStack() as ctx:
+        if mesh is not None:
+            mb = shd.shard_batch(mb, mesh)
+            ctx.enter_context(dist.use_mesh(mesh))
+            ctx.enter_context(kops.split_rows(
+                mesh if dist.dp_size(mesh) > 1 else None))
+        total, mets = lm.train_loss(tree_unflatten(params, live), mb, cfg,
+                                    *bits)
+        grads = list(torch.autograd.grad(total, live, allow_unused=True))
+    loss = mets["loss"].detach()
+    del total, mets
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, live)]
+    del live
+    if mesh is not None and dist.dp_size(mesh) > 1:
+        for j, lay in enumerate(leaf_layouts(params)):
+            held = () if lay is None else tuple(
+                a for e in lay[2] for a in dist.entry_axes(e))
+            grads[j] = mesh.sum_grad(grads[j], tuple(
+                a for a in mesh.dp_axes if a not in held), kind="grad_dp")
+        loss = mesh.all_reduce(loss, mesh.dp_axes, "sum", kind="metrics")
+    tree = tree_unflatten(params, grads)
+    if mesh is None:
+        tree = tree_map(lambda t: t.detach().to("cpu"), tree)
+    return tree, float(loss)
+
+
+def p16_block_gaps(torch, dev, mesh, placed, whole):
+    """Each rank's blocks of a placed tree (``dist.sharding`` layouts)
+    against the same blocks of ``whole`` (a host tree of every leaf
+    whole), reduced over the mesh without gathering a leaf: ``(by leaf
+    path: max |placed - whole| over max |whole|, the largest |placed -
+    whole| beyond one bf16 step of the larger value, the mean |placed -
+    whole|)``, every element counted once."""
+    import math as m_
+    from repro_torch.dist import sharding as shd
+    axes = mesh.axis_names
+    world = m_.prod(mesh.shape[a] for a in axes)
+    names, maxes, sums = [], [], []
+
+    def walk(node, want, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, want[k], path + (k,))
+                continue
+            spec = (node.spec(k)[1] if isinstance(node, shd.Local)
+                    else (None,) * v.ndim)
+            a = v.detach().float()
+            w = shd.block(mesh, want[k].to(dev), spec).float()
+            d = (a - w).abs()
+            top = torch.maximum(a.abs(), w.abs())
+            one = (torch.nextafter(top, torch.full_like(top, float("inf")))
+                   - top) * 2.0 ** 16
+            copies = world / m_.prod(mesh.axis_size(e) for e in spec if e)
+            names.append("/".join(map(str, path + (k,))))
+            maxes.append(torch.stack([d.max(), w.abs().max(),
+                                      (d - one).clamp_min(0).max()]))
+            sums.append(torch.stack([d.sum() / copies,
+                                     torch.tensor(d.numel() / copies,
+                                                  device=d.device)]))
+
+    walk(placed, whole, ())
+    mx = mesh.all_reduce(torch.stack(maxes), axes, "max", kind="gate")
+    sm = mesh.all_reduce(torch.stack(sums).double(), axes, "sum",
+                         kind="gate").sum(0)
+    gaps = {n: float(mx[i, 0]) / max(float(mx[i, 1]), 1e-30)
+            for i, n in enumerate(names)}
+    return gaps, float(mx[:, 2].max()), float(sm[0] / sm[1])
+
+
+def p16_one_device(torch, dev, fam: str, key: str, cfg, smoke: bool,
+                   d: str) -> dict:
+    """One device's first-microbatch gradient (at 16 bits) and P12_STEPS
+    steps of one family from the ranks' weights (seed 16 on the same
+    device); the gradient and the trained parameters saved under ``d``
+    for rank 0's gates, the metrics, walls and largest update
+    returned."""
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.train.loop import make_train_step
+    params = p15_params(torch, dev, cfg, 16)
+    tcfg = p12_tcfg(P12_ACCUM)
+    step, bits = make_train_step(tcfg, cfg, device=dev)
+    batch = p16_batch(torch, dev, cfg, smoke)
+    grads, loss = p16_grads(torch, cfg, params, batch, p16_exact(bits), None)
+    opt = adamw_init(params, tcfg.optimizer)
+    mets, walls, upd = [], [], 0.0
+    for _ in range(P12_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        new, opt, m = step(params, opt, batch)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+        upd = max(upd, p12_largest_update(new, params))
+        params = new
+    torch.save({"grads": grads, "params": tree_map(
+        lambda t: t.to("cpu"), params)}, f"{d}/one_{fam}_{key}.pt")
+    return {"metrics": mets, "walls": walls, "update": upd,
+            "grad_loss": loss}
+
+
+def p16_exact(bits):
+    """The step's bit vectors at 16 bits, where the fake quantizer is the
+    identity (``bitfluid.fake_quant``'s fp sentinel)."""
+    return tuple(b.new_full(b.shape, 16) for b in bits)
+
+
+def p16_train(torch, dev, fam: str, key: str, cfg, mesh, smoke: bool,
+              holder: dict, d: str) -> dict:
+    """(a) or (b) of one family on one rank: the weights drawn whole and
+    placed on ``mesh``, the first microbatch's gradient (at 16 bits),
+    then P12_STEPS steps through ``make_train_step`` on this rank's rows,
+    each timed, the last one's collectives counted.  The ranks hold the
+    gradient leaf by leaf and the trained parameters against one
+    device's (saved under ``d``), block by block; a tensor-parallel rank
+    keeps its trained state for (c) and (d)."""
+    from repro_torch.dist import api as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import make_train_step
+    tcfg = p12_tcfg(P12_ACCUM)
+    whole = p15_params(torch, dev, cfg, 16)
+    p_shd = shd.param_shardings(whole, mesh)
+    params = shd.shard_params(whole, mesh)
+    del whole
+    step, bits = make_train_step(tcfg, cfg, device=dev, param_shardings=p_shd)
+    batch = p16_batch(torch, dev, cfg, smoke)
+    t0 = time.perf_counter()
+    grads, grad_loss = p16_grads(torch, cfg, params, batch, p16_exact(bits),
+                                 mesh)
+    grad_s = time.perf_counter() - t0
+    opt = adamw_init(params, tcfg.optimizer)
+    local = shd.shard_batch(batch, mesh)
+    mets, walls, counts = [], [], {}
+    for _ in range(P12_STEPS):
+        before = {k: list(v) for k, v in mesh.counts.items()}
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, local)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+        counts = {k: [v[0] - before.get(k, [0, 0])[0],
+                      v[1] - before.get(k, [0, 0])[1]]
+                  for k, v in mesh.counts.items()}
+    out = {"metrics": mets, "walls": walls, "grad_s": grad_s,
+           "grad_loss": grad_loss, "step_counts": counts}
+    one = torch.load(f"{d}/one_{fam}_{key}.pt", weights_only=False)
+    out["grad_gaps"] = p16_block_gaps(torch, dev, mesh, grads,
+                                      one["grads"])[0]
+    out["param_gap"] = p16_block_gaps(torch, dev, mesh, params,
+                                      one["params"])[1:]
+    del one, grads
+    if dist.tp_size(mesh) > 1:
+        holder["a"] = (params, opt)
+    return out
+
+
+def p16_serve(torch, dev, cfg, holder: dict, mesh, smoke: bool) -> dict:
+    """(d): (a)'s trained weights whole (restored by (c), or gathered),
+    quantized (kept in ``holder["q"]``) and served on ``mesh`` (None: one
+    device) through ``generate`` as path 15 serves them."""
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    if "whole" in holder:
+        holder["q"] = lm.quantize_params(holder.pop("whole"), cfg)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    B, S, new = p16_sizes(smoke)["serve"]
+    prev = tf.FLASH_THRESHOLD
+    if smoke:
+        tf.FLASH_THRESHOLD = P15_SMOKE_FLASH
+    try:
+        return p15_serve(torch, dev, cfg, holder["q"],
+                         p15_batch(cfg, {"gen": (B, S, new)}, "gen"), new,
+                         mesh)
+    finally:
+        tf.FLASH_THRESHOLD = prev
+
+
+def p16_warm(torch, dev, mesh) -> float:
+    """One SMOKE zamba2 microbatch (forward and backward, ``remat``) on
+    ``mesh``, beside the parent's one-device steps in little memory: it
+    loads the train step's kernels and opens the group's paths; its
+    wall."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    t0 = time.perf_counter()
+    cfg = configs.get_smoke(HYB_ARCH).with_(remat="full")
+    whole = p15_params(torch, dev, cfg, 1)
+    bits = (torch.full((2,), 8, dtype=torch.int32, device=dev),) * 2
+    p16_grads(torch, cfg, shd.shard_params(whole, mesh),
+              p16_batch(torch, dev, cfg, True), bits, mesh)
+    sync(torch, dev)
+    return time.perf_counter() - t0
+
+
+def p16_rank(rank: int, init_method: str, out_dir: str, device: str,
+             smoke: bool) -> None:
+    """One rank of path 16 on ``device``: the same world as a (1, 2) and a
+    (2, 1) mesh; a SMOKE warm-up beside the parent's one-device steps,
+    then once the card is free, for each family: (a) on (1, 2), (c) (a)'s
+    state across meshes, (d) its weights served on (1, 2) and (b) on (2,
+    1), each a phase (``p11_phase``); then on rank 0 (d)'s one-device
+    serves."""
+    import datetime
+    import os
+    import shutil
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=P16_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    out, served = {}, {}
+    cfgs = {k: p16_configs(smoke, k) for k in "ab"}
+    try:
+        m12, m21 = make_host_mesh(model=2), make_host_mesh(model=1)
+        both = (m12, m21)
+        out["warm_s"] = p16_warm(torch, dev, m12)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        while not os.path.exists(f"{out_dir}/card_free"):
+            time.sleep(0.1)
+        for fam, cfg in cfgs["a"].items():
+            holder = {}
+            out[(fam, "a")] = p11_phase(torch, dev, both, p16_train, torch,
+                                        dev, fam, "a", cfg, m12, smoke,
+                                        holder, out_dir)
+            if fam == P16_CKPT_FAMILY:
+                out["c"] = p11_phase(torch, dev, both, p12_ckpt, torch, dev,
+                                     m12, m21, holder, out_dir, "ckpt")
+            else:
+                holder["whole"] = shd.full(holder.pop("a")[0])
+            out[(fam, "d")] = p11_phase(torch, dev, both, p16_serve, torch,
+                                        dev, cfg, holder, m12, smoke)
+            if rank == 0:       # (d)'s collectives: both ranks restored
+                shutil.rmtree(f"{out_dir}/ckpt", ignore_errors=True)
+                served[fam] = holder["q"]
+            del holder
+            if fam in cfgs["b"]:
+                out[(fam, "b")] = p11_phase(torch, dev, both, p16_train,
+                                            torch, dev, fam, "b",
+                                            cfgs["b"][fam], m21, smoke, {},
+                                            out_dir)
+        out["coords"] = (m12.tp_index, m21.dp_index)
+    finally:
+        tdist.destroy_process_group()
+    if rank == 0:
+        for fam, cfg in cfgs["a"].items():
+            out[(fam, "d_single")] = p16_serve(torch, dev, cfg,
+                                               {"q": served.pop(fam)}, None,
+                                               smoke)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def p16_launcher(dev) -> tuple:
+    """(e): ``python -m repro_torch.launch.train --arch SSM_ARCH --smoke
+    --tp 2`` on ``dev`` (two spawned gloo ranks) in a thread beside the
+    path.  Returns ``(join, stop)``: ``join()`` returns what it saw (a
+    problem is in its "error"), ``stop()`` kills it if it still runs."""
+    import os
+    import signal
+    import threading
+    res: dict = {}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           SSM_ARCH, "--smoke", "--tp", "2", "--device", dev.type,
+           "--steps", "6", "--batch", "4", "--seq", "32", "--log-every", "1"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(SRC)),
+                            cwd=str(ROOT), start_new_session=True)
+
+    def drive():
+        t0 = time.perf_counter()
+        out, err = proc.communicate()
+        res["wall_s"] = time.perf_counter() - t0
+        lines = out.splitlines()
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines
+                  if ln.startswith("[train] step=")]
+        try:
+            last = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            res["error"] = f"rc {proc.returncode}: {err[-2000:]}"
+            return
+        res.update(losses=losses, final=last)
+        if not (proc.returncode == 0 and len(losses) == 6
+                and "[train] mesh {'data': 1, 'model': 2}" in lines
+                and last["mesh"] == {"data": 1, "model": 2}
+                and all(math.isfinite(x) for x in losses)
+                and last["final_loss"] < losses[0]):
+            res["error"] = f"rc {proc.returncode}: {lines[-8:]}"
+
+    thread = threading.Thread(target=drive, daemon=True)
+    thread.start()
+
+    def join() -> dict:
+        thread.join()
+        return res
+
+    def stop() -> None:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    return join, stop
+
+
+def p16_path(b: Bench, smoke: bool = False) -> dict:
+    """Path 16: mamba2, zamba2 and seamless trained on P16_RANKS gloo
+    ranks sharing the card (module docstring); returns the kernel rows of
+    (d)'s launches on a rank."""
+    import shutil
+    import torch.multiprocessing as tmp
+    t_path = time.perf_counter()
+    launcher, stop = p16_launcher(b.dev)     # (e), beside the rest
+    d = tempfile.mkdtemp(prefix="p16_")
+    # the ranks start now: they import, join the group and warm up while
+    # this process trains on one device, and wait for the card after it
+    ranks_ctx = tmp.start_processes(p16_rank, args=(
+        f"tcp://127.0.0.1:{free_port()}", d, str(b.dev), smoke),
+        nprocs=P16_RANKS, join=False, start_method="spawn")
+    try:
+        return p16_gates(b, smoke, t_path, launcher, d, ranks_ctx)
+    finally:        # a failed gate leaves nothing running
+        stop()
+        for p in ranks_ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def p16_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
+              ranks_ctx) -> dict:
+    """The body of :func:`p16_path`: one device's gradients and steps,
+    the card freed, the ranks, then their results gated, printed, held
+    and timed."""
+    import numpy as np
+    from repro_torch.kernels import bitplane_matmul as bpm
+    torch, dev, tag = b.torch, b.dev, b.tag
+    cuda = dev.type == "cuda"
+    cfgs = {k: p16_configs(smoke, k) for k in "ab"}
+    B, S = p16_sizes(smoke)["batch"]
+
+    # ---- one device first, each family at (a)'s and (b)'s depth, then
+    # the card freed
+    one = {}
+    for key in "ab":
+        for fam, cfg in cfgs[key].items():
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            one[(fam, key)] = x = p16_one_device(torch, dev, fam, key, cfg,
+                                                 smoke, d)
+            x["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if cuda else 0.0)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t_path
+
+    # ---- the ranks
+    t0 = time.perf_counter()
+    open(f"{d}/card_free", "w").close()
+    while not ranks_ctx.join():
+        pass
+    ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+             for r in range(P16_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        check(out["coords"] == (r, r), f"path 16 rank {r}: mesh coords "
+              f"{out['coords']}")
+
+    # ---- (a), (b): gradients, metrics and parameters against one device
+    gaps = {}
+    for fam in cfgs["a"]:
+        for key, mesh_s in (("a", f"(1, {P16_RANKS}) tensor-parallel"),
+                            ("b", f"({P16_RANKS}, 1) FSDP")):
+            if fam not in cfgs[key]:
+                continue
+            cfg, ref = cfgs[key][fam], one[(fam, key)]
+            label = f"path 16 ({key}) {cfg.name}"
+            for r, out in enumerate(ranks):
+                check(out[(fam, key)]["metrics"]
+                      == ranks[0][(fam, key)]["metrics"],
+                      f"{label}: rank {r}'s metrics != rank 0's")
+            x = ranks[0][(fam, key)]
+            worst = max(x["grad_gaps"], key=x["grad_gaps"].get)
+            check(x["grad_gaps"][worst] <= P16_GRAD_TOL,
+                  f"{label}: the first microbatch's gradient of {worst} "
+                  f"sits {x['grad_gaps'][worst]:.4g} of its max from one "
+                  f"device's (bound {P16_GRAD_TOL}; its loss "
+                  f"{x['grad_loss']!r} against {ref['grad_loss']!r}); "
+                  f"every leaf past it: "
+                  + str({k: round(v, 4) for k, v in x["grad_gaps"].items()
+                         if v > P16_GRAD_TOL}))
+            mg = p12_metrics_gate(label, x["metrics"], ref["metrics"])
+            pw, pm = x["param_gap"]
+            pw /= ref["update"]
+            pm /= TRAIN_LR
+            check(pw <= P12_FLIPS * P12_STEPS and pm <= P12_PARAM_MEAN,
+                  f"{label}: parameters after {P12_STEPS} steps {pw:.3g} U "
+                  f"beyond a bf16 step from one device's (bound "
+                  f"{P12_FLIPS * P12_STEPS}; U = {ref['update']!r}), "
+                  f"mean {pm:.3g} lr (bound {P12_PARAM_MEAN})")
+            for r, out in enumerate(ranks):
+                y = out[(fam, key)]
+                check(sum(y["shapes"].values()) == 0 and y["flash"] == 0
+                      and y["off_path"] == (0, 0),
+                      f"{label} rank {r}: kernels launched while training: "
+                      f"{y['shapes']}, flash {y['flash']}, {y['off_path']}")
+            gaps[(fam, key)] = {"grad": (worst, x["grad_gaps"][worst]),
+                                "metrics": mg, "params": (pw, pm)}
+            depth = (f"{cfg.n_layers} layers" + (
+                f" + {cfg.n_enc_layers} encoder" if fam == "encdec" else ""))
+            print(f"(16 {key}) {cfg.name} ({depth}) on {mesh_s}: "
+                  f"{P12_STEPS} steps of {B} x {S + 1} tokens in "
+                  f"{P12_ACCUM} microbatches: loss per step "
+                  f"{[round(m['loss'], 6) for m in x['metrics']]} against "
+                  f"one device's "
+                  f"{[round(m['loss'], 6) for m in ref['metrics']]} "
+                  f"(gaps {[{k: float(f'{v:.3g}') for k, v in g.items()} for g in mg]}"
+                  f"); first gradient at 16 bits within "
+                  f"{x['grad_gaps'][worst]:.4g} of a leaf's max ({worst}; "
+                  f"its loss {x['grad_loss']:.6f} against "
+                  f"{ref['grad_loss']:.6f}); parameters within {pw:.3g} U"
+                  f" beyond a bf16 step (mean {pm:.3g} lr); step walls a "
+                  f"rank " + ", ".join(
+                      str([round(w, 3) for w in out[(fam, key)]["walls"]])
+                      for out in ranks)
+                  + f" s against one device's "
+                  f"{[round(w, 3) for w in ref['walls']]} s (first "
+                  f"gradient {x['grad_s']:.3f} s); peak above resident "
+                  + ", ".join(f"{out[(fam, key)]['peak_gib']:.3f} GiB"
+                              for out in ranks)
+                  + f" (one device {ref['peak_gib']:.3f} GiB); "
+                  f"collectives a step a rank (calls, bytes) "
+                  f"{ {k: tuple(v) for k, v in x['step_counts'].items()} }")
+
+    # ---- (c) the checkpoint across meshes
+    ccfg = cfgs["a"][P16_CKPT_FAMILY]
+    for r, out in enumerate(ranks):
+        c = out["c"]
+        check(c["leaves"][0] > 0 and c["leaves"][0] == c["leaves"][1],
+              f"path 16 (c) {ccfg.name} rank {r}: leaves {c['leaves']}")
+    c = ranks[0]["c"]
+    print(f"(16 c) {ccfg.name}: (a)'s state ({c['bytes'] / 2 ** 30:.3f} "
+          f"GiB, {c['leaves'][0]} leaves) saved from (1, 2) in "
+          f"{c['save_s']:.3f} s, restored onto one device in "
+          f"{c['one_s']:.3f} s and onto (2, 1) in {c['r21_s']:.3f} s: every "
+          f"leaf EQUAL on both ranks")
+
+    # ---- (d) the trained weights served on (1, 2)
+    shapes, paths, fl_shapes = {}, {p: 0 for p in bpm.PATHS}, {}
+    Bs, Ss, new = p16_sizes(smoke)["serve"]
+    for fam, cfg in cfgs["a"].items():
+        want = ranks[0][(fam, "d_single")]
+        for r, out in enumerate(ranks):
+            x = out[(fam, "d")]
+            check(np.array_equal(x["tokens"], want["tokens"])
+                  and np.array_equal(x["logits"], want["logits"]),
+                  f"path 16 (d) {cfg.name} rank {r}: tokens "
+                  f"{x['tokens'].tolist()} against one device's "
+                  f"{want['tokens'].tolist()}, last-position logits max "
+                  f"|diff| {np.abs(x['logits'] - want['logits']).max()}")
+            needs_flash = fam != "ssm"
+            want_paths = {p: 0 for p in bpm.PATHS}
+            for (M, K, N, _), n_ in x["shapes"].items():
+                want_paths[bpm.plan(M, K, N).path] += n_
+            check(not cuda or (sum(x["shapes"].values()) > 0
+                               and x["paths"] == want_paths
+                               and (x["flash"] > 0) == needs_flash
+                               and x["off_path"] == (0, 0)),
+                  f"path 16 (d) {cfg.name} rank {r}: bit-plane "
+                  f"{x['shapes']} by path {x['paths']} (plan() gives "
+                  f"{want_paths}), flash {x['flash']}, int4/quant "
+                  f"{x['off_path']}")
+        x = ranks[0][(fam, "d")]
+        for k, n_ in x["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + n_
+        for k, n_ in x["paths"].items():
+            paths[k] += n_
+        for k, n_ in x["flash_shapes"].items():
+            fl_shapes[k] = fl_shapes.get(k, 0) + n_
+        print(f"(16 d) {cfg.name}, (a)'s trained weights quantized and "
+              f"served on (1, 2): generate {Bs} x {Ss}"
+              + (f" behind {Ss} frames" if fam == "encdec" else "")
+              + f", {new} new, budget {p15_budget(cfg, Bs)}: tokens and "
+              f"last-position logits EQUAL one device's; launches a rank: "
+              f"bit-plane {sum(x['shapes'].values())}, flash {x['flash']} "
+              f"at {sorted(x['flash_shapes'])}; wall "
+              + " / ".join(f"{out[(fam, 'd')]['wall_s']:.3f} s"
+                           for out in ranks)
+              + f"; collectives rank 0 "
+              f"{ {k: tuple(v) for k, v in x['collectives'].items()} }")
+    check(not cuda or (sum(shapes.values()) > 0 and fl_shapes),
+          "path 16 (d) launched no bit-plane or no flash kernel")
+
+    # ---- (e) the training CLI on a tensor-parallel mesh
+    la = launcher()
+    check("error" not in la, f"path 16 (e) repro_torch.launch.train "
+          f"--arch {SSM_ARCH} --smoke --tp 2: {la.get('error')}")
+    print(f"(16 e) repro_torch.launch.train --arch {SSM_ARCH} --smoke --tp "
+          f"2 on the {dev.type}, beside the path: loss "
+          f"{la['losses'][0]:.4f} -> {la['final']['final_loss']:.4f} in "
+          f"{len(la['losses'])} steps on {la['final']['mesh']}, "
+          f"{la['wall_s']:.3f} s")
+
+    # ---- (d)'s shapes held and timed
+    bp = held_rows(b, shapes, paths, cuda)
+    fl = held_flash_rows(b, fl_shapes, "path 16 (d)", cuda)
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 16 kernels (rank 0's (d)): bit-plane "
+          f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes) "
+          f"(by path {paths}), each held EQUAL to the plain version, kernel "
+          f"{bp['ms']:.3f} ms (device {bp['device_ms']:.3f}), bound "
+          f"{bp['bound_ms']:.3f} ms, plain {bp['plain_ms']:.3f} ms, "
+          f"torch._int_mm {bp['library_ms']:.3f} ms; flash "
+          f"{fl['launches']} launches at {dict(sorted(fl_shapes.items()))}, "
+          f"each shape held against the f32 oracle, {fl['ms']:.3f} ms "
+          f"(device {fl['device_ms']:.3f}), bound {fl['bound_ms']:.3f} ms, "
+          f"plain {fl['plain_ms']:.3f} ms, scaled_dot_product_attention "
+          f"{fl['library_ms']:.3f} ms; no kernel launched while training")
+    print(f"{tag} path 16 wall {wall:.3f} s (one device {single_s:.3f} s, "
+          f"the ranks {ranks_s:.3f} s: " + ", ".join(
+              f"{cfgs['a'][f].name} " + "/".join(
+                  f"{ranks[0][(f, k)]['wall_s']:.1f}" if (f, k) in ranks[0]
+                  else "-" for k in "abd")
+              for f in cfgs["a"])
+          + f" s by phase (a)/(b)/(d), (c) {c['wall_s']:.1f} s; beside the "
+          f"one-device steps the "
+          f"ranks' warm-up {ranks[0]['warm_s']:.3f} s and the launcher "
+          f"{la['wall_s']:.3f} s)")
+    return {"bitplane": bp, "flash": fl, "gaps": gaps,
+            "e2e": {"wall_s": wall, "ranks_s": ranks_s,
+                    "single_s": single_s}}
 
 
 def ptxas_summary(log: str):
@@ -8342,9 +9075,9 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-18. the fifteen paths (a development run may pick some with
-    # --paths 1,4; only a run of all fifteen prints the result lines)
-    every = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}
+    # ---- 4.-19. the sixteen paths (a development run may pick some with
+    # --paths 1,4; only a run of all sixteen prints the result lines)
+    every = set(range(1, 17))
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -8390,12 +9123,15 @@ def main() -> None:
             p12_path(b)
         if 15 in picked:
             p15_path(b)
+        if 16 in picked:
+            p16_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed in "
               f"{time.perf_counter() - t_paths:.3f} s; no result line for "
               f"a partial run")
         return
     walls = {"before the paths": time.perf_counter() - t_start}
+    analysis = p13_analysis(dev)        # path 13 (a), beside paths 1-6
 
     def timed(label, fn, *args, **kw):
         t0 = time.perf_counter()
@@ -8411,7 +9147,8 @@ def main() -> None:
     pcr = timed("5", pc_path, b, *lm_cut(cfg, qparams, PC_LAYERS))
     sor = timed("6", so_path, b, cfg, qparams, cnn_ref=cnn, cb_ref=cbr)
     p13r = timed("13", p13_path, b, cfg, qparams,
-                 known={**cbr["per_shape"], **cnn["per_shape"]})
+                 known={**cbr["per_shape"], **cnn["per_shape"]},
+                 analysis=analysis)
     p14r = timed("14 (a)", p14_path, b, cfg, qparams)
     del qparams                 # path 7 needs the card's memory
     torch.cuda.empty_cache()
@@ -8424,6 +9161,7 @@ def main() -> None:
     p11r = timed("11", p11_path, b, cnn_ref=cnn)
     p12r = timed("12", p12_path, b)
     p15r = timed("15", p15_path, b)
+    p16r = timed("16", p16_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -8457,7 +9195,9 @@ def main() -> None:
                 "qwen3_4b_analysis_audit": p13r["bitplane_b"],
                 "resnet18_hawq_analysis_audit": p13r["bitplane_c"],
                 "qwen3_4b_lowering_report_calls": p14r["bitplane"],
-                "recurrent_and_encdec_mesh_rank": p15r["bitplane"]}
+                "recurrent_and_encdec_mesh_rank": p15r["bitplane"],
+                "recurrent_and_encdec_trained_serve_rank":
+                    p16r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -8469,7 +9209,8 @@ def main() -> None:
                 "qwen3_4b_analysis_generate": p13r["flash"],
                 "qwen3_4b_sequence_sharded_rank": p11r["flash_f"],
                 "qwen3_4b_lowering_report_prefill": p14r["flash"],
-                "zamba2_and_seamless_mesh_rank": p15r["flash"]}
+                "zamba2_and_seamless_mesh_rank": p15r["flash"],
+                "zamba2_and_seamless_trained_serve_rank": p16r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -8536,7 +9277,10 @@ def main() -> None:
           f"roofline {p14r['roofline_ms']:.3f} ms; path 15 (the recurrent "
           f"and encoder-decoder families on {P15_RANKS} gloo ranks sharing "
           f"the card) {p15r['e2e']['wall_s']:.3f} s, its ranks "
-          f"{p15r['e2e']['ranks_s']:.3f} s")
+          f"{p15r['e2e']['ranks_s']:.3f} s; path 16 (the same families "
+          f"trained on {P16_RANKS} gloo ranks sharing the card) "
+          f"{p16r['e2e']['wall_s']:.3f} s, its ranks "
+          f"{p16r['e2e']['ranks_s']:.3f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

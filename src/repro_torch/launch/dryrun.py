@@ -30,11 +30,10 @@ CPU-only torch cannot index a fake CUDA tensor).  Train cells run the
 ``train/loop.make_train_step`` step with 8 microbatches (``accum_for``)
 on fake CPU tensors, as the reference's lowering runs off the TPU: the
 train form reaches no int8 kernel, and attention past 2048 tokens has
-no backward kernel, so it takes the chunked plain version.
-
-A train cell whose family the port does not train on a mesh (outside
-``models.lm.MESH_TRAIN_FAMILIES``) is refused before anything runs,
-naming ROADMAP Queue A 22 (b); any other cell that raises is a failure.
+no backward kernel, so it takes the chunked plain version (a train
+cell's ``"attention"`` says which it priced).  Every family trains and
+serves on a mesh, so every planned cell runs; a cell that raises is a
+failure.
 
 Roofline denominators are the H100 SXM datasheet's (``launch/mesh.py``):
 bf16, f32 and int8 peaks, HBM bandwidth, and per collective NVLink when
@@ -67,13 +66,12 @@ from repro_torch.launch import mesh as lmesh
 from repro_torch.launch import opcost
 from repro_torch.launch import specs as sp
 from repro_torch.models import lm
-from repro_torch.models.config import SHAPES_BY_NAME, ModelConfig
+from repro_torch.models.config import SHAPES_BY_NAME
 from repro_torch.train.loop import TrainConfig, make_train_step
 
-QUEUE_A_22 = ("the port does not train the family on a mesh yet (ROADMAP "
-              "Queue A 22 (b))")
 TRAIN_ATTENTION = ("plain chunked: the card has no flash backward "
                    "(ROADMAP Queue B 3 (a))")
+NO_ATTENTION = "none: the family has no attention layer"
 
 
 # ---------------------------------------------------------------------------
@@ -98,15 +96,6 @@ def accum_for(cfg, shape) -> int:
     if shape.kind != "train":
         return 1
     return 8
-
-
-def refusal(cfg: ModelConfig, shape) -> Optional[str]:
-    """Why the port cannot run this cell on a mesh, or None: every family
-    serves on a mesh, and the recurrent and encoder-decoder families do
-    not train there yet."""
-    if shape.kind != "train" or cfg.family in lm.MESH_TRAIN_FAMILIES:
-        return None
-    return f"{cfg.family}: {QUEUE_A_22}"
 
 
 def mesh_label(multi_pod: bool) -> str:
@@ -287,15 +276,12 @@ def run_train(cfg, shape, mesh):
 def report_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 container: str = "int8") -> dict:
     """One cell's report (the reference's ``lower_cell`` sections, named
-    for what the port measures); a refused cell's names its reason."""
+    for what the port measures)."""
     cfg = configs.get(arch)
     shape = SHAPES_BY_NAME[shape_name]
     label = mesh_label(multi_pod)
     head = {"arch": arch, "shape": shape_name, "mesh": label,
             "chips": 512 if multi_pod else 256, "kind": shape.kind}
-    why = refusal(cfg, shape)
-    if why is not None:
-        return {**head, "refused": why}
     mesh = lmesh.recording_production_mesh(multi_pod=multi_pod)
     t0 = time.perf_counter()
     cache_bytes = None
@@ -352,7 +338,8 @@ def report_cell(arch: str, shape_name: str, multi_pod: bool = False,
         },
     }
     if shape.kind == "train":
-        res["attention"] = TRAIN_ATTENTION
+        res["attention"] = (NO_ATTENTION if cfg.family == "ssm"
+                            else TRAIN_ATTENTION)
     terms = res["roofline"]
     dom = max(("compute_s", "memory_s", "collective_s"),
               key=lambda k: terms[k])
@@ -462,8 +449,6 @@ def predict_counts(cfg, mesh_shape, *, batch: int, prompt: int,
 # ---------------------------------------------------------------------------
 
 def _summary(res: dict, tag: str) -> str:
-    if "refused" in res:
-        return f"[refused] {tag}: {res['refused']}"
     r, m = res["roofline"], res["memory"]
     return (f"[ok  ] {tag}: run={res['time_s']:.1f}s "
             f"peak={m['peak_bytes_per_device'] / 2 ** 30:.2f}GiB "
@@ -474,19 +459,9 @@ def _summary(res: dict, tag: str) -> str:
 
 def _run_all(args) -> int:
     meshes = [False, True] if args.both_meshes else [bool(args.multi_pod)]
-    todo, refused, failed, ok = [], [], [], 0
-    for arch, shape in planned_cells():
-        for mp in meshes:
-            tag = f"{arch}.{shape}.{mesh_label(mp)}"
-            why = refusal(configs.get(arch), SHAPES_BY_NAME[shape])
-            if why is not None:
-                refused.append(tag)
-                res = report_cell(arch, shape, mp, args.container)
-                with open(os.path.join(args.out, tag + ".json"), "w") as f:
-                    json.dump(res, f, indent=1)
-                print(_summary(res, tag), flush=True)
-                continue
-            todo.append((arch, shape, mp, tag))
+    failed, ok = [], 0
+    todo = [(arch, shape, mp, f"{arch}.{shape}.{mesh_label(mp)}")
+            for arch, shape in planned_cells() for mp in meshes]
     env = dict(os.environ, OMP_NUM_THREADS="1")
 
     def run(cell):
@@ -507,8 +482,7 @@ def _run_all(args) -> int:
             else:
                 ok += 1
                 print(r.stdout.strip().splitlines()[-1], flush=True)
-    print(f"\n{ok} ok, {len(refused)} refused, {len(failed)} failed: "
-          f"{failed}")
+    print(f"\n{ok} ok, {len(failed)} failed: {failed}")
     return 1 if failed else 0
 
 

@@ -14,7 +14,9 @@ On a mesh the encoder's self-attention and the decoder's cross-attention
 run on each model rank's heads, as the decoder's self-attention does
 (``transformer``), and the cross cache holds this rank's block of the
 K/V heads; the rows of ``frames`` split over the data ranks with the
-tokens' rows.
+tokens' rows.  In the train form each decoder layer's cross K/V
+projection enters the encoder output (a column-parallel input), so its
+gradient SUMs over the model axis to one device's.
 """
 from __future__ import annotations
 

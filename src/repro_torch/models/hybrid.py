@@ -96,14 +96,27 @@ def _placed_lora(base, pair):
     other serve-form base keeps the whole delta (``common.apply_linear``
     gathers a row-parallel input for it).  A train-form base takes
     ``W + A @ B`` whole, laid out again on the model axis as ``W`` was
-    (whole on the data axis)."""
+    (whole on the data axis).
+
+    In the train form a model rank's block of ``W + A @ B`` backs only
+    its block of the delta's gradient, so ``a`` (every column of ``b``
+    reaches the block's rows) and, where the rows are cut (``wo``),
+    ``b`` enter the model axis: their partial gradients SUM there."""
     mesh = next(t.mesh for t in (base, pair) if isinstance(t, shd.Local))
     a, b = ((shd.gather_leaf(pair, n) if isinstance(pair, shd.Local)
              else pair[n]) for n in ("a", "b"))
-    delta = a.float() @ b.float()
     if not isinstance(base, shd.Local):
         base = shd.Local(base, mesh, {})
     layout = dict(base.layout)
+    if "w" in layout:
+        ke, ne = layout["w"][1][-2:]
+        rows = dist.is_tp_entry(ke)
+        cut = ke if rows else ne
+        if dist.is_tp_entry(cut):
+            a = mesh.enter(a, dist.entry_axes(cut), kind="grad_lora")
+            if rows:
+                b = mesh.enter(b, dist.entry_axes(cut), kind="grad_lora")
+    delta = a.float() @ b.float()
     if "w" in base:
         w = (shd.gather_leaf(base, "w").float() + delta).to(base["w"].dtype)
         if "w" in layout:

@@ -75,9 +75,6 @@ RAGGED_PREFILL_FAMILIES = ("dense", "vlm")
 # Families whose decode takes chunked (multi-position) steps, the
 # speculative verify (attention masks future positions exactly):
 SPEC_CHUNK_FAMILIES = ("dense", "vlm")
-# Families whose train form runs on a mesh (the attention families; MoE
-# expert-parallel where the model axis divides the experts)
-MESH_TRAIN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -554,11 +551,6 @@ def train_loss(params, batch: dict, cfg: ModelConfig, wvec, avec
     prefix) reach the flash kernel on the card, which has no backward and
     raises under grad mode."""
     _require_ported(cfg)
-    if shd.is_sharded(params) and cfg.family not in MESH_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training on a mesh runs the families {MESH_TRAIN_FAMILIES}, "
-            f"not {cfg.family!r}: the recurrent and encoder-decoder "
-            f"families train on a mesh in ROADMAP item 22 (b)")
     dev = params["emb"].device
     if cfg.tie_embeddings:
         params = _emb_gathered_once(params)

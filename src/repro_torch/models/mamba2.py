@@ -29,7 +29,10 @@ heads' ``y`` are gathered before the gated RMSNorm, whose f32 sum runs
 over all of ``d_inner``; ``out_proj`` is row-parallel, its int32 sums
 and activation amax reduced exactly.  Every value EQUALS one device's
 where the per-head products do (the f32 einsums at fewer heads may pick
-another library kernel on the card).
+another library kernel on the card).  In the train form each model rank
+reads ``z``, ``dt``, the conv output and the replicated per-head
+``A_log``, ``dt_bias`` and ``D`` only at its heads, so their gradients
+SUM over the model axis (``dist.api.Mesh.enter``).
 """
 from __future__ import annotations
 
@@ -192,12 +195,17 @@ def mamba_block(p, x, cfg, wbits=8, abits=8, *, state: Optional[dict] = None
     n_h = H // mesh.axis_size(h_axes) if h_axes else H
     h0 = mesh.index(h_axes) * n_h if h_axes else 0
     heads = slice(h0, h0 + n_h)
+    A_log, dt_bias, D = p["A_log"], p["dt_bias"], p["D"]
     if h_axes:
-        # every model rank reads z and dt in part: their gradients SUM
+        # every model rank reads z, dt and the replicated per-head
+        # scalars in part: their gradients SUM (disjoint blocks, zeros
+        # elsewhere: exact)
         z, dt_raw = (mesh.enter(t, h_axes) for t in (z, dt_raw))
-    a = -torch.exp(p["A_log"].float()[heads])              # (n_h,)
+        A_log, dt_bias, D = (mesh.enter(t, h_axes, kind="grad_heads")
+                             for t in (A_log, dt_bias, D))
+    a = -torch.exp(A_log.float()[heads])                   # (n_h,)
     dt = F.softplus(dt_raw.float()[..., heads]
-                    + p["dt_bias"].float()[heads])         # (B,S,n_h)
+                    + dt_bias.float()[heads])              # (B,S,n_h)
 
     if state is None or S > 1:
         xBC_raw = xBC
@@ -249,7 +257,7 @@ def mamba_block(p, x, cfg, wbits=8, abits=8, *, state: Optional[dict] = None
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h)[:, None]
         new_state = {"conv": conv_in[:, 1:], "ssm": h}
 
-    y = y + p["D"].float()[heads][None, None, :, None] * xh.float()
+    y = y + D.float()[heads][None, None, :, None] * xh.float()
     y = y.reshape(B, S, n_h * P)
     y = y * F.silu(z[..., h0 * P:(h0 + n_h) * P].float())
     y = y.to(cm.DTYPE)

@@ -7,12 +7,15 @@ mesh against real gloo meshes.
   (importing ``repro.launch.dryrun`` rewrites ``XLA_FLAGS`` to 512
   devices, which must not reach this process's JAX); the port's are
   EQUAL.
-* The refused cells are exactly the ssm, hybrid and encdec train cells,
-  each naming ROADMAP Queue A 22 (b).
-* Two FULL cells through the CLI (``--all`` over a refused cell,
-  qwen3_4b ``decode_32k`` and mamba2_1_3b ``decode_32k`` on 256 chips,
-  each in its subprocess): int8 operations counted, it fits 80 GB, a
-  dominant roofline term; mamba2's cache bytes are its spec's.
+* No planned cell is refused: the report's train step runs the ssm,
+  hybrid and encdec families on a recording mesh (SMOKE widths, one
+  microbatch), with their model-axis gradient SUMs.
+* Two FULL cells through the CLI (``--all`` over qwen3_4b
+  ``decode_32k`` and mamba2_1_3b ``decode_32k`` on 256 chips, each in
+  its subprocess): int8 operations counted, it fits 80 GB, a dominant
+  roofline term; mamba2's cache bytes are its spec's.  mamba2_1_3b
+  ``train_4k`` priced through the CLI's one-cell mode at SMOKE widths
+  (a FULL train cell runs minutes).
 * Two spawned CPU ranks (gloo, a file rendezvous under ``tmp_path``) run
   ``dryrun.serve_run`` at SMOKE size on real tensors: qwen3_4b
   tensor-parallel on ``(1, 2)``, FSDP on ``(2, 1)`` with the rows split,
@@ -42,7 +45,7 @@ from repro_torch.dist import api as dapi  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.config import SHAPES_BY_NAME  # noqa: E402
+from repro_torch.models.config import SHAPES_BY_NAME, ShapeConfig  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -94,37 +97,65 @@ def test_planning_and_counts_equal_the_reference():
             assert dryrun.accum_for(cfg, shape) == ref["accum"][arch][s]
 
 
+@contextlib.contextmanager
+def _one_microbatch():
+    """Train cells at one microbatch (the report's 8 repeat the same ops)."""
+    prev = dryrun.accum_for
+    dryrun.accum_for = lambda cfg, shape: 1
+    try:
+        yield
+    finally:
+        dryrun.accum_for = prev
+
+
 def test_refused_cells_are_the_recurrent_and_encdec_families():
-    """Every family serves on a mesh; the ssm, hybrid and encdec train
-    cells alone are refused, each naming ROADMAP Queue A 22 (b)."""
-    refused = [(a, s) for a, s in dryrun.planned_cells()
-               if dryrun.refusal(configs.get(a), SHAPES_BY_NAME[s])]
-    assert sorted(refused) == [("mamba2_1_3b", "train_4k"),
-                               ("seamless_m4t_medium", "train_4k"),
-                               ("zamba2_2_7b", "train_4k")]
-    assert {configs.get(a).family for a, _ in refused} == {
-        "ssm", "hybrid", "encdec"}
-    res = dryrun.report_cell("zamba2_2_7b", "train_4k", multi_pod=True)
-    assert res["mesh"] == "2x16x16" and "Queue A 22 (b)" in res["refused"]
+    """No planned cell is refused: the train cells of the ssm, hybrid and
+    encdec families run the report's train step on a recording (2, 2)
+    mesh (SMOKE widths, one microbatch), where their gradients SUM over
+    the model axis (the Mamba scalars' ``grad_heads``, the LoRA pairs'
+    ``grad_lora``, the column-parallel inputs' ``grad_tp``) and FSDP
+    weights reduce-scatter."""
+    assert not hasattr(dryrun, "refusal")
+    train = {configs.get(a).family for a, s in dryrun.planned_cells()
+             if s == "train_4k"}
+    assert {"ssm", "hybrid", "encdec"} <= train
+    shape = ShapeConfig("train_4k", 16, 16, "train")
+    want = {"mamba2_1_3b": ("grad_heads",),
+            "zamba2_2_7b": ("grad_heads", "grad_lora"),
+            "seamless_m4t_medium": ()}
+    with _one_microbatch():
+        for arch, kinds in want.items():
+            mesh = dapi.RecordingMesh((2, 2), ("data", "model"))
+            (params, opt, metrics), cost, args = dryrun.run_train(
+                configs.get_smoke(arch), shape, mesh)
+            assert cost.ops > 0 and args > 0 and "grad_norm" in metrics
+            for kind in kinds + ("grad_tp", "grad_rs", "gather_weight"):
+                assert kind in mesh.counts, (arch, kind)
 
 
 @pytest.fixture(scope="module")
 def cli_cells(tmp_path_factory):
-    """``--all`` over a refused cell, qwen3_4b decode_32k and
-    mamba2_1_3b decode_32k (256 chips, each in its subprocess): the
+    """``--all`` over qwen3_4b decode_32k and mamba2_1_3b decode_32k (256
+    chips, each in its subprocess), then mamba2_1_3b train_4k through the
+    one-cell mode in process at SMOKE widths and one microbatch: the
     printed output and the directory of the cells' JSON."""
     out = tmp_path_factory.mktemp("dryrun_cli")
     prev_cells, prev_path = dryrun.planned_cells, os.environ.get(
         "PYTHONPATH")
     dryrun.planned_cells = lambda: [
-        ("mamba2_1_3b", "train_4k"), ("qwen3_4b", "decode_32k"),
-        ("mamba2_1_3b", "decode_32k")]
+        ("qwen3_4b", "decode_32k"), ("mamba2_1_3b", "decode_32k")]
     os.environ["PYTHONPATH"] = _env()["PYTHONPATH"]
+    prev_get = configs.get
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
             rc = dryrun.main(["--all", "--out", str(out)])
+            configs.get = configs.get_smoke
+            with _one_microbatch():
+                rc |= dryrun.main(["--arch", "mamba2_1_3b", "--shape",
+                                   "train_4k", "--out", str(out)])
     finally:
+        configs.get = prev_get
         dryrun.planned_cells = prev_cells
         if prev_path is None:
             os.environ.pop("PYTHONPATH")
@@ -137,7 +168,7 @@ def test_a_full_cell_through_the_cli(cli_cells):
     """The qwen3_4b decode_32k cell's JSON has the report's sections."""
     rc, printed, tmp_path = cli_cells
     assert rc == 0
-    assert "2 ok, 1 refused, 0 failed" in printed
+    assert "2 ok, 0 failed" in printed
     res = json.loads((tmp_path / "qwen3_4b.decode_32k.16x16.json")
                      .read_text())
     assert res["chips"] == 256 and res["kind"] == "decode"
@@ -153,9 +184,14 @@ def test_a_full_cell_through_the_cli(cli_cells):
                         for k in keys)
     assert res["links"] == {"data": "nic", "model": "nic"}
     assert res["params"] == dryrun.param_counts(configs.get("qwen3_4b"))
-    refused = json.loads((tmp_path / "mamba2_1_3b.train_4k.16x16.json")
-                         .read_text())
-    assert "Queue A 22 (b)" in refused["refused"]
+    train = json.loads((tmp_path / "mamba2_1_3b.train_4k.16x16.json")
+                       .read_text())
+    assert "refused" not in train and train["kind"] == "train"
+    assert train["attention"] == dryrun.NO_ATTENTION
+    assert train["roofline"]["dominant"] in ("compute", "memory",
+                                             "collective")
+    assert train["memory"]["peak_bytes_per_device"] > 0
+    assert "grad_rs" in train["collective_kinds_port"]
 
 
 def test_a_mamba2_cell_holds_the_spec_cache(cli_cells):

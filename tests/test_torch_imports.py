@@ -92,13 +92,18 @@ _DRYRUN_CHILD = r"""
 import sys
 from repro_torch import configs
 from repro_torch.launch import dryrun
+from repro_torch.dist.api import RecordingMesh
+from repro_torch.models.config import ShapeConfig
 counts = dryrun.predict_counts(configs.get_smoke("qwen3_4b"), (2, 1),
                                batch=1, prompt=8, steps=1, max_len=16)
-refused = dryrun.report_cell("mamba2_1_3b", "train_4k")
+dryrun.accum_for = lambda cfg, shape: 1
+mesh = RecordingMesh((2, 2), ("data", "model"))
+_, cost, _ = dryrun.run_train(configs.get_smoke("mamba2_1_3b"),
+                              ShapeConfig("train_4k", 16, 16, "train"), mesh)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
-print("SEQ", counts["seq_max"][0], "refused" in refused)
+print("SEQ", counts["seq_max"][0], cost.ops > 0 and "grad_heads" in mesh.counts)
 print("BAD", ",".join(bad))
 """
 
