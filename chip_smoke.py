@@ -181,6 +181,14 @@ Sixteen paths, each at full width with random weights from a seed:
   rank's heads for zamba2 and seamless); (e) ``python -m
   repro_torch.launch.train --arch mamba2_1_3b --smoke --tp 2`` beside
   the rest.
+* the last cache layouts on a data mesh: two ranks on ``cuda:0`` in one
+  gloo group as a (2, 1) mesh: (a) Qwen3-4B at published widths (its
+  first 4 layers) by continuous batching on 3 slots, which do not split
+  over two data ranks, so the pool shards its ring's sequence, with
+  speculation and prefix-cache hits, on the bf16 and the int8 cache;
+  then a ragged prefill and a U = 4 chunk on that layout; (b)
+  seamless-m4t-medium at B = 1, its cross cache's frames split over the
+  ranks; (c) ResNet18@224 at a batch of 3, every image on every rank.
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -227,8 +235,7 @@ result line:
      first step whose top-2 logit gap is under LOGIT_TOL x max|logit|:
      the two devices' float libraries round apart).
      Then time to first token, tokens/s per tick, the accept rate, run
-     walls, the bit-plane device sum per run(), and traces of a prefill
-     row, a decode tick and a speculative round;
+     walls and the bit-plane device sum per run();
   8. prefix cache and closed loop: hold the bit-plane kernel at the
      extension's M = 1 shapes; replay (a) cached and uncached and gate:
      the ledger as the trace implies, full hits' tokens EQUAL the
@@ -343,9 +350,11 @@ result line:
      before the ranks); then the ranks, gated: every rank's metrics
      EQUAL; each step's loss and z-loss within P12_LOSS_TOL and grad norm
      within P12_NORM_TOL of one device's, the trained parameters (the
-     checkpoint the ranks wrote) within P12_FLIPS x U a step beyond a
+     checkpoint the ranks wrote; (a)'s cut to P12_CKPT_LAYERS layers)
+     within P12_FLIPS x U a step beyond a
      bf16 step and P12_PARAM_MEAN lr on average; no kernel launched while
-     training; (c) every leaf EQUAL after both restores; (d) tokens and
+     training; (c) every leaf EQUAL after both restores (the state cut to
+     P12_CKPT_LAYERS layers); (d) tokens and
      last-position logits EQUAL one device's serve of the same weights,
      bit-plane launches by path as ``plan()`` gives them; (e) each step
      against ``moe.ep_reference``'s train form on one device from the
@@ -395,6 +404,17 @@ result line:
      Then (d)'s bit-plane shapes held EQUAL and timed, its flash shapes
      held against the oracle and timed; each rank's step walls, peak
      memory and collectives by kind and bytes a step.
+ 20. the last cache layouts on a mesh: rank 0's one-device side after
+     the group, then (a) every request's tokens EQUAL one device's (or
+     as ``tokens_agree`` says), hits and calls EQUAL, the pool's kpos
+     EQUAL and its held values (int8 codes times scales) EQUAL at layer
+     0 and within P17_POOL_TOL at the later layers, block by block; the
+     ragged prefill's logits and cache EQUAL, the U = 4 chunk's greedy
+     tokens EQUAL but at near-ties; an int8 prefill and decode step's
+     collectives EQUAL a RecordingMesh's; (b) tokens, prefill logits and
+     the cache after prefill EQUAL one device's, the cross cache 1024 of
+     2048 frames a rank; (c) logits EQUAL.  Then every bit-plane and
+     flash shape rank 0 launched held and timed.
 
 Kernel times are given two ways: per launch over back-to-back launches
 timed with CUDA events (host time included where it exceeds the
@@ -662,14 +682,19 @@ P11_PC_CHUNK = 4
 # FULL, all layers, tensor-parallel on (1, 2); (b) its first
 # P12_FSDP_LAYERS layers, FSDP on (2, 1): P12_STEPS steps each on one batch
 # of P12_B rows of P12_S + 1 tokens in P12_ACCUM microbatches, path 9's
-# AdamW (int8 m, factored v, TRAIN_LR), wbits and abits; (d) the restored
-# weights served on (1, 2): P12_SERVE = (B, prompt tokens, new); (e)
+# AdamW (int8 m, factored v, TRAIN_LR), wbits and abits; (c) (a)'s state
+# cut to its first P12_CKPT_LAYERS layers through a checkpoint; (d) the
+# restored weights served on (1, 2): P12_SERVE = (B, prompt tokens, new); (e)
 # Moonshot-v1-16B-A3B at full width, its first P12_MOE_LAYERS layers,
 # expert-parallel on (1, 2), P12_STEPS steps of P12_MOE_B x P12_MOE_S + 1
 P12_RANKS = 2
 P12_B, P12_S, P12_ACCUM, P12_STEPS = 4, 512, 2, 2
 P12_FSDP_LAYERS = 2          # 4 until path 13 was added (PERF.md §4)
 P12_SERVE = (2, 256, 4)
+# (c) and (d) at 4 of 36 layers (all 36, an 11 GiB checkpoint, until path
+# 17 was added; PERF.md §4): the save, both restores and the serve run
+# the same code on every leaf whatever the depth
+P12_CKPT_LAYERS = 4
 # (e) at 1 layer (2 until path 16 was added; PERF.md §4)
 P12_MOE_LAYERS, P12_MOE_B, P12_MOE_S = 1, 2, 256
 # the gates, as tests/test_torch_sharded_train*.py state and measure them
@@ -775,6 +800,43 @@ P16_CKPT_FAMILY = "hybrid"
 # parameters by P12_FLIPS and P12_PARAM_MEAN (measured: 1 U, mean 0.085
 # lr); on an H100, PERF.md §6
 P16_GRAD_TOL = 0.2
+
+# Path 17 (the last cache layouts the reference serves, on a data mesh):
+# two ranks on cuda:0 in one gloo group as a (2, 1) mesh, FSDP weights
+# drawn once.  (a) Qwen3-4B at published widths cut to its first
+# P17_LAYERS of 36 layers (each layer runs the same attention and cache
+# code; depth only repeats it, and path 3 runs all 36): continuous
+# batching on P17_SLOTS slots, which do not split over two data ranks,
+# so the pool shards its ring's sequence; five requests (prompts of
+# P17_PROMPTS: the first, 64, the partial hit's 4-chunk prefix and
+# tail, and a late one), P17_NEW new tokens, two speculative, one full
+# and one partial prefix-cache hit, on the bf16 and the int8 cache; then
+# lm.prefill of 3 ragged rows (P17_RAGGED) and one U = P17_CHUNK_U
+# decode_chunk on the sequence-sharded cache, and an int8 prefill and
+# decode step's collectives against a RecordingMesh.  (b) path 15's
+# seamless cut at B = 1: P17_ED = (B, frames, prompt tokens, new), its
+# cross cache's frames split over the ranks.  (c) ResNet18@224, a batch
+# of P17_CNN images.
+P17_RANKS = 2
+P17_LAYERS = 4
+P17_SLOTS = 3
+P17_PREFILL = 512
+P17_MAX_LEN = 528       # >= prefill + new + SPEC_K_MAX, even: the ring splits
+P17_NEW = 4
+P17_PC_CHUNK = 64
+P17_PROMPTS = (320, 64, 24, 512)
+P17_RAGGED, P17_RAGGED_LEN = (2048, 1536, 700), 2048
+P17_CHUNK_U = 4
+P17_ED = (1, 2048, 2304, 2)
+P17_CNN = 3
+# the pool after (a)'s run against one device's, on the values it holds
+# (int8 codes times their scales).  Layer 0's k/v depend on the tokens
+# alone: EQUAL.  A later layer's may not: a decode step's softmax combined
+# over the ranks in another f32 order can round a probability apart (a
+# bf16 step, or one of the int8 cache's 127 levels, twice as coarse), and
+# the next layers' k/v with it; the bound, x the leaf's max |value|, by
+# kv_cache_bits
+P17_POOL_TOL = {0: 2e-2, 8: 5e-2}
 
 
 def hardware() -> None:
@@ -920,7 +982,9 @@ class Bench:
         """torch._int_mm on copies zero-padded where its shape rules need
         it (M > 16, K and N multiples of 8), timed with the weight
         row-major (K, N) and K-major (``w.t().contiguous().t()``, the
-        layout cuBLAS's int8 GEMM prefers); neither copy is timed.
+        layout cuBLAS's int8 GEMM prefers); neither copy is timed.  A
+        layout cuBLAS refuses at this shape (CUBLAS_STATUS_NOT_SUPPORTED,
+        e.g. row-major at (2352, 64, 128)) counts as infinitely slow.
         Returns (faster ms, padded?, row-major ms, K-major ms, the faster
         layout's device ms)."""
         torch = self.torch
@@ -931,8 +995,18 @@ class Bench:
         xl = pad(x, (0, Kp - K, 0, Mp - M))
         wl = pad(w_i8, (0, Np - N, 0, Kp - K))
         wk = wl.t().contiguous().t()
-        row_ms = self.time_ms(lambda: torch._int_mm(xl, wl))
-        kmaj_ms = self.time_ms(lambda: torch._int_mm(xl, wk))
+
+        def timed(w):
+            try:
+                return self.time_ms(lambda: torch._int_mm(xl, w))
+            except RuntimeError as e:
+                if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(e):
+                    raise
+                return float("inf")
+
+        row_ms, kmaj_ms = timed(wl), timed(wk)
+        check(min(row_ms, kmaj_ms) < float("inf"), f"torch._int_mm refuses "
+              f"({Mp}, {Kp}) @ ({Kp}, {Np}) in both layouts")
         wf = wl if row_ms < kmaj_ms else wk
         dev_ms = self.device_ms(lambda: torch._int_mm(xl, wf))
         return (min(row_ms, kmaj_ms), (Mp, Kp, Np) != (M, K, N), row_ms,
@@ -2496,50 +2570,8 @@ def cb_path(b: Bench, cfg, qparams) -> dict:
     bound_ms = sum(n * max(per_shape[k][3], per_shape[k][4])
                    for k, n in shapes.items())
 
-    # ---- where a prefill row's, a decode tick's and a spec round's time
-    # goes (on the engines' own state)
-    wv8 = ctrl.resolve(torch.tensor([LM_BUDGETS[i % 4]
-                                     for i in range(CB_SLOTS)]))
-    wv, av = wv8[0].to(dev), wv8[1].to(dev)
-    p0, _, b0 = reqs[0]
-    rwv, rav = (t.to(dev) for t in ctrl.resolve(torch.tensor(b0)))
-    toks = torch.zeros((1, CB_PREFILL), dtype=torch.int32)
-    toks[0, :len(p0)] = torch.from_numpy(p0)
-    toks, length = toks.to(dev), torch.tensor([len(p0)]).to(dev)
-
-    def prefill_row():
-        with eng_a.compute_ctx():
-            eng_a._prefill_row(toks, length, rwv, rav)
-
-    tok = torch.zeros((CB_SLOTS, 1), dtype=torch.int32, device=dev)
-    t = torch.full((CB_SLOTS,), CB_PREFILL, dtype=torch.int32, device=dev)
-    temp = torch.zeros((CB_SLOTS,), device=dev)
-    topk = torch.zeros((CB_SLOTS,), dtype=torch.int32, device=dev)
-    k_eff = torch.full((CB_SLOTS,), CB_SPEC_K, dtype=torch.int64,
-                       device=dev)
-
-    def decode_tick():
-        with eng_a.compute_ctx():
-            eng_a._decode_block(tok, t, eng_a.pool.cache, wv, av, temp, topk,
-                                CB_BLOCK)
-
-    def spec_round():
-        with eng_b.compute_ctx():
-            dwv, dav = eng_b._draft_bits()
-            dt, dp = eng_b._draft_scan(tok, t, eng_b.pool.cache, dwv, dav,
-                                       temp, topk, CB_SPEC_K)
-            eng_b._spec_verify(tok, dt, dp, t, eng_b.pool.cache, wv, av,
-                               k_eff, temp, topk)
-
-    trace(torch, tag, f"one prefill row (M = {M_pre})", prefill_row,
-          ("bitplane_matmul",))
-    trace(torch, tag, f"one decode tick ({CB_BLOCK} steps, M = {M_dec})",
-          decode_tick, ("bitplane_matmul",))
-    trace(torch, tag, f"one speculative round ({CB_SPEC_K} drafts + the "
-          f"verify, M = {M_dec} and {M_ver})", spec_round,
-          ("bitplane_matmul",))
-    for eng in (eng_a, eng_b):          # the traced calls wrote the pools
-        eng.pool.rollback(torch.full((CB_SLOTS,), -1))
+    # (the profiler traces of a prefill row, a decode tick and a spec
+    # round that stood here left to pay for path 17: PERF.md section 4)
     bk_ms, bp_ms, bl_ms, bt_bytes, bt_ops, bd_ms, bld_ms = tot
     return {
         "bitplane": {"launches": sum(shapes.values()), "ms": bk_ms,
@@ -6863,17 +6895,47 @@ def p12_train(torch, dev, mesh, which: str, smoke: bool, holder: dict,
     return out
 
 
+def p12_depth_cut(tree, n: int, L: int, under: bool = False):
+    """``tree`` with every leaf under a ``layers`` key that stacks ``L``
+    layers cut to its first ``n`` (placed dicts keep their class, their
+    layouts' whole shapes cut alike)."""
+    from repro_torch.dist import sharding as shd
+    items = {}
+    layout = dict(tree.layout) if isinstance(tree, shd.Local) else None
+    for k, v in tree.items():
+        inside = under or k == "layers"
+        if isinstance(v, dict):
+            items[k] = p12_depth_cut(v, n, L, inside)
+            continue
+        if inside and v.ndim and v.shape[0] == L:
+            v = v[:n].clone()
+            if layout is not None and k in layout:
+                shape, spec = layout[k]
+                if len(shape) == v.ndim:
+                    layout[k] = ((n,) + tuple(shape[1:]), spec)
+        items[k] = v
+    if layout is not None:
+        return shd.Local(items, tree.mesh, layout)
+    return type(tree)(items) if type(tree) is not dict else items
+
+
 def p12_ckpt(torch, dev, m12, m21, holder: dict, out_dir: str,
-             name: str = "ckpt_a") -> dict:
-    """(c): save (a)'s trained state from (1, 2) under ``out_dir/name``;
-    restore it onto one device (each rank's (1, 2) block of every leaf
-    EQUAL to the trained one) and onto (2, 1) (each block EQUAL to the
-    whole leaf's)."""
+             name: str = "ckpt_a", layers=None) -> dict:
+    """(c): save (a)'s trained state from (1, 2) under ``out_dir/name``
+    (cut to its first ``layers`` layers when given); restore it onto one
+    device (each rank's (1, 2) block of every leaf EQUAL to the trained
+    one) and onto (2, 1) (each block EQUAL to the whole leaf's)."""
     import os
     from repro_torch.dist import sharding as shd
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.checkpoint import (restore_checkpoint,
                                               save_checkpoint)
     state = dict(zip(("params", "opt"), holder.pop("a")))
+    if layers is not None:
+        L = tree_leaves(state["params"]["layers"])[0].shape[0]
+        state = p12_depth_cut(state, min(layers, L), L)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     d = f"{out_dir}/{name}"
     t0 = time.perf_counter()
     save_checkpoint(d, P12_STEPS, state)
@@ -6909,6 +6971,7 @@ def p12_serve(torch, dev, mesh, holder: dict, smoke: bool) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine, default_controller
     cfg = p12_cfg("a", smoke)
+    cfg = cfg.with_(n_layers=min(P12_CKPT_LAYERS, cfg.n_layers))
     if "q" not in holder:
         holder["q"] = lm.quantize_params(holder.pop("whole"), cfg)
         if dev.type == "cuda":
@@ -7064,7 +7127,8 @@ def p12_rank(rank: int, init_method: str, out_dir: str, device: str,
         out["b"] = p11_phase(torch, dev, both, p12_train, torch, dev, m21,
                              "b", smoke, holder, out_dir)
         out["c"] = p11_phase(torch, dev, both, p12_ckpt, torch, dev, m12,
-                             m21, holder, out_dir)
+                             m21, holder, out_dir, "ckpt_a",
+                             P12_CKPT_LAYERS)
         out["d"] = p11_phase(torch, dev, both, p12_serve, torch, dev, m12,
                              holder, smoke)
         out["e"] = p11_phase(torch, dev, both, p12_train, torch, dev, m12,
@@ -7078,19 +7142,24 @@ def p12_rank(rank: int, init_method: str, out_dir: str, device: str,
 
 
 def p12_params_gate(torch, dev, label: str, ckpt_dir: str, one: dict,
-                    steps: int = P12_STEPS) -> tuple:
-    """The parameters a mesh trained (the checkpoint its ranks wrote)
-    against one device's: every element within P12_FLIPS x ``steps`` x U
+                    steps: int = P12_STEPS, layers=None) -> tuple:
+    """The parameters a mesh trained (the checkpoint its ranks wrote, cut
+    to its first ``layers`` layers when given) against one device's:
+    every element within P12_FLIPS x ``steps`` x U
     beyond one bf16 step of the value, U the largest change one device's
     step made to any element (each step's update may round to the other
     sign where a gradient sits within its rounding of 0), and the mean
     |gap| within P12_PARAM_MEAN lr.  Returns (worst / U, mean / lr)."""
-    from repro_torch.optim.adamw import tree_map
+    from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.train.checkpoint import restore_checkpoint
+    want = one["params"]
+    if layers is not None:
+        L = tree_leaves(want["layers"])[0].shape[0]
+        want = p12_depth_cut(want, min(layers, L), L)
     meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                          device="meta"), one["params"])
+                                          device="meta"), want)
     got, _ = restore_checkpoint(ckpt_dir, {"params": meta}, device=dev)
-    worst, mean = p12_gap(torch, got["params"], one["params"])
+    worst, mean = p12_gap(torch, got["params"], want)
     del got
     worst, mean = worst / one["update"], mean / TRAIN_LR
     check(worst <= P12_FLIPS * steps and mean <= P12_PARAM_MEAN,
@@ -7276,7 +7345,8 @@ def p12_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
         gaps[which] = p12_metrics_gate(label, ranks[0][which]["metrics"],
                                        one[which]["metrics"])
         gaps[which + "_params"] = p12_params_gate(
-            torch, dev, label, f"{d}/ckpt_{which}", one[which])
+            torch, dev, label, f"{d}/ckpt_{which}", one[which],
+            layers=P12_CKPT_LAYERS if which == "a" else None)
         del one[which]["params"]
     for which, key, mesh in (("a", "sum_tp", "(1, 2)"),
                              ("b", "grad_rs", "(2, 1)")):
@@ -7312,7 +7382,9 @@ def p12_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
         check(c["leaves"][0] > 0 and c["leaves"][0] == c["leaves"][1],
               f"(c) rank {r}: leaves {c['leaves']}")
     c = ranks[0]["c"]
-    print(f"(c) (a)'s state ({c['bytes'] / 2 ** 30:.3f} GiB, "
+    print(f"(c) (a)'s state cut to its first "
+          f"{min(P12_CKPT_LAYERS, p12_cfg('a', smoke).n_layers)} layers "
+          f"({c['bytes'] / 2 ** 30:.3f} GiB, "
           f"{c['leaves'][0]} leaves) saved from (1, 2) in "
           f"{c['save_s']:.3f} s, restored onto one device in "
           f"{c['one_s']:.3f} s and onto (2, 1) in {c['r21_s']:.3f} s: every "
@@ -7337,7 +7409,8 @@ def p12_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
           f"(d) bit-plane launches {shapes} by path {paths} (plan() gives "
           f"{want_paths}), flash {dx['flash']}, int4/quant {dx['off_path']}")
     B, S, new = p12_sizes(smoke)["serve"]
-    print(f"(d) the restored weights quantized and served on (1, 2): "
+    print(f"(d) the restored weights ({P12_CKPT_LAYERS} layers) quantized "
+          f"and served on (1, 2): "
           f"generate {B} x {S} tokens, {new} new, budgets {SERVE_BUDGETS}: "
           f"tokens and last-position logits EQUAL one device's; bit-plane "
           f"launches a rank {sum(shapes.values())} at {len(shapes)} shard "
@@ -8924,6 +8997,554 @@ def p16_gates(b: Bench, smoke: bool, t_path: float, launcher, d: str,
                     "single_s": single_s}}
 
 
+# ---------------------------------------------------------------------------
+# Path 17: the last cache layouts on a data mesh
+# ---------------------------------------------------------------------------
+
+def p17_configs(smoke: bool) -> dict:
+    """Path 17's configs: Qwen3-4B (path 3's widths, held there) cut to
+    its first P17_LAYERS layers and path 15's seamless cut; SMOKE for a
+    CPU rehearsal."""
+    from repro_torch import configs
+    if smoke:
+        return {"lm": configs.get_smoke(LM_ARCH),
+                "encdec": configs.get_smoke(ED_ARCH)}
+    return {"lm": configs.get(LM_ARCH).with_(n_layers=P17_LAYERS),
+            "encdec": p15_configs(False)["encdec"]}
+
+
+def p17_sizes(smoke: bool) -> dict:
+    if smoke:
+        return {"prefill": 16, "max_len": 32, "chunk": 4,
+                "prompts": (12, 7, 4, 10), "ragged": (12, 9, 5),
+                "ragged_len": 16, "ed": (1, 8, 40, 2), "image": 32,
+                "init_image": 32}
+    return {"prefill": P17_PREFILL, "max_len": P17_MAX_LEN,
+            "chunk": P17_PC_CHUNK, "prompts": P17_PROMPTS,
+            "ragged": P17_RAGGED, "ragged_len": P17_RAGGED_LEN,
+            "ed": P17_ED, "image": IMAGE, "init_image": IMAGE}
+
+
+def p17_requests(cfg, sizes: dict) -> list:
+    """(name, prompt, budget, draft_k, late) of (a)'s five requests: a
+    miss that the prefix cache stores, a speculative one, a full hit on
+    the first, a speculative partial hit (the first's first 4 chunks and
+    a tail of its own), and one arriving at tick 2."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    n_a, n_b, n_tail, n_late = sizes["prompts"]
+    keep = 4 * sizes["chunk"]
+    a = rng.integers(0, cfg.vocab_size, n_a).astype(np.int32)
+    return [("a", a, 10.0, None, False),
+            ("b", rng.integers(0, cfg.vocab_size, n_b).astype(np.int32),
+             0.4, 4, False),
+            ("full", a.copy(), 10.0, None, False),
+            ("partial", np.concatenate(
+                [a[:keep], rng.integers(0, cfg.vocab_size, n_tail)]
+            ).astype(np.int32), 10.0, 4, False),
+            ("late", rng.integers(0, cfg.vocab_size, n_late).astype(
+                np.int32), 0.8, None, True)]
+
+
+def p17_engine(torch, dev, cfg, qparams, mesh, sizes: dict) -> dict:
+    """(a) on ``mesh`` (None: one device): P17_SLOTS slots, a prefix
+    cache, the five requests of :func:`p17_requests`; each request's
+    tokens, hit and speculative rounds, and a host copy of the pool."""
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    from repro_torch.serve.prefix_cache import PrefixCache
+    eng = ServeEngine(cfg, qparams, max_len=sizes["max_len"],
+                      n_slots=P17_SLOTS, prefill_len=sizes["prefill"],
+                      decode_block=2, device=dev, mesh=mesh,
+                      controller=default_controller(lm.n_bit_slots(cfg)),
+                      prefix_cache=PrefixCache(chunk=sizes["chunk"],
+                                               capacity=4))
+    rids = {}
+
+    def submit(name, prompt, budget, k):
+        rids[name] = eng.submit(prompt, max_new_tokens=P17_NEW,
+                                budget_s=budget, draft_k=k)
+
+    for name, prompt, budget, k, late in p17_requests(cfg, sizes):
+        if late:
+            eng.submit_at(2, lambda a=(name, prompt, budget, k): submit(*a))
+        else:
+            submit(name, prompt, budget, k)
+    eng.run()
+    recs = {n: eng.requests[r] for n, r in rids.items()}
+    out = {"tokens": {n: list(r.tokens) for n, r in recs.items()},
+           "hits": {n: r.cache_hit for n, r in recs.items()},
+           "rounds": {n: r.spec_rounds for n, r in recs.items()},
+           "pool": p15_host(eng.pool.cache), "rows": eng._rows,
+           "seq": tf.seq_sharded(eng.pool.cache), "calls": dict(eng.calls)}
+    del eng
+    return out
+
+
+def p17_gaps(torch, dev, cfg, qparams, sizes: dict, names) -> dict:
+    """The requests of (a) named in ``names`` (those whose mesh tokens
+    differ from one device's) each alone on one device
+    (``cb_standalone``): the top-2 logit gap of each of its steps, for
+    ``tokens_agree``."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine, default_controller
+    reqs = [r for r in p17_requests(cfg, sizes) if r[0] in names]
+    if not reqs:
+        return {}
+    eng = ServeEngine(cfg, qparams, max_len=sizes["max_len"], device=dev,
+                      controller=default_controller(lm.n_bit_slots(cfg)))
+    out = {n: cb_standalone(eng, p, P17_NEW, budget, sizes["prefill"])
+           for n, p, budget, _, _ in reqs}
+    del eng
+    return out
+
+
+def p17_direct(torch, dev, cfg, qparams, mesh, sizes: dict) -> dict:
+    """(a)'s direct calls on ``mesh`` (None: one device), every row's
+    bits 8: ``lm.prefill`` of B = 3 ragged rows (lengths P17_RAGGED) into
+    a fresh cache (sequence-sharded on the mesh), then one U =
+    P17_CHUNK_U ``lm.decode_chunk`` at each row's next positions; both
+    calls' logits, and a host copy of the cache after prefill."""
+    import numpy as np
+    from repro_torch.dist import api as dapi
+    from repro_torch.models import lm
+    lens = sizes["ragged"]
+    B, S = len(lens), sizes["ragged_len"]
+    rng = np.random.default_rng(170)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(dev)
+    chunk = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, P17_CHUNK_U)).astype(np.int32)).to(dev)
+    bits = torch.full((B, lm.n_bit_slots(cfg)), 8, dtype=torch.int32,
+                      device=dev)
+    ctx = dapi.use_mesh(mesh) if mesh is not None else None
+    if ctx is not None:
+        ctx.__enter__()
+    try:
+        cache = lm.empty_cache(cfg, B, S + P17_CHUNK_U, device=dev,
+                               mesh=mesh)
+        pre, cache = lm.prefill(qparams, {"tokens": toks}, cfg, bits, bits,
+                                cache, lengths=torch.tensor(lens).to(dev))
+        after = p15_host(cache)
+        ver, _ = lm.decode_chunk(qparams, chunk, torch.tensor(lens).to(dev),
+                                 cache, cfg, bits, bits)
+    finally:
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
+    return {"prefill": pre.float().cpu().numpy(),
+            "chunk": ver.float().cpu().numpy(), "cache": after}
+
+
+def p17_counts(torch, dev, cfg, qparams, mesh, sizes: dict) -> dict:
+    """(a)'s int8 collectives: ``dryrun.serve_run`` of one B = 1 prompt of
+    P17_PREFILL tokens and one decode step on the int8 cache
+    (sequence-sharded), whose ``Mesh.counts`` ``p11_phase`` records."""
+    from repro_torch.launch import dryrun
+    toks = torch.zeros((1, sizes["prefill"]), dtype=torch.int32, device=dev)
+    dryrun.serve_run(cfg, mesh, qparams, toks, steps=1,
+                     max_len=sizes["max_len"])
+    return {}
+
+
+def p17_ed_batch(cfg, sizes: dict) -> dict:
+    import numpy as np
+    B, F, S, _ = sizes["ed"]
+    rng = np.random.default_rng(171)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                np.int32),
+            "frames": rng.standard_normal((B, F, cfg.d_model)).astype(
+                np.float32)}
+
+
+def p17_cnn(torch, dev, mesh, sizes: dict) -> dict:
+    """(c): ResNet18, a batch of P17_CNN images (path 1's first ones) on
+    ``mesh`` (None: one device), FSDP weights, no plan."""
+    from repro_torch.core.policy import cnn_budget_controller
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn import CNNServeEngine
+    params, layers = cnn.init_cnn("resnet18", torch.Generator().manual_seed(0),
+                                  image=sizes["init_image"], device=dev)
+    ctrl = cnn_budget_controller("resnet18", layers=layers)
+    images, budgets = cnn_inputs(torch, dev, ctrl, P17_CNN, sizes["image"])
+    eng = CNNServeEngine(params, layers, controller=ctrl, max_batch=P17_CNN,
+                         device=dev, mesh=mesh)
+    logits = eng.serve(images, budgets)[0]
+    out = {"logits": logits, "rows": eng._rows}
+    del eng, params
+    return out
+
+
+def p17_rank(rank: int, init_method: str, out_dir: str, device: str,
+             smoke: bool) -> None:
+    """One rank of path 17 on ``device``: a (2, 1) mesh; the weights drawn
+    once; (a) the engine on the bf16 and the int8 cache, the direct calls
+    on both, the int8 collectives, (b) seamless at B = 1, (c) ResNet18 at
+    an odd batch, each a phase (``p11_phase``); then on rank 0 the same
+    on one device."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if smoke:
+        tf.FLASH_THRESHOLD = P15_SMOKE_FLASH
+    sizes = p17_sizes(smoke)
+    cfgs = p17_configs(smoke)
+    cfg = cfgs["lm"]
+    kv8 = cfg.with_(kv_cache_bits=8)
+    q = lm.init_serve_params(cfg, torch.Generator(device=dev).manual_seed(
+        17), device=dev)
+    q_ed = p15_weights(torch, dev, cfgs["encdec"])
+    ed_batch = p17_ed_batch(cfgs["encdec"], sizes)
+    new_ed = sizes["ed"][3]
+    tdist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=P17_RANKS,
+        timeout=datetime.timedelta(seconds=SO_TIMEOUT_S))
+    out = {}
+    try:
+        m21 = make_host_mesh(model=1)
+        both = (m21,)
+        for kv, c in ((0, cfg), (8, kv8)):
+            out[("engine", kv)] = p11_phase(torch, dev, both, p17_engine,
+                                            torch, dev, c, q, m21, sizes)
+            out[("direct", kv)] = p11_phase(torch, dev, both, p17_direct,
+                                            torch, dev, c, q, m21, sizes)
+        out["counts"] = p11_phase(torch, dev, both, p17_counts, torch, dev,
+                                  kv8, q, m21, sizes)
+        out["ed"] = p11_phase(torch, dev, both, p15_serve, torch, dev,
+                              cfgs["encdec"], q_ed, ed_batch, new_ed, m21)
+        out["cnn"] = p11_phase(torch, dev, both, p17_cnn, torch, dev, m21,
+                               sizes)
+        out["dp_index"] = m21.dp_index
+    finally:
+        tdist.destroy_process_group()
+    if rank == 0:                      # one device, the same weights
+        t0 = time.perf_counter()
+        for kv, c in ((0, cfg), (8, kv8)):
+            out[("engine_one", kv)] = p17_engine(torch, dev, c, q, None,
+                                                 sizes)
+            out[("direct_one", kv)] = p17_direct(torch, dev, c, q, None,
+                                                 sizes)
+            mine = out[("engine", kv)]["tokens"]
+            out[("gaps", kv)] = p17_gaps(
+                torch, dev, c, q, sizes,
+                [n for n, t in out[("engine_one", kv)]["tokens"].items()
+                 if mine[n] != t])
+        out["ed_one"] = p15_serve(torch, dev, cfgs["encdec"], q_ed, ed_batch,
+                                  new_ed, None)
+        out["cnn_one"] = p17_cnn(torch, dev, None, sizes)
+        out["one_s"] = time.perf_counter() - t0
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def p17_blocks(torch, label: str, got: dict, whole: dict, r: int) -> int:
+    """A rank's sequence-sharded cache (a tree) against its block of one
+    device's: every leaf whose length differs is the rank's slice of dim 2
+    (the ring, the cross cache's frames), EQUAL; the rest (``kpos``)
+    EQUAL whole.  Returns the leaves held."""
+    n = 0
+    for k, w in whole.items():
+        g = got[k]
+        if isinstance(w, dict):
+            n += p17_blocks(torch, f"{label}/{k}", g, w, r)
+            continue
+        if g.shape != w.shape:
+            m = g.shape[2]
+            check(m * P17_RANKS == w.shape[2], f"{label}/{k}: {tuple(g.shape)}"
+                  f" is not a {P17_RANKS}-way slice of {tuple(w.shape)}")
+            w = w[:, :, r * m:(r + 1) * m]
+        check(torch.equal(g, w), f"{label}/{k} rank {r}: not one device's "
+              f"block (max |diff| "
+              f"{(g.float() - w.float()).abs().max().item():.6g})")
+        n += 1
+    return n
+
+
+def p17_pool_gate(torch, label: str, got: dict, whole: dict, r: int,
+                  kv: int) -> dict:
+    """(a)'s pool after the run against its block of one device's: kpos
+    EQUAL; the k/v values the pool holds (on the int8 cache its codes
+    times their per-(token, head) scales) EQUAL at layer 0, and at a
+    later layer EQUAL or within P17_POOL_TOL[kv] x the leaf's max |value|
+    (a decode step's softmax combined in another f32 order).  Returns
+    each leaf's elements apart and its largest gap per layer over the
+    leaf's max |value|."""
+    check(torch.equal(got["kpos"], whole["kpos"]),
+          f"{label} rank {r}: pool kpos != one device's")
+    mine = {}
+    for k, w in whole.items():
+        if k == "kpos":
+            continue
+        m = got[k].shape[2]
+        check(m * P17_RANKS == w.shape[2], f"{label}: pool {k} "
+              f"{tuple(got[k].shape)} is not a slice of {tuple(w.shape)}")
+        mine[k] = w[:, :, r * m:(r + 1) * m]
+
+    def held(c, k):
+        t = c[k].float()
+        return t * c[k + "s"].float()[..., None] if k + "s" in c else t
+
+    apart = {}
+    for k in ("k", "v"):
+        g, w = held(got, k), held(mine, k)
+        d = (g - w).abs()
+        top = w.abs().max().item()
+        per_layer = [round(x / top, 6) for x in
+                     d.flatten(1).amax(dim=1).tolist()]
+        check(per_layer[0] == 0 and max(per_layer) <= P17_POOL_TOL[kv],
+              f"{label} rank {r}: pool {k} gaps by layer over max|value| "
+              f"{per_layer} (layer 0 must be 0, the rest at most "
+              f"{P17_POOL_TOL[kv]})")
+        if max(per_layer) > 0:
+            apart[k] = (int((d > 0).sum()), per_layer)
+    return apart
+
+
+def p17_path(b: Bench, smoke: bool = False) -> dict:
+    """Path 17: the sequence-sharded slot pool (bf16 and int8), its
+    direct calls, seamless's frame-split cross cache and an odd ResNet18
+    batch on P17_RANKS gloo ranks sharing the card (module docstring);
+    returns the kernel rows of rank 0's launches."""
+    torch, dev, tag = b.torch, b.dev, b.tag
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as tmp
+    from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    t_path = time.perf_counter()
+    cuda = dev.type == "cuda"
+    sizes = p17_sizes(smoke)
+    cfgs = p17_configs(smoke)
+    cfg, ed = cfgs["lm"], cfgs["encdec"]
+    prev = tf.FLASH_THRESHOLD
+    if smoke:
+        tf.FLASH_THRESHOLD = P15_SMOKE_FLASH
+    try:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ctx = tmp.start_processes(p17_rank, args=(
+                f"tcp://127.0.0.1:{free_port()}", d, str(dev), smoke),
+                nprocs=P17_RANKS, join=False, start_method="spawn")
+            # beside the ranks: the int8 phase's collectives on a
+            # RecordingMesh (host only, fake tensors)
+            t1 = time.perf_counter()
+            pred = dryrun.predict_counts(
+                cfg.with_(kv_cache_bits=8), (P17_RANKS, 1), batch=1,
+                prompt=sizes["prefill"], steps=1, max_len=sizes["max_len"])
+            pred_s = time.perf_counter() - t1
+            while not ctx.join():
+                pass
+            ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                     for r in range(P17_RANKS)]
+        ranks_s = time.perf_counter() - t0
+    finally:
+        tf.FLASH_THRESHOLD = prev
+    one = ranks[0]
+    for r, out in enumerate(ranks):
+        check(out["dp_index"] == r, f"path 17 rank {r}: data index "
+              f"{out['dp_index']}")
+    V = cfg.vocab_size
+
+    # ---- (a) the continuous engine on the sequence-sharded pool
+    summary = {}
+    for kv in (0, 8):
+        want = one[("engine_one", kv)]
+        gaps = one[("gaps", kv)]
+        label = f"(17 a) {'int8' if kv else 'bf16'} cache"
+        check(want["hits"] == {"a": "", "b": "", "full": "full",
+                               "partial": "partial", "late": ""}
+              and want["rounds"]["b"] > 0 and want["rounds"]["partial"] > 0,
+              f"{label}: one device's hits {want['hits']}, rounds "
+              f"{want['rounds']}")
+        exact, apart = True, {}
+        for r, out in enumerate(ranks):
+            got = out[("engine", kv)]
+            check(got["rows"] is None and got["seq"],
+                  f"{label} rank {r}: rows {got['rows']}, sequence-sharded "
+                  f"{got['seq']}")
+            check(got["hits"] == want["hits"]
+                  and got["calls"] == want["calls"],
+                  f"{label} rank {r}: hits {got['hits']} calls "
+                  f"{got['calls']} != one device's {want['hits']} "
+                  f"{want['calls']}")
+            check(got["tokens"] == ranks[0][("engine", kv)]["tokens"],
+                  f"{label}: rank {r}'s tokens != rank 0's")
+            for n, toks in want["tokens"].items():
+                _, ok = tokens_agree(f"{label} rank {r} {n}",
+                                     got["tokens"][n], toks,
+                                     gaps.get(n, (None, []))[1])
+                exact &= ok
+            if exact:
+                apart[r] = p17_pool_gate(torch, label, got["pool"],
+                                         want["pool"], r, kv)
+        x0 = ranks[0][("engine", kv)]
+        check(not cuda or (sum(x0["shapes"].values()) > 0
+                           and x0["off_path"] == (0, 0)),
+              f"{label}: bit-plane {sum(x0['shapes'].values())}, "
+              f"int4/quant {x0['off_path']}")
+        summary[kv] = (exact, apart)
+        print(f"{label}: {cfg.name} ({cfg.n_layers} layers) on "
+              f"({P17_RANKS}, 1), FSDP weights, {P17_SLOTS} slots (no row "
+              f"split: every rank holds every slot, "
+              f"{sizes['max_len'] // P17_RANKS} of {sizes['max_len']} "
+              f"ring slots each), prefill_len {sizes['prefill']}, "
+              f"{len(want['tokens'])} requests of "
+              f"{[len(p[1]) for p in p17_requests(cfg, sizes)]} tokens, "
+              f"{P17_NEW} new: hits {want['hits']}, speculative rounds "
+              f"{want['rounds']}, calls {want['calls']}; tokens "
+              + ("EQUAL one device's" if exact else "agree up to a near-tie")
+              + f"; pool after the run "
+              + ("EQUAL one device's blocks" if exact and not any(
+                  apart.values()) else f"(elements apart, the largest "
+                  f"gap a layer over the leaf's max |value|) by rank "
+                  f"{apart}")
+              + f"; launches rank 0: bit-plane "
+              f"{sum(x0['shapes'].values())}; wall "
+              + " / ".join(f"{o[('engine', kv)]['wall_s']:.3f} s"
+                           for o in ranks)
+              + f"; collectives rank 0 "
+              f"{ {k: tuple(v) for k, v in x0['collectives'].items()} }")
+
+    # ---- (a) the direct calls: ragged prefill and a U-token chunk
+    for kv in (0, 8):
+        want = one[("direct_one", kv)]
+        label = f"(17 a) direct, {'int8' if kv else 'bf16'} cache"
+        w = want["chunk"][..., :V]
+        top = float(np.abs(w).max())
+        w2 = np.sort(w, axis=-1)[..., -2:]
+        near = (w2[..., 1] - w2[..., 0]) / top < LOGIT_TOL   # (B, U)
+        gap, parted = 0.0, 0
+        for r, out in enumerate(ranks):
+            got = out[("direct", kv)]
+            check(np.array_equal(got["prefill"], want["prefill"]),
+                  f"{label} rank {r}: ragged prefill logits max |diff| "
+                  f"{np.abs(got['prefill'] - want['prefill']).max()}")
+            p17_blocks(torch, f"{label} cache", got["cache"], want["cache"],
+                       r)
+            g = got["chunk"][..., :V]
+            apart = g.argmax(-1) != w.argmax(-1)
+            check(not (apart & ~near).any(),
+                  f"{label} rank {r}: the chunk's greedy tokens "
+                  f"{g.argmax(-1).tolist()} part from one device's "
+                  f"{w.argmax(-1).tolist()} where its top-2 gap is not "
+                  f"under {LOGIT_TOL} x max|logit|")
+            gap = max(gap, float(np.abs(g - w).max()) / top)
+            parted = max(parted, int(apart.sum()))
+        print(f"{label}: lm.prefill of B = {len(sizes['ragged'])} rows of "
+              f"lengths {sizes['ragged']} on the sequence-sharded cache: "
+              f"logits EQUAL one device's, the cache after it EQUAL its "
+              f"blocks; lm.decode_chunk U = {P17_CHUNK_U} at each row's "
+              f"next positions: greedy tokens as one device's "
+              f"({parted} of {near.size} part, at near-ties only: "
+              f"{int(near.sum())} near-ties), logits max |diff| {gap:.6g} "
+              f"x max|logit| ({top:.6g}); wall "
+              + " / ".join(f"{o[('direct', kv)]['wall_s']:.3f} s"
+                           for o in ranks))
+
+    # ---- (a) one int8 prefill and decode step's collectives
+    for r, out in enumerate(ranks):
+        got = {k: list(v) for k, v in out["counts"]["collectives"].items()}
+        check(got == pred, f"(17 a) rank {r}: int8 collectives {got} != "
+              f"the RecordingMesh's {pred}")
+        check(got.get("seq_pmax", [0])[0] == cfg.n_layers,
+              f"(17 a) rank {r}: seq_pmax {got.get('seq_pmax')}")
+    print(f"(17 a) int8 cache, B = 1: a {sizes['prefill']}-token prefill "
+          f"and one decode step (dryrun.serve_run): each rank's collectives "
+          f"EQUAL a RecordingMesh's {pred} (predicted beside the ranks in "
+          f"{pred_s:.3f} s)")
+
+    # ---- (b) seamless at B = 1: the cross cache's frames split
+    want = one["ed_one"]
+    B, F, S, new = sizes["ed"]
+    for r, out in enumerate(ranks):
+        got = out["ed"]
+        check(np.array_equal(got["tokens"], want["tokens"])
+              and np.array_equal(got["logits"], want["logits"]),
+              f"(17 b) rank {r}: tokens {got['tokens'].tolist()} against "
+              f"{want['tokens'].tolist()}, prefill logits max |diff| "
+              f"{np.abs(got['logits'] - want['logits']).max()}")
+        check(got["rows"] is None and got["cache"]["cross"]["k"].shape[2]
+              * P17_RANKS == F, f"(17 b) rank {r}: rows {got['rows']}, "
+              f"cross cache {tuple(got['cache']['cross']['k'].shape)}")
+        p17_blocks(torch, "(17 b) cache", got["cache"], want["cache"], r)
+        check(not cuda or (got["flash"] > 0 and got["off_path"] == (0, 0)),
+              f"(17 b) rank {r}: flash {got['flash']}, int4/quant "
+              f"{got['off_path']}")
+    x0 = ranks[0]["ed"]
+    print(f"(17 b) {ed.name} ({ed.n_enc_layers} + {ed.n_layers} layers) "
+          f"on ({P17_RANKS}, 1), B = {B}: generate {S} tokens behind {F} "
+          f"frames, {new} new: the cross cache keeps "
+          f"{F // P17_RANKS} of {F} frames a rank, tokens and prefill "
+          f"logits EQUAL one device's, the cache after prefill EQUAL its "
+          f"blocks; launches rank 0: bit-plane "
+          f"{sum(x0['shapes'].values())}, flash {x0['flash']} at "
+          f"{sorted(x0['flash_shapes'])}; wall "
+          + " / ".join(f"{o['ed']['wall_s']:.3f} s" for o in ranks))
+
+    # ---- (c) an odd ResNet18 batch
+    want = one["cnn_one"]
+    for r, out in enumerate(ranks):
+        got = out["cnn"]
+        check(got["rows"] is None and np.array_equal(got["logits"],
+                                                     want["logits"]),
+              f"(17 c) rank {r}: rows {got['rows']}, logits max |diff| "
+              f"{np.abs(got['logits'] - want['logits']).max()}")
+    print(f"(17 c) ResNet18@{sizes['image']}, a batch of {P17_CNN} on "
+          f"({P17_RANKS}, 1): every rank computes every image, logits "
+          f"EQUAL one device's; wall "
+          + " / ".join(f"{o['cnn']['wall_s']:.3f} s" for o in ranks))
+
+    # ---- every shape rank 0 launched: held and timed
+    shapes, paths, fl_shapes = {}, {p: 0 for p in bpm.PATHS}, {}
+    keys = [("engine", 0), ("direct", 0), ("engine", 8), ("direct", 8),
+            "counts", "ed", "cnn"]
+    for key in keys:
+        x = one[key]
+        for k, n in x["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + n
+        for k, n in x["paths"].items():
+            paths[k] += n
+    for k, n in one["ed"]["flash_shapes"].items():
+        fl_shapes[k] = fl_shapes.get(k, 0) + n
+    check(not cuda or (sum(shapes.values()) > 0 and fl_shapes),
+          "path 17 launched no bit-plane or no flash kernel")
+    check(not cuda or sum(fl_shapes.values()) == one["ed"]["flash"],
+          f"path 17: flash launches {one['ed']['flash']} against the "
+          f"shapes counted {fl_shapes}")
+    bp = held_rows(b, shapes, paths, cuda)
+    fl = held_flash_rows(b, fl_shapes, "path 17", cuda)
+    wall = time.perf_counter() - t_path
+    print(f"{tag} path 17 kernels (rank 0's phases): bit-plane "
+          f"{bp['launches']} launches at {len(shapes)} (M, K, N, planes) "
+          f"(by path {paths}), each held EQUAL to the plain version, kernel "
+          f"{bp['ms']:.3f} ms (device {bp['device_ms']:.3f}), bound "
+          f"{bp['bound_ms']:.3f} ms, plain {bp['plain_ms']:.3f} ms, "
+          f"torch._int_mm {bp['library_ms']:.3f} ms (device "
+          f"{bp['library_device_ms']:.3f}); flash "
+          f"{fl['launches']} launches at {dict(sorted(fl_shapes.items()))}, "
+          f"each shape held against the f32 oracle, {fl['ms']:.3f} ms "
+          f"(device {fl['device_ms']:.3f}), bound {fl['bound_ms']:.3f} ms, "
+          f"plain {fl['plain_ms']:.3f} ms, scaled_dot_product_attention "
+          f"{fl['library_ms']:.3f} ms")
+    walls = {k if isinstance(k, str) else f"{k[0]} {k[1]}":
+             round(one[k]["wall_s"], 3) for k in keys}
+    print(f"{tag} path 17 wall {wall:.3f} s (the ranks {ranks_s:.3f} s, "
+          f"rank 0's phases {walls}, its one-device side "
+          f"{one['one_s']:.3f} s)")
+    return {"bitplane": bp, "flash": fl, "summary": summary,
+            "e2e": {"wall_s": wall, "ranks_s": ranks_s}}
+
+
 def ptxas_summary(log: str):
     """One line per kernel entry of an ``nvcc -Xptxas -v`` report (its
     registers, static shared memory and spills), and any warning."""
@@ -9075,9 +9696,10 @@ def main() -> None:
           f"x f32 and bf16 out; none and relu equal, silu and gelu max "
           f"|err| {b.q_err:.6g} within {QUANT_TOL} x (1 + |plain|)")
 
-    # ---- 4.-19. the sixteen paths (a development run may pick some with
-    # --paths 1,4; only a run of all sixteen prints the result lines)
-    every = set(range(1, 17))
+    # ---- 4.-20. the seventeen paths (a development run may pick some
+    # with --paths 1,4; only a run of all seventeen prints the result
+    # lines)
+    every = set(range(1, 18))
     picked = every
     if "--paths" in sys.argv:
         picked = {int(x) for x in
@@ -9125,6 +9747,8 @@ def main() -> None:
             p15_path(b)
         if 16 in picked:
             p16_path(b)
+        if 17 in picked:
+            p17_path(b)
         print(card)
         print(f"paths {sorted(picked)} passed in "
               f"{time.perf_counter() - t_paths:.3f} s; no result line for "
@@ -9162,6 +9786,7 @@ def main() -> None:
     p12r = timed("12", p12_path, b)
     p15r = timed("15", p15_path, b)
     p16r = timed("16", p16_path, b)
+    p17r = timed("17", p17_path, b)
     print(f"{b.tag} walls: " + ", ".join(
         f"{k if not k[0].isdigit() else 'path ' + k} {v:.3f} s"
         for k, v in walls.items())
@@ -9197,7 +9822,8 @@ def main() -> None:
                 "qwen3_4b_lowering_report_calls": p14r["bitplane"],
                 "recurrent_and_encdec_mesh_rank": p15r["bitplane"],
                 "recurrent_and_encdec_trained_serve_rank":
-                    p16r["bitplane"]}
+                    p16r["bitplane"],
+                "sequence_sharded_pool_and_frames_rank": p17r["bitplane"]}
     fl_paths = {"qwen3_4b_generate_call": lmr["flash"],
                 "moonshot_generate_calls": moer["flash"],
                 "internvl2_generate_calls": vlmr["flash"],
@@ -9210,7 +9836,8 @@ def main() -> None:
                 "qwen3_4b_sequence_sharded_rank": p11r["flash_f"],
                 "qwen3_4b_lowering_report_prefill": p14r["flash"],
                 "zamba2_and_seamless_mesh_rank": p15r["flash"],
-                "zamba2_and_seamless_trained_serve_rank": p16r["flash"]}
+                "zamba2_and_seamless_trained_serve_rank": p16r["flash"],
+                "seamless_frame_split_rank": p17r["flash"]}
     summary = {"kernels": [
         kernel_row("bitplane_matmul", KERNEL_SOURCE, REPLACES, b.bp_err, bp_paths),
         kernel_row("flash_attention", FLASH_SOURCE, FLASH_REPLACES, b.fa_err,
@@ -9280,7 +9907,11 @@ def main() -> None:
           f"{p15r['e2e']['ranks_s']:.3f} s; path 16 (the same families "
           f"trained on {P16_RANKS} gloo ranks sharing the card) "
           f"{p16r['e2e']['wall_s']:.3f} s, its ranks "
-          f"{p16r['e2e']['ranks_s']:.3f} s")
+          f"{p16r['e2e']['ranks_s']:.3f} s; path 17 (the sequence-sharded "
+          f"pool, the frame-split cross cache and an odd CNN batch on "
+          f"{P17_RANKS} gloo ranks sharing the card) "
+          f"{p17r['e2e']['wall_s']:.3f} s, its ranks "
+          f"{p17r['e2e']['ranks_s']:.3f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -22,11 +22,11 @@ allocated or computed), under:
 Serve cells run ``lm.prefill`` (``prefill_32k``) or one
 ``lm.decode_step`` (``decode_32k``, ``long_500k``) on the cell's local
 blocks (``dist.sharding``): int8 weights (or ``--container int4``),
-every bit slot at 8, the cache as
-``lm.empty_cache(mesh=)`` lays it out (the sequence over the data axis
-for a B=1 row).  They run on fake CUDA tensors where torch is built
-with CUDA and on fake CPU tensors standing for the card's otherwise (a
-CPU-only torch cannot index a fake CUDA tensor).  Train cells run the
+every bit slot at 8, the cache as ``lm.empty_cache(mesh=)`` lays it out
+(the sequence over the data axis for a B=1 row; ``--kv-bits 8`` the int8
+cache, sequence-sharded too).  They run on fake CUDA tensors where torch
+is built with CUDA and on fake CPU tensors standing for the card's
+otherwise (a CPU-only torch cannot index a fake CUDA tensor).  Train cells run the
 ``train/loop.make_train_step`` step with 8 microbatches (``accum_for``)
 on fake CPU tensors, as the reference's lowering runs off the TPU: the
 train form reaches no int8 kernel, and attention past 2048 tokens has
@@ -43,6 +43,7 @@ result, all-reduce traffic counted twice.
 
     python -m repro_torch.launch.dryrun --arch qwen3_4b --shape decode_32k
     python -m repro_torch.launch.dryrun --all --both-meshes --out DIR
+    python -m repro_torch.launch.dryrun --all --both-meshes --kv-bits 8
 """
 from __future__ import annotations
 
@@ -274,14 +275,19 @@ def run_train(cfg, shape, mesh):
 
 
 def report_cell(arch: str, shape_name: str, multi_pod: bool = False,
-                container: str = "int8") -> dict:
+                container: str = "int8", kv_bits: int = 0) -> dict:
     """One cell's report (the reference's ``lower_cell`` sections, named
-    for what the port measures)."""
+    for what the port measures).  ``kv_bits=8`` serves a serve cell on
+    the int8 KV cache (``cfg.with_(kv_cache_bits=8)``, as the
+    reference's ``--kv-bits``); a train cell has no cache."""
     cfg = configs.get(arch)
     shape = SHAPES_BY_NAME[shape_name]
+    if kv_bits and shape.kind != "train":
+        cfg = cfg.with_(kv_cache_bits=kv_bits)
     label = mesh_label(multi_pod)
     head = {"arch": arch, "shape": shape_name, "mesh": label,
-            "chips": 512 if multi_pod else 256, "kind": shape.kind}
+            "chips": 512 if multi_pod else 256, "kind": shape.kind,
+            "kv_cache_bits": cfg.kv_cache_bits}
     mesh = lmesh.recording_production_mesh(multi_pod=multi_pod)
     t0 = time.perf_counter()
     cache_bytes = None
@@ -468,7 +474,8 @@ def _run_all(args) -> int:
         arch, shape, mp, tag = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--out", args.out, "--container",
-               args.container] + (["--multi-pod"] if mp else [])
+               args.container, "--kv-bits", str(args.kv_bits)] + (
+                   ["--multi-pod"] if mp else [])
         return tag, subprocess.run(cmd, capture_output=True, text=True,
                                    env=env)
 
@@ -496,6 +503,8 @@ def main(argv=None) -> int:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--container", default="int8", choices=("int8", "int4"))
+    ap.add_argument("--kv-bits", type=int, default=0, choices=(0, 8),
+                    help="the int8 KV cache for serve cells")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     if args.all:
@@ -503,7 +512,8 @@ def main(argv=None) -> int:
     if not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
     arch = configs.canonical(args.arch)
-    res = report_cell(arch, args.shape, args.multi_pod, args.container)
+    res = report_cell(arch, args.shape, args.multi_pod, args.container,
+                      args.kv_bits)
     tag = f"{arch}.{args.shape}.{res['mesh']}"
     with open(os.path.join(args.out, tag + ".json"), "w") as f:
         json.dump(res, f, indent=1)

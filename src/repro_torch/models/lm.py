@@ -340,7 +340,8 @@ def forward_hidden(params, x, cfg: ModelConfig, wvec, avec, *, positions,
     aux the MoE load-balance loss averaged over the layers (0 for the
     other stacks).  encdec: the cross K/V come from ``cache["cross"]``
     when the cache holds them, else from ``enc_out``; the returned cache
-    then holds them."""
+    then holds them (this data rank's frames where the cache's spec
+    shards them: ``encdec.keep_frames``)."""
     _require_ported(cfg)
     fam = cfg.family
     wvec = _layer_major(wvec, fam, x.device)
@@ -363,7 +364,8 @@ def forward_hidden(params, x, cfg: ModelConfig, wvec, avec, *, positions,
         h, new_self = encdec.decoder_forward(
             params["layers"], x, cfg, wvec, avec, positions=positions,
             enc_kv=xkv, cache=kv_cache, t=t)
-        new_cache = ({"self": new_self, "cross": xkv}
+        new_cache = ({"self": new_self,
+                      "cross": encdec.keep_frames(xkv, cfg)}
                      if cache is not None else None)
         return h, new_cache, zero
     return _dense_stack(params["layers"], x, cfg, wvec, avec, positions,
@@ -606,7 +608,8 @@ def empty_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     computes), KV heads or the head dim over the model axis, or, where
     the rows do not split over the data ranks and the sequence does,
     each data rank's slice of the sequence (``kpos`` whole:
-    ``transformer``'s sequence-sharded cache); the Mamba states' heads
+    ``transformer``'s sequence-sharded cache; an encdec cross cache's
+    frames, an ``encdec.FrameSlice``); the Mamba states' heads
     and conv channels over the model axis (a row that does not split
     keeps its state whole on every data rank)."""
     _require_ported(cfg)
@@ -635,11 +638,6 @@ def _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows) -> dict:
     every rank keeps whole)."""
     whole = empty_cache(cfg, batch, max_len, device="meta")
     specs = shd.cache_shardings(whole, mesh)
-    if cfg.family == "encdec" and specs["cross"]["k"][2] is not None:
-        raise NotImplementedError(
-            "an encdec cross cache sequence-sharded over the data axis "
-            "(rows that do not split over the data ranks) is not served "
-            "(ROADMAP Queue A 24)")
 
     def rec(node, spec_node):
         out = {}
@@ -653,7 +651,11 @@ def _mesh_cache(cfg, batch, max_len, dev, mesh, split_rows) -> dict:
             fill = tf.EMPTY_POS if name == "kpos" else 0
             out[name] = torch.full(shape, fill, dtype=t.dtype, device=dev)
         return out
-    return rec(whole, specs)
+    out = rec(whole, specs)
+    if (cfg.family == "encdec" and split_rows
+            and specs["cross"]["k"][2] is not None):
+        out["cross"] = encdec.FrameSlice(out["cross"])  # frames over dp
+    return out
 
 
 def _last_layer_bits(vec):
@@ -798,7 +800,14 @@ class CachePool:
     KV heads or the head dim over the model axis; ``rows`` must then be
     this data rank's block), and :meth:`copy_row` moves a row between
     slots that different data ranks own by a broadcast along the data
-    axis.
+    axis.  With ``mesh=`` and no ``rows`` (slots that do not split over
+    the data ranks) every rank holds every slot, and the cache takes the
+    sequence-sharded layout where the ring divides (``transformer``):
+    each data rank keeps its slice of every slot's k/v (int8 values and
+    scales alike) and ``kpos`` whole.  The installs then cut a whole
+    single-row cache (a prefill's, a prefix-cache entry's) to this
+    rank's slice; :meth:`copy_row`, :meth:`reset_slot` and
+    :meth:`rollback` act on ``kpos`` whole and the local slice.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
@@ -816,8 +825,7 @@ class CachePool:
         self.rows = (lo, hi)
         if mesh is not None:
             self.cache = empty_cache(cfg, n_slots, max_len,
-                                     device=self.device, mesh=mesh,
-                                     split_rows=rows is not None)
+                                     device=self.device, mesh=mesh)
             if self.cache["kpos"].shape[1] != hi - lo:
                 raise ValueError(
                     f"rows [{lo}, {hi}) are not the mesh's block of "
@@ -873,6 +881,8 @@ class CachePool:
             return
         for name, dst in self.cache.items():
             src = row_cache[name]
+            if name != "kpos" and tf.seq_sharded(self.cache):
+                src = self.mesh.local_block(src, self.mesh.dp_axes, 2)
             if src.shape[0] != dst.shape[0] or src.shape[1] != 1 \
                     or src.shape[2:] != dst.shape[2:]:
                 raise ValueError(

@@ -59,7 +59,14 @@ scores, a SUM of the sums of exp (the log-sum-exp denominator), then a
 SUM of each rank's P.V on the probabilities rounded to bf16 as one
 device rounds them.  Only the f32 sums run in another order, so a
 step's output is within a tolerance of one device's (EQUAL in the
-tests' runs).
+tests' runs).  A chunk of U queries a row (the speculative verify)
+writes each entry on its slot's owner and combines all U queries in one
+MAX and two SUMs.  The int8 cache shards its values and its per-(token,
+head) scales alike, so a prefill's slice is EQUAL to one device's block;
+its decode adds a MAX of the probabilities' amax (each rank quantizes
+them on one device's scale) and SUMs the exact integer P.V accumulators.
+A ragged prefill attends over the whole ``k_new`` every rank computes and
+writes only its slice.
 
 Cross-attention (``attention(kv=(k, v))``, the encoder-decoder's) takes
 precomputed keys and values and skips RoPE, as the reference does; on a
@@ -324,61 +331,110 @@ def _seq_slice(cache: dict):
     return mesh, mesh.dp_index * n, n
 
 
-def _sdpa_rows_seq(q, k, v, bias, mesh):
-    """:func:`_sdpa_rows` for one query over this data rank's slice of
-    the keys (k, v (B, n, KV, hd); bias (B, 1, n)), partitioned as the
-    reference's SPMD lowering partitions the same softmax over a sharded
-    key axis: the f32 scores' MAX over the data axis, a SUM of each
-    rank's sum of exp (the log-sum-exp denominator), then each rank's
-    P.V on the probabilities rounded to bf16 as one device rounds them,
-    and a SUM of those."""
-    B, _, H, hd = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    kt = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B,KV,1,n,hd)
-    vt = v.float().permute(0, 2, 3, 1)[:, :, None]       # (B,KV,1,hd,n)
-    qu = q[:, 0].float().reshape(B, KV, G, 1, hd)
-    scores = cm.row_sum(qu * kt)[..., 0] * (hd ** -0.5)  # (B,KV,G,n)
-    scores = scores + bias[:, 0, None, None]
+def _seq_probs(scores, mesh):
+    """softmax over a key axis sharded over the data ranks (``scores``
+    (..., n) this rank's f32 scores), partitioned as the reference's SPMD
+    lowering partitions it: the scores' MAX over the data axis, then a
+    SUM of each rank's sum of exp (the log-sum-exp denominator)."""
     m = mesh.all_reduce(scores.amax(dim=-1), mesh.dp_axes, "max",
                         kind="seq_max")
     e = torch.exp(scores - m[..., None])
     den = mesh.all_reduce(cm.row_sum(e), mesh.dp_axes, "sum",
                           kind="seq_sum")
-    probs = (e / den).to(k.dtype).float()
-    out = cm.row_sum(probs[..., None, :] * vt)[..., 0]   # (B,KV,G,hd)
+    return e / den
+
+
+def _sdpa_rows_seq(q, k, v, bias, mesh):
+    """:func:`_sdpa_rows` over this data rank's slice of the keys (k, v
+    (B, n, KV, hd); bias (B, Sq, n) or (1, Sq, n)): :func:`_seq_probs`
+    for every query at once, then each rank's P.V on the probabilities
+    rounded to bf16 as one device rounds them, and one SUM of those, so
+    a chunk of U queries makes three collectives, not 3 U."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    kt = k.float().permute(0, 2, 1, 3)[:, :, None]       # (B,KV,1,n,hd)
+    vt = v.float().permute(0, 2, 3, 1)[:, :, None]       # (B,KV,1,hd,n)
+    scores = []
+    for u in range(Sq):
+        qu = q[:, u].float().reshape(B, KV, G, 1, hd)
+        s = cm.row_sum(qu * kt)[..., 0] * (hd ** -0.5)   # (B,KV,G,n)
+        scores.append(s + bias[:, u, None, None])
+    probs = _seq_probs(torch.stack(scores, dim=3), mesh)  # (B,KV,G,Sq,n)
+    probs = probs.to(k.dtype).float()
+    out = torch.stack([cm.row_sum(probs[:, :, :, u, None, :] * vt)[..., 0]
+                       for u in range(Sq)], dim=1)       # (B,Sq,KV,G,hd)
     out = mesh.all_reduce(out, mesh.dp_axes, "sum", kind="seq_pv")
-    return out.reshape(B, 1, H * hd).to(cm.DTYPE)
+    return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
 
 
-def _seq_decode(q, k_new, v_new, cache, positions, t, cfg):
-    """The decode branch of :func:`attention` on a sequence-sharded
-    cache (module docstring): ``kpos`` is written on every rank, the
-    new K/V only in the slice that owns slot ``t % Sc``."""
-    if "ks" in cache:
-        raise NotImplementedError(
-            "the int8 KV cache is not served sequence-sharded")
+def _sdpa_int8_seq(q, kq, ks, vq, vs, bias, mesh):
+    """:func:`_sdpa_int8` over this data rank's slice of the int8 cache:
+    the same integer QK dots and scales on the local keys,
+    :func:`_seq_probs`, then the probabilities' per-(query, head) amax
+    (the v scales folded in) as a MAX over the data axis, so every rank
+    quantizes them on one device's scale, and a SUM of the ranks' exact
+    integer P.V accumulators."""
+    B, Sq, H, hd = q.shape
+    KV = kq.shape[2]
+    G = H // KV
+    qq, qs = _quant_heads(q)
+    acc = int8_dot(qq.reshape(B, Sq, KV, G, hd), kq,
+                   "bqkgd,bskd->bkgqs")                      # (B,KV,G,Sq,n)
+    qs_g = qs.reshape(B, Sq, KV, G).permute(0, 2, 3, 1)[..., None]
+    scores = (acc.float() * qs_g.float()
+              * ks.float().permute(0, 2, 1)[:, :, None, None, :])
+    scores = scores * (hd ** -0.5) + bias[:, None, None]
+    pv = _seq_probs(scores, mesh) * vs.float().permute(0, 2, 1)[
+        :, :, None, None, :]
+    pmax = mesh.all_reduce(pv.amax(dim=-1, keepdim=True), mesh.dp_axes,
+                           "max", kind="seq_pmax") + 1e-9
+    p_q = torch.clamp(torch.round(pv / pmax * 127.0), 0, 127).to(torch.int8)
+    out = mesh.all_reduce(int8_dot(p_q, vq, "bkgqs,bskd->bqkgd"),
+                          mesh.dp_axes, "sum", kind="seq_pv")
+    out = out.float() * (pmax.permute(0, 3, 1, 2, 4) / 127.0)
+    return out.reshape(B, Sq, H * hd).to(cm.DTYPE)
+
+
+def _seq_decode(q, k_new, v_new, cache, positions, cfg):
+    """The decode branches of :func:`attention` (one token, or a chunk of
+    U a row) on a sequence-sharded cache (module docstring): ``kpos`` is
+    written on every rank, each new K/V (int8 values and scales on the
+    int8 cache) only in the slice that owns its slot ``pos % Sc``, and
+    each query sees its ``kpos <= pos`` prefix of the local slice."""
     mesh, lo, n = _seq_slice(cache)
-    B = q.shape[0]
+    B, U = q.shape[:2]
     Sc = cache["kpos"].shape[-1]
-    t_b = torch.as_tensor(t, dtype=torch.int32, device=q.device).expand(B)
-    slot = t_b % Sc
-    kpos = _row_insert(cache["kpos"], t_b[:, None], slot)
-    local = slot - lo
-    mine = ((local >= 0) & (local < n))[:, None, None]
+    pos = positions.to(torch.int32).expand(B, U)
+    slots = pos % Sc
     rows = torch.arange(B, device=q.device)
-    idx = local.clamp(0, n - 1).long()
-    for name, new in (("k", k_new), ("v", v_new)):
-        buf = cache[name]
-        buf[rows, idx] = torch.where(mine, new[:, 0].to(buf.dtype),
-                                     buf[rows, idx])
-    kp = kpos[:, lo:lo + n]
-    visible = kp <= positions[:, -1:]
+    kpos = cache["kpos"]
+    kpos[rows[:, None], slots.long()] = pos
+    if "ks" in cache:
+        (kq, ks), (vq, vs) = _quant_heads(k_new), _quant_heads(v_new)
+        new = {"k": kq, "ks": ks, "v": vq, "vs": vs}
+    else:
+        new = {"k": k_new, "v": v_new}
+    local = slots - lo
+    for u in range(U):          # one write a row at a time: no index twice
+        mine = (local[:, u] >= 0) & (local[:, u] < n)
+        idx = local[:, u].clamp(0, n - 1).long()
+        for name, val in new.items():
+            buf = cache[name]
+            m = mine.reshape((B,) + (1,) * (buf.ndim - 2))
+            buf[rows, idx] = torch.where(m, val[:, u].to(buf.dtype),
+                                         buf[rows, idx])
+    kp = kpos[:, None, lo:lo + n]
+    visible = kp <= pos[:, :, None]                      # (B, U, n)
     if cfg.sliding_window:
-        visible &= kp > positions[:, -1:] - cfg.sliding_window
-    bias = cm.visibility_bias(visible)[:, None, :]
-    out = _sdpa_rows_seq(q, cache["k"], cache["v"], bias, mesh)
-    return out, {"k": cache["k"], "v": cache["v"], "kpos": kpos}
+        visible &= kp > pos[:, :, None] - cfg.sliding_window
+    bias = cm.visibility_bias(visible)
+    if "ks" in cache:
+        out = _sdpa_int8_seq(q, cache["k"], cache["ks"], cache["v"],
+                             cache["vs"], bias, mesh)
+    else:
+        out = _sdpa_rows_seq(q, cache["k"], cache["v"], bias, mesh)
+    return out, dict(cache)
 
 
 def _flash(q, k, v, cfg, causal: bool):
@@ -411,13 +467,16 @@ def _flash(q, k, v, cfg, causal: bool):
 
 
 def attention(p, x, cfg, wbits=8, abits=8, *, positions,
-              causal: bool = True, kv=None, cache: Optional[dict] = None,
-              t=None):
+              causal: bool = True, kv=None, kv_frames: bool = False,
+              cache: Optional[dict] = None, t=None):
     """Self- or cross-attention with optional cache update.
 
     positions: (B, S) or (1, S) absolute positions of x's tokens (RoPE +
     mask).  kv: precomputed (k, v) (B, Sk, KV, hd) for cross-attention
-    (no RoPE, no mask, no cache; flash when Sq * Sk > FLASH_THRESHOLD^2).
+    (no RoPE, no mask, no cache; flash when Sq * Sk > FLASH_THRESHOLD^2);
+    ``kv_frames`` says they hold this data rank's slice of the frames
+    (an encdec cross cache whose spec shards them), whose softmax is
+    combined over the data axis as a sequence-sharded cache's is.
     cache/t: the decode path inserts this step's k/v at slot t % Sc; a
     full-sequence call with a cache (prefill) fills it.
     Returns (out, new_cache).  Under a model axis that does not divide
@@ -439,7 +498,11 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         if use_head:                        # heads a whole wq made: local
             q = dist.constrain_heads(q, 2, 3, True,
                                      have=_heads_have(q, cfg.n_heads))
-        if q.shape[1] * k.shape[1] > FLASH_THRESHOLD ** 2:
+        if kv_frames:
+            bias = torch.zeros((1, q.shape[1], k.shape[1]),
+                               dtype=torch.float32, device=x.device)
+            out = _sdpa_rows_seq(q, k, v, bias, dist.active_mesh())
+        elif q.shape[1] * k.shape[1] > FLASH_THRESHOLD ** 2:
             out = _flash(q, k, v, cfg, causal=False)
         else:
             bias = torch.zeros((q.shape[1], k.shape[1]), dtype=torch.float32,
@@ -463,9 +526,9 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         have = _heads_have(k_new, cfg.n_kv_heads)
         k_new = dist.constrain_heads(k_new, 2, 3, True, have=have)
         v_new = dist.constrain_heads(v_new, 2, 3, True, have=have)
-    if cache is not None and x.shape[1] == 1 and seq_sharded(cache):
-        out, new_cache = _seq_decode(q, k_new, v_new, cache, positions, t,
-                                     cfg)
+    if (cache is not None and (x.shape[1] == 1 or t is not None)
+            and seq_sharded(cache)):                    # decode, chunk
+        out, new_cache = _seq_decode(q, k_new, v_new, cache, positions, cfg)
     elif cache is not None and x.shape[1] == 1:          # decode (S == 1)
         B = x.shape[0]
         Sc = cache["k"].shape[1]
@@ -499,9 +562,6 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         # chunk computes what U single-token steps compute (the draft's
         # stale entries past each query are masked; the caller rolls
         # rejected slots back to EMPTY_POS)
-        if seq_sharded(cache):
-            raise NotImplementedError(
-                "chunked decode is not served on a sequence-sharded cache")
         B = x.shape[0]
         Sc = cache["k"].shape[1]
         pos = positions.to(torch.int32).expand(B, -1)    # (B, U)
@@ -532,12 +592,9 @@ def attention(p, x, cfg, wbits=8, abits=8, *, positions,
         if S > FLASH_THRESHOLD:
             out = _flash(q, k_new, v_new, cfg, causal=causal)
         elif causal and cache is not None and positions.shape[0] > 1:
-            if seq_sharded(cache):
-                raise NotImplementedError(
-                    "ragged prefill is not served on a sequence-sharded "
-                    "cache")
             # ragged prefill: rows carry different valid lengths, so the
-            # mask is per row
+            # mask is per row (every rank attends over the whole k_new on
+            # a sequence-sharded cache; only the cache write is its slice)
             bias = cm.causal_mask_bias_batched(positions, positions,
                                                cfg.sliding_window)
             out = _sdpa(q, k_new, v_new, bias, cfg)
@@ -602,15 +659,10 @@ def prefill_cache_insert(cache_layer: dict, k: torch.Tensor, v: torch.Tensor,
         v_keep = torch.gather(v, 1, gidx)
     cache_layer["kpos"][:, :keep] = kpos_new
     if n is not None:                   # this rank's slots [lo, lo + n)
-        if "ks" in cache_layer:
-            raise NotImplementedError(
-                "the int8 KV cache is not served sequence-sharded")
-        m = min(max(keep - lo, 0), n)
-        cache_layer["k"][:, :m] = k_keep[:, lo:lo + m].to(
-            cache_layer["k"].dtype)
-        cache_layer["v"][:, :m] = v_keep[:, lo:lo + m].to(
-            cache_layer["v"].dtype)
-        return cache_layer
+        m = min(max(keep - lo, 0), n)   # (scales are per token: the
+        k_keep = k_keep[:, lo:lo + m]   # slice's int8 blocks are one
+        v_keep = v_keep[:, lo:lo + m]   # device's)
+        keep = m
     if "ks" in cache_layer:                              # int8 cache
         for name, new in (("k", k_keep), ("v", v_keep)):
             vals, scale = _quant_heads(new)

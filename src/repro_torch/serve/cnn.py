@@ -27,7 +27,9 @@ gathered after it, and FSDP over the data axis; a plan's fully
 replicated layers stay whole), and a data axis that divides
 ``max_batch`` splits the padded batch's rows: every rank resolves and
 prices the whole batch on the host identically, runs its block of
-``max_batch / dp`` rows through the forward and all-gathers the logits.
+``max_batch / dp`` rows through the forward and all-gathers the logits;
+a data axis that does not divide it leaves the rows whole, and every
+rank computes every image (the reference replicates such a dim).
 The caller is SPMD: every rank calls :meth:`CNNServeEngine.serve` with
 the same images and budgets.  Rows are independent and every sharded
 GEMM is exact, so the logits equal the single-device engine's.
@@ -96,7 +98,9 @@ class CNNServeEngine(ServeRuntime):
                          gemms=apm.network_gemms(self.layers), mesh=mesh,
                          plan=plan, slot_desc="GEMM (conv/fc) layers")
         self.max_batch = max_batch
-        self._rows = self._row_split(max_batch, "images per batch")
+        # a batch that does not split: every rank computes every image
+        self._rows = self._row_split(max_batch, "images per batch",
+                                     cache=False)
         wtab, _ = controller.stacked_tables()
         if container == "auto":
             int4_names = cnn.int4_eligible(self.layers, wtab)

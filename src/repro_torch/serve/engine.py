@@ -111,15 +111,23 @@ semantics instead).
   * the prefix cache: an entry's row lives on the data rank that
     prefilled it; a hit for a slot another rank owns broadcasts the row
     (and a full hit's logits) to the owner (``CachePool.move_row``).
+  * slots that do not split evenly over the data ranks (a
+    :class:`repro_torch.dist.Mesh`): every rank holds and computes every
+    slot, and the pool takes the sequence-sharded layout (each data
+    rank its slice of every slot's ring, ``kpos`` whole; the int8 cache
+    too).  Prefills, prefix-cache rows and partial-hit extensions run
+    whole on every rank and each install keeps this rank's slice; the
+    decode block and the speculative verify combine the ranks' partial
+    softmaxes over the data axis; sampling draws the same noise on
+    every rank, so every rank holds the same tokens.
 
 The recurrent and encoder-decoder families serve on a mesh through
 ``generate`` (their only API): the Mamba states keep each model rank's
 heads and conv channels, an encdec batch's ``frames`` split with its
 rows, and a row that does not split over the data ranks keeps its Mamba
 state whole on every data rank while a hybrid's shared-attention ring
-takes the sequence-sharded layout.  An encdec cross cache does not shard
-its frames (``NotImplementedError``), nor do continuous-batching slots
-that do not split evenly over the data ranks.
+takes the sequence-sharded layout and an encdec cross cache keeps each
+data rank's frames (``encdec.FrameSlice``).
 """
 from __future__ import annotations
 

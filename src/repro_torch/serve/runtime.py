@@ -185,30 +185,30 @@ class ServeRuntime:
         return [self._planned(c)
                 for c in self.pricer.price_matrix(wmat, amat)]
 
-    def _row_split(self, n_rows: int, what: str
+    def _row_split(self, n_rows: int, what: str, cache: bool = True
                    ) -> Optional[Tuple[int, int]]:
         """This data rank's block ``[lo, hi)`` of ``n_rows`` request rows,
         or None when nothing splits them (no mesh, or a data axis of 1).
-        Rows of a batch (``what="rows"``) that do not divide evenly over
-        the data ranks are not split either: every rank computes every
-        row, and the cache takes the sequence-sharded layout where its
-        sequence divides (``dist.sharding._kv_cache_spec``), which needs
-        a :class:`repro_torch.dist.Mesh` (its collectives).  Slots that
-        do not divide raise, and so do rows on another mesh object."""
+        Rows that do not divide evenly over the data ranks are not split
+        either: every rank computes every row.  A batch's rows or a
+        pool's slots then take the sequence-sharded cache where its ring
+        divides (``dist.sharding._kv_cache_spec``; an encdec cross
+        cache's frames), whose collectives need a
+        :class:`repro_torch.dist.Mesh`: another mesh object raises
+        (``cache=False``, a CNN batch, needs no collective)."""
         if self.mesh is None:
             return None
         dp = dist.dp_size(self.mesh)
         if dp <= 1:
             return None
-        if n_rows % dp and what == "rows" and isinstance(self.mesh,
-                                                         dist.Mesh):
+        if n_rows % dp and (not cache or isinstance(self.mesh, dist.Mesh)):
             return None
         if n_rows % dp:
             raise NotImplementedError(
                 f"{n_rows} {what} do not split evenly over the mesh's "
-                f"{dp} data ranks" + (
-                    "; a sequence-sharded cache needs a "
-                    "repro_torch.dist.Mesh" if what == "rows" else ""))
+                f"{dp} data ranks; serving them whole on every rank "
+                f"shards the cache's sequence, which needs a "
+                f"repro_torch.dist.Mesh")
         n = n_rows // dp
         i = getattr(self.mesh, "dp_index", None)
         i = self.mesh.rank if i is None else i

@@ -13,7 +13,9 @@ mesh against real gloo meshes.
 * Two FULL cells through the CLI (``--all`` over qwen3_4b
   ``decode_32k`` and mamba2_1_3b ``decode_32k`` on 256 chips, each in
   its subprocess): int8 operations counted, it fits 80 GB, a dominant
-  roofline term; mamba2's cache bytes are its spec's.  mamba2_1_3b
+  roofline term; mamba2's cache bytes are its spec's.  qwen3_4b
+  ``decode_32k`` again with ``--kv-bits 8``: priced on the int8 KV
+  cache, its cache bytes its spec's (0.63 of the bf16 cell's).  mamba2_1_3b
   ``train_4k`` priced through the CLI's one-cell mode at SMOKE widths
   (a FULL train cell runs minutes).
 * Two spawned CPU ranks (gloo, a file rendezvous under ``tmp_path``) run
@@ -136,9 +138,11 @@ def test_refused_cells_are_the_recurrent_and_encdec_families():
 @pytest.fixture(scope="module")
 def cli_cells(tmp_path_factory):
     """``--all`` over qwen3_4b decode_32k and mamba2_1_3b decode_32k (256
-    chips, each in its subprocess), then mamba2_1_3b train_4k through the
-    one-cell mode in process at SMOKE widths and one microbatch: the
-    printed output and the directory of the cells' JSON."""
+    chips, each in its subprocess), qwen3_4b decode_32k on the int8 KV
+    cache (``--kv-bits 8``, in process, into ``kv8/``), then mamba2_1_3b
+    train_4k through the one-cell mode in process at SMOKE widths and
+    one microbatch: the printed output and the directory of the cells'
+    JSON."""
     out = tmp_path_factory.mktemp("dryrun_cli")
     prev_cells, prev_path = dryrun.planned_cells, os.environ.get(
         "PYTHONPATH")
@@ -150,6 +154,9 @@ def cli_cells(tmp_path_factory):
     try:
         with contextlib.redirect_stdout(buf):
             rc = dryrun.main(["--all", "--out", str(out)])
+            rc |= dryrun.main(["--arch", "qwen3_4b", "--shape",
+                               "decode_32k", "--kv-bits", "8", "--out",
+                               str(out / "kv8")])
             configs.get = configs.get_smoke
             with _one_microbatch():
                 rc |= dryrun.main(["--arch", "mamba2_1_3b", "--shape",
@@ -192,6 +199,37 @@ def test_a_full_cell_through_the_cli(cli_cells):
                                              "collective")
     assert train["memory"]["peak_bytes_per_device"] > 0
     assert "grad_rs" in train["collective_kinds_port"]
+
+
+def test_an_int8_kv_cell_through_the_cli(cli_cells):
+    """``--kv-bits 8``: the qwen3_4b decode_32k cell priced on the int8
+    KV cache.  Its cache bytes a device are its spec's local blocks of
+    int8 values and bf16 per-(token, head) scales: 0.63 of the bf16
+    cell's, not half, since the 16-way model axis splits the head dim
+    (8 KV heads do not divide it), so a rank's k/v keep 8 of hd's 128
+    features while the scales keep every head, and ``kpos`` stays
+    int32."""
+    rc, _, tmp_path = cli_cells
+    assert rc == 0
+    bf16 = json.loads((tmp_path / "qwen3_4b.decode_32k.16x16.json")
+                      .read_text())
+    int8 = json.loads((tmp_path / "kv8" / "qwen3_4b.decode_32k.16x16.json")
+                      .read_text())
+    assert bf16["kv_cache_bits"] == 0 and int8["kv_cache_bits"] == 8
+    cfg = configs.get("qwen3_4b").with_(kv_cache_bits=8)
+    mesh = dryrun.lmesh.recording_production_mesh(multi_pod=False)
+    whole = lm.empty_cache(cfg, 128, 32768, device="meta")
+    specs = dryrun.shd.cache_shardings(whole, mesh)
+    want = sum(math.prod(dapi.local_shape(mesh, specs[k], t.shape))
+               * t.element_size() for k, t in whole.items())
+    assert int8["memory"]["cache_bytes"] == want
+    ratio = int8["memory"]["cache_bytes"] / bf16["memory"]["cache_bytes"]
+    hd, kv = cfg.head_dim // 16, cfg.n_kv_heads
+    assert ratio == pytest.approx((2 * kv * hd + 2 * kv * 2 + 4)
+                                  / (2 * kv * hd * 2 + 4), rel=1e-6)
+    assert int8["roofline"]["dominant"] in ("compute", "memory",
+                                            "collective")
+    assert int8["cost"]["ops_int8_per_device"] > 0
 
 
 def test_a_mamba2_cell_holds_the_spec_cache(cli_cells):

@@ -189,7 +189,10 @@ def test_not_ported_options_raise(smoke):
     # a repro_torch.dist.Mesh (two gloo ranks run them in
     # tests/test_torch_scaleout.py and tests/test_torch_tp_serve.py).  A
     # mesh object without collectives cannot hold sharded weights, and
-    # rows that do not split over the data ranks raise
+    # rows or slots that do not split over the data ranks raise on it:
+    # every rank then serves them whole on a sequence-sharded cache,
+    # whose collectives need a repro_torch.dist.Mesh (served there in
+    # tests/test_torch_seq_kv.py and tests/test_torch_seq_pool.py)
     from repro_torch.dist import plan_for_controller
     mesh = FakeMesh({"data": 2})
     cfg = smoke["tcfg"]

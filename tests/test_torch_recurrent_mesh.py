@@ -17,9 +17,12 @@ over the data ranks) and serves SMOKE configs through
   and in its train form (each LoRA base ``W + A @ B``, laid out again);
 * seamless_m4t_medium with its frames split with the rows, past a
   lowered flash threshold too (encoder, decoder and cross-attention);
-* B=1 rows of mamba2 and zamba2 on ``(2, 1)``: the Mamba state whole on
-  both data ranks, the shared block's KV ring sequence-sharded (an
-  encdec B=1 row raises: its cross cache would shard its frames).
+* B=1 rows of mamba2, zamba2 and seamless on ``(2, 1)``: the Mamba
+  state whole on both data ranks, the shared block's KV ring
+  sequence-sharded, and the encdec cross cache's frames split over the
+  data ranks (each keeps 2 of the 4 frames; a decode step's
+  cross-attention combines the ranks' partial softmaxes, in another
+  f32 order than one device's sum: its tokens came out EQUAL).
 
 The prefill's last logits are EQUAL too, every cache leaf's local shape
 is ``dist.local_shape`` of its spec, and each rank's ``Mesh.counts`` of
@@ -63,6 +66,7 @@ CASES = (("mamba2", "mamba2_1_3b", [0.4, 10.0], 5, None, 2),
          ("seamless_flash", "seamless_m4t_medium", 0.8, 4, 3, 2),
          ("mamba2_b1", "mamba2_1_3b", [0.4], 5, None, 1),
          ("zamba2_b1", "zamba2_2_7b", 10.0, 4, None, 1),
+         ("seamless_b1", "seamless_m4t_medium", 0.8, 4, None, 1),
          ("zamba2_train", "zamba2_2_7b", 10.0, 3, None, 2))
 RUNS = [(c, m) for c in CASES for m in MESHES
         if c[5] == 2 or m == (2, 1)]
@@ -272,12 +276,38 @@ def test_b1_layouts(runs):
 
 
 def test_an_encdec_b1_row_on_a_data_mesh_raises():
-    """One encdec row does not split over two data ranks, so the cache
-    spec would shard the cross K/V's frames: not served (ROADMAP Queue A
-    24), raised before anything runs; two rows are laid out."""
+    """Restated since the frame-split cross cache is served: one encdec
+    row does not split over two data ranks, so the cache's spec shards
+    the cross K/V's frames (each rank its half, an ``encdec.FrameSlice``
+    that a decode step reads as a slice); two rows split instead and
+    keep their frames whole; on one device nothing is a slice."""
+    from repro_torch.models import encdec
+
     cfg = configs.get_smoke("seamless_m4t_medium")
     mesh = dapi.RecordingMesh((2, 1))
-    with pytest.raises(NotImplementedError, match="Queue A 24"):
-        lm.empty_cache(cfg, 1, MAX_LEN, device="cpu", mesh=mesh)
+    F = MAX_LEN // cfg.frames_ratio
+    cache = lm.empty_cache(cfg, 1, MAX_LEN, device="cpu", mesh=mesh)
+    assert isinstance(cache["cross"], encdec.FrameSlice)
+    assert cache["cross"]["k"].shape[1:3] == (1, F // 2)
     cache = lm.empty_cache(cfg, 2, MAX_LEN, device="cpu", mesh=mesh)
-    assert cache["cross"]["k"].shape[1] == 1
+    assert cache["cross"]["k"].shape[1:3] == (1, F)
+    assert not isinstance(cache["cross"], encdec.FrameSlice)
+    assert encdec.frames_split(cfg, mesh, 1, F)
+    assert not encdec.frames_split(cfg, mesh, 2, F)
+    assert not encdec.frames_split(cfg, None, 1, F)
+
+
+def test_b1_frames_split_on_the_data_mesh(runs):
+    """seamless at B=1 on (2, 1): each rank's prefilled cross cache holds
+    2 of the 4 frames, and a decode step made one MAX and two SUMs a
+    decoder layer for its cross-attention and as many for its
+    self-attention (the B=1 ring is sequence-sharded too)."""
+    cfg = configs.get_smoke("seamless_m4t_medium")
+    case = _case("seamless_b1")
+    for out in runs:
+        got = out[("seamless_b1", (2, 1))]
+        assert got["shapes"]["cross/k"][2] * WORLD == 4
+        c = got["counts"]
+        steps = case[3] - 1
+        assert c["seq_max"][0] == c["seq_sum"][0] == c["seq_pv"][0] \
+            == 2 * cfg.n_layers * steps

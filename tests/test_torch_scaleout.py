@@ -10,7 +10,9 @@ rendezvous under ``tmp_path``) serves, on a ``DataMesh`` with
   temperature 0.8: every request's tokens EQUAL the single-process
   engine's (a sampled stream too: each rank draws the whole batch's
   noise and takes its rows);
-* ResNet18 at 32 px, ``max_batch=4``: logits EQUAL.
+* ResNet18 at 32 px, ``max_batch=4``: logits EQUAL; and a batch of 3
+  (``max_batch=3``), which does not split over two data ranks, so every
+  rank computes every image: logits EQUAL too.
 
 Rank 0 also runs the single-process engines (no mesh) after the mesh
 runs, so both sides run under the same thread settings.  Each rank
@@ -68,16 +70,17 @@ def _lm_run(mesh, temp):
             "prefills": eng.calls["prefill"]}
 
 
-def _cnn_run(mesh):
+def _cnn_run(mesh, batch=CNN_BATCH):
     gen = torch.Generator().manual_seed(2)
     params, layers = cnn.init_cnn("resnet18", gen, image=CNN_IMAGE,
                                   device="cpu")
-    images = torch.randn((CNN_BATCH, CNN_IMAGE, CNN_IMAGE, 3), generator=gen)
+    images = torch.randn((CNN_BATCH, CNN_IMAGE, CNN_IMAGE, 3),
+                         generator=gen)[:batch]
     ctrl = pol.cnn_budget_controller("resnet18", layers=layers)
     preds = [ctrl.predicted_latency_s[k] for k in ctrl.order()]
-    budgets = [0.0, preds[1] * 1.01, preds[3] * 1.01, 1e30]
+    budgets = [0.0, preds[1] * 1.01, preds[3] * 1.01, 1e30][:batch]
     eng = CNNServeEngine(params, layers, controller=ctrl,
-                         max_batch=CNN_BATCH, device="cpu", mesh=mesh,
+                         max_batch=batch, device="cpu", mesh=mesh,
                          plan="auto" if mesh is not None else None)
     logits, stats = eng.serve(images, budgets)
     return {"logits": logits, "wbits": [s.wbits for s in stats],
@@ -98,11 +101,13 @@ def _rank(rank, init_file, out_dir):
         mesh = DataMesh()
         out = {("lm", t): _lm_run(mesh, t) for t in TEMPS}
         out["cnn"] = _cnn_run(mesh)
+        out["cnn3"] = _cnn_run(mesh, 3)
     finally:
         tdist.destroy_process_group()
     if rank == 0:                       # the single-process engines
         out.update({("lm_single", t): _lm_run(None, t) for t in TEMPS})
         out["cnn_single"] = _cnn_run(None)
+        out["cnn3_single"] = _cnn_run(None, 3)
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
 
@@ -164,6 +169,17 @@ def test_cnn_row_split_equals_one_process(ranks):
         assert got["replicas"] == [2.0] * CNN_BATCH
 
 
+def test_cnn_batch_that_does_not_split_equals_one_process(ranks):
+    """3 images on two data ranks: no split, every rank computes every
+    image, logits EQUAL one process's."""
+    single = ranks[0]["cnn3_single"]
+    for out in ranks:
+        got = out["cnn3"]
+        assert got["rows"] is None
+        np.testing.assert_array_equal(got["logits"], single["logits"])
+        assert got["wbits"] == single["wbits"]
+
+
 def test_cache_pool_holds_only_its_rows():
     """A rank's pool part: slots 2..3 of 4.  Bookkeeping covers every
     slot; installs, resets and rollbacks touch only the owned rows."""
@@ -200,9 +216,12 @@ def test_cnn_mesh_without_a_full_plan_raises():
     with pytest.raises(NotImplementedError, match="without a placement"):
         CNNServeEngine(params, layers, max_batch=4, device="cpu",
                        mesh=FakeMesh())
-    with pytest.raises(NotImplementedError, match="split evenly"):
-        CNNServeEngine(params, layers, max_batch=3, device="cpu",
-                       mesh=FakeMesh(), plan="auto")
+    # a batch that does not split over the data ranks is served whole
+    # on every rank (no collective needed: the plan replicates every
+    # weight), as the reference replicates a dim its mesh does not divide
+    eng = CNNServeEngine(params, layers, max_batch=3, device="cpu",
+                         mesh=FakeMesh(), plan="auto")
+    assert eng.plan.fully_replicated and eng._rows is None
     eng = CNNServeEngine(params, layers, max_batch=4, device="cpu",
                          mesh=FakeMesh(), plan="auto")
     assert eng.plan.fully_replicated and eng._rows == (0, 2)

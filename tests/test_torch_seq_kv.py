@@ -237,14 +237,26 @@ def test_counts_equal_a_recording_mesh(runs, arch):
 
 
 def test_int8_cache_is_not_served_sequence_sharded():
+    """Restated since the int8 cache is served sequence-sharded: a
+    prefill into a data rank's slice keeps the int8 values and the
+    per-(token, head) scales of its slots, EQUAL to that block of one
+    device's insert, with ``kpos`` whole (the decode, chunk and engine
+    pool: ``tests/test_torch_seq_kv_more.py``,
+    ``tests/test_torch_seq_pool.py``)."""
     cfg = configs.get_smoke("qwen3_4b").with_(kv_cache_bits=8)
-    cache = tf.empty_cache(cfg, 1, 8, device="cpu")
-    cache = {k: v[0] for k, v in cache.items()}
-    for name in ("k", "v", "ks", "vs"):
-        cache[name] = cache[name][:, :4]
-    mesh = dist.RecordingMesh((2, 1))
-    with dist.use_mesh(mesh), pytest.raises(NotImplementedError,
-                                            match="int8"):
-        tf.prefill_cache_insert(cache, torch.zeros(1, 8, 2, 16),
-                                torch.zeros(1, 8, 2, 16),
-                                torch.arange(8)[None])
+    whole = {k: v[0] for k, v in tf.empty_cache(cfg, 1, 8,
+                                                  device="cpu").items()}
+    g = torch.Generator().manual_seed(0)
+    k, v = (torch.randn(1, 8, 2, 16, generator=g) for _ in range(2))
+    tf.prefill_cache_insert(whole, k, v, torch.arange(8)[None])
+    for rank in range(2):
+        part = {name: t.clone() for name, t in whole.items()}
+        for name in ("k", "v", "ks", "vs"):
+            part[name] = torch.zeros_like(whole[name][:, :4])
+        part["kpos"].fill_(tf.EMPTY_POS)
+        with dist.use_mesh(dist.RecordingMesh((2, 1), rank=rank)):
+            tf.prefill_cache_insert(part, k, v, torch.arange(8)[None])
+        assert torch.equal(part["kpos"], whole["kpos"])
+        for name in ("k", "v", "ks", "vs"):
+            assert torch.equal(part[name],
+                               whole[name][:, 4 * rank:4 * rank + 4]), name
